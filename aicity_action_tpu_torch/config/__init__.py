@@ -1,0 +1,6 @@
+from .node import CfgNode
+from .defaults import get_cfg, assert_and_infer_cfg, mvitv2_b_16x4_448_cfg
+from .parser import parse_args, load_config
+
+__all__ = ["CfgNode", "get_cfg", "assert_and_infer_cfg",
+           "mvitv2_b_16x4_448_cfg", "parse_args", "load_config"]

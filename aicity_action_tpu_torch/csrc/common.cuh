@@ -81,6 +81,34 @@ __device__ __forceinline__ void load_b_frag_trans_x2(uint32_t* b,
       : "r"(addr));
 }
 
+// B fragment of the 16x8 tile at (k0, n0) of a matrix kept in smem
+// row-major as [k][n] (n contiguous), through ldmatrix.trans (one tile).
+__device__ __forceinline__ void load_b_frag_trans(uint32_t* b, const bf16* s,
+                                                  int ld, int k0, int n0,
+                                                  int lane) {
+  const bf16* p = s + (k0 + (lane & 15)) * ld + n0;
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(b[0]), "=r"(b[1])
+      : "r"(addr));
+}
+
+// A fragment of the 16x16 tile at (row0, k0) of a matrix kept in smem
+// transposed, as [k][m] (m contiguous), through ldmatrix.trans. Rows must
+// be 16-byte aligned.
+__device__ __forceinline__ void load_a_frag_trans(uint32_t* a, const bf16* s,
+                                                  int ld, int row0, int k0,
+                                                  int lane) {
+  const bf16* p = s + (k0 + (lane & 7) + ((lane >> 4) << 3)) * ld + row0 +
+                  ((lane >> 3) & 1) * 8;
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(addr));
+}
+
 // 16-byte asynchronous copy global -> shared; with pred false the 16 bytes
 // are zero-filled and global memory is not read.
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
@@ -182,6 +210,31 @@ __device__ __forceinline__ void norm_rows(bf16* s, int lds, int nrows, int D,
                                     __bfloat162float(gamma[c]) +
                                 __bfloat162float(beta[c]));
   }
+}
+
+// Second pass of a cross-block reduction: out[i] = sum over s of
+// part[s * n + i] (f32 partials, one slab per block or split, summed in a
+// fixed order), rounded to bf16. The backward kernels write per-block
+// partials rather than use atomics, so their sums do not depend on the
+// order the blocks ran in. (A template so that every translation unit may
+// instantiate it.)
+template <int UNUSED = 0>
+__global__ void __launch_bounds__(256)
+    reduce_splits_kernel(const float* __restrict__ part, bf16* __restrict__ out,
+                         int nsplit, long n) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int k = 0; k < nsplit; ++k) s += part[(long)k * n + i];
+  out[i] = __float2bfloat16(s);
+}
+
+inline cudaError_t reduce_splits(const float* part, bf16* out, int nsplit,
+                                 long n, cudaStream_t stream) {
+  if (n > 0)
+    reduce_splits_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+        part, out, nsplit, n);
+  return cudaGetLastError();
 }
 
 // Opt a kernel into more than 48 KB of dynamic shared memory.

@@ -24,10 +24,35 @@ def round_width(width: float, multiplier: float, min_width: int = 1,
     return int(width_out)
 
 
+def drop_path_mask(batch: int, rate: float, generator: torch.Generator,
+                   device, dtype) -> torch.Tensor | None:
+    """Per-sample keep mask ``[B, 1, 1]`` of stochastic depth (1 with
+    probability ``1 - rate``), drawn from ``generator``; None when ``rate``
+    is 0. Drawn outside any checkpointed region, so that a recompute under
+    ``torch.utils.checkpoint`` (which restores only the default RNG) applies
+    the same mask."""
+    if rate == 0.0:
+        return None
+    keep = torch.rand(batch, generator=generator, device=device) < 1.0 - rate
+    return keep.to(dtype).reshape(batch, 1, 1)
+
+
+def drop_path(x: torch.Tensor, mask: torch.Tensor | None,
+              rate: float) -> torch.Tensor:
+    """Stochastic depth per sample (reference: common.py drop_path): keeps
+    the residual branch where ``mask`` is 1 and rescales by
+    ``1 / (1 - rate)``, as ``x / keep * mask``; the identity without a
+    mask."""
+    if mask is None:
+        return x
+    return x / (1.0 - rate) * mask
+
+
 class FusedLayerNorm(nn.Module):
-    """LayerNorm through :func:`fused_layer_norm` (the CUDA kernel on the
-    card). Parameters are ``weight`` / ``bias`` of width ``C // groups``,
-    as ``nn.LayerNorm(C // groups)`` names them; ``groups > 1`` normalizes
+    """LayerNorm through :func:`fused_layer_norm` (the CUDA kernels on the
+    card, forward and backward). Parameters are ``weight`` / ``bias`` of
+    width ``C // groups``, as ``nn.LayerNorm(C // groups)`` names them;
+    ``groups > 1`` normalizes
     each channel group with the shared parameters. Parameters stay f32 and
     are cast to the activation's type where they are used."""
 

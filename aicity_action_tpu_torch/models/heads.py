@@ -11,7 +11,8 @@ from torch import nn
 class TransformerBasicHead(nn.Module):
     """dropout -> linear ``projection``; the activation (softmax or sigmoid)
     is applied at eval, and in training only when ``use_act_in_train``.
-    Dropout is the identity at eval, the only mode this port serves."""
+    Dropout acts in training only, with its mask drawn from the
+    ``generator`` the caller passes."""
 
     def __init__(self, dim_in: int, num_classes: int,
                  dropout_rate: float = 0.0, act_func: str = "softmax",
@@ -21,13 +22,19 @@ class TransformerBasicHead(nn.Module):
             raise NotImplementedError(
                 f"{act_func} is not supported as an activation")
         self.projection = nn.Linear(dim_in, num_classes)
-        self.dropout = nn.Dropout(dropout_rate) if dropout_rate > 0 else None
+        self.dropout_rate = dropout_rate
         self.act_func = act_func
         self.use_act_in_train = use_act_in_train
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.dropout is not None:
-            x = self.dropout(x)
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        if self.training and self.dropout_rate > 0:
+            if generator is None:
+                raise ValueError("head dropout in training needs a generator")
+            keep = 1.0 - self.dropout_rate
+            mask = torch.rand(x.shape, generator=generator,
+                              device=x.device) < keep
+            x = torch.where(mask, x / keep, torch.zeros_like(x))
         x = F.linear(x, self.projection.weight.to(x.dtype),
                      self.projection.bias.to(x.dtype))
         if self.use_act_in_train or not self.training:

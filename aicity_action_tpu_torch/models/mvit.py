@@ -1,5 +1,5 @@
-"""MViT-v2 video backbone for inference (port of ``aicity_action_tpu/models/
-mvit.py``; reference: slowfast/models/video_model_builder.py:794-1335 and
+"""MViT-v2 video backbone (port of ``aicity_action_tpu/models/mvit.py``;
+reference: slowfast/models/video_model_builder.py:794-1335 and
 slowfast/models/attention.py).
 
 - The block schedule is the same pure derivation (:func:`build_mvit_spec`).
@@ -7,11 +7,19 @@ slowfast/models/attention.py).
   ``[B, T, H, W, 3]`` as in the JAX package.
 - Parameter names follow the reference PySlowFast ``state_dict``, so a
   released ``.pyth`` ``model_state`` loads with ``load_state_dict``.
-- Every block runs the fused path the JAX package takes at inference
-  (``mvit.py:335-354``): norm1 + qkv in :func:`fused_ln_qkv`, the post-pool
-  per-head LNs, attention and the v2 q-residual in
+- At eval every conv-pool block runs the fused path the JAX package takes
+  at inference (``mvit.py:335-354``): norm1 + qkv in :func:`fused_ln_qkv`,
+  the post-pool per-head LNs, attention and the v2 q-residual in
   :func:`flash_attention_ln`, norm2 + MLP in :func:`fused_ln_mlp`, and the
   final norm in :func:`fused_layer_norm`.
+- In training (``model.train()``), and for the max / avg pool modes, a
+  block takes the JAX package's unfused path: the pooled q, k, v become
+  head-major token rows, each conv-pooled one goes through its own
+  :func:`fused_layer_norm` (eps 1e-5), then :func:`flash_attention` and
+  ``+ q`` outside the kernel. Every kernel there has a backward kernel.
+  DropPath masks are drawn from the caller's generator before each block,
+  so that the recompute of ``MODEL.ACT_CHECKPOINT`` (per-block
+  ``torch.utils.checkpoint``) applies the same masks.
 - Numerics: block norms use eps 1e-6, the pool norms torch's default 1e-5
   (``attention.py:338``); GELU is the exact erf form; parameters stay f32
   and are cast to the compute type where they are used.
@@ -26,10 +34,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.flash_attention import flash_attention_ln
+from torch.utils.checkpoint import checkpoint
+
+from ..ops.flash_attention import flash_attention, flash_attention_ln
 from ..ops.fused_dense import fused_ln_mlp, fused_ln_qkv
-from ..ops.pooling import attention_pool
-from .common import FusedLayerNorm, round_width
+from ..ops.layer_norm import fused_layer_norm
+from ..ops.pooling import attention_pool, pool3d_ncdhw
+from .common import FusedLayerNorm, drop_path, drop_path_mask, round_width
 from .heads import TransformerBasicHead
 
 Triple = tuple[int, int, int]
@@ -269,13 +280,14 @@ def _pool_active(kernel, stride) -> bool:
 
 
 class MultiScaleAttention(nn.Module):
-    """Pooled multi-head attention (reference: attention.py:86-284) on the
-    fused path: ``qkv`` takes the un-normalized block input and norm1's
-    parameters and writes q/k/v channel-major, they are pooled by depthwise
-    3-D convs (``pool_*``, one ``[d, 1, kT, kH, kW]`` weight shared by the
-    heads), and the pool norms (``norm_*``, over head_dim; parameters only,
-    applied inside the kernel), attention and the q-residual run in one
-    kernel on d-major head views ``[B*h, L, d]``."""
+    """Pooled multi-head attention (reference: attention.py:86-284).
+    ``qkv`` takes the un-normalized block input and norm1's parameters and
+    writes q/k/v channel-major; they are pooled by depthwise 3-D convs
+    (``pool_*``, one ``[d, 1, kT, kH, kW]`` weight shared by the heads) or
+    by max / avg pooling. On the fused path (conv mode at eval) the pool
+    norms (``norm_*``, over head_dim; parameters only, applied inside the
+    kernel), attention and the q-residual run in one kernel on d-major head
+    views ``[B*h, L, d]``; otherwise see :meth:`_unfused`."""
 
     def __init__(self, dim: int, dim_out: int, num_heads: int, kernel_q,
                  kernel_kv, stride_q, stride_kv, mode: str, qkv_bias: bool,
@@ -285,10 +297,9 @@ class MultiScaleAttention(nn.Module):
             raise NotImplementedError(
                 "cls-token MViT needs the padded flash attention kernel, "
                 "which is not ported yet")
-        if mode != "conv":
-            raise NotImplementedError(
-                f"pool mode {mode!r} needs the plain flash attention "
-                "kernel, which is not ported yet")
+        if mode not in ("conv", "max", "avg"):
+            raise ValueError(f"unknown pool mode {mode!r}")
+        self.mode = mode
         self.num_heads = num_heads
         self.head_dim = d = dim_out // num_heads
         self.scale = d ** -0.5
@@ -303,35 +314,85 @@ class MultiScaleAttention(nn.Module):
             if not _pool_active(kernel, stride):
                 continue
             self.pooled.append(name)
+            if mode != "conv":  # the JAX package norms conv pools only
+                setattr(self, f"pool_{name}", (tuple(kernel), tuple(stride)))
+                continue
             setattr(self, f"pool_{name}", nn.Conv3d(
                 d, d, tuple(kernel), tuple(stride),
                 tuple(k // 2 for k in kernel), groups=d, bias=False))
             setattr(self, f"norm_{name}",
                     FusedLayerNorm(d, eps=1e-5, groups=num_heads))
 
+    def _pool(self, name: str, t: torch.Tensor, thw: Triple) -> torch.Tensor:
+        """Pool one channel-major ``[B, C, L]`` tensor; returns
+        ``[B, C, T', H', W']``."""
+        B, C, _ = t.shape
+        t = t.reshape(B, C, *thw)
+        pool = getattr(self, f"pool_{name}")
+        if self.mode == "conv":
+            # one [d, 1, k, k, k] weight shared by the heads (mvit.py:567)
+            return F.conv3d(t, pool.weight.to(t.dtype).repeat(
+                self.num_heads, 1, 1, 1, 1), None, pool.stride,
+                pool.padding, 1, C)
+        kernel, stride = pool
+        return pool3d_ncdhw(t, self.mode, kernel, stride,
+                            tuple(k // 2 for k in kernel))
+
     def forward(self, x: torch.Tensor, thw: Triple, norm1: FusedLayerNorm):
         B, L, D = x.shape
         dt = x.dtype
-        h, d = self.num_heads, self.head_dim
-        C = h * d
         # q, k, v come channel-major, [B, C, L]: the NCDHW layout the pool
-        # convolutions take and the d-major one the attention kernel reads,
-        # so none of the three is transposed in device memory
+        # convolutions take and the d-major one the fused attention kernel
+        # reads, so on the fused path none of the three is transposed in
+        # device memory
         t3 = dict(zip("qkv", fused_ln_qkv(
             x.reshape(B * L, D).contiguous(), norm1.weight.to(dt),
             norm1.bias.to(dt), self.qkv.weight.to(dt),
             _cast(self.qkv.bias, dt), norm1.eps, tokens=L)))
-        ln = {}
         out_thw = thw
         for name in self.pooled:
-            conv = getattr(self, f"pool_{name}")
-            # one [d, 1, k, k, k] weight shared by the heads (mvit.py:567)
-            y = F.conv3d(t3[name].reshape(B, C, *thw),
-                         conv.weight.to(dt).repeat(h, 1, 1, 1, 1), None,
-                         conv.stride, conv.padding, 1, C)
+            y = self._pool(name, t3[name], thw)
             if name == "q":
                 out_thw = tuple(y.shape[2:])
             t3[name] = y.flatten(2)
+        if self.training or self.mode != "conv":
+            out = self._unfused(t3, B)
+        else:
+            out = self._fused(t3, B, dt, x.device)
+        out = F.linear(out, self.proj.weight.to(dt), self.proj.bias.to(dt))
+        return out, out_thw
+
+    def _unfused(self, t3: dict, B: int) -> torch.Tensor:
+        """The JAX package's path when the fused-LN kernel is off
+        (``mvit.py:643-682``): pooled q, k, v become contiguous head-major
+        token rows ``[B*h, L, d]`` (one transpose each; their gradients pay
+        one back), each conv-pooled one is normalized by its pool norm
+        (grouped per head: one row of d per head and token), then
+        :func:`flash_attention` and the v2 residual ``+ q`` outside it."""
+        h, d = self.num_heads, self.head_dim
+        rows = {}
+        for name, t in t3.items():
+            n = t.shape[-1]
+            # a copy even where reshape could view (one head): the kernels
+            # take contiguous rows
+            r = (t.reshape(B, h, d, n).transpose(2, 3).reshape(B * h, n, d)
+                 .contiguous())
+            if self.mode == "conv" and name in self.pooled:
+                norm = getattr(self, f"norm_{name}")
+                r = fused_layer_norm(r, norm.weight.to(r.dtype),
+                                     norm.bias.to(r.dtype), norm.eps)
+            rows[name] = r
+        out = flash_attention(rows["q"], rows["k"], rows["v"], self.scale)
+        if self.q_pool_residual:
+            out = out + rows["q"]
+        Lq = out.shape[1]
+        return out.reshape(B, h, Lq, d).transpose(1, 2).reshape(B, Lq, h * d)
+
+    def _fused(self, t3: dict, B: int, dt, device) -> torch.Tensor:
+        h, d = self.num_heads, self.head_dim
+        C = h * d
+        ln = {}
+        for name in self.pooled:
             norm = getattr(self, f"norm_{name}")
             ln[name] = (norm.weight.to(dt), norm.bias.to(dt))
         Lq = t3["q"].shape[-1]
@@ -341,8 +402,8 @@ class MultiScaleAttention(nn.Module):
             return (t.contiguous().reshape(B, h, d, n).transpose(2, 3)
                     .reshape(B * h, n, d))
 
-        ones = torch.ones(d, dtype=dt, device=x.device)
-        zeros = torch.zeros(d, dtype=dt, device=x.device)
+        ones = torch.ones(d, dtype=dt, device=device)
+        zeros = torch.zeros(d, dtype=dt, device=device)
         gq, bq = ln.get("q", (ones, zeros))
         gk, bk = ln.get("k", (ones, zeros))
         gv, bv = ln.get("v", (ones, zeros))
@@ -351,9 +412,7 @@ class MultiScaleAttention(nn.Module):
             head_major(t3["q"]), head_major(t3["k"]), head_major(t3["v"]),
             gq, bq, gk, bk, gv, bv, self.scale, self.norm_eps, flags,
             self.q_pool_residual)
-        out = out.reshape(B, h, Lq, d).transpose(1, 2).reshape(B, Lq, C)
-        out = F.linear(out, self.proj.weight.to(dt), self.proj.bias.to(dt))
-        return out, out_thw
+        return out.reshape(B, h, Lq, d).transpose(1, 2).reshape(B, Lq, C)
 
 
 class FusedMlp(nn.Module):
@@ -380,7 +439,8 @@ class FusedMlp(nn.Module):
 class MultiScaleBlock(nn.Module):
     """Transformer block with pooled attention (reference: attention.py:
     287-446), channels expanded in front (``proj_max_pool`` on the skip
-    path). DropPath is the identity at inference."""
+    path). DropPath applies the per-sample masks the caller passes
+    (:meth:`drop_path_masks`), in training only."""
 
     def __init__(self, spec: BlockSpec, mode: str, qkv_bias: bool,
                  has_cls: bool, q_pool_residual: bool,
@@ -405,9 +465,22 @@ class MultiScaleBlock(nn.Module):
         # skip-path pooling: max pool with kernel s+1 where the stride is >1
         self.kernel_skip = tuple(v + 1 if v > 1 else v for v in s.stride_q)
         self.stride_skip = tuple(s.stride_q)
+        self.drop_rate = s.drop_path
 
-    def forward(self, x: torch.Tensor, thw: Triple):
+    def drop_path_masks(self, batch: int, generator: torch.Generator | None,
+                        device, dtype):
+        """The block's two DropPath masks (attention and MLP branch) for a
+        training step, or None where the rate is 0."""
+        if self.drop_rate == 0.0:
+            return None
+        if generator is None:
+            raise ValueError("DropPath in training needs a generator")
+        return tuple(drop_path_mask(batch, self.drop_rate, generator, device,
+                                    dtype) for _ in range(2))
+
+    def forward(self, x: torch.Tensor, thw: Triple, masks=None):
         dt = x.dtype
+        m_attn, m_mlp = masks if masks is not None else (None, None)
         x_block, thw_new = self.attn(x, thw, self.norm1)
         if self.proj_max_pool is not None:
             x = F.linear(x, self.proj_max_pool.weight.to(dt),
@@ -415,8 +488,9 @@ class MultiScaleBlock(nn.Module):
         if len(self.kernel_skip) > 0 and np.prod(self.kernel_skip) > 1:
             x, _ = attention_pool(x, thw, mode="max", kernel=self.kernel_skip,
                                   stride=self.stride_skip)
-        x = x + x_block
-        return x + self.mlp(x, self.norm2), thw_new
+        x = x + drop_path(x_block, m_attn, self.drop_rate)
+        return (x + drop_path(self.mlp(x, self.norm2), m_mlp, self.drop_rate),
+                thw_new)
 
 
 class PatchEmbed(nn.Module):
@@ -442,11 +516,13 @@ class PatchEmbed(nn.Module):
 
 
 class MViT(nn.Module):
-    """MViT-v2 backbone + classification head, inference only.
+    """MViT-v2 backbone + classification head.
 
     Input: a ``[B, T, H, W, C]`` clip or a one-pathway list of it; the clip
     is cast to ``compute_dtype`` (bf16 on the card). Returns the head's
-    activation (softmax scores at eval) in f32.
+    activation (softmax scores at eval) in f32, and the logits in the
+    compute type in training. A training forward with DropPath or head
+    dropout draws their masks from ``generator``.
     """
 
     def __init__(self, spec: MViTSpec,
@@ -495,14 +571,21 @@ class MViT(nn.Module):
         return (self.pos_embed_spatial.repeat(1, pt, 1)
                 + self.pos_embed_temporal.repeat_interleave(ph * pw, dim=1))
 
-    def forward(self, x) -> torch.Tensor:
+    def forward(self, x, generator: torch.Generator | None = None):
         if isinstance(x, (list, tuple)):
             x = x[0]
         x = x.to(self.compute_dtype)
         x, thw = self.patch_embed(x)
         x = x + self._pos_embed().to(x.dtype)
+        remat = (self.training and self.spec.act_checkpoint
+                 and torch.is_grad_enabled())
         for blk in self.blocks:
-            x, thw = blk(x, thw)
+            masks = (blk.drop_path_masks(x.shape[0], generator, x.device,
+                                         x.dtype) if self.training else None)
+            if remat:
+                x, thw = checkpoint(blk, x, thw, masks, use_reentrant=False)
+            else:
+                x, thw = blk(x, thw, masks)
         if self.norm is not None:
             x = self.norm(x)
-        return self.head(x.mean(dim=1))
+        return self.head(x.mean(dim=1), generator)

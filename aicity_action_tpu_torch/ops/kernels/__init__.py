@@ -42,6 +42,15 @@ _SIGNATURES = {
     "aicity_ln_mlp_supported": ([_i, _i, _i], _i),
     "aicity_flash_attention_ln": ([_vp] * 12 + [_i] * 4 + [_f, _f] + [_i] * 4
                                   + [_vp], _i),
+    "aicity_layer_norm_bwd": ([_vp] * 6 + [_l, _i, _i, _f, _vp], _i),
+    "aicity_layer_norm_bwd_blocks": ([_l, _i], _i),
+    "aicity_flash_attention": ([_vp] * 5 + [_i] * 4 + [_f, _vp], _i),
+    "aicity_flash_attention_bwd": ([_vp] * 11 + [_i] * 4 + [_f, _i, _vp],
+                                   _i),
+    "aicity_ln_qkv_bwd": ([_vp] * 15 + [_i] * 3 + [_f, _i, _i, _vp], _i),
+    "aicity_ln_qkv_bwd_rows": ([_i], _i),
+    "aicity_ln_mlp_bwd": ([_vp] * 16 + [_i] * 3 + [_f, _i, _vp], _i),
+    "aicity_ln_mlp_bwd_cfg": ([_i, _i], _i),
     "aicity_error_string": ([_i], ctypes.c_char_p),
 }
 
@@ -163,15 +172,31 @@ def plain_reference():
         _force_plain = prev
 
 
+# blocks a backward kernel's row splits aim for: four per SM of an H100
+SPLIT_TARGET_BLOCKS = 528
+
+
+def splits(rows: int, tiles: int, step: int, min_rows: int = 256) -> int:
+    """Rows per split of a backward kernel that sums over ``rows`` for
+    ``tiles`` independent output tiles: enough splits that tiles x splits
+    reaches SPLIT_TARGET_BLOCKS, each split a multiple of ``step`` rows and
+    at least ``min_rows`` of them."""
+    want = max(1, -(-SPLIT_TARGET_BLOCKS // max(1, tiles)))
+    per = max(min_rows, -(-rows // want))
+    return -(-per // step) * step
+
+
 def require(t: torch.Tensor, name: str, shape: tuple | None = None,
-            device: torch.device | None = None) -> None:
-    """What every kernel takes: a contiguous bf16 CUDA tensor, 16-byte
-    aligned, on the given device and of the given shape."""
+            device: torch.device | None = None,
+            dtype: torch.dtype = torch.bfloat16) -> None:
+    """What every kernel takes: a contiguous CUDA tensor of ``dtype``
+    (bf16 unless stated), 16-byte aligned, on the given device and of the
+    given shape."""
     if t.device.type != "cuda" or (device is not None and t.device != device):
         raise ValueError(f"{name}: expected a tensor on {device or 'cuda'}, "
                          f"got {t.device}")
-    if t.dtype != torch.bfloat16:
-        raise TypeError(f"{name}: the kernel takes bfloat16, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: the kernel takes {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: the kernel takes a contiguous tensor")
     if t.data_ptr() % 16:

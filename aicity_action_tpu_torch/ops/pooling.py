@@ -43,17 +43,25 @@ def depthwise_conv3d(x: torch.Tensor, weights: torch.Tensor,
     return y.permute(0, 2, 3, 4, 1)
 
 
+def pool3d_ncdhw(x: torch.Tensor, kind: str, kernel: Sequence[int],
+                 stride: Sequence[int], padding: Sequence[int]) -> torch.Tensor:
+    """Max or average 3-D pooling of an NCDHW ``x``. Average pooling counts
+    the zero padding (``count_include_pad=True``); the padding is applied
+    explicitly, since torch's avg pool refuses a volume smaller than the
+    kernel even where the padding covers it."""
+    k, s, p = _as3(kernel), _as3(stride), _as3(padding)
+    if kind == "max":
+        return F.max_pool3d(x, k, s, p)
+    if kind == "avg":
+        x = F.pad(x, (p[2], p[2], p[1], p[1], p[0], p[0]))
+        return F.avg_pool3d(x, k, s, 0)
+    raise ValueError(f"Unknown pooling kind: {kind}")
+
+
 def pool3d(x: torch.Tensor, kind: str, kernel: Sequence[int],
            stride: Sequence[int], padding: Sequence[int]) -> torch.Tensor:
     """Max or average 3-D pooling of ``x [B, T, H, W, C]``."""
-    xc = x.permute(0, 4, 1, 2, 3)
-    k, s, p = _as3(kernel), _as3(stride), _as3(padding)
-    if kind == "max":
-        y = F.max_pool3d(xc, k, s, p)
-    elif kind == "avg":
-        y = F.avg_pool3d(xc, k, s, p, count_include_pad=True)
-    else:
-        raise ValueError(f"Unknown pooling kind: {kind}")
+    y = pool3d_ncdhw(x.permute(0, 4, 1, 2, 3), kind, kernel, stride, padding)
     return y.permute(0, 2, 3, 4, 1)
 
 

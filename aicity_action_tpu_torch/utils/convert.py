@@ -7,6 +7,9 @@
   [out, in]``; conv ``kernel [kT, kH, kW, in, out]`` and depthwise pool
   weights ``[kT, kH, kW, 1, C]`` -> ``[out, in, kT, kH, kW]``; LN ``scale``
   -> ``weight``.
+- :func:`jax_tree_to_named` applies the same mapping to any tree of the
+  params' structure (a gradient tree, an optimizer moment) and keeps numpy
+  leaves, so that tests compare the two packages leaf by leaf.
 - :func:`load_pyth` reads a reference ``.pyth`` checkpoint's
   ``model_state``.
 """
@@ -27,7 +30,13 @@ def _conv_to_torch(w: np.ndarray) -> np.ndarray:
 
 def jax_params_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
     """JAX MViT params (nested mappings of arrays) -> port ``state_dict``."""
-    sd: dict[str, torch.Tensor] = {}
+    return {k: torch.from_numpy(v) for k, v in jax_tree_to_named(params).items()}
+
+
+def jax_tree_to_named(tree: Mapping) -> dict[str, np.ndarray]:
+    """A tree shaped like the JAX MViT params (params, gradients, ...) ->
+    ``{port parameter name: numpy array in the port's layout}``."""
+    sd: dict[str, np.ndarray] = {}
 
     def emit(path: list[str], leaf: str, w: np.ndarray) -> None:
         mods = ["blocks." + p[len("blocks_"):] if p.startswith("blocks_")
@@ -41,7 +50,7 @@ def jax_params_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
             w = w.T if w.ndim == 2 else _conv_to_torch(w)
         elif leaf == "scale":
             leaf = "weight"
-        sd[".".join(mods + [leaf])] = torch.from_numpy(np.array(w))
+        sd[".".join(mods + [leaf])] = np.array(w)
 
     def walk(node: Mapping, path: list[str]) -> None:
         for k, v in node.items():
@@ -50,7 +59,7 @@ def jax_params_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
             else:
                 emit(path, k, np.asarray(v))
 
-    walk(params, [])
+    walk(tree, [])
     return sd
 
 

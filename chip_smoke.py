@@ -4,19 +4,29 @@ NVIDIA card.
 
     python3 chip_smoke.py
 
-1. Builds the four CUDA kernels from ``aicity_action_tpu_torch/csrc`` with
-   nvcc (sm_90a) and prints the card's name and power limit.
-2. Holds each kernel against its plain PyTorch version at main-path
-   shapes of MViT-v2-B 16x4 @ 448 (batch 8, bf16; every tile
+1. Builds the CUDA kernels from ``aicity_action_tpu_torch/csrc`` with nvcc
+   (sm_90a, one process per source) and prints the card's name and power
+   limit.
+2. Holds each inference kernel against its plain PyTorch version at
+   main-path shapes of MViT-v2-B 16x4 @ 448 (batch 8, bf16; every tile
    configuration a kernel has on the path) and times the kernel, the plain
    version and a PyTorch library yardstick with CUDA events.
-3. Builds the full model (16 blocks, bf16, weights from a seed), runs
+3. Does the same for the training kernels (the flash attention forward
+   with its logsumexp, and the backward kernels of attention, LayerNorm,
+   LN+qkv and LN+MLP) at the batch-4 training shapes of blocks 0, 1 and 15.
+4. Builds the full model (16 blocks, bf16, weights from a seed), runs
    batch-8 forwards, checks the kernel launches per forward, and compares a
    batch-1 forward with the same model in its plain reference mode.
-4. Drives the main path, ``WindowScorer``, over a synthetic in-memory I420
-   video, with the launch counts set to 0 just before and read just after;
-   checks the windows against a direct forward and round-trips the pickle.
-5. Prints ``{"kernels": [...]}``, the card line, and last
+5. Drives the serving path, ``WindowScorer``, over a synthetic in-memory
+   I420 video, with the launch counts set to 0 just before and read just
+   after; checks the windows against a direct forward and round-trips the
+   pickle.
+6. Drives the training path, ``make_train_step``, at batch 4 with mixup,
+   activation checkpointing and AdamW (two warm-up steps, then timed
+   steps; the counts set to 0 just before the timed steps and read just
+   after, and held to the counts the config implies), then compares one
+   batch-1 step's gradients with the model's plain reference mode.
+7. Prints ``{"kernels": [...]}``, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no result.
@@ -36,6 +46,8 @@ import numpy as np
 
 SEED = 0
 BATCH = 8
+TRAIN_BATCH = 4
+TRAIN_WARMUP, TRAIN_STEPS = 2, 5
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 CUDA
 # cores, HBM3 bandwidth
 PEAK_BF16 = 989e12
@@ -111,22 +123,26 @@ def _check_case(name, kernel_fn, plain_fn, library_fn, flops, nbytes,
     torch.cuda.synchronize()
     outs = out if isinstance(out, tuple) else (out,)
     refs = ref if isinstance(ref, tuple) else (ref,)
-    err, scale = 0.0, 1.0
-    for o, r in zip(outs, refs):
+    if len(outs) != len(refs):
+        _fail(f"{name}: {len(outs)} outputs against {len(refs)}")
+    # each output within KERNEL_RTOL of its own largest magnitude
+    err, tol, rel = 0.0, 0.0, 0.0
+    for i, (o, r) in enumerate(zip(outs, refs)):
         if o.shape != r.shape or not torch.isfinite(o).all():
-            _fail(f"{name}: non-finite or mis-shaped output")
-        err = max(err, (o.float() - r.float()).abs().max().item())
-        scale = max(scale, r.float().abs().max().item())
-    tol = KERNEL_RTOL * scale
-    if not err <= tol:
-        _fail(f"{name}: max |kernel - plain| {err} > {tol}")
+            _fail(f"{name}: output {i} non-finite or mis-shaped")
+        e = (o.float() - r.float()).abs().max().item()
+        t = KERNEL_RTOL * max(r.float().abs().max().item(), 1e-30)
+        if not e <= t:
+            _fail(f"{name}: output {i}: max |kernel - plain| {e} > {t}")
+        err, tol, rel = max(err, e), max(tol, t), max(rel, e / t * KERNEL_RTOL)
     del out, ref, outs, refs
     ms = time_ms(kernel_fn, iters)
     plain_ms = time_ms(plain_fn, max(1, iters // 5))
     library_ms = time_ms(library_fn, iters) if library_fn else None
     bound_ms = max(flops / peak, nbytes / PEAK_BYTES) * 1e3
     return {
-        "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+        "max_abs_err": err, "tol": tol, "max_rel_err": rel, "ms": ms,
+        "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": "operations" if flops / peak > nbytes / PEAK_BYTES
         else "bytes",
@@ -264,10 +280,222 @@ def kernel_checks():
     return results
 
 
+# ------------------------------------------------------- training kernels
+
+def _plain_grads(fn, inputs, cotangents):
+    """Gradients of the plain version ``fn`` in f32 at the kernel's bf16
+    inputs: the plain forward, then autograd."""
+    import torch
+
+    ts = [t.detach().float().requires_grad_() for t in inputs]
+    outs = fn(*ts)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    return torch.autograd.grad(outs, ts, [c.float() for c in cotangents])
+
+
+def _library_grads(fn, inputs, cotangents):
+    """One PyTorch library call's forward and autograd backward (the
+    yardstick), in the inputs' type."""
+    import torch
+
+    ts = [t.detach().requires_grad_() for t in inputs]
+    outs = fn(*ts)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    return torch.autograd.grad(outs, ts, cotangents)
+
+
+def train_kernel_checks():
+    """The training kernels at the batch-4 training shapes of blocks 0, 1
+    and 15 (each kernel against its plain version, computed in f32 from
+    the same bf16 inputs, differentiated by autograd; plain and library
+    times are of forward + backward)."""
+    import torch
+    import torch.nn.functional as F
+
+    from aicity_action_tpu_torch.ops import flash_attention as fa
+    from aicity_action_tpu_torch.ops import fused_dense as fd
+    from aicity_action_tpu_torch.ops import layer_norm as ln
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    B, d = TRAIN_BATCH, 96
+    scale = d ** -0.5
+    results = {}
+
+    # flash attention forward (with lse) and backward: block 0 (h 1, Lq
+    # 100352, Lk 1568), block 1 (h 2, Lq 25088, Lk 6272), block 15 (h 8,
+    # Lq = Lk = 1568), head-major token rows
+    fwd, bwd = [], []
+    for blk, h, Lq, Lk in ((0, 1, 100352, 1568), (1, 2, 25088, 6272),
+                           (15, 8, 1568, 1568)):
+        G = B * h
+        q, k, v = (_normal(gen, (G, n, d), 1.0, bf) for n in (Lq, Lk, Lk))
+        shape = f"block {blk} q[{G},{Lq},{d}] k,v[{G},{Lk},{d}]"
+        flops = 4 * G * Lq * Lk * d
+        io = 2 * (2 * G * Lq * d + 2 * G * Lk * d)
+        r = _check_case(
+            "flash_attention",
+            lambda q=q, k=k, v=v: fa.flash_attention_fwd(q, k, v, scale,
+                                                         True),
+            lambda q=q, k=k, v=v: fa.flash_attention_lse_plain(
+                q.float(), k.float(), v.float(), scale),
+            lambda q=q, k=k, v=v: F.scaled_dot_product_attention(q, k, v),
+            flops=flops, nbytes=io + 4 * G * Lq, peak=PEAK_BF16, iters=3)
+        r["shape"] = shape + " (+ lse)"
+        fwd.append(r)
+        if blk == 0:  # the lse-free mode (inference with pool modes max/avg)
+            r = _check_case(
+                "flash_attention",
+                lambda q=q, k=k, v=v: fa.flash_attention_fwd(
+                    q, k, v, scale, False)[0],
+                lambda q=q, k=k, v=v: fa.flash_attention_plain(
+                    q.float(), k.float(), v.float(), scale),
+                lambda q=q, k=k, v=v: F.scaled_dot_product_attention(q, k,
+                                                                     v),
+                flops=flops, nbytes=io, peak=PEAK_BF16, iters=3)
+            r["shape"] = shape + " (no lse)"
+            fwd.append(r)
+        out, lse = fa.flash_attention_fwd(q, k, v, scale, True)
+        dout = _normal(gen, (G, Lq, d), 1.0, bf)
+        r = _check_case(
+            "flash_attention_bwd",
+            lambda q=q, k=k, v=v, out=out, lse=lse, dout=dout:
+                fa.flash_attention_bwd(q, k, v, out, lse, dout, scale),
+            lambda q=q, k=k, v=v, dout=dout: _plain_grads(
+                lambda a, b, c: fa.flash_attention_plain(a, b, c, scale),
+                (q, k, v), (dout,)),
+            lambda q=q, k=k, v=v, dout=dout: _library_grads(
+                F.scaled_dot_product_attention, (q, k, v), (dout,)),
+            # the five products of the backward (S recomputed once), the
+            # inputs q, k, v, out, dout, lse read once, dq, dk, dv written
+            flops=10 * G * Lq * Lk * d,
+            nbytes=2 * (4 * G * Lq * d + 4 * G * Lk * d) + 4 * G * Lq,
+            peak=PEAK_BF16, iters=2)
+        r["shape"] = shape
+        bwd.append(r)
+        del q, k, v, out, lse, dout
+        torch.cuda.empty_cache()
+    results["flash_attention"] = fwd
+    results["flash_attention_bwd"] = bwd
+
+    # LayerNorm backward: block 0's q norm (per head over d 96, 401408
+    # rows), block 1's k norm (50176 rows), block 15's q norm (50176 rows)
+    # and the final norm [B*1568, 768]
+    cases = []
+    for what, M, C, eps in (("block 0 q norm", B * 100352, 96, 1e-5),
+                            ("block 1 k norm", B * 2 * 6272, 96, 1e-5),
+                            ("block 15 q norm", B * 8 * 1568, 96, 1e-5),
+                            ("final norm", B * 1568, 768, 1e-6)):
+        x = _normal(gen, (M, C), 2.0, bf)
+        g = _normal(gen, (C,), 0.1, bf) + 1
+        bb = _normal(gen, (C,), 0.1, bf)
+        dy = _normal(gen, (M, C), 1.0, bf)
+        r = _check_case(
+            "fused_layer_norm_bwd",
+            lambda x=x, g=g, dy=dy, eps=eps: ln.fused_layer_norm_bwd(
+                x, g, dy, eps, 1),
+            lambda x=x, g=g, bb=bb, dy=dy, eps=eps: _plain_grads(
+                lambda a, b, c: ln.layer_norm_plain(a, b, c, eps, 1),
+                (x, g, bb), (dy,)),
+            lambda x=x, g=g, bb=bb, dy=dy, C=C, eps=eps: _library_grads(
+                lambda a, b, c: F.layer_norm(a, (C,), b, c, eps),
+                (x, g, bb), (dy,)),
+            flops=20 * M * C, nbytes=2 * (3 * M * C + 3 * C),
+            peak=PEAK_F32, iters=10)
+        r["shape"] = f"{what} x[{M},{C}]"
+        cases.append(r)
+        del x, dy
+    results["fused_layer_norm_bwd"] = cases
+
+    # LN+qkv backward: block 0 (D 96, 3C 288, L 100352), block 1 (D 96,
+    # 3C 576, L 100352), block 15 (D 768, 3C 2304, L 1568); the gradients
+    # of q, k, v channel-major [B, C, L] as the forward wrote them
+    cases = []
+    for blk, L, D, C in ((0, 100352, 96, 96), (1, 100352, 96, 192),
+                         (15, 1568, 768, 768)):
+        M = B * L
+        x = _normal(gen, (M, D), 1.0, bf)
+        g = _normal(gen, (D,), 0.1, bf) + 1
+        bb = _normal(gen, (D,), 0.1, bf)
+        w = _normal(gen, (3 * C, D), D ** -0.5, bf)
+        bias = _normal(gen, (3 * C,), 0.1, bf)
+        gq, gk, gv = (_normal(gen, (B, C, L), 1.0, bf) for _ in range(3))
+
+        def library(x=x, g=g, bb=bb, w=w, bias=bias, D=D, L=L, C=C,
+                    gs=(gq, gk, gv)):
+            cot = torch.cat([t.transpose(1, 2).reshape(-1, C) for t in gs],
+                            1)
+            return _library_grads(
+                lambda a, b, c, ww, wb: F.linear(
+                    F.layer_norm(a, (D,), b, c, 1e-6), ww, wb),
+                (x, g, bb, w, bias), (cot,))
+
+        r = _check_case(
+            "fused_ln_qkv_bwd",
+            lambda x=x, g=g, bb=bb, w=w, gs=(gq, gk, gv), L=L:
+                fd.fused_ln_qkv_bwd(x, g, bb, w, *gs, 1e-6, L),
+            lambda x=x, g=g, bb=bb, w=w, bias=bias, gs=(gq, gk, gv), L=L:
+                _plain_grads(lambda *a: fd.ln_qkv_plain(*a, 1e-6, L),
+                             (x, g, bb, w, bias), gs),
+            library,
+            flops=4 * M * D * 3 * C,
+            nbytes=2 * (2 * M * D + 3 * M * C + 2 * 3 * C * D + 3 * C
+                        + 4 * D),
+            peak=PEAK_BF16, iters=5)
+        r["shape"] = f"block {blk} x[{M},{D}] w[{3 * C},{D}]"
+        cases.append(r)
+        del x, w, gq, gk, gv
+        torch.cuda.empty_cache()
+    results["fused_ln_qkv_bwd"] = cases
+
+    # LN+MLP backward: block 0 (C 96 over 401408 rows), block 1 (C 192
+    # over 100352), block 15 (C 768 over 6272); H = 4C
+    cases = []
+    for blk, M, C in ((0, B * 100352, 96), (1, B * 25088, 192),
+                      (15, B * 1568, 768)):
+        H = 4 * C
+        x = _normal(gen, (M, C), 1.0, bf)
+        g = _normal(gen, (C,), 0.1, bf) + 1
+        bb = _normal(gen, (C,), 0.1, bf)
+        w1 = _normal(gen, (H, C), C ** -0.5, bf)
+        b1 = _normal(gen, (H,), 0.1, bf)
+        w2 = _normal(gen, (C, H), H ** -0.5, bf)
+        b2 = _normal(gen, (C,), 0.1, bf)
+        dout = _normal(gen, (M, C), 1.0, bf)
+        args = (x, g, bb, w1, b1, w2, b2)
+
+        def library(args=args, dout=dout, C=C):
+            return _library_grads(
+                lambda a, b, c, u1, c1, u2, c2: F.linear(F.gelu(F.linear(
+                    F.layer_norm(a, (C,), b, c, 1e-6), u1, c1)), u2, c2),
+                args, (dout,))
+
+        r = _check_case(
+            "fused_ln_mlp_bwd",
+            lambda args=args, dout=dout: fd.fused_ln_mlp_bwd(
+                *args[:6], dout, 1e-6),
+            lambda args=args, dout=dout: _plain_grads(
+                lambda *a: fd.ln_mlp_plain(*a, 1e-6), args, (dout,)),
+            library,
+            # fc1 recomputed, dh, dW2, dW1, dLN(x): five products
+            flops=10 * M * C * H,
+            nbytes=2 * (3 * M * C + 4 * C * H + 2 * H + 5 * C),
+            peak=PEAK_BF16, iters=3)
+        r["shape"] = f"block {blk} x[{M},{C}] H {H}"
+        cases.append(r)
+        del x, dout, args
+        torch.cuda.empty_cache()
+    results["fused_ln_mlp_bwd"] = cases
+    return results
+
+
 # ------------------------------------------------------------------ model
 
 KERNEL_FNS = ("fused_ln_qkv", "flash_attention_ln", "fused_ln_mlp",
               "fused_layer_norm")
+TRAIN_KERNEL_FNS = ("flash_attention", "flash_attention_bwd",
+                    "fused_ln_qkv_bwd", "fused_ln_mlp_bwd",
+                    "fused_layer_norm_bwd")
 SOURCES = {
     "fused_ln_qkv": ("aicity_action_tpu_torch/csrc/fused_ln_qkv.cu",
                      "aicity_action_tpu/ops/pallas/fused_dense.py:74"),
@@ -278,9 +506,21 @@ SOURCES = {
                      "aicity_action_tpu/ops/pallas/fused_dense.py:314"),
     "fused_layer_norm": ("aicity_action_tpu_torch/csrc/layer_norm.cu",
                          "aicity_action_tpu/ops/pallas/layer_norm.py:64"),
+    "flash_attention": ("aicity_action_tpu_torch/csrc/flash_attention.cu",
+                        "aicity_action_tpu/ops/pallas/flash_attention.py:261"),
+    "flash_attention_bwd": (
+        "aicity_action_tpu_torch/csrc/flash_attention.cu",
+        "aicity_action_tpu/ops/pallas/flash_attention.py:550"),
+    "fused_ln_qkv_bwd": ("aicity_action_tpu_torch/csrc/fused_ln_qkv_bwd.cu",
+                         "aicity_action_tpu/ops/pallas/fused_dense.py:175"),
+    "fused_ln_mlp_bwd": ("aicity_action_tpu_torch/csrc/fused_ln_mlp_bwd.cu",
+                         "aicity_action_tpu/ops/pallas/fused_dense.py:414"),
+    "fused_layer_norm_bwd": ("aicity_action_tpu_torch/csrc/layer_norm.cu",
+                             "aicity_action_tpu/ops/pallas/layer_norm.py:104"),
 }
 PER_FORWARD = {"fused_ln_qkv": 16, "flash_attention_ln": 16,
-               "fused_ln_mlp": 16, "fused_layer_norm": 1}
+               "fused_ln_mlp": 16, "fused_layer_norm": 1,
+               **{name: 0 for name in TRAIN_KERNEL_FNS}}
 
 
 def _wrappers():
@@ -291,7 +531,12 @@ def _wrappers():
     return {"fused_ln_qkv": fd.fused_ln_qkv,
             "flash_attention_ln": fa.flash_attention_ln,
             "fused_ln_mlp": fd.fused_ln_mlp,
-            "fused_layer_norm": ln.fused_layer_norm}
+            "fused_layer_norm": ln.fused_layer_norm,
+            "flash_attention": fa.flash_attention_fwd,
+            "flash_attention_bwd": fa.flash_attention_bwd,
+            "fused_ln_qkv_bwd": fd.fused_ln_qkv_bwd,
+            "fused_ln_mlp_bwd": fd.fused_ln_mlp_bwd,
+            "fused_layer_norm_bwd": ln.fused_layer_norm_bwd}
 
 
 def reset_counts() -> None:
@@ -399,9 +644,9 @@ def scorer_checks(model, cfg):
     torch.cuda.synchronize()
     wall = time.time() - t
     launches = read_counts()
-    for name, n in launches.items():
-        if n == 0:
-            _fail(f"{name} was not launched on the main path")
+    for name in KERNEL_FNS:
+        if launches[name] == 0:
+            _fail(f"{name} was not launched on the serving path")
 
     if [(p[0], p[1]) for p in preds] != sorted(spans):
         _fail("scorer windows differ from the enumerated spans")
@@ -445,6 +690,165 @@ def scorer_checks(model, cfg):
     return launches
 
 
+# ------------------------------------------------------------------ train
+
+def train_per_step(model) -> dict:
+    """Kernel launches one train step implies, derived from the model: per
+    block one LN+qkv, one attention and one LN+MLP, each forward run twice
+    under activation checkpointing (the recompute); one pool norm per
+    conv-pooled q / k / v of a block, and the final norm once."""
+    remat = 2 if model.spec.act_checkpoint else 1
+    depth = len(model.blocks)
+    norms = sum(len(b.attn.pooled) for b in model.blocks
+                if b.attn.mode == "conv")
+    final = int(model.norm is not None)
+    return {"fused_ln_qkv": remat * depth, "flash_attention_ln": 0,
+            "fused_ln_mlp": remat * depth,
+            "fused_layer_norm": remat * norms + final,
+            "flash_attention": remat * depth, "flash_attention_bwd": depth,
+            "fused_ln_qkv_bwd": depth, "fused_ln_mlp_bwd": depth,
+            "fused_layer_norm_bwd": norms + final}
+
+
+def train_checks(card: str):
+    """The full MViT-v2-B 16x4 @448 train step at batch 4 (mixup, activation
+    checkpointing, AdamW, bf16 compute, f32 params and optimizer state)."""
+    import torch
+
+    from aicity_action_tpu_torch.config import mvitv2_b_16x4_448_cfg
+    from aicity_action_tpu_torch.data.mixup import build_mixup_from_cfg
+    from aicity_action_tpu_torch.engine.steps import make_train_step
+    from aicity_action_tpu_torch.models.build import build_model
+    from aicity_action_tpu_torch.solver.optimizer import construct_optimizer
+
+    cfg = mvitv2_b_16x4_448_cfg()
+    cfg.MIXUP.ENABLE = True
+    if not cfg.MODEL.ACT_CHECKPOINT:
+        _fail("the 448 recipe is expected to checkpoint activations")
+    model = build_model(cfg, device="cuda", seed=SEED)
+    opt = construct_optimizer(cfg, model, steps_per_epoch=100)
+    step = make_train_step(model, opt, cfg.MODEL.LOSS_FUNC,
+                           mixup_fn=build_mixup_from_cfg(cfg),
+                           num_classes=cfg.MODEL.NUM_CLASSES, seed=SEED)
+    T, S = cfg.DATA.NUM_FRAMES, cfg.DATA.TRAIN_CROP_SIZE
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    batch = {"inputs": _normal(gen, (TRAIN_BATCH, T, S, S, 3)),
+             "labels": torch.randint(0, cfg.MODEL.NUM_CLASSES,
+                                     (TRAIN_BATCH,), generator=gen,
+                                     device="cuda")}
+    losses = []
+    for _ in range(TRAIN_WARMUP):
+        losses.append(float(step(batch)[0]["loss"]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t = time.perf_counter()
+    metrics = [step(batch)[0] for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3 / TRAIN_STEPS
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses += [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    want = {k: TRAIN_STEPS * v for k, v in train_per_step(model).items()}
+    print(f"# MViT-v2-B 16x4 @448 train step, batch {TRAIN_BATCH}, mixup, "
+          f"activation checkpointing, AdamW: {ms:.2f} ms/step, "
+          f"{TRAIN_BATCH / ms * 1e3:.3f} clips/s, peak memory "
+          f"{peak / 2 ** 30:.2f} GiB ({card}); losses {losses}; grad norms "
+          f"{norms}; launches over {TRAIN_STEPS} steps {launches}")
+    if not all(np.isfinite(losses)) or not all(np.isfinite(norms)):
+        _fail("non-finite loss or gradient norm in the train step")
+    if launches != want:
+        _fail(f"train-step launches {launches} != {want}")
+    stats = {"ms_per_step": ms, "clips_per_s": TRAIN_BATCH / ms * 1e3,
+             "peak_mem_bytes": peak, "losses": losses, "grad_norms": norms,
+             "launches_per_step": {k: v // TRAIN_STEPS
+                                   for k, v in launches.items()}}
+    del step, opt, batch
+    return model, cfg, launches, stats
+
+
+def train_grad_check(cfg):
+    """One batch-1 step's loss and gradients (no update) with the kernels
+    against the same model in its plain reference mode: the same params,
+    mixup draw and DropPath / dropout masks. The model is built afresh from
+    the seed: the train steps before would leave params that depend on the
+    order of the convolutions' backward sums, and so a check that moves
+    from run to run."""
+    import torch
+
+    from aicity_action_tpu_torch.data.mixup import build_mixup_from_cfg
+    from aicity_action_tpu_torch.engine.steps import step_generators
+    from aicity_action_tpu_torch.models.build import build_model
+    from aicity_action_tpu_torch.models.losses import soft_cross_entropy
+    from aicity_action_tpu_torch.ops import kernels
+    from aicity_action_tpu_torch.solver.optimizer import global_norm
+
+    model = build_model(cfg, device="cuda", seed=SEED)
+
+    T, S = cfg.DATA.NUM_FRAMES, cfg.DATA.TRAIN_CROP_SIZE
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    x = _normal(gen, (1, T, S, S, 3))
+    y = torch.tensor([5], device="cuda")
+    mix = build_mixup_from_cfg(cfg)
+    model.train()
+    params = [p for p in model.parameters()]
+
+    def run(xx=x):
+        g, rng = step_generators(SEED, 7, "cuda")
+        inputs, targets = mix(xx, y, rng)
+        model.zero_grad(set_to_none=True)
+        loss = soft_cross_entropy(model(inputs, generator=g), targets)
+        loss.backward()
+        return (loss.item(), global_norm(params).item(),
+                [p.grad.detach().float().clone() for p in params])
+
+    loss_k, norm_k, grads_k = run()
+    with kernels.plain_reference():
+        loss_p, norm_p, grads_p = run()
+        # the noise floor: the plain reference itself with its input moved
+        # by a bf16 rounding (relative 2^-9); the early blocks' conv-pool
+        # and qkv gradients move by 3-5e-2 under it (reported, not held)
+        noise = torch.randn(x.shape, generator=gen, device="cuda")
+        _, _, grads_n = run(x * (1 + 2.0 ** -9 * noise))
+    torch.cuda.synchronize()
+    names = [n for n, _ in model.named_parameters()]
+    # the k pool norms' biases have an exact gradient of zero (softmax
+    # ignores one shift of every key), so both paths hold rounding noise
+    # there: those leaves are held to a norm below 1e-3 of the global one
+    zero = [i for i, n in enumerate(names) if n.endswith("attn.norm_k.bias")]
+    zero_max = max(max(grads_k[i].norm().item(), grads_p[i].norm().item())
+                   for i in zero) if zero else 0.0
+    rel = {i: ((grads_k[i] - grads_p[i]).norm()
+               / grads_p[i].norm().clamp_min(1e-30)).item()
+           for i in range(len(names)) if i not in zero}
+    worst = max(rel, key=rel.get)
+    floor = ((grads_n[worst] - grads_p[worst]).norm()
+             / grads_p[worst].norm()).item()
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    norm_err = abs(norm_k - norm_p) / norm_p
+    print(f"# batch-1 train step, kernels vs plain reference: loss "
+          f"{loss_k:.6f} vs {loss_p:.6f} (rel {loss_err:.2e}, tol 1e-2), "
+          f"grad_norm {norm_k:.6f} vs {norm_p:.6f} (rel {norm_err:.2e}, "
+          f"tol 2e-2), worst leaf {names[worst]} relative L2 "
+          f"{rel[worst]:.3e} (tol 5e-2; the plain reference moves it by "
+          f"{floor:.3e} for a bf16 rounding of its input), median "
+          f"{float(np.median(list(rel.values()))):.3e}; {len(zero)} "
+          f"zero-gradient leaves (k-norm biases) at most {zero_max:.3e} "
+          f"(tol {1e-3 * norm_p:.3e})")
+    if not (loss_err <= 1e-2 and norm_err <= 2e-2 and rel[worst] <= 5e-2
+            and zero_max <= 1e-3 * norm_p):
+        _fail("the train step's kernel gradients disagree with the plain "
+              "reference")
+    del model, grads_k, grads_p, grads_n
+    torch.cuda.empty_cache()
+    return {"loss_rel_err": loss_err, "grad_norm_rel_err": norm_err,
+            "worst_leaf": names[worst], "worst_leaf_rel_l2": rel[worst],
+            "worst_leaf_plain_noise_floor": floor,
+            "median_leaf_rel_l2": float(np.median(list(rel.values()))),
+            "zero_grad_leaves_max_norm": zero_max}
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -472,6 +876,7 @@ def main() -> int:
           f"{torch.version.cuda}")
     build_kernels()
     checks = kernel_checks()
+    checks.update(train_kernel_checks())
     for name, cases in checks.items():
         for c in cases:
             print(f"# {name} {c['shape']}: err {c['max_abs_err']:.3e} "
@@ -480,20 +885,29 @@ def main() -> int:
                   f"ms, bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
     model, cfg, model_stats = model_checks(card)
     launches = scorer_checks(model, cfg)
+    del model
+    torch.cuda.empty_cache()
+    model, cfg, train_launches, train_stats = train_checks(card)
+    del model
+    torch.cuda.empty_cache()
+    train_stats["grad_check"] = train_grad_check(cfg)
 
     kernels_line = []
-    for name in KERNEL_FNS:
+    for name in KERNEL_FNS + TRAIN_KERNEL_FNS:
         first = checks[name][0]
         source, replaces = SOURCES[name]
         kernels_line.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": (launches if name in KERNEL_FNS
+                         else train_launches)[name],
             **{k: first[k] for k in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms")},
             "shape": first["shape"],
+            "train_launches_per_step": train_stats["launches_per_step"][name],
             "other_shapes": checks[name][1:],
         })
-    print(json.dumps({"model": model_stats}))
+    print(json.dumps({"model": model_stats, "train": train_stats}))
     print(json.dumps({"kernels": kernels_line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,12 @@
-"""The PyTorch port's four kernel functions on the CPU, where each runs its
+"""The PyTorch port's kernel functions on the CPU, where each runs its
 plain version, against the JAX package's Pallas kernels in interpret mode.
 
-Inputs are made with numpy from a seed and fed to both in f32. Tolerance:
+Inputs are made with numpy from a seed and fed to both in f32. Forwards:
 max abs error 2e-5 (f32 arithmetic; the two sum in different orders, and
-the Pallas MLP's erf polynomial is within 1.5e-7 of the exact erf)."""
+the Pallas MLP's erf polynomial is within 1.5e-7 of the exact erf).
+Backwards: the plain version differentiated by autograd against the JAX
+custom VJP through its Pallas backward kernel, rtol 1e-4 / atol 1e-5 (f32;
+row sums over up to 16384 keys or 64 rows taken in different orders)."""
 
 import itertools
 
@@ -160,3 +163,124 @@ def test_wrappers_take_the_plain_version_on_cpu_only():
     assert kernels.use_kernel(x) is False
     with pytest.raises(ValueError):
         kernels.use_kernel(torch.ones(2, device="meta"))
+
+
+# ------------------------------------------------------------- backwards
+
+def _close_grad(port, ref):
+    np.testing.assert_allclose(port.detach().numpy(), np.asarray(ref),
+                               rtol=1e-4, atol=1e-5)
+
+
+def _grads(fn, inputs, cotangents):
+    """Autograd of the port's (plain) ``fn`` at numpy ``inputs``."""
+    ts = [torch.from_numpy(a).requires_grad_() for a in inputs]
+    outs = fn(*ts)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    return torch.autograd.grad(outs, ts, [torch.from_numpy(c)
+                                          for c in cotangents])
+
+
+@pytest.mark.parametrize("groups", [1, 4])
+def test_fused_layer_norm_backward_matches_pallas(groups):
+    rng = np.random.default_rng(20)
+    M, C = 64, 192
+    x = _arr(rng, (M, C), 2.0, 0.5)
+    g, b = _arr(rng, (C // groups,), 0.1, 1.0), _arr(rng, (C // groups,), 0.1)
+    dy = _arr(rng, (M, C))
+    _, vjp = jax.vjp(lambda *a: jln.fused_layer_norm(*a, 1e-5, groups),
+                     *(jnp.asarray(a) for a in (x, g, b)))
+    ref = vjp(jnp.asarray(dy))
+    out = _grads(lambda *a: tln.fused_layer_norm(*a, 1e-5, groups),
+                 (x, g, b), (dy,))
+    for o, r in zip(out, ref):
+        _close_grad(o, r)
+
+
+@pytest.mark.parametrize("Lq,Lk,variant", [
+    (64, 32, "merged"), (32, 4096, "k-chunked"), (16, 16384, "split")])
+def test_flash_attention_backward_matches_pallas(Lq, Lk, variant):
+    """dq, dk, dv and the saved lse against the JAX custom VJP, at shapes
+    that reach each of the three Pallas backward variants."""
+    G, d = 2, 96
+    assert (jfa._bwd_fused_tile(Lq, Lk, d) is not None) == (
+        variant == "merged")
+    assert (jfa._bwd_chunked_tiles(Lq, Lk, d) is not None) == (
+        variant != "split")
+    rng = np.random.default_rng(21)
+    q, k, v = (_arr(rng, (G, n, d), 1.5, 0.3) for n in (Lq, Lk, Lk))
+    dout = _arr(rng, (G, Lq, d))
+    scale = d ** -0.5
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    out_ref, vjp = jax.vjp(lambda a, b, c: jfa.flash_attention(a, b, c, scale),
+                           jq, jk, jv)
+    ref = vjp(jnp.asarray(dout))
+    _, (*_, lse_ref) = jfa._flash_fwd(jq, jk, jv, scale)
+    out, lse = tfa.flash_attention_lse_plain(
+        *(torch.from_numpy(a) for a in (q, k, v)), scale)
+    _close(out, out_ref)
+    _close(lse, np.asarray(lse_ref).reshape(G, Lq))
+    grads = _grads(lambda *a: tfa.flash_attention(*a, scale), (q, k, v),
+                   (dout,))
+    for o, r in zip(grads, ref):
+        _close_grad(o, r)
+
+
+@pytest.mark.parametrize("d,c,tokens", [(96, 96, 32), (64, 192, 16)])
+def test_fused_ln_qkv_backward_matches_pallas(d, c, tokens):
+    """dx, dgamma, dbeta, dW, db; the port's gradients of q, k, v arrive
+    channel-major, [B, C, L], as its forward wrote them."""
+    rng = np.random.default_rng(22)
+    m = 64
+    x = _arr(rng, (m, d))
+    g, b = _arr(rng, (d,), 0.1, 1.0), _arr(rng, (d,), 0.1)
+    w = _arr(rng, (d, 3 * c), d ** -0.5)
+    bb = _arr(rng, (3 * c,), 0.1)
+    cts = [_arr(rng, (m, c)) for _ in range(3)]
+    _, vjp = jax.vjp(lambda *a: jfd.fused_ln_qkv(*a, 1e-6),
+                     *(jnp.asarray(a) for a in (x, g, b, w, bb)))
+    dx, dg, db_, dw, dbias = vjp(tuple(jnp.asarray(t) for t in cts))
+    cm = [t.reshape(m // tokens, tokens, c).transpose(0, 2, 1).copy()
+          for t in cts]
+    out = _grads(lambda x_, g_, b_, w_, bb_: tfd.fused_ln_qkv(
+        x_, g_, b_, w_, bb_, 1e-6, tokens), (x, g, b, w.T.copy(), bb), cm)
+    for o, r in zip(out, (dx, dg, db_, np.asarray(dw).T, dbias)):
+        _close_grad(o, r)
+
+
+@pytest.mark.parametrize("m,d,variant", [(64, 96, "whole"),
+                                         (16, 512, "hsplit")])
+def test_fused_ln_mlp_backward_matches_pallas(m, d, variant):
+    """Both Pallas backward variants: whole weights, and the hidden-split
+    one the JAX package takes when the weights do not fit (C = 768 at 448;
+    reached here at C = 512)."""
+    h = 4 * d
+    assert jfd.ln_mlp_bwd_supported(m, d, h, d) == (variant == "whole")
+    assert jfd.ln_mlp_bwd_hsplit_supported(m, d, h, d)
+    rng = np.random.default_rng(23)
+    x = _arr(rng, (m, d))
+    g, b = _arr(rng, (d,), 0.1, 1.0), _arr(rng, (d,), 0.1)
+    w1, b1 = _arr(rng, (d, h), d ** -0.5), _arr(rng, (h,), 0.1)
+    w2, b2 = _arr(rng, (h, d), h ** -0.5), _arr(rng, (d,), 0.1)
+    dout = _arr(rng, (m, d))
+    _, vjp = jax.vjp(lambda *a: jfd.fused_ln_mlp(*a, 1e-6),
+                     *(jnp.asarray(a) for a in (x, g, b, w1, b1, w2, b2)))
+    ref = list(vjp(jnp.asarray(dout)))
+    ref[3], ref[5] = np.asarray(ref[3]).T, np.asarray(ref[5]).T
+    out = _grads(lambda *a: tfd.fused_ln_mlp(*a, 1e-6),
+                 (x, g, b, w1.T.copy(), b1, w2.T.copy(), b2), (dout,))
+    for o, r in zip(out, ref):
+        _close_grad(o, r)
+
+
+def test_kernel_splits_fill_the_card_in_whole_steps():
+    """Rows per split of the backward kernels: multiples of the step, at
+    least min_rows, and splits x tiles within 5% of the target block count
+    (rounding the rows up to whole steps loses a few splits)."""
+    for rows, tiles, step in ((401408, 3, 32), (6272, 192, 32),
+                              (100352, 100, 64), (100, 1, 64)):
+        rps = kernels.splits(rows, tiles, step)
+        n = -(-rows // rps)
+        assert rps % step == 0 and rps >= 256
+        assert (n == 1 or n * tiles >= 0.95 * kernels.SPLIT_TARGET_BLOCKS
+                or rps == 256)

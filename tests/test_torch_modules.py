@@ -19,7 +19,6 @@ import torch
 
 from aicity_action_tpu.config import get_cfg as jax_get_cfg
 from aicity_action_tpu.models import mvit as jmvit
-from aicity_action_tpu.models.build import build_model as jax_build_model
 from aicity_action_tpu.ops import pooling as jpool
 from aicity_action_tpu.utils.convert import convert_mvit_state_dict
 from aicity_action_tpu_torch.config import get_cfg, mvitv2_b_16x4_448_cfg
@@ -28,7 +27,7 @@ from aicity_action_tpu_torch.models.build import build_model
 from aicity_action_tpu_torch.models.common import FusedLayerNorm
 from aicity_action_tpu_torch.ops import pooling as tpool
 from aicity_action_tpu_torch.utils.convert import jax_params_to_state_dict
-from torch_port_helpers import YAML, perturb, tiny_cfg
+from torch_port_helpers import YAML, jax_tiny_model, perturb, tiny_cfg
 
 TOL = 2e-5
 
@@ -157,6 +156,29 @@ def test_multiscale_block_matches_jax(dim, dim_out, heads, stride_q):
     _close(out, ref)
 
 
+@pytest.mark.parametrize("mode", ["max", "avg"])
+def test_pool_mode_block_matches_jax(mode):
+    """A max / avg pool block: no pool convs and no pool norms; its
+    attention goes through flash_attention (mvit.py:565-589, 647-669)."""
+    rng = np.random.default_rng(14)
+    thw = (2, 8, 8)
+    x = rng.standard_normal((2, int(np.prod(thw)), 16)).astype(np.float32)
+    fields = dict(dim=16, dim_out=32, num_heads=2, kernel_q=(3, 3, 3),
+                  kernel_kv=(3, 3, 3), stride_q=(1, 2, 2),
+                  stride_kv=(1, 4, 4), drop_path=0.1)
+    kw = dict(mode=mode, qkv_bias=True, has_cls=False, q_pool_residual=True,
+              channel_expand_front=True, mlp_ratio=4.0)
+    jmod = jmvit.MultiScaleBlock(spec=jmvit.BlockSpec(**fields), **kw)
+    params = perturb(jmod.init(jax.random.PRNGKey(4), x, thw)["params"], 5)
+    ref, ref_thw = jmod.apply({"params": params}, x, thw)
+    mod = tmvit.MultiScaleBlock(tmvit.BlockSpec(**fields), **kw).eval()
+    mod.load_state_dict(jax_params_to_state_dict(params))
+    with torch.no_grad():
+        out, out_thw = mod(torch.from_numpy(x), thw)
+    assert out_thw == ref_thw
+    _close(out, ref)
+
+
 # ------------------------------------------------------------------ spec
 
 @pytest.mark.parametrize("which", ["448", "tiny"])
@@ -180,7 +202,7 @@ def test_build_mvit_spec_matches_jax(which):
 def test_state_dict_round_trips_through_the_jax_converter():
     """jax params -> port state_dict -> convert_mvit_state_dict gives the
     JAX params back exactly, and every port parameter is named."""
-    _, params = jax_build_model(tiny_cfg(jax_get_cfg))
+    _, params = jax_tiny_model()
     params = jax.tree_util.tree_map(np.asarray, params)
     model = build_model(tiny_cfg(get_cfg), device="cpu")
     sd = jax_params_to_state_dict(params)

@@ -15,22 +15,22 @@ import numpy as np
 import pytest
 import torch
 
-from aicity_action_tpu.config import get_cfg as jax_get_cfg
 from aicity_action_tpu.models import mvit as jmvit
-from aicity_action_tpu.models.build import build_model as jax_build_model
 from aicity_action_tpu.ops.pallas import flash_attention as jfa
 from aicity_action_tpu_torch.config import get_cfg
 from aicity_action_tpu_torch.models import mvit as tmvit
 from aicity_action_tpu_torch.models.build import build_model
 from aicity_action_tpu_torch.utils.convert import jax_params_to_state_dict
-from torch_port_helpers import perturb, tiny_cfg
+from torch_port_helpers import jax_tiny_model, perturb, tiny_cfg
 
 TOL = 2e-5
 
 
 @pytest.fixture(scope="module")
 def pair():
-    module, params = jax_build_model(tiny_cfg(jax_get_cfg))
+    # remat changes nothing at eval; the build is shared with the other
+    # port tests of the process
+    module, params = jax_tiny_model()
     params = perturb(params, 0)
     model = build_model(tiny_cfg(get_cfg), device="cpu")
     model.load_state_dict(jax_params_to_state_dict(params), strict=True)
@@ -95,6 +95,8 @@ def test_forward_takes_a_pathway_list_and_is_batch_independent(pair):
 
 def test_unported_branches_raise():
     cfg = tiny_cfg(get_cfg)
+    cfg.MVIT.MODE = "max"  # ported: builds
+    assert build_model(cfg, device="cpu").blocks[0].attn.mode == "max"
     cfg.MVIT.CLS_EMBED_ON = True
     with pytest.raises(NotImplementedError):
         build_model(cfg, device="cpu")

@@ -20,7 +20,6 @@ import pytest
 import torch
 
 from aicity_action_tpu.config import get_cfg as jax_get_cfg
-from aicity_action_tpu.models.build import build_model as jax_build_model
 from aicity_action_tpu.parallel.mesh import make_mesh
 from aicity_action_tpu.pipeline import postprocess as jpp
 from aicity_action_tpu.pipeline import window_inference as jwi
@@ -28,7 +27,7 @@ from aicity_action_tpu_torch.config import get_cfg
 from aicity_action_tpu_torch.models.build import build_model
 from aicity_action_tpu_torch.pipeline import window_inference as twi
 from aicity_action_tpu_torch.utils.convert import jax_params_to_state_dict
-from torch_port_helpers import perturb, tiny_cfg
+from torch_port_helpers import jax_tiny_model, perturb, tiny_cfg
 
 cv2 = pytest.importorskip("cv2")
 
@@ -66,7 +65,7 @@ def models():
     # remat is a training knob, and the JAX scorer's jit of a remat'ed
     # block traces the static (T, H, W); inference needs neither
     cfg.MODEL.ACT_CHECKPOINT = False
-    module, params = jax_build_model(cfg)
+    module, params = jax_tiny_model()
     params = perturb(params, 5)
     model = build_model(tiny_cfg(get_cfg), device="cpu")
     model.load_state_dict(jax_params_to_state_dict(params), strict=True)

@@ -1,5 +1,8 @@
 """Shared set-up of the tests that hold the PyTorch port against the JAX
-package: the tiny MViT-v2 config and numpy-made parameter noise."""
+package: the tiny MViT-v2 config, the JAX model built once per process, and
+numpy-made parameter noise."""
+
+import functools
 
 import jax
 import numpy as np
@@ -32,3 +35,42 @@ def perturb(params, seed, std=0.05):
     return jax.tree_util.tree_map(
         lambda a: np.asarray(a, np.float32)
         + std * rng.standard_normal(a.shape).astype(np.float32), params)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_tiny_model():
+    """``(module, params)`` of the JAX package's tiny MViT-v2 without
+    activation checkpointing (its jit of a remat'ed block traces the static
+    (T, H, W), and the callers run eval forwards), built once per process.
+    The params are the ones ``build_model`` makes (its ``lazy_init`` from
+    ``RNG_SEED``, the XLA attention path), with the initializers run as one
+    jitted program rather than op by op, which is ~4x faster on a CPU.
+    Callers must not mutate ``params``."""
+    from aicity_action_tpu.config import get_cfg
+    from aicity_action_tpu.models.build import build_module
+    from aicity_action_tpu.ops.pallas import flash_attention as fa
+
+    cfg = tiny_cfg(get_cfg)
+    cfg.MODEL.ACT_CHECKPOINT = False
+    module, example = build_module(cfg)
+    with fa.disabled():
+        variables = jax.jit(lambda rng: module.lazy_init(
+            {"params": rng}, example))(jax.random.PRNGKey(cfg.RNG_SEED))
+    return module, variables["params"]
+
+
+def jax_tiny_params_from_port(seed=0):
+    """The tiny MViT-v2's params for the JAX package made without building
+    the JAX model: the port's model drawn from ``seed``, its ``state_dict``
+    through the JAX package's own converter (``convert_mvit_state_dict``,
+    held exact by test_torch_modules). Numpy leaves."""
+    from aicity_action_tpu.utils.convert import convert_mvit_state_dict
+    from aicity_action_tpu_torch.config import get_cfg
+    from aicity_action_tpu_torch.models.build import build_model
+
+    model = build_model(tiny_cfg(get_cfg), device="cpu", seed=seed)
+    params, skipped = convert_mvit_state_dict(
+        {k: v.numpy() for k, v in model.state_dict().items()})
+    if skipped:
+        raise ValueError(f"unconverted port parameters: {skipped}")
+    return params

@@ -509,3 +509,63 @@ def mvitv2_b_16x4_448_cfg() -> CfgNode:
     cfg = get_cfg()
     cfg.merge_from_other_cfg(CfgNode(_MVITV2_B_16x4_448))
     return cfg
+
+
+# PySlowFast's published Kinetics-400 MViT-B 16x4
+# (facebookresearch/SlowFast configs/Kinetics/MVIT_B_16x4_CONV.yaml; Fan et
+# al., Multiscale Vision Transformers, ICCV 2021): the MViT-v1 with a cls
+# token. Its MVIT section is the 448 table's without the three v2 lines
+# (CHANNEL_EXPAND_FRONT, Q_POOL_ALL and Q_POOL_RESIDUAL stay at their
+# defaults, False), with the cls token on and DropPath 0.2, at a 224 crop.
+_MVIT_B_16x4_224 = {
+    "TRAIN": {"ENABLE": True, "DATASET": "kinetics", "BATCH_SIZE": 64},
+    "DATA": {
+        "NUM_FRAMES": 16, "SAMPLING_RATE": 4,
+        "TRAIN_JITTER_SCALES": [256, 320], "TRAIN_CROP_SIZE": 224,
+        "TEST_CROP_SIZE": 224, "INPUT_CHANNEL_NUM": [3],
+        "TRAIN_JITTER_SCALES_RELATIVE": [0.08, 1.0],
+        "TRAIN_JITTER_ASPECT_RELATIVE": [0.75, 1.3333],
+    },
+    "MVIT": {
+        "ZERO_DECAY_POS_CLS": False, "SEP_POS_EMBED": True, "DEPTH": 16,
+        "NUM_HEADS": 1, "EMBED_DIM": 96, "PATCH_KERNEL": (3, 7, 7),
+        "PATCH_STRIDE": (2, 4, 4), "PATCH_PADDING": (1, 3, 3),
+        "MLP_RATIO": 4.0, "QKV_BIAS": True, "DROPPATH_RATE": 0.2,
+        "NORM": "layernorm", "MODE": "conv", "CLS_EMBED_ON": True,
+        "DIM_MUL": [[1, 2.0], [3, 2.0], [14, 2.0]],
+        "HEAD_MUL": [[1, 2.0], [3, 2.0], [14, 2.0]],
+        "POOL_KVQ_KERNEL": [3, 3, 3], "POOL_KV_STRIDE_ADAPTIVE": [1, 8, 8],
+        "POOL_Q_STRIDE": [[1, 1, 2, 2], [3, 1, 2, 2], [14, 1, 2, 2]],
+        "DROPOUT_RATE": 0.0, "CHANNEL_EXPAND_FRONT": False,
+        "Q_POOL_ALL": False, "Q_POOL_RESIDUAL": False,
+    },
+    "MIXUP": {"ENABLE": True, "ALPHA": 0.8, "CUTMIX_ALPHA": 1.0,
+              "PROB": 1.0, "SWITCH_PROB": 0.5, "LABEL_SMOOTH_VALUE": 0.1},
+    "MODEL": {
+        "NUM_CLASSES": 400, "ARCH": "mvit", "MODEL_NAME": "MViT",
+        "LOSS_FUNC": "soft_cross_entropy", "DROPOUT_RATE": 0.5,
+        "ACT_CHECKPOINT": False,
+    },
+    "SOLVER": {
+        "ZERO_WD_1D_PARAM": True, "CLIP_GRAD_L2NORM": 1.0, "BASE_LR": 0.0001,
+        "COSINE_AFTER_WARMUP": True, "COSINE_END_LR": 1e-6,
+        "WARMUP_START_LR": 1e-6, "WARMUP_EPOCHS": 30.0,
+        "LR_POLICY": "cosine", "MAX_EPOCH": 200, "MOMENTUM": 0.9,
+        "WEIGHT_DECAY": 0.05, "OPTIMIZING_METHOD": "adamw",
+    },
+    "TEST": {"ENABLE": True, "DATASET": "kinetics", "BATCH_SIZE": 64,
+             "NUM_SPATIAL_CROPS": 1, "NUM_ENSEMBLE_VIEWS": 5},
+    "TPU": {"COMPUTE_DTYPE": "bfloat16"},
+    "NUM_GPUS": 8,
+    "NUM_SHARDS": 1,
+    "RNG_SEED": 0,
+}
+
+
+def mvit_b_16x4_224_cfg() -> CfgNode:
+    """MViT-B 16x4 @ 224 with a cls token (PySlowFast's Kinetics-400
+    ``MVIT_B_16x4_CONV.yaml``), built in code; bf16, no activation
+    checkpointing."""
+    cfg = get_cfg()
+    cfg.merge_from_other_cfg(CfgNode(_MVIT_B_16x4_224))
+    return cfg

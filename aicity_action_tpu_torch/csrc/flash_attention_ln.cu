@@ -5,8 +5,15 @@
 //
 // Replaces aicity_action_tpu/ops/pallas/flash_attention.py:_flash_ln_fwd_kernel
 // (reached through flash_attention_ln), which runs in all 16 MViT blocks at
-// inference. At 448 it sees q [B*h, Lq, 96] and k, v [B*h, Lk, 96] with Lq up
-// to 100352 and Lk in {1568, 6272}: 4*Lq*Lk*d flops against 2*(Lq + 2*Lk)*d
+// inference, and _flash_ln_fwd_lse_kernel (_flash_ln_fwd, the forward under
+// autograd when training takes the fused path): the same kernel, which also
+// stores the f32 logsumexp of each query row when given an lse buffer, and
+// the attention output before the v2 residual for the backward's delta
+// (the Pallas wrapper recovers it as out - LN(q) from the bf16 out, which
+// costs a rounding of O + LN(q), with LN(q) of order 1: noise in gradients
+// that cancel, such as the k norm's bias gradient, exactly zero). At
+// 448 it sees q [B*h, Lq, 96] and k, v [B*h, Lk, 96] with Lq up to 100352
+// and Lk in {1568, 6272}: 4*Lq*Lk*d flops against 2*(Lq + 2*Lk)*d
 // bytes, far above the ridge, so it is bound by the tensor cores (and by the
 // CUDA-core work of the softmax).
 //
@@ -38,6 +45,7 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "flash_ln.cuh"
 
 namespace aicity {
 
@@ -45,97 +53,12 @@ namespace aicity {
 // from shared memory feeds two MMAs; two blocks fit on an SM.
 constexpr int FA_TQ = 128, FA_TK = 64, FA_THREADS = 128;
 
-// Columns of a d-major smem tile (src[c][tok], D rows) become LayerNormed
-// rows of dst[tok][c] (f32 statistics; a plain transpose when !apply), one
-// thread per token, the column held in registers.
-template <int D>
-__device__ __forceinline__ void norm_cols_to_rows(const bf16* src, int lds,
-                                                  bf16* dst, int ldd,
-                                                  int ntok, const bf16* gamma,
-                                                  const bf16* beta, float eps,
-                                                  int apply) {
-  for (int tok = threadIdx.x; tok < ntok; tok += blockDim.x) {
-    float x[D];
-    float sum = 0.f;
-#pragma unroll
-    for (int c = 0; c < D; ++c) {
-      x[c] = __bfloat162float(src[c * lds + tok]);
-      sum += x[c];
-    }
-    float mean = 0.f, rstd = 1.f;
-    if (apply) {
-      mean = sum / D;
-      float q = 0.f;
-#pragma unroll
-      for (int c = 0; c < D; ++c) q += (x[c] - mean) * (x[c] - mean);
-      rstd = rsqrtf(q / D + eps);
-    }
-#pragma unroll
-    for (int c = 0; c < D; c += 2) {
-      float y0 = x[c], y1 = x[c + 1];
-      if (apply) {
-        y0 = (y0 - mean) * rstd * __bfloat162float(gamma[c]) +
-             __bfloat162float(beta[c]);
-        y1 = (y1 - mean) * rstd * __bfloat162float(gamma[c + 1]) +
-             __bfloat162float(beta[c + 1]);
-      }
-      *reinterpret_cast<uint32_t*>(dst + tok * ldd + c) = pack_bf16(y0, y1);
-    }
-  }
-}
-
-// K or V from the d-major layout [G][D][L] to token rows [G][L][D],
-// LayerNormed over D when apply (f32 statistics), one thread per token, the
-// column read once into registers.
-template <int D>
-__global__ void __launch_bounds__(128)
-    kv_rows_kernel(const bf16* __restrict__ src, const bf16* __restrict__ gamma,
-                   const bf16* __restrict__ beta, bf16* __restrict__ dst,
-                   int L, float eps, int apply) {
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= L) return;
-  const bf16* s = src + (size_t)blockIdx.y * D * L + l;  // element c: s[c*L]
-  bf16* d = dst + ((size_t)blockIdx.y * L + l) * D;
-  float x[D];
-  float sum = 0.f;
-#pragma unroll
-  for (int c = 0; c < D; ++c) {
-    x[c] = __bfloat162float(s[(size_t)c * L]);
-    sum += x[c];
-  }
-  float mean = 0.f, rstd = 1.f;
-  if (apply) {
-    mean = sum / D;
-    float q = 0.f;
-#pragma unroll
-    for (int c = 0; c < D; ++c) q += (x[c] - mean) * (x[c] - mean);
-    rstd = rsqrtf(q / D + eps);
-  }
-#pragma unroll
-  for (int c0 = 0; c0 < D; c0 += 8) {
-    uint32_t w[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float y[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = c0 + 2 * j + e;
-        y[e] = x[c];
-        if (apply)
-          y[e] = (y[e] - mean) * rstd * __bfloat162float(gamma[c]) +
-                 __bfloat162float(beta[c]);
-      }
-      w[j] = pack_bf16(y[0], y[1]);
-    }
-    *reinterpret_cast<uint4*>(d + c0) = make_uint4(w[0], w[1], w[2], w[3]);
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(FA_THREADS, 2)
     flash_ln_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ gq,
-                    const bf16* __restrict__ bq, bf16* __restrict__ o, int Lq,
+                    const bf16* __restrict__ bq, bf16* __restrict__ o,
+                    float* __restrict__ lse, bf16* __restrict__ oa, int Lq,
                     int Lk, float scale, float eps, int fq, int add_qn) {
   constexpr int LD = D + 8;        // smem row stride (16-byte aligned rows)
   constexpr int KS = D / 16;       // k-steps of Q K^T
@@ -153,6 +76,7 @@ __global__ void __launch_bounds__(FA_THREADS, 2)
   const bf16* kg = k + (size_t)grp * Lk * D;  // token rows [Lk][D]
   const bf16* vg = v + (size_t)grp * Lk * D;
   bf16* og = o + (size_t)grp * Lq * D;
+  bf16* oag = oa == nullptr ? nullptr : oa + (size_t)grp * Lq * D;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int wr = warp * 32;  // this warp's first row in the q tile
@@ -314,6 +238,10 @@ __global__ void __launch_bounds__(FA_THREADS, 2)
       l1 += __shfl_xor_sync(0xffffffffu, l1, off);
     }
     const int r0 = wr + mi * 16 + g, r1 = r0 + 8;
+    if (lse != nullptr && t == 0) {  // the training forward's logsumexp
+      if (q0 + r0 < Lq) lse[(size_t)grp * Lq + q0 + r0] = m[mi][0] + logf(l0);
+      if (q0 + r1 < Lq) lse[(size_t)grp * Lq + q0 + r1] = m[mi][1] + logf(l1);
+    }
 #pragma unroll
     for (int nd = 0; nd < ND; ++nd) {
       const int col = nd * 8 + 2 * t;
@@ -322,6 +250,14 @@ __global__ void __launch_bounds__(FA_THREADS, 2)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         y[e] = __bfloat162float(__float2bfloat16(y[e]));
+      if (oag != nullptr) {  // the attention output before the residual
+        if (q0 + r0 < Lq)
+          *reinterpret_cast<uint32_t*>(oag + (size_t)(q0 + r0) * D + col) =
+              pack_bf16(y[0], y[1]);
+        if (q0 + r1 < Lq)
+          *reinterpret_cast<uint32_t*>(oag + (size_t)(q0 + r1) * D + col) =
+              pack_bf16(y[2], y[3]);
+      }
       if (add_qn) {
         y[0] += __bfloat162float(qs[r0 * LD + col]);
         y[1] += __bfloat162float(qs[r0 * LD + col + 1]);
@@ -346,16 +282,17 @@ size_t flash_ln_smem_bytes() {
 
 template <int D>
 int launch_flash_ln(const void* q, const void* k, const void* v,
-                    const void* gq, const void* bq, void* o, int G, int Lq,
-                    int Lk, float scale, float eps, int fq, int add_qn,
-                    cudaStream_t stream) {
+                    const void* gq, const void* bq, void* o, void* lse,
+                    void* oa, int G, int Lq, int Lk, float scale, float eps,
+                    int fq, int add_qn, cudaStream_t stream) {
   const size_t smem = flash_ln_smem_bytes<D>();
   cudaError_t err = set_smem(flash_ln_kernel<D>, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Lq + FA_TQ - 1) / FA_TQ, G);
   flash_ln_kernel<D><<<grid, FA_THREADS, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)gq,
-      (const bf16*)bq, (bf16*)o, Lq, Lk, scale, eps, fq, add_qn);
+      (const bf16*)bq, (bf16*)o, (float*)lse, (bf16*)oa, Lq, Lk, scale, eps,
+      fq, add_qn);
   return (int)cudaGetLastError();
 }
 
@@ -364,12 +301,15 @@ int launch_flash_ln(const void* q, const void* k, const void* v,
 // q, k, v come d-major, [G, d, L] (per head, the NCDHW output of the pool
 // convolutions); kn / vn are [G, Lk, d] scratch for the token rows of
 // LN(k) / LN(v) (of k / v where fk / fv is off). The output is [G, Lq, d].
+// The training forward also stores lse [G, Lq] f32 (the logsumexp) and oa
+// [G, Lq, d], the attention output before the residual, for the backward's
+// delta; either may be null.
 extern "C" int aicity_flash_attention_ln(
     const void* q, const void* k, const void* v, const void* gq,
     const void* bq, const void* gk, const void* bk, const void* gv,
-    const void* bv, void* o, void* kn, void* vn, int G, int Lq, int Lk, int d,
-    float scale, float eps, int fq, int fk, int fv, int add_qn,
-    void* stream) {
+    const void* bv, void* o, void* lse, void* oa, void* kn, void* vn, int G,
+    int Lq, int Lk, int d, float scale, float eps, int fq, int fk, int fv,
+    int add_qn, void* stream) {
   using namespace aicity;
   cudaStream_t s = (cudaStream_t)stream;
   if (d != 96) return (int)cudaErrorInvalidValue;
@@ -381,6 +321,6 @@ extern "C" int aicity_flash_attention_ln(
       (const bf16*)v, (const bf16*)gv, (const bf16*)bv, (bf16*)vn, Lk, eps, fv);
   const int err = (int)cudaGetLastError();
   if (err) return err;
-  return launch_flash_ln<96>(q, kn, vn, gq, bq, o, G, Lq, Lk, scale, eps, fq,
-                             add_qn, s);
+  return launch_flash_ln<96>(q, kn, vn, gq, bq, o, lse, oa, G, Lq, Lk, scale,
+                             eps, fq, add_qn, s);
 }

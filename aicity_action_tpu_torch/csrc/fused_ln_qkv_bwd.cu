@@ -28,7 +28,8 @@
 //   card; each split writes an f32 partial.
 // Layout: the forward wrote q, k, v channel-major, [B, C, L] each, for the
 // pool convolutions, so their gradients arrive that way: both kernels read
-// G as it lies, 8 tokens (16 bytes) at a time, which needs L % 8 == 0.
+// G as it lies, 8 tokens (16 bytes) at a time where L % 8 == 0, else (the
+// odd 1 + T*H*W of a cls-token model) one element at a time.
 // bf16 products, f32 sums; dW, db, dgamma and dbeta are rounded to bf16 at
 // the end as the Pallas wrapper rounds them to the weights' compute type.
 #include "common.cuh"
@@ -51,18 +52,31 @@ __device__ __forceinline__ const bf16* grad_src(const bf16* dq, const bf16* dk,
 }
 
 // Gradient columns [n0, n0 + nc) x rows [row0, row0 + nrows) into smem as
-// [n][row] (rows contiguous), rows past M zero-filled.
+// [n][row] (rows contiguous), rows past M zero-filled. Clips of a multiple
+// of 8 tokens are read 8 tokens (16 bytes) at a time with cp.async; other
+// token counts (a cls token's 1 + T*H*W) element by element, since their
+// channel rows are not 16-byte aligned and 8 rows may span two clips.
 __device__ __forceinline__ void load_grad_tile(bf16* s, int lds, const bf16* dq,
                                                const bf16* dk, const bf16* dv,
                                                int n0, int nc, int row0,
                                                int nrows, int M, int C,
                                                int tokens) {
-  const int vpr = nrows / 8;
-  for (int i = threadIdx.x; i < nc * vpr; i += blockDim.x) {
-    const int n = i / vpr, r = (i - n * vpr) * 8;
-    const bool ok = row0 + r < M;
-    cp_async16(s + n * lds + r,
-               grad_src(dq, dk, dv, n0 + n, ok ? row0 + r : 0, C, tokens), ok);
+  if (tokens % 8 == 0) {
+    const int vpr = nrows / 8;
+    for (int i = threadIdx.x; i < nc * vpr; i += blockDim.x) {
+      const int n = i / vpr, r = (i - n * vpr) * 8;
+      const bool ok = row0 + r < M;
+      cp_async16(s + n * lds + r,
+                 grad_src(dq, dk, dv, n0 + n, ok ? row0 + r : 0, C, tokens),
+                 ok);
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < nc * nrows; i += blockDim.x) {
+    const int n = i / nrows, r = i - n * nrows;
+    s[n * lds + r] = row0 + r < M
+                         ? *grad_src(dq, dk, dv, n0 + n, row0 + r, C, tokens)
+                         : __float2bfloat16(0.f);
   }
 }
 
@@ -289,7 +303,8 @@ extern "C" int aicity_ln_qkv_bwd(const void* x, const void* gamma,
   using namespace aicity;
   cudaStream_t s = (cudaStream_t)stream;
   const int rows = aicity_ln_qkv_bwd_rows(D);
-  if (!rows || C % QW_T || tokens % 8 || M % tokens || rps <= 0 || rps % 32)
+  if (!rows || C % QW_T || tokens <= 0 || M % tokens || rps <= 0 ||
+      rps % 32)
     return (int)cudaErrorInvalidValue;
   if (M <= 0) return (int)cudaSuccess;
   float* mean = (float*)stats;

@@ -1,4 +1,4 @@
-"""MViT-v2 video backbone (port of ``aicity_action_tpu/models/mvit.py``;
+"""MViT-v1/v2 video backbone (port of ``aicity_action_tpu/models/mvit.py``;
 reference: slowfast/models/video_model_builder.py:794-1335 and
 slowfast/models/attention.py).
 
@@ -7,17 +7,26 @@ slowfast/models/attention.py).
   ``[B, T, H, W, 3]`` as in the JAX package.
 - Parameter names follow the reference PySlowFast ``state_dict``, so a
   released ``.pyth`` ``model_state`` loads with ``load_state_dict``.
-- At eval every conv-pool block runs the fused path the JAX package takes
-  at inference (``mvit.py:335-354``): norm1 + qkv in :func:`fused_ln_qkv`,
-  the post-pool per-head LNs, attention and the v2 q-residual in
-  :func:`flash_attention_ln`, norm2 + MLP in :func:`fused_ln_mlp`, and the
-  final norm in :func:`fused_layer_norm`.
-- In training (``model.train()``), and for the max / avg pool modes, a
-  block takes the JAX package's unfused path: the pooled q, k, v become
+- Which attention a conv-pool block takes follows the JAX package's
+  switch ``AICITY_TPU_FUSE_ATTN_LN`` (``mvit.py:335-354``, ported as
+  :func:`_fuse_attn_ln_enabled`): ``auto`` (the default) fuses at eval
+  only, ``1`` in training too, ``0`` nowhere; a cls-token model never fuses
+  (``mvit.py:543-548``). Fused: norm1 + qkv in :func:`fused_ln_qkv`, the
+  post-pool per-head LNs, attention and the v2 q-residual in
+  :func:`flash_attention_ln` (with its backward kernel under autograd),
+  norm2 + MLP in :func:`fused_ln_mlp`, and the final norm in
+  :func:`fused_layer_norm`.
+- Unfused (and for the max / avg pool modes): the pooled q, k, v become
   head-major token rows, each conv-pooled one goes through its own
-  :func:`fused_layer_norm` (eps 1e-5), then :func:`flash_attention` and
-  ``+ q`` outside the kernel. Every kernel there has a backward kernel.
-  DropPath masks are drawn from the caller's generator before each block,
+  :func:`fused_layer_norm` (eps 1e-5), then :func:`flash_attention` (or,
+  with a cls token's odd lengths ``1 + T*H*W``,
+  :func:`flash_attention_padded`) and ``+ q`` outside the kernel. Every
+  kernel there has a backward kernel.
+- MViT-v1 (``CHANNEL_EXPAND_FRONT False``): attention runs at the block's
+  input width, the MLP changes the channels, and the residual of such a
+  block is ``proj(norm2(x))``; the cls token bypasses pooling, rejoins
+  before the pool norm, and its final-norm row feeds the head.
+- DropPath masks are drawn from the caller's generator before each block,
   so that the recompute of ``MODEL.ACT_CHECKPOINT`` (per-block
   ``torch.utils.checkpoint``) applies the same masks.
 - Numerics: block norms use eps 1e-6, the pool norms torch's default 1e-5
@@ -28,6 +37,7 @@ slowfast/models/attention.py).
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -36,8 +46,9 @@ from torch import nn
 
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.flash_attention import flash_attention, flash_attention_ln
-from ..ops.fused_dense import fused_ln_mlp, fused_ln_qkv
+from ..ops.flash_attention import (flash_attention, flash_attention_ln,
+                                   flash_attention_padded)
+from ..ops.fused_dense import exact_gelu, fused_ln_mlp, fused_ln_qkv
 from ..ops.layer_norm import fused_layer_norm
 from ..ops.pooling import attention_pool, pool3d_ncdhw
 from .common import FusedLayerNorm, drop_path, drop_path_mask, round_width
@@ -279,13 +290,26 @@ def _pool_active(kernel, stride) -> bool:
         np.prod(kernel) == 1 and np.prod(stride) == 1)
 
 
+def _fuse_attn_ln_enabled(training: bool) -> bool:
+    """The JAX package's switch for the fused post-pool-LN attention
+    (``mvit.py:335-354``): ``AICITY_TPU_FUSE_ATTN_LN`` ``auto`` (default)
+    fuses at eval only, ``1`` in training too, ``0`` nowhere."""
+    v = os.environ.get("AICITY_TPU_FUSE_ATTN_LN", "auto")
+    if v == "0":
+        return False
+    if v == "1":
+        return True
+    return not training
+
+
 class MultiScaleAttention(nn.Module):
     """Pooled multi-head attention (reference: attention.py:86-284).
     ``qkv`` takes the un-normalized block input and norm1's parameters and
     writes q/k/v channel-major; they are pooled by depthwise 3-D convs
     (``pool_*``, one ``[d, 1, kT, kH, kW]`` weight shared by the heads) or
-    by max / avg pooling. On the fused path (conv mode at eval) the pool
-    norms (``norm_*``, over head_dim; parameters only, applied inside the
+    by max / avg pooling; a cls token (column 0) bypasses the pooling. On
+    the fused path (see :func:`_fuse_attn_ln_enabled`) the pool norms
+    (``norm_*``, over head_dim; parameters only, applied inside the
     kernel), attention and the q-residual run in one kernel on d-major head
     views ``[B*h, L, d]``; otherwise see :meth:`_unfused`."""
 
@@ -293,13 +317,10 @@ class MultiScaleAttention(nn.Module):
                  kernel_kv, stride_q, stride_kv, mode: str, qkv_bias: bool,
                  has_cls: bool, q_pool_residual: bool):
         super().__init__()
-        if has_cls:
-            raise NotImplementedError(
-                "cls-token MViT needs the padded flash attention kernel, "
-                "which is not ported yet")
         if mode not in ("conv", "max", "avg"):
             raise ValueError(f"unknown pool mode {mode!r}")
         self.mode = mode
+        self.has_cls = has_cls
         self.num_heads = num_heads
         self.head_dim = d = dim_out // num_heads
         self.scale = d ** -0.5
@@ -323,20 +344,31 @@ class MultiScaleAttention(nn.Module):
             setattr(self, f"norm_{name}",
                     FusedLayerNorm(d, eps=1e-5, groups=num_heads))
 
-    def _pool(self, name: str, t: torch.Tensor, thw: Triple) -> torch.Tensor:
-        """Pool one channel-major ``[B, C, L]`` tensor; returns
-        ``[B, C, T', H', W']``."""
+    def _pool(self, name: str, t: torch.Tensor, thw: Triple):
+        """Pool one channel-major ``[B, C, (1 +) L]`` tensor; returns it
+        flattened, ``[B, C, (1 +) L']``, and the pooled (T', H', W'). A cls
+        column bypasses the pooling and is re-attached in front, before
+        the pool norm (the JAX order, ``mvit.py:565-589``)."""
+        cls_col = None
+        if self.has_cls:
+            cls_col, t = t[:, :, :1], t[:, :, 1:]
         B, C, _ = t.shape
         t = t.reshape(B, C, *thw)
         pool = getattr(self, f"pool_{name}")
         if self.mode == "conv":
             # one [d, 1, k, k, k] weight shared by the heads (mvit.py:567)
-            return F.conv3d(t, pool.weight.to(t.dtype).repeat(
+            y = F.conv3d(t, pool.weight.to(t.dtype).repeat(
                 self.num_heads, 1, 1, 1, 1), None, pool.stride,
                 pool.padding, 1, C)
-        kernel, stride = pool
-        return pool3d_ncdhw(t, self.mode, kernel, stride,
-                            tuple(k // 2 for k in kernel))
+        else:
+            kernel, stride = pool
+            y = pool3d_ncdhw(t, self.mode, kernel, stride,
+                             tuple(k // 2 for k in kernel))
+        out_thw = tuple(y.shape[2:])
+        y = y.flatten(2)
+        if cls_col is not None:
+            y = torch.cat([cls_col, y], dim=2)
+        return y, out_thw
 
     def forward(self, x: torch.Tensor, thw: Triple, norm1: FusedLayerNorm):
         B, L, D = x.shape
@@ -351,14 +383,17 @@ class MultiScaleAttention(nn.Module):
             _cast(self.qkv.bias, dt), norm1.eps, tokens=L)))
         out_thw = thw
         for name in self.pooled:
-            y = self._pool(name, t3[name], thw)
+            t3[name], pooled_thw = self._pool(name, t3[name], thw)
             if name == "q":
-                out_thw = tuple(y.shape[2:])
-            t3[name] = y.flatten(2)
-        if self.training or self.mode != "conv":
-            out = self._unfused(t3, B)
-        else:
+                out_thw = pooled_thw
+        # the JAX package fuses where its switch says so, for conv pools
+        # without a cls token and with at least one pool norm (mvit.py:
+        # 543-548, 597)
+        if (self.mode == "conv" and not self.has_cls and self.pooled
+                and _fuse_attn_ln_enabled(self.training)):
             out = self._fused(t3, B, dt, x.device)
+        else:
+            out = self._unfused(t3, B)
         out = F.linear(out, self.proj.weight.to(dt), self.proj.bias.to(dt))
         return out, out_thw
 
@@ -368,7 +403,8 @@ class MultiScaleAttention(nn.Module):
         token rows ``[B*h, L, d]`` (one transpose each; their gradients pay
         one back), each conv-pooled one is normalized by its pool norm
         (grouped per head: one row of d per head and token), then
-        :func:`flash_attention` and the v2 residual ``+ q`` outside it."""
+        :func:`flash_attention` (:func:`flash_attention_padded` at a cls
+        token's odd lengths) and the v2 residual ``+ q`` outside it."""
         h, d = self.num_heads, self.head_dim
         rows = {}
         for name, t in t3.items():
@@ -382,7 +418,8 @@ class MultiScaleAttention(nn.Module):
                 r = fused_layer_norm(r, norm.weight.to(r.dtype),
                                      norm.bias.to(r.dtype), norm.eps)
             rows[name] = r
-        out = flash_attention(rows["q"], rows["k"], rows["v"], self.scale)
+        attend = flash_attention_padded if self.has_cls else flash_attention
+        out = attend(rows["q"], rows["k"], rows["v"], self.scale)
         if self.q_pool_residual:
             out = out + rows["q"]
         Lq = out.shape[1]
@@ -418,7 +455,8 @@ class MultiScaleAttention(nn.Module):
 class FusedMlp(nn.Module):
     """norm2 + ``fc1`` / exact GELU / ``fc2`` (reference: attention.py:
     436-445) in one :func:`fused_ln_mlp` call; the LN parameters live on
-    the block as ``norm2``."""
+    the block as ``norm2``. :meth:`dense` is the MLP alone on normalized
+    rows, for the blocks whose residual also reads them."""
 
     def __init__(self, dim: int, hidden: int, dim_out: int):
         super().__init__()
@@ -435,11 +473,22 @@ class FusedMlp(nn.Module):
             self.fc2.weight.to(dt), self.fc2.bias.to(dt), norm.eps)
         return out.reshape(*shape[:-1], self.fc2.out_features)
 
+    def dense(self, xn: torch.Tensor) -> torch.Tensor:
+        """``fc2(gelu(fc1(xn)))``: two plain products and the exact GELU,
+        as the JAX package computes this MLP outside any Pallas kernel
+        (``mvit.py:405-415``)."""
+        dt = xn.dtype
+        h = F.linear(xn, self.fc1.weight.to(dt), self.fc1.bias.to(dt))
+        h = exact_gelu(h.float()).to(dt)
+        return F.linear(h, self.fc2.weight.to(dt), self.fc2.bias.to(dt))
+
 
 class MultiScaleBlock(nn.Module):
     """Transformer block with pooled attention (reference: attention.py:
-    287-446), channels expanded in front (``proj_max_pool`` on the skip
-    path). DropPath applies the per-sample masks the caller passes
+    287-446). MViT-v2 (``channel_expand_front``) expands the channels in
+    front, ``proj_max_pool`` on the skip path; MViT-v1 changes them in the
+    MLP, and the residual of such a block is ``proj(norm2(x))``. DropPath
+    applies the per-sample masks the caller passes
     (:meth:`drop_path_masks`), in training only."""
 
     def __init__(self, spec: BlockSpec, mode: str, qkv_bias: bool,
@@ -451,10 +500,7 @@ class MultiScaleBlock(nn.Module):
             raise NotImplementedError("MoE blocks are not ported yet")
         expand = channel_expand_front and s.dim != s.dim_out
         dim_att = s.dim_out if expand else s.dim
-        if dim_att != s.dim_out:
-            raise NotImplementedError(
-                "channel change inside the MLP (CHANNEL_EXPAND_FRONT False) "
-                "is not ported yet")
+        self.has_cls = has_cls
         self.norm1 = FusedLayerNorm(s.dim, eps=1e-6)
         self.attn = MultiScaleAttention(
             s.dim, dim_att, s.num_heads, s.kernel_q, s.kernel_kv, s.stride_q,
@@ -462,6 +508,8 @@ class MultiScaleBlock(nn.Module):
         self.norm2 = FusedLayerNorm(dim_att, eps=1e-6)
         self.mlp = FusedMlp(dim_att, int(dim_att * mlp_ratio), s.dim_out)
         self.proj_max_pool = nn.Linear(s.dim, s.dim_out) if expand else None
+        self.proj = (nn.Linear(dim_att, s.dim_out) if dim_att != s.dim_out
+                     else None)
         # skip-path pooling: max pool with kernel s+1 where the stride is >1
         self.kernel_skip = tuple(v + 1 if v > 1 else v for v in s.stride_q)
         self.stride_skip = tuple(s.stride_q)
@@ -487,10 +535,19 @@ class MultiScaleBlock(nn.Module):
                          self.proj_max_pool.bias.to(dt))
         if len(self.kernel_skip) > 0 and np.prod(self.kernel_skip) > 1:
             x, _ = attention_pool(x, thw, mode="max", kernel=self.kernel_skip,
-                                  stride=self.stride_skip)
+                                  stride=self.stride_skip,
+                                  has_cls=self.has_cls)
         x = x + drop_path(x_block, m_attn, self.drop_rate)
-        return (x + drop_path(self.mlp(x, self.norm2), m_mlp, self.drop_rate),
-                thw_new)
+        if self.proj is None:
+            x_mlp = self.mlp(x, self.norm2)
+        else:
+            # the channel change of MViT-v1 (mvit.py:800-808): the MLP and
+            # the residual projection both read norm2(x), so the norm runs
+            # alone and the MLP without its fused LN
+            xn = self.norm2(x)
+            x_mlp = self.mlp.dense(xn)
+            x = F.linear(xn, self.proj.weight.to(dt), self.proj.bias.to(dt))
+        return x + drop_path(x_mlp, m_mlp, self.drop_rate), thw_new
 
 
 class PatchEmbed(nn.Module):
@@ -516,21 +573,22 @@ class PatchEmbed(nn.Module):
 
 
 class MViT(nn.Module):
-    """MViT-v2 backbone + classification head.
+    """MViT-v1/v2 backbone + classification head.
 
     Input: a ``[B, T, H, W, C]`` clip or a one-pathway list of it; the clip
     is cast to ``compute_dtype`` (bf16 on the card). Returns the head's
     activation (softmax scores at eval) in f32, and the logits in the
     compute type in training. A training forward with DropPath or head
-    dropout draws their masks from ``generator``.
+    dropout draws their masks from ``generator``. With a cls token
+    (``MVIT.CLS_EMBED_ON``) the head reads its row of the final norm, else
+    the mean over tokens.
     """
 
     def __init__(self, spec: MViTSpec,
                  compute_dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         sp = spec
-        for flag, what in ((sp.cls_embed, "cls-token"),
-                           (sp.detection_enable, "detection"),
+        for flag, what in ((sp.detection_enable, "detection"),
                            (sp.contra_enable, "contrastive"),
                            (sp.use_multi_head, "multi-head"),
                            (sp.use_spatial_maxpool_before_proj,
@@ -544,14 +602,20 @@ class MViT(nn.Module):
                                       sp.patch_kernel, sp.patch_stride,
                                       sp.patch_padding)
         pt, ph, pw = sp.patch_dims
+        n_cls = int(sp.cls_embed)
+        if sp.cls_embed:
+            self.cls_token = nn.Parameter(torch.zeros(1, 1, sp.embed_dim))
         if sp.sep_pos_embed:
             self.pos_embed_spatial = nn.Parameter(
                 torch.zeros(1, ph * pw, sp.embed_dim))
             self.pos_embed_temporal = nn.Parameter(
                 torch.zeros(1, pt, sp.embed_dim))
+            if sp.cls_embed:
+                self.pos_embed_class = nn.Parameter(
+                    torch.zeros(1, 1, sp.embed_dim))
         else:
             self.pos_embed = nn.Parameter(
-                torch.zeros(1, pt * ph * pw, sp.embed_dim))
+                torch.zeros(1, n_cls + pt * ph * pw, sp.embed_dim))
         self.blocks = nn.ModuleList(
             MultiScaleBlock(bs, sp.mode, sp.qkv_bias, sp.cls_embed,
                             sp.q_pool_residual, sp.channel_expand_front,
@@ -568,14 +632,20 @@ class MViT(nn.Module):
         if not self.spec.sep_pos_embed:
             return self.pos_embed
         pt, ph, pw = self.spec.patch_dims
-        return (self.pos_embed_spatial.repeat(1, pt, 1)
-                + self.pos_embed_temporal.repeat_interleave(ph * pw, dim=1))
+        pos = (self.pos_embed_spatial.repeat(1, pt, 1)
+               + self.pos_embed_temporal.repeat_interleave(ph * pw, dim=1))
+        if self.spec.cls_embed:
+            pos = torch.cat([self.pos_embed_class, pos], dim=1)
+        return pos
 
     def forward(self, x, generator: torch.Generator | None = None):
         if isinstance(x, (list, tuple)):
             x = x[0]
         x = x.to(self.compute_dtype)
         x, thw = self.patch_embed(x)
+        if self.spec.cls_embed:
+            cls = self.cls_token.to(x.dtype).expand(x.shape[0], -1, -1)
+            x = torch.cat([cls, x], dim=1)
         x = x + self._pos_embed().to(x.dtype)
         remat = (self.training and self.spec.act_checkpoint
                  and torch.is_grad_enabled())
@@ -588,4 +658,5 @@ class MViT(nn.Module):
                 x, thw = blk(x, thw, masks)
         if self.norm is not None:
             x = self.norm(x)
-        return self.head(x.mean(dim=1), generator)
+        feat = x[:, 0] if self.spec.cls_embed else x.mean(dim=1)
+        return self.head(feat, generator)

@@ -7,21 +7,32 @@ replaces ``aicity_action_tpu/ops/pallas/flash_attention.py:flash_attention``
 ``_flash_bwd``). It takes contiguous head-major token rows ``[G, L, 96]``;
 its note says how the backward is split across blocks.
 
+:func:`flash_attention_padded` is the same function at any lengths: the
+attention of a cls-token MViT, whose lengths ``1 + T*H*W`` no tile
+divides. It replaces ``flash_attention.py:flash_attention_padded`` (and
+``_flash_padded_fwd`` / ``_flash_padded_bwd``), which zero-pads q, k, v to
+a tile multiple and masks the padded key columns. The CUDA kernels mask
+keys past ``Lk`` and rows past ``Lq`` themselves, so they run on the
+unpadded tensors and no padded copy goes through device memory; the
+wrapper differs from :func:`flash_attention` only in its launch counts.
+
 :func:`flash_attention_ln` is attention over raw pooled q/k/v with the
 per-head LayerNorms and the MViT-v2 query residual fused in. It replaces
 ``aicity_action_tpu/ops/pallas/flash_attention.py:flash_attention_ln``
-(``_flash_ln_fwd_kernel``), which every MViT block runs
-at inference. At 448 it sees head-major ``q [B*h, Lq, 96]`` and
-``k, v [B*h, Lk, 96]`` with Lq up to 100352 and Lk in {1568, 6272}:
-4*Lq*Lk*d flops against 2*(Lq + 2*Lk)*d bytes, so the tensor cores (and the
-softmax's exponentials) bound it. The Pallas kernel keeps a group's whole
-K/V in VMEM and normalizes it once per group; GPU blocks share nothing, so
-``csrc/flash_attention_ln.cu`` normalizes K and V once, into token-row
-scratch the wrapper allocates, then streams 64-key tiles of them through
-shared memory (cp.async, double-buffered) with the running max / sum of
-online softmax. It reads q, k, v in the d-major layout the pool
-convolutions leave, so no transpose goes through device memory. Forward
-only (the serving path).
+(``_flash_ln_fwd_kernel``; ``_flash_ln_fwd_lse_kernel`` and the backward
+kernels of ``_flash_ln_bwd`` under autograd), which every MViT block runs
+at inference, and in training under ``AICITY_TPU_FUSE_ATTN_LN=1``. At 448
+it sees head-major ``q [B*h, Lq, 96]`` and ``k, v [B*h, Lk, 96]`` with Lq up
+to 100352 and Lk in {1568, 6272}: 4*Lq*Lk*d flops against 2*(Lq + 2*Lk)*d
+bytes, so the tensor cores (and the softmax's exponentials) bound it. The
+Pallas kernel keeps a group's whole K/V in VMEM and normalizes it once per
+group; GPU blocks share nothing, so ``csrc/flash_attention_ln.cu``
+normalizes K and V once, into token-row scratch the wrapper allocates,
+then streams 64-key tiles of them through shared memory (cp.async,
+double-buffered) with the running max / sum of online softmax. It reads q,
+k, v in the d-major layout the pool convolutions leave, so no transpose
+goes through device memory; its backward (``csrc/flash_attention_ln_bwd.
+cu``) writes dq, dk, dv back in that layout.
 """
 
 from __future__ import annotations
@@ -71,36 +82,66 @@ def flash_attention_ln(q, k, v, gq, bq, gk, bk, gv, bv, scale: float,
     """Fused-LN attention (see :func:`flash_attention_ln_plain`).
 
     ``q [G, Lq, d]``, ``k``/``v [G, Lk, d]`` raw pooled tensors in the
-    head-major layout. The plain version takes any strides; the kernel
-    takes the d-major views ``x.transpose(1, 2)`` of contiguous
-    ``[G, d, L]`` tensors (what the pool convolutions leave) and reads them
+    head-major layout. The plain version takes any strides; the kernels
+    take the d-major views ``x.transpose(1, 2)`` of contiguous
+    ``[G, d, L]`` tensors (what the pool convolutions leave) and read them
     as they lie. ``g*``/``b*`` are the ``[d]`` LN params (any values where
-    the flag is off); ``flags`` the static (norm_q, norm_k, norm_v);
-    ``add_qn`` adds the v2 query residual ``+ LN(q)``. Returns a contiguous
-    ``[G, Lq, d]``.
+    the flag is off; their gradients are then zeros); ``flags`` the static
+    (norm_q, norm_k, norm_v); ``add_qn`` adds the v2 query residual
+    ``+ LN(q)``. Returns a contiguous ``[G, Lq, d]``. Where a gradient is
+    needed, the forward saves the logsumexp and the attention output before
+    the residual (:func:`flash_attention_ln_lse`), and the backward is
+    :func:`flash_attention_ln_bwd`.
     """
     if not kernels.use_kernel(q):
         return flash_attention_ln_plain(q, k, v, gq, bq, gk, bk, gv, bv,
                                         scale, eps, flags, add_qn)
+    tensors = (q, k, v, gq, bq, gk, bk, gv, bv)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _FlashAttentionLn.apply(*tensors, scale, eps, tuple(flags),
+                                       add_qn)
+    out, _, _ = _flash_ln_fwd(*tensors, scale, eps, flags, add_qn, False)
+    flash_attention_ln.launches += 1
+    return out
+
+
+def _ln_operands(name, q, k, v, params):
+    """The fused-LN kernels' input rules. Returns ``(G, Lq, Lk, d)`` and
+    q, k, v as the contiguous ``[G, d, L]`` tensors their d-major views
+    show."""
     G, Lq, d = q.shape
     Lk = k.shape[1]
     if d != KERNEL_HEAD_DIM:
-        raise ValueError(f"flash_attention_ln: the kernel takes head dim "
+        raise ValueError(f"{name}: the kernel takes head dim "
                          f"{KERNEL_HEAD_DIM}, got {d}")
     if G > 65535:
-        raise ValueError(f"flash_attention_ln: {G} groups exceed the grid")
+        raise ValueError(f"{name}: {G} groups exceed the grid")
     if not all(_is_dmajor(t) for t in (q, k, v)) or Lq % 8:
-        raise ValueError("flash_attention_ln: the kernel takes q, k, v as "
-                         "d-major views of [G, d, L] tensors, Lq % 8 == 0")
+        raise ValueError(f"{name}: the kernel takes q, k, v as d-major "
+                         "views of [G, d, L] tensors, Lq % 8 == 0")
     dev = q.device
-    q, k, v = (t.transpose(1, 2) for t in (q, k, v))  # contiguous [G, d, L]
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
     kernels.require(q, "q")
     kernels.require(k, "k", (G, d, Lk), dev)
     kernels.require(v, "v", (G, d, Lk), dev)
-    for name, t in (("gq", gq), ("bq", bq), ("gk", gk), ("bk", bk),
-                    ("gv", gv), ("bv", bv)):
-        kernels.require(t, name, (d,), dev)
+    for pname, t in zip(("gq", "bq", "gk", "bk", "gv", "bv"), params):
+        kernels.require(t, pname, (d,), dev)
+    return (G, Lq, Lk, d), (q, k, v)
+
+
+def _flash_ln_fwd(q, k, v, gq, bq, gk, bk, gv, bv, scale, eps, flags,
+                  add_qn, with_lse):
+    """The forward kernel: ``(out [G, Lq, d], lse [G, Lq] f32, o_attn)``
+    with ``with_lse``, else ``(out, None, None)``. ``o_attn`` is the
+    attention output before the residual (``out`` itself without
+    ``add_qn``)."""
+    (G, Lq, Lk, d), (q, k, v) = _ln_operands(
+        "flash_attention_ln", q, k, v, (gq, bq, gk, bk, gv, bv))
+    dev = q.device
     out = torch.empty((G, Lq, d), dtype=q.dtype, device=dev)
+    lse = (torch.empty((G, Lq), dtype=torch.float32, device=dev)
+           if with_lse else None)
+    oa = torch.empty_like(out) if with_lse and add_qn else None
     fq, fk, fv = (int(bool(f)) for f in flags)
     # scratch for the token rows of LN(k) / LN(v), made once before the
     # attention
@@ -109,16 +150,108 @@ def flash_attention_ln(q, k, v, gq, bq, gk, bk, gv, bv, scale: float,
     err = kernels.lib().aicity_flash_attention_ln(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), gq.data_ptr(),
         bq.data_ptr(), gk.data_ptr(), bk.data_ptr(), gv.data_ptr(),
-        bv.data_ptr(), out.data_ptr(), kn.data_ptr(), vn.data_ptr(),
-        G, Lq, Lk, d,
+        bv.data_ptr(), out.data_ptr(), kernels.ptr(lse), kernels.ptr(oa),
+        kn.data_ptr(), vn.data_ptr(), G, Lq, Lk, d,
         _rounded_scale(scale, q.dtype), float(eps), fq, fk, fv,
         int(bool(add_qn)), kernels.stream())
     kernels.check(err, "flash_attention_ln")
-    flash_attention_ln.launches += 1
-    return out
+    if with_lse and not add_qn:
+        oa = out
+    return out, lse, oa
 
 
-flash_attention_ln.launches = 0
+def flash_attention_ln_lse(q, k, v, gq, bq, gk, bk, gv, bv, scale: float,
+                           eps: float, flags, add_qn: bool):
+    """The forward under autograd (replaces ``_flash_ln_fwd_lse_kernel``;
+    one kernel with :func:`flash_attention_ln`): ``(out, lse, o_attn)``
+    with the per-row logsumexp of the logits (f32 ``[G, Lq]``) and the
+    attention output before the residual, from which the backward takes
+    ``delta``. The Pallas wrapper recovers the latter as ``out - LN(q)``
+    from the rounded ``out``; in bf16 that costs a rounding of ``O +
+    LN(q)`` (LN(q) is of order 1, O much smaller), which shows as noise in
+    gradients that cancel, such as the k norm's bias gradient (exactly
+    zero: softmax ignores one shift of every key)."""
+    res = _flash_ln_fwd(q, k, v, gq, bq, gk, bk, gv, bv, scale, eps, flags,
+                        add_qn, True)
+    flash_attention_ln_lse.launches += 1
+    return res
+
+
+def flash_attention_ln_bwd(q, k, v, gq, bq, gk, bk, gv, bv, o_attn, lse,
+                           dout, scale: float, eps: float, flags,
+                           add_qn: bool):
+    """The backward kernels of :func:`flash_attention_ln` (replace
+    ``_flash_ln_dqkv_kernel`` / ``_flash_ln_dqkv_chunked_kernel``):
+    ``(dq, dk, dv, dgq, dbq, dgk, dbk, dgv, dbv)`` from the forward's inputs
+    (q, k, v the d-major views it took), its ``lse`` and attention output
+    before the residual ``o_attn`` (:func:`flash_attention_ln_lse`) and the
+    output gradient ``dout [G, Lq, d]``. dq, dk, dv are the d-major views
+    of contiguous ``[G, d, L]`` gradients, the layout the pool
+    convolutions' backward takes; the LN parameter gradients are bf16
+    ``[d]``, zeros where the flag is off. ``delta = rowsum(dout * o_attn)``
+    is computed in the dq kernel; dk / dv are summed over query splits of
+    f32 partials (:func:`kernels.splits`) before their LN backward."""
+    (G, Lq, Lk, d), (q, k, v) = _ln_operands(
+        "flash_attention_ln_bwd", q, k, v, (gq, bq, gk, bk, gv, bv))
+    dev = q.device
+    kernels.require(o_attn, "o_attn", (G, Lq, d), dev)
+    kernels.require(dout, "dout", (G, Lq, d), dev)
+    kernels.require(lse, "lse", (G, Lq), dev, torch.float32)
+    bf = dict(dtype=q.dtype, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dgb = torch.empty((6, d), **bf)
+    qn = torch.empty((G, Lq, d), **bf)
+    kn, vn = (torch.empty((G, Lk, d), **bf) for _ in range(2))
+    delta = torch.empty((G, Lq), **f32)
+    part_q = torch.empty((G * -(-Lq // 64), 2, d), **f32)
+    qps = kernels.splits(Lq, G * -(-Lk // 64), 64, min_rows=1024)
+    nsplit = -(-Lq // qps)
+    dk_part, dv_part = (torch.empty((nsplit, G, Lk, d), **f32)
+                        for _ in range(2))
+    part_kv = torch.empty((2, G * -(-Lk // 128), 2, d), **f32)
+    fq, fk, fv = (int(bool(f)) for f in flags)
+    err = kernels.lib().aicity_flash_attention_ln_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), gq.data_ptr(),
+        bq.data_ptr(), gk.data_ptr(), bk.data_ptr(), gv.data_ptr(),
+        bv.data_ptr(), o_attn.data_ptr(), lse.data_ptr(), dout.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dgb.data_ptr(),
+        qn.data_ptr(), kn.data_ptr(), vn.data_ptr(), delta.data_ptr(),
+        part_q.data_ptr(), dk_part.data_ptr(), dv_part.data_ptr(),
+        part_kv.data_ptr(), G, Lq, Lk, d, _rounded_scale(scale, q.dtype),
+        float(eps), fq, fk, fv, int(bool(add_qn)), qps, kernels.stream())
+    kernels.check(err, "flash_attention_ln_bwd")
+    flash_attention_ln_bwd.launches += 1
+    return (dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2),
+            *dgb.unbind(0))
+
+
+for _fn in (flash_attention_ln, flash_attention_ln_lse,
+            flash_attention_ln_bwd):
+    _fn.launches = 0
+del _fn
+
+
+class _FlashAttentionLn(torch.autograd.Function):
+    """The fused-LN kernels under autograd; saves ``(q, k, v, params,
+    o_attn, lse)``, where the Pallas forward rule ``_flash_ln_fwd`` saves
+    ``out`` for ``o_attn`` (see :func:`flash_attention_ln_lse`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, gq, bq, gk, bk, gv, bv, scale, eps, flags,
+                add_qn):
+        out, lse, o_attn = flash_attention_ln_lse(
+            q, k, v, gq, bq, gk, bk, gv, bv, scale, eps, flags, add_qn)
+        ctx.save_for_backward(q, k, v, gq, bq, gk, bk, gv, bv, o_attn, lse)
+        ctx.args = (scale, eps, flags, add_qn)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        *inputs, o_attn, lse = ctx.saved_tensors
+        grads = flash_attention_ln_bwd(*inputs, o_attn, lse,
+                                       dout.contiguous(), *ctx.args)
+        return (*grads, None, None, None, None)
 
 
 def _attention_plain(q, k, v, scale, with_lse):
@@ -168,10 +301,11 @@ def _require_rows(name, G, d, *named):
         kernels.require(t, tname, (G, L, d), dev)
 
 
-def flash_attention_fwd(q, k, v, scale: float, with_lse: bool):
+def _attention_fwd(q, k, v, scale: float, with_lse: bool):
     """The forward kernel on contiguous token rows ``q [G, Lq, 96]``,
-    ``k, v [G, Lk, 96]``: ``out`` and, with ``with_lse``, the f32 ``lse
-    [G, Lq]`` (one kernel; the lse store is skipped without it)."""
+    ``k, v [G, Lk, 96]`` of any lengths: ``out`` and, with ``with_lse``, the
+    f32 ``lse [G, Lq]`` (one kernel; the lse store is skipped without
+    it)."""
     G, Lq, d = q.shape
     Lk = k.shape[1]
     _require_rows("flash_attention", G, d, ("q", q, Lq), ("k", k, Lk),
@@ -184,14 +318,10 @@ def flash_attention_fwd(q, k, v, scale: float, with_lse: bool):
         kernels.ptr(lse), G, Lq, Lk, d, _rounded_scale(scale, q.dtype),
         kernels.stream())
     kernels.check(err, "flash_attention")
-    flash_attention_fwd.launches += 1
     return out, lse
 
 
-flash_attention_fwd.launches = 0
-
-
-def flash_attention_bwd(q, k, v, out, lse, dout, scale: float):
+def _attention_bwd(q, k, v, out, lse, dout, scale: float):
     """The backward kernels: ``(dq, dk, dv)`` from the forward's inputs,
     ``out`` and ``lse`` and the output gradient ``dout``. ``delta =
     rowsum(dout * out)`` is computed here, outside the kernels, as the
@@ -214,32 +344,65 @@ def flash_attention_bwd(q, k, v, out, lse, dout, scale: float):
         dv.data_ptr(), dk_part.data_ptr(), dv_part.data_ptr(), G, Lq, Lk, d,
         _rounded_scale(scale, q.dtype), qps, kernels.stream())
     kernels.check(err, "flash_attention_bwd")
-    flash_attention_bwd.launches += 1
     return dq, dk, dv
 
 
-flash_attention_bwd.launches = 0
+def flash_attention_fwd(q, k, v, scale: float, with_lse: bool):
+    """:func:`flash_attention`'s forward kernel (see :func:`_attention_fwd`)."""
+    res = _attention_fwd(q, k, v, scale, with_lse)
+    flash_attention_fwd.launches += 1
+    return res
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, scale: float):
+    """:func:`flash_attention`'s backward kernels (see
+    :func:`_attention_bwd`)."""
+    res = _attention_bwd(q, k, v, out, lse, dout, scale)
+    flash_attention_bwd.launches += 1
+    return res
+
+
+def flash_attention_padded_fwd(q, k, v, scale: float, with_lse: bool):
+    """:func:`flash_attention_padded`'s forward: the same kernel at odd
+    lengths, counted apart."""
+    res = _attention_fwd(q, k, v, scale, with_lse)
+    flash_attention_padded_fwd.launches += 1
+    return res
+
+
+def flash_attention_padded_bwd(q, k, v, out, lse, dout, scale: float):
+    """:func:`flash_attention_padded`'s backward: the same kernels at odd
+    lengths, counted apart."""
+    res = _attention_bwd(q, k, v, out, lse, dout, scale)
+    flash_attention_padded_bwd.launches += 1
+    return res
+
+
+for _fn in (flash_attention_fwd, flash_attention_bwd,
+            flash_attention_padded_fwd, flash_attention_padded_bwd):
+    _fn.launches = 0
+del _fn
 
 
 class _FlashAttention(torch.autograd.Function):
     """The kernels under autograd; saves ``(q, k, v, out, lse)`` as the
-    Pallas forward rule ``_flash_fwd`` does."""
+    Pallas forward rule ``_flash_fwd`` does. ``fwd`` / ``bwd`` are the
+    counted launchers of the calling wrapper."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale):
+    def forward(ctx, q, k, v, scale, fwd, bwd):
         need = any(ctx.needs_input_grad[:3])
-        out, lse = flash_attention_fwd(q, k, v, scale, with_lse=need)
+        out, lse = fwd(q, k, v, scale, with_lse=need)
         if need:
             ctx.save_for_backward(q, k, v, out, lse)
-        ctx.scale = scale
+        ctx.scale, ctx.bwd = scale, bwd
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
-                                         dout.contiguous(), ctx.scale)
-        return dq, dk, dv, None
+        dq, dk, dv = ctx.bwd(q, k, v, out, lse, dout.contiguous(), ctx.scale)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, scale: float):
@@ -249,4 +412,17 @@ def flash_attention(q, k, v, scale: float):
     bf16 token rows with d = 96, forward and backward."""
     if not kernels.use_kernel(q):
         return flash_attention_plain(q, k, v, scale)
-    return _FlashAttention.apply(q, k, v, scale)
+    return _FlashAttention.apply(q, k, v, scale, flash_attention_fwd,
+                                 flash_attention_bwd)
+
+
+def flash_attention_padded(q, k, v, scale: float):
+    """:func:`flash_attention` at any lengths, e.g. a cls token's
+    ``1 + T*H*W``. A CPU tensor runs the plain version (autograd
+    differentiates it); a CUDA tensor the same kernels as
+    :func:`flash_attention`, whose edge masks take the place of the Pallas
+    wrapper's zero padding and ``kv_valid`` mask."""
+    if not kernels.use_kernel(q):
+        return flash_attention_plain(q, k, v, scale)
+    return _FlashAttention.apply(q, k, v, scale, flash_attention_padded_fwd,
+                                 flash_attention_padded_bwd)

@@ -172,11 +172,11 @@ def fused_ln_qkv_bwd(x2, gamma, beta, w, dq, dk, dv, eps, tokens):
     C = C3 // 3
     lib = kernels.lib()
     rows = lib.aicity_ln_qkv_bwd_rows(D)
-    if not rows or C3 % 3 or C % 96 or tokens % 8 or M % tokens:
+    if not rows or C3 % 3 or C % 96 or tokens < 1 or M % tokens:
         raise ValueError(
             f"fused_ln_qkv_bwd: the kernels take D in {MLP_WIDTHS}, C a "
-            f"multiple of 96 and clips of a multiple of 8 tokens, got D={D}, "
-            f"3C={C3}, {M} rows of {tokens} tokens")
+            f"multiple of 96 and whole clips, got D={D}, 3C={C3}, {M} rows "
+            f"of {tokens} tokens")
     dev = x2.device
     kernels.require(x2, "x")
     kernels.require(gamma, "gamma", (D,), dev)

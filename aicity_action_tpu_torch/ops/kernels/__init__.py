@@ -40,8 +40,10 @@ _SIGNATURES = {
     "aicity_ln_qkv_smem_bytes": ([_i, _i], _i),
     "aicity_ln_mlp": ([_vp] * 8 + [_i, _i, _i, _i, _f, _vp], _i),
     "aicity_ln_mlp_supported": ([_i, _i, _i], _i),
-    "aicity_flash_attention_ln": ([_vp] * 12 + [_i] * 4 + [_f, _f] + [_i] * 4
+    "aicity_flash_attention_ln": ([_vp] * 14 + [_i] * 4 + [_f, _f] + [_i] * 4
                                   + [_vp], _i),
+    "aicity_flash_attention_ln_bwd": ([_vp] * 24 + [_i] * 4 + [_f, _f]
+                                      + [_i] * 5 + [_vp], _i),
     "aicity_layer_norm_bwd": ([_vp] * 6 + [_l, _i, _i, _f, _vp], _i),
     "aicity_layer_norm_bwd_blocks": ([_l, _i], _i),
     "aicity_flash_attention": ([_vp] * 5 + [_i] * 4 + [_f, _vp], _i),

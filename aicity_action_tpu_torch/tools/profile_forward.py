@@ -1,12 +1,17 @@
-"""Where the time of one MViT-v2-B 16x4 @ 448 forward, or train step, goes
-on the card.
+"""Where the time of one MViT forward, or train step, goes on the card.
 
     python -m aicity_action_tpu_torch.tools.profile_forward [--batch 8]
-        [--iters 3] [--out FILE.json]
+        [--config v2_448|v1_224] [--fuse-attn-ln auto|0|1] [--iters 3]
+        [--out FILE.json]
     python -m aicity_action_tpu_torch.tools.profile_forward --train
-        [--batch 4] [--iters 3] [--out FILE.json]
+        [--batch 4] [--config ...] [--fuse-attn-ln ...] [--iters 3]
+        [--out FILE.json]
 
-Builds the model at full width and depth on weights from ``--seed``, warms
+``--config`` picks MViT-v2-B 16x4 @ 448 (the default, the AI City model)
+or MViT-B 16x4 @ 224 with a cls token (PySlowFast's Kinetics-400 MViT-v1);
+``--fuse-attn-ln`` sets ``AICITY_TPU_FUSE_ATTN_LN`` for the run (``1``: the
+fused-LN attention in training too). Builds the model at full width and
+depth on weights from ``--seed``, warms
 up, then traces ``--iters`` forwards with ``torch.profiler`` (CPU and CUDA
 activities). Prints, and writes to ``--out`` as JSON: the forward's host
 wall time, the device time summed over kernels, the device's busy and idle
@@ -43,6 +48,9 @@ import time
 # kernel-name substrings -> group, first match wins
 _GROUPS = (
     ("flash_ln_kernel", "flash_attention_ln (port)"),
+    ("flash_ln_bwd_dq", "flash_attention_ln bwd (port)"),
+    ("kv_ln_bwd", "flash_attention_ln bwd (port)"),
+    ("kv_rows_kernel", "flash_attention_ln K/V rows (port)"),
     ("flash_fwd_kernel", "flash_attention fwd (port)"),
     ("flash_bwd_", "flash_attention bwd (port)"),
     ("qkv_bwd_", "fused_ln_qkv bwd (port)"),
@@ -143,12 +151,16 @@ def _summary(kernels, iters, wall_ms):
 def main(argv=None) -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--train", action="store_true")
+    p.add_argument("--config", choices=sorted(CONFIGS), default="v2_448")
+    p.add_argument("--fuse-attn-ln", choices=("auto", "0", "1"),
+                   default="auto")
     p.add_argument("--batch", type=int, default=None)
     p.add_argument("--iters", type=int, default=3)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--top", type=int, default=25)
     p.add_argument("--out", default="")
     args = p.parse_args(argv)
+    os.environ["AICITY_TPU_FUSE_ATTN_LN"] = args.fuse_attn_ln
     if args.batch is None:
         args.batch = 4 if args.train else 8
     result = train_profile(args) if args.train else forward_profile(args)
@@ -159,14 +171,22 @@ def main(argv=None) -> int:
     return 0
 
 
+def _config(name: str):
+    from .. import config
+
+    return getattr(config, CONFIGS[name])()
+
+
+CONFIGS = {"v2_448": "mvitv2_b_16x4_448_cfg", "v1_224": "mvit_b_16x4_224_cfg"}
+
+
 def forward_profile(args) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from ..config import mvitv2_b_16x4_448_cfg
     from ..models.build import build_model
 
-    cfg = mvitv2_b_16x4_448_cfg()
+    cfg = _config(args.config)
     model = build_model(cfg, device="cuda", seed=args.seed)
     T, S = cfg.DATA.NUM_FRAMES, cfg.DATA.TEST_CROP_SIZE
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -197,8 +217,9 @@ def forward_profile(args) -> dict:
     per_fwd, device_ms, busy_ms, groups = _summary(kernels, args.iters,
                                                    wall_ms)
     result = {
-        "card": card, "batch": args.batch, "iters": args.iters,
-        "event_ms_per_forward": event_ms,
+        "card": card, "config": args.config,
+        "fuse_attn_ln": args.fuse_attn_ln, "batch": args.batch,
+        "iters": args.iters, "event_ms_per_forward": event_ms,
         "wall_ms_per_forward": wall_ms,
         "duplicate_kernel_records": dupes,
         "device_ms_per_forward": device_ms,
@@ -212,7 +233,8 @@ def forward_profile(args) -> dict:
             for k, ms in sorted(per_fwd.items(), key=lambda kv: -kv[1])
         ][:args.top],
     }
-    print(f"# {card}: batch {args.batch}, {event_ms:.2f} ms/forward "
+    print(f"# {card}: {args.config}, AICITY_TPU_FUSE_ATTN_LN="
+          f"{args.fuse_attn_ln}, batch {args.batch}, {event_ms:.2f} ms/forward "
           f"(events), {wall_ms:.2f} ms wall under the profiler, "
           f"{device_ms:.2f} ms of kernels ({dupes} duplicate records "
           f"dropped), idle share {result['device_idle_share']:.3f}")
@@ -251,6 +273,7 @@ def layout_copy_ms(model, batch: int, remat: int) -> dict:
         return start.elapsed_time(end) / n
 
     thw = (T, H, W)
+    cls = int(sp.cls_embed)
     for bs, blk in zip(sp.blocks, model.blocks):
         a = blk.attn
         h, d = a.num_heads, a.head_dim
@@ -262,6 +285,7 @@ def layout_copy_ms(model, batch: int, remat: int) -> dict:
             lens[name] = (pooled_len(thw, kernel, stride)
                           if name in a.pooled else (L, thw))
         for name, (n, _) in lens.items():
+            n += cls
             t = torch.empty((batch, h * d, n), dtype=torch.bfloat16,
                             device="cuda")
             r = torch.empty((batch * h, n, d), dtype=torch.bfloat16,
@@ -276,6 +300,7 @@ def layout_copy_ms(model, batch: int, remat: int) -> dict:
                 lambda r=r, n=n: r.reshape(batch, h, n, d).transpose(2, 3)
                 .reshape(batch, h * d, n).contiguous())
         Lq, new_thw = lens["q"]
+        Lq += cls
         o = torch.empty((batch * h, Lq, d), dtype=torch.bfloat16,
                         device="cuda")
         per["out_to_tokens"] += (remat + 1) * timed(
@@ -297,14 +322,14 @@ def train_profile(args) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from ..config import mvitv2_b_16x4_448_cfg
     from ..data.mixup import build_mixup_from_cfg
     from ..engine.steps import make_train_step, step_generators
     from ..models.build import build_model
     from ..models.losses import get_loss_func
+    from ..models.mvit import _fuse_attn_ln_enabled
     from ..solver.optimizer import construct_optimizer
 
-    cfg = mvitv2_b_16x4_448_cfg()
+    cfg = _config(args.config)
     cfg.MIXUP.ENABLE = True
     model = build_model(cfg, device="cuda", seed=args.seed)
     opt = construct_optimizer(cfg, model, steps_per_epoch=100)
@@ -384,8 +409,11 @@ def train_profile(args) -> dict:
     phases = {ph: {"ms": sum(d.values()),
                    "groups_ms": dict(sorted(d.items(), key=lambda kv: -kv[1]))}
               for ph, d in phase_ms.items()}
-    copies = layout_copy_ms(model, args.batch,
-                            2 if cfg.MODEL.ACT_CHECKPOINT else 1)
+    # the unfused path's layout copies (the fused-LN one reads and writes
+    # the pool convolutions' layout)
+    copies = (layout_copy_ms(model, args.batch,
+                             2 if cfg.MODEL.ACT_CHECKPOINT else 1)
+              if not _fuse_attn_ln_enabled(True) else {"total": 0.0})
 
     # what the recompute costs and saves: the same steps with activation
     # checkpointing off (peak memory of the steps alone)
@@ -406,8 +434,9 @@ def train_profile(args) -> dict:
     model.spec = dataclasses.replace(model.spec,
                                      act_checkpoint=cfg.MODEL.ACT_CHECKPOINT)
     result = {
-        "card": card, "batch": args.batch, "iters": args.iters,
-        "ms_per_step": step_ms, "clips_per_s": args.batch / step_ms * 1e3,
+        "card": card, "config": args.config,
+        "fuse_attn_ln": args.fuse_attn_ln, "batch": args.batch,
+        "iters": args.iters, "ms_per_step": step_ms, "clips_per_s": args.batch / step_ms * 1e3,
         "wall_ms_per_step_profiled": wall_ms,
         "duplicate_kernel_records": dupes,
         "device_ms_per_step": device_ms,
@@ -426,7 +455,9 @@ def train_profile(args) -> dict:
             for k, ms in sorted(per_step.items(), key=lambda kv: -kv[1])
         ][:args.top],
     }
-    print(f"# {card}: train step batch {args.batch}, {step_ms:.2f} ms/step, "
+    print(f"# {card}: {args.config}, AICITY_TPU_FUSE_ATTN_LN="
+          f"{args.fuse_attn_ln}, train step batch {args.batch}, "
+          f"{step_ms:.2f} ms/step, "
           f"{wall_ms:.2f} ms wall under the profiler, {device_ms:.2f} ms of "
           f"kernels, idle share {result['device_idle_share']:.3f} of the "
           f"profiled wall, {result['device_idle_share_unprofiled']:.3f} of "

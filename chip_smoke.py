@@ -14,19 +14,32 @@ NVIDIA card.
 3. Does the same for the training kernels (the flash attention forward
    with its logsumexp, and the backward kernels of attention, LayerNorm,
    LN+qkv and LN+MLP) at the batch-4 training shapes of blocks 0, 1 and 15.
-4. Builds the full model (16 blocks, bf16, weights from a seed), runs
-   batch-8 forwards, checks the kernel launches per forward, and compares a
-   batch-1 forward with the same model in its plain reference mode.
-5. Drives the serving path, ``WindowScorer``, over a synthetic in-memory
+4. Does the same for the kernels of the cls-token MViT-v1 and the fused-LN
+   training path: the padded attention (forward and backward) at the
+   ragged lengths of MViT-B 16x4 @ 224, batch 8, blocks 0, 1 and 15; the
+   fused-LN attention's forward with its logsumexp and its backward at the
+   448 batch-4 shapes of blocks 0, 1 and 15; LN+qkv forward and backward at
+   the odd 25089 tokens of the v1's blocks 0 and 1.
+5. Builds the full MViT-v2 (16 blocks, bf16, weights from a seed), runs
+   batch-8 forwards through ``make_eval_step``, holds the kernel launches
+   per forward to the counts the model implies, and compares a batch-1
+   forward with the same model in its plain reference mode; then the same
+   forward with ``AICITY_TPU_FUSE_ATTN_LN=0`` (the unfused eval path).
+6. Drives the serving path, ``WindowScorer``, over a synthetic in-memory
    I420 video, with the launch counts set to 0 just before and read just
    after; checks the windows against a direct forward and round-trips the
    pickle.
-6. Drives the training path, ``make_train_step``, at batch 4 with mixup,
+7. Drives the training path, ``make_train_step``, at batch 4 with mixup,
    activation checkpointing and AdamW (two warm-up steps, then timed
    steps; the counts set to 0 just before the timed steps and read just
-   after, and held to the counts the config implies), then compares one
-   batch-1 step's gradients with the model's plain reference mode.
-7. Prints ``{"kernels": [...]}``, the card line, and last
+   after, and held to the counts the config implies), then the same with
+   ``AICITY_TPU_FUSE_ATTN_LN=1`` (the fused-LN attention in training), and
+   compares one batch-1 step's gradients with the model's plain reference
+   mode, for both.
+8. Drives MViT-B 16x4 @ 224 with a cls token (PySlowFast's Kinetics-400
+   MViT-v1) the same way: the batch-8 eval forward and the batch-8 train
+   step (mixup, AdamW), with their launch counts and batch-1 checks.
+9. Prints ``{"kernels": [...]}``, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no result.
@@ -35,6 +48,7 @@ With no CUDA card, or without the package beside this file, it exits 2.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -114,8 +128,11 @@ def _normal(gen, shape, std=1.0, dtype=None, device="cuda"):
 
 
 def _check_case(name, kernel_fn, plain_fn, library_fn, flops, nbytes,
-                peak, iters):
-    """Compare one kernel call with its plain version, time all three."""
+                peak, iters, zero_grads=None):
+    """Compare one kernel call with its plain version, time all three.
+    ``zero_grads`` maps an output whose exact value is zero (a gradient
+    that cancels, so both sides hold only rounding noise) to the output
+    whose largest magnitude sets its tolerance instead."""
     import torch
 
     out = kernel_fn()
@@ -127,11 +144,13 @@ def _check_case(name, kernel_fn, plain_fn, library_fn, flops, nbytes,
         _fail(f"{name}: {len(outs)} outputs against {len(refs)}")
     # each output within KERNEL_RTOL of its own largest magnitude
     err, tol, rel = 0.0, 0.0, 0.0
+    zero_grads = zero_grads or {}
     for i, (o, r) in enumerate(zip(outs, refs)):
         if o.shape != r.shape or not torch.isfinite(o).all():
             _fail(f"{name}: output {i} non-finite or mis-shaped")
         e = (o.float() - r.float()).abs().max().item()
-        t = KERNEL_RTOL * max(r.float().abs().max().item(), 1e-30)
+        ref_i = refs[zero_grads.get(i, i)]
+        t = KERNEL_RTOL * max(ref_i.float().abs().max().item(), 1e-30)
         if not e <= t:
             _fail(f"{name}: output {i}: max |kernel - plain| {e} > {t}")
         err, tol, rel = max(err, e), max(tol, t), max(rel, e / t * KERNEL_RTOL)
@@ -284,13 +303,17 @@ def kernel_checks():
 
 def _plain_grads(fn, inputs, cotangents):
     """Gradients of the plain version ``fn`` in f32 at the kernel's bf16
-    inputs: the plain forward, then autograd."""
+    inputs: the plain forward, then autograd (zeros for an input the
+    function does not use)."""
     import torch
 
     ts = [t.detach().float().requires_grad_() for t in inputs]
     outs = fn(*ts)
     outs = outs if isinstance(outs, tuple) else (outs,)
-    return torch.autograd.grad(outs, ts, [c.float() for c in cotangents])
+    grads = torch.autograd.grad(outs, ts, [c.float() for c in cotangents],
+                                allow_unused=True)
+    return tuple(torch.zeros_like(t) if g is None else g
+                 for t, g in zip(ts, grads))
 
 
 def _library_grads(fn, inputs, cotangents):
@@ -489,6 +512,201 @@ def train_kernel_checks():
     return results
 
 
+# ------------------------------------------- cls-token and fused-LN kernels
+
+def v1_kernel_checks():
+    """The kernels the cls-token MViT-v1 and the fused-LN training path
+    add: the padded attention (forward with and without its lse, and
+    backward) at the v1 batch-8 shapes of blocks 0, 1 and 15, where no
+    length is a tile multiple (Lk 393 is six 64-key tiles and 9 keys, Lq
+    25089 leaves a one-row tail); the fused-LN attention's forward with
+    the lse and its backward at the 448 batch-4 training shapes of blocks
+    0, 1 and 15 (d-major q, k, v, all three norms and the residual); and
+    LN+qkv forward and backward at the odd 25089 tokens of blocks 0 and 1.
+    Plain versions in f32 from the same bf16 inputs; plain and library
+    times of a backward are of forward + backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from aicity_action_tpu_torch.ops import flash_attention as fa
+    from aicity_action_tpu_torch.ops import fused_dense as fd
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    d = 96
+    scale = d ** -0.5
+    results = {}
+
+    # flash_attention_padded: v1 batch 8 (blocks 0, 1, 15)
+    fwd, bwd = [], []
+    for blk, h, Lq, Lk in ((0, 1, 25089, 393), (1, 2, 6273, 1569),
+                           (15, 8, 393, 393)):
+        G = BATCH * h
+        q, k, v = (_normal(gen, (G, n, d), 1.0, bf) for n in (Lq, Lk, Lk))
+        shape = f"v1 block {blk} q[{G},{Lq},{d}] k,v[{G},{Lk},{d}]"
+        flops = 4 * G * Lq * Lk * d
+        io = 2 * (2 * G * Lq * d + 2 * G * Lk * d)
+        for with_lse in (True, False):
+            r = _check_case(
+                "flash_attention_padded",
+                lambda q=q, k=k, v=v, w=with_lse: (
+                    fa.flash_attention_padded_fwd(q, k, v, scale, w)
+                    if w else fa.flash_attention_padded_fwd(
+                        q, k, v, scale, False)[0]),
+                lambda q=q, k=k, v=v, w=with_lse: (
+                    fa.flash_attention_lse_plain if w
+                    else fa.flash_attention_plain)(
+                        q.float(), k.float(), v.float(), scale),
+                lambda q=q, k=k, v=v: F.scaled_dot_product_attention(q, k,
+                                                                     v),
+                flops=flops, nbytes=io + (4 * G * Lq if with_lse else 0),
+                peak=PEAK_BF16, iters=5)
+            r["shape"] = shape + (" (+ lse, training)" if with_lse
+                                  else " (no lse, eval)")
+            fwd.append(r)
+        out, lse = fa.flash_attention_padded_fwd(q, k, v, scale, True)
+        dout = _normal(gen, (G, Lq, d), 1.0, bf)
+        r = _check_case(
+            "flash_attention_padded_bwd",
+            lambda q=q, k=k, v=v, out=out, lse=lse, dout=dout:
+                fa.flash_attention_padded_bwd(q, k, v, out, lse, dout, scale),
+            lambda q=q, k=k, v=v, dout=dout: _plain_grads(
+                lambda a, b, c: fa.flash_attention_plain(a, b, c, scale),
+                (q, k, v), (dout,)),
+            lambda q=q, k=k, v=v, dout=dout: _library_grads(
+                F.scaled_dot_product_attention, (q, k, v), (dout,)),
+            flops=10 * G * Lq * Lk * d,
+            nbytes=2 * (4 * G * Lq * d + 4 * G * Lk * d) + 4 * G * Lq,
+            peak=PEAK_BF16, iters=3)
+        r["shape"] = shape
+        bwd.append(r)
+        del q, k, v, out, lse, dout
+        torch.cuda.empty_cache()
+    results["flash_attention_padded"] = fwd
+    results["flash_attention_padded_bwd"] = bwd
+
+    # flash_attention_ln_lse / _bwd: 448 batch 4 (blocks 0, 1, 15)
+    fwd, bwd = [], []
+    flags = (True, True, True)
+    for blk, h, Lq, Lk in ((0, 1, 100352, 1568), (1, 2, 25088, 6272),
+                           (15, 8, 1568, 1568)):
+        G = TRAIN_BATCH * h
+        q, k, v = (_normal(gen, (G, d, n), 1.0, bf).transpose(1, 2)
+                   for n in (Lq, Lk, Lk))
+        lnp = [t for _ in range(3) for t in (
+            _normal(gen, (d,), 0.1, bf) + 1, _normal(gen, (d,), 0.1, bf))]
+        args = (q, k, v, *lnp, scale, 1e-5, flags, True)
+        shape = (f"448 block {blk} q[{G},{Lq},{d}] k,v[{G},{Lk},{d}] "
+                 "d-major")
+        flops = 4 * G * Lq * Lk * d
+        io = 2 * (2 * G * Lq * d + 2 * G * Lk * d + 6 * d)
+
+        def ln_plain(*a):
+            return fa.flash_attention_ln_plain(*a, scale, 1e-5, flags, True)
+
+        def plain_lse(q=q, k=k, v=v, lnp=lnp):
+            from aicity_action_tpu_torch.ops.layer_norm import \
+                layer_norm_plain
+            qf, kf, vf = (t.float() for t in (q, k, v))
+            p = [t.float() for t in lnp]
+            qn, kn, vn = (layer_norm_plain(t, p[2 * i], p[2 * i + 1], 1e-5)
+                          for i, t in enumerate((qf, kf, vf)))
+            o, lse = fa.flash_attention_lse_plain(qn, kn, vn, scale)
+            return o + qn, lse
+
+        def library(q=q, k=k, v=v, lnp=lnp):
+            qn, kn, vn = (F.layer_norm(t, (d,), lnp[2 * i], lnp[2 * i + 1],
+                                       1e-5) for i, t in enumerate((q, k, v)))
+            return F.scaled_dot_product_attention(qn, kn, vn) + qn
+
+        r = _check_case(
+            "flash_attention_ln_lse",
+            lambda args=args: fa.flash_attention_ln_lse(*args)[:2],
+            plain_lse, library, flops=flops,
+            # out, lse and the attention output before the residual
+            nbytes=io + 4 * G * Lq + 2 * G * Lq * d,
+            peak=PEAK_BF16, iters=3)
+        r["shape"] = shape
+        fwd.append(r)
+        out, lse, oa = fa.flash_attention_ln_lse(*args)
+        dout = _normal(gen, (G, Lq, d), 1.0, bf)
+        r = _check_case(
+            "flash_attention_ln_bwd",
+            lambda q=q, k=k, v=v, lnp=lnp, oa=oa, lse=lse, dout=dout:
+                fa.flash_attention_ln_bwd(q, k, v, *lnp, oa, lse, dout,
+                                          scale, 1e-5, flags, True),
+            lambda q=q, k=k, v=v, lnp=lnp, dout=dout: _plain_grads(
+                ln_plain, (q, k, v, *lnp), (dout,)),
+            lambda q=q, k=k, v=v, lnp=lnp, dout=dout: _library_grads(
+                lambda *a: library(*a[:3], a[3:]), (q, k, v, *lnp),
+                (dout,)),
+            flops=10 * G * Lq * Lk * d,
+            nbytes=(2 * (4 * G * Lq * d + 4 * G * Lk * d + 12 * d)
+                    + 4 * G * Lq),
+            peak=PEAK_BF16, iters=2, zero_grads={6: 5})
+        r["shape"] = shape
+        bwd.append(r)
+        del q, k, v, out, lse, oa, dout, args
+        torch.cuda.empty_cache()
+    results["flash_attention_ln_lse"] = fwd
+    results["flash_attention_ln_bwd"] = bwd
+
+    # fused_ln_qkv forward / backward at the odd 25089 tokens: v1 batch 8,
+    # blocks 0 (D 96 -> 3C 288) and 1 (D 192 -> 3C 576)
+    qkv_f, qkv_b = [], []
+    for blk, L, D in ((0, 25089, 96), (1, 25089, 192)):
+        C, M = D, BATCH * L
+        x = _normal(gen, (M, D), 1.0, bf)
+        g = _normal(gen, (D,), 0.1, bf) + 1
+        bb = _normal(gen, (D,), 0.1, bf)
+        w = _normal(gen, (3 * C, D), D ** -0.5, bf)
+        bias = _normal(gen, (3 * C,), 0.1, bf)
+        gs = tuple(_normal(gen, (BATCH, C, L), 1.0, bf) for _ in range(3))
+        shape = f"v1 block {blk} x[{M},{D}] w[{3 * C},{D}] tokens {L}"
+
+        def library(x=x, g=g, bb=bb, w=w, bias=bias, D=D):
+            return F.linear(F.layer_norm(x, (D,), g, bb, 1e-6), w, bias)
+
+        r = _check_case(
+            "fused_ln_qkv",
+            lambda a=(x, g, bb, w, bias, 1e-6), L=L: fd.fused_ln_qkv(
+                *a, tokens=L),
+            lambda a=(x, g, bb, w, bias, 1e-6), L=L: fd.ln_qkv_plain(
+                *a, tokens=L),
+            library, flops=2 * M * D * 3 * C,
+            nbytes=2 * (M * D + 3 * M * C + 3 * C * D + 3 * C + 2 * D),
+            peak=PEAK_BF16, iters=10)
+        r["shape"] = shape
+        qkv_f.append(r)
+
+        def library_bwd(x=x, g=g, bb=bb, w=w, bias=bias, D=D, C=C, gs=gs):
+            cot = torch.cat([t.transpose(1, 2).reshape(-1, C) for t in gs],
+                            1)
+            return _library_grads(
+                lambda a, b, c, ww, wb: F.linear(
+                    F.layer_norm(a, (D,), b, c, 1e-6), ww, wb),
+                (x, g, bb, w, bias), (cot,))
+
+        r = _check_case(
+            "fused_ln_qkv_bwd",
+            lambda x=x, g=g, bb=bb, w=w, gs=gs, L=L:
+                fd.fused_ln_qkv_bwd(x, g, bb, w, *gs, 1e-6, L),
+            lambda x=x, g=g, bb=bb, w=w, bias=bias, gs=gs, L=L:
+                _plain_grads(lambda *a: fd.ln_qkv_plain(*a, 1e-6, L),
+                             (x, g, bb, w, bias), gs),
+            library_bwd, flops=4 * M * D * 3 * C,
+            nbytes=2 * (2 * M * D + 3 * M * C + 2 * 3 * C * D + 3 * C
+                        + 4 * D),
+            peak=PEAK_BF16, iters=5)
+        r["shape"] = shape
+        qkv_b.append(r)
+        del x, w, gs
+        torch.cuda.empty_cache()
+    results["fused_ln_qkv odd tokens"] = qkv_f
+    results["fused_ln_qkv_bwd odd tokens"] = qkv_b
+    return results
+
+
 # ------------------------------------------------------------------ model
 
 KERNEL_FNS = ("fused_ln_qkv", "flash_attention_ln", "fused_ln_mlp",
@@ -496,31 +714,44 @@ KERNEL_FNS = ("fused_ln_qkv", "flash_attention_ln", "fused_ln_mlp",
 TRAIN_KERNEL_FNS = ("flash_attention", "flash_attention_bwd",
                     "fused_ln_qkv_bwd", "fused_ln_mlp_bwd",
                     "fused_layer_norm_bwd")
+V1_KERNEL_FNS = ("flash_attention_padded", "flash_attention_padded_bwd")
+FUSED_KERNEL_FNS = ("flash_attention_ln_lse", "flash_attention_ln_bwd")
+ALL_FNS = KERNEL_FNS + TRAIN_KERNEL_FNS + V1_KERNEL_FNS + FUSED_KERNEL_FNS
+_PALLAS = "aicity_action_tpu/ops/pallas/"
 SOURCES = {
     "fused_ln_qkv": ("aicity_action_tpu_torch/csrc/fused_ln_qkv.cu",
-                     "aicity_action_tpu/ops/pallas/fused_dense.py:74"),
+                     _PALLAS + "fused_dense.py:74"),
     "flash_attention_ln": (
         "aicity_action_tpu_torch/csrc/flash_attention_ln.cu",
-        "aicity_action_tpu/ops/pallas/flash_attention.py:805"),
+        _PALLAS + "flash_attention.py:805"),
     "fused_ln_mlp": ("aicity_action_tpu_torch/csrc/fused_ln_mlp.cu",
-                     "aicity_action_tpu/ops/pallas/fused_dense.py:314"),
+                     _PALLAS + "fused_dense.py:314"),
     "fused_layer_norm": ("aicity_action_tpu_torch/csrc/layer_norm.cu",
-                         "aicity_action_tpu/ops/pallas/layer_norm.py:64"),
+                         _PALLAS + "layer_norm.py:64"),
     "flash_attention": ("aicity_action_tpu_torch/csrc/flash_attention.cu",
-                        "aicity_action_tpu/ops/pallas/flash_attention.py:261"),
+                        _PALLAS + "flash_attention.py:261"),
     "flash_attention_bwd": (
         "aicity_action_tpu_torch/csrc/flash_attention.cu",
-        "aicity_action_tpu/ops/pallas/flash_attention.py:550"),
+        _PALLAS + "flash_attention.py:550"),
     "fused_ln_qkv_bwd": ("aicity_action_tpu_torch/csrc/fused_ln_qkv_bwd.cu",
-                         "aicity_action_tpu/ops/pallas/fused_dense.py:175"),
+                         _PALLAS + "fused_dense.py:175"),
     "fused_ln_mlp_bwd": ("aicity_action_tpu_torch/csrc/fused_ln_mlp_bwd.cu",
-                         "aicity_action_tpu/ops/pallas/fused_dense.py:414"),
+                         _PALLAS + "fused_dense.py:414"),
     "fused_layer_norm_bwd": ("aicity_action_tpu_torch/csrc/layer_norm.cu",
-                             "aicity_action_tpu/ops/pallas/layer_norm.py:104"),
+                             _PALLAS + "layer_norm.py:104"),
+    "flash_attention_padded": (
+        "aicity_action_tpu_torch/csrc/flash_attention.cu",
+        _PALLAS + "flash_attention.py:718"),
+    "flash_attention_padded_bwd": (
+        "aicity_action_tpu_torch/csrc/flash_attention.cu",
+        _PALLAS + "flash_attention.py:742"),
+    "flash_attention_ln_lse": (
+        "aicity_action_tpu_torch/csrc/flash_attention_ln.cu",
+        _PALLAS + "flash_attention.py:918"),
+    "flash_attention_ln_bwd": (
+        "aicity_action_tpu_torch/csrc/flash_attention_ln_bwd.cu",
+        _PALLAS + "flash_attention.py:1203"),
 }
-PER_FORWARD = {"fused_ln_qkv": 16, "flash_attention_ln": 16,
-               "fused_ln_mlp": 16, "fused_layer_norm": 1,
-               **{name: 0 for name in TRAIN_KERNEL_FNS}}
 
 
 def _wrappers():
@@ -536,7 +767,53 @@ def _wrappers():
             "flash_attention_bwd": fa.flash_attention_bwd,
             "fused_ln_qkv_bwd": fd.fused_ln_qkv_bwd,
             "fused_ln_mlp_bwd": fd.fused_ln_mlp_bwd,
-            "fused_layer_norm_bwd": ln.fused_layer_norm_bwd}
+            "fused_layer_norm_bwd": ln.fused_layer_norm_bwd,
+            "flash_attention_padded": fa.flash_attention_padded_fwd,
+            "flash_attention_padded_bwd": fa.flash_attention_padded_bwd,
+            "flash_attention_ln_lse": fa.flash_attention_ln_lse,
+            "flash_attention_ln_bwd": fa.flash_attention_ln_bwd}
+
+
+def derived_counts(model, train: bool) -> dict:
+    """Kernel launches of one forward (``train`` False) or one train step
+    that the model's blocks and the fused-LN switch imply. Per block: one
+    LN+qkv; the fused-LN attention where the block fuses (conv pools, no
+    cls token, the switch on), else one attention (the padded one with a
+    cls token) and one LN per conv-pooled q / k / v; one LN+MLP, or, where
+    the MLP changes the channels, a separate norm2. The final norm once.
+    Training adds each backward once and, under activation checkpointing,
+    runs every block's forward kernels twice (the recompute)."""
+    from aicity_action_tpu_torch.models.mvit import _fuse_attn_ln_enabled
+
+    n = dict.fromkeys(ALL_FNS, 0)
+    remat = 2 if train and model.spec.act_checkpoint else 1
+
+    def add(fwd, bwd, times=1):
+        n[fwd] += remat * times
+        if train:
+            n[bwd] += times
+
+    for blk in model.blocks:
+        attn = blk.attn
+        add("fused_ln_qkv", "fused_ln_qkv_bwd")
+        if (attn.mode == "conv" and not attn.has_cls and attn.pooled
+                and _fuse_attn_ln_enabled(train)):
+            add("flash_attention_ln_lse" if train else "flash_attention_ln",
+                "flash_attention_ln_bwd")
+        else:
+            attend = ("flash_attention_padded" if attn.has_cls
+                      else "flash_attention")
+            add(attend, attend + "_bwd")
+            add("fused_layer_norm", "fused_layer_norm_bwd",
+                len(attn.pooled) if attn.mode == "conv" else 0)
+        if blk.proj is None:
+            add("fused_ln_mlp", "fused_ln_mlp_bwd")
+        else:
+            add("fused_layer_norm", "fused_layer_norm_bwd")
+    if model.norm is not None:
+        n["fused_layer_norm"] += 1
+        n["fused_layer_norm_bwd"] += int(train)
+    return n
 
 
 def reset_counts() -> None:
@@ -548,54 +825,106 @@ def read_counts() -> dict:
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
-def model_checks(card: str):
+@contextlib.contextmanager
+def fuse_switch(value: str | None):
+    """``AICITY_TPU_FUSE_ATTN_LN`` set to ``value`` (None: unset, the
+    default ``auto``) for the duration."""
+    prev = os.environ.pop("AICITY_TPU_FUSE_ATTN_LN", None)
+    if value is not None:
+        os.environ["AICITY_TPU_FUSE_ATTN_LN"] = value
+    try:
+        yield
+    finally:
+        os.environ.pop("AICITY_TPU_FUSE_ATTN_LN", None)
+        if prev is not None:
+            os.environ["AICITY_TPU_FUSE_ATTN_LN"] = prev
+
+
+def model_checks(card: str, cfg, label: str):
+    """The batch-8 eval forward through ``make_eval_step``: launches held
+    to the counts the model implies, its time, and a batch-1 forward
+    against the same model in plain reference mode."""
     import torch
 
-    from aicity_action_tpu_torch.config import mvitv2_b_16x4_448_cfg
+    from aicity_action_tpu_torch.engine.steps import make_eval_step
     from aicity_action_tpu_torch.models.build import build_model
     from aicity_action_tpu_torch.ops import kernels
 
-    cfg = mvitv2_b_16x4_448_cfg()
     model = build_model(cfg, device="cuda", seed=SEED)
+    eval_step = make_eval_step(model)
     T, S = cfg.DATA.NUM_FRAMES, cfg.DATA.TEST_CROP_SIZE
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     x = _normal(gen, (BATCH, T, S, S, 3))
 
-    with torch.no_grad():
-        reset_counts()
-        out = model(x)
-        torch.cuda.synchronize()
-        counts = read_counts()
-        if counts != PER_FORWARD:
-            _fail(f"launches per forward {counts} != {PER_FORWARD}")
-        if out.shape != (BATCH, cfg.MODEL.NUM_CLASSES) or \
-                not torch.isfinite(out).all():
-            _fail("batch-8 forward: non-finite or mis-shaped scores")
-        ms = time_ms(lambda: model(x), iters=5)
-        print(f"# MViT-v2-B 16x4 @448 forward, batch {BATCH} bf16: "
-              f"{ms:.2f} ms, {BATCH / ms * 1e3:.2f} clips/s ({card})")
+    reset_counts()
+    out = eval_step({"inputs": x})
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = derived_counts(model, train=False)
+    if counts != want:
+        _fail(f"{label}: launches per forward {counts} != {want}")
+    if out.shape != (BATCH, cfg.MODEL.NUM_CLASSES) or \
+            not torch.isfinite(out).all():
+        _fail(f"{label} batch-8 forward: non-finite or mis-shaped scores")
+    ms = time_ms(lambda: eval_step({"inputs": x}), iters=5)
+    print(f"# {label} forward, batch {BATCH} bf16: {ms:.2f} ms, "
+          f"{BATCH / ms * 1e3:.2f} clips/s ({card}); launches {counts}")
 
-        # batch 1: kernels against the same model in plain reference mode;
-        # the features entering the head are compared too, since softmax
-        # scores of random weights sit near 1/num_classes
-        feats = []
-        hook = model.head.register_forward_hook(
-            lambda mod, inp, outp: feats.append(inp[0].float()))
-        x1 = x[:1]
-        out_k = model(x1)
-        with kernels.plain_reference():
-            out_p = model(x1)
-        hook.remove()
-        torch.cuda.synchronize()
+    # batch 1: kernels against the same model in plain reference mode; the
+    # features entering the head are compared too, since softmax scores of
+    # random weights sit near 1/num_classes
+    feats = []
+    hook = model.head.register_forward_hook(
+        lambda mod, inp, outp: feats.append(inp[0].float()))
+    x1 = x[:1]
+    out_k = eval_step({"inputs": x1})
+    with kernels.plain_reference():
+        out_p = eval_step({"inputs": x1})
+    hook.remove()
+    torch.cuda.synchronize()
     feat_err = ((feats[0] - feats[1]).norm() / feats[1].norm()).item()
     score_err = (out_k - out_p).abs().max().item()
-    print(f"# batch-1 forward, kernels vs plain reference: head-input "
-          f"relative L2 error {feat_err:.3e} (tol 5e-2), max |score "
-          f"error| {score_err:.3e} (tol 1e-2)")
+    print(f"# {label} batch-1 forward, kernels vs plain reference: "
+          f"head-input relative L2 error {feat_err:.3e} (tol 5e-2), max "
+          f"|score error| {score_err:.3e} (tol 1e-2)")
     if not (feat_err <= 5e-2 and score_err <= 1e-2):
-        _fail("the model's kernel path disagrees with its plain reference")
-    return model, cfg, {"forward_ms": ms, "clips_per_s": BATCH / ms * 1e3,
-                        "feat_rel_err": feat_err, "score_err": score_err}
+        _fail(f"{label}: the kernel path disagrees with its plain reference")
+    return model, {"forward_ms": ms, "clips_per_s": BATCH / ms * 1e3,
+                   "feat_rel_err": feat_err, "score_err": score_err,
+                   "launches_per_forward": counts}
+
+
+def unfused_eval_checks(card: str, model, cfg, label: str):
+    """The same batch-8 eval forward with ``AICITY_TPU_FUSE_ATTN_LN=0``:
+    the unfused path (pool norms, then the lse-free flash attention), its
+    launches held to the derived counts, its time, and its scores against
+    the fused forward's."""
+    import torch
+
+    from aicity_action_tpu_torch.engine.steps import make_eval_step
+
+    eval_step = make_eval_step(model)
+    T, S = cfg.DATA.NUM_FRAMES, cfg.DATA.TEST_CROP_SIZE
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    x = _normal(gen, (BATCH, T, S, S, 3))
+    fused = eval_step({"inputs": x})
+    with fuse_switch("0"):
+        reset_counts()
+        out = eval_step({"inputs": x})
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = derived_counts(model, train=False)
+        if counts != want:
+            _fail(f"{label} unfused: launches per forward {counts} != {want}")
+        ms = time_ms(lambda: eval_step({"inputs": x}), iters=5)
+    err = (out - fused).abs().max().item()
+    print(f"# {label} forward with AICITY_TPU_FUSE_ATTN_LN=0, batch {BATCH} "
+          f"bf16: {ms:.2f} ms, {BATCH / ms * 1e3:.2f} clips/s ({card}); max "
+          f"|score - fused path's| {err:.3e} (tol 1e-2); launches {counts}")
+    if not err <= 1e-2:
+        _fail(f"{label}: the unfused eval disagrees with the fused one")
+    return {"forward_ms": ms, "clips_per_s": BATCH / ms * 1e3,
+            "score_err_vs_fused": err, "launches_per_forward": counts}
 
 
 # ------------------------------------------------------------------ scorer
@@ -692,39 +1021,19 @@ def scorer_checks(model, cfg):
 
 # ------------------------------------------------------------------ train
 
-def train_per_step(model) -> dict:
-    """Kernel launches one train step implies, derived from the model: per
-    block one LN+qkv, one attention and one LN+MLP, each forward run twice
-    under activation checkpointing (the recompute); one pool norm per
-    conv-pooled q / k / v of a block, and the final norm once."""
-    remat = 2 if model.spec.act_checkpoint else 1
-    depth = len(model.blocks)
-    norms = sum(len(b.attn.pooled) for b in model.blocks
-                if b.attn.mode == "conv")
-    final = int(model.norm is not None)
-    return {"fused_ln_qkv": remat * depth, "flash_attention_ln": 0,
-            "fused_ln_mlp": remat * depth,
-            "fused_layer_norm": remat * norms + final,
-            "flash_attention": remat * depth, "flash_attention_bwd": depth,
-            "fused_ln_qkv_bwd": depth, "fused_ln_mlp_bwd": depth,
-            "fused_layer_norm_bwd": norms + final}
-
-
-def train_checks(card: str):
-    """The full MViT-v2-B 16x4 @448 train step at batch 4 (mixup, activation
-    checkpointing, AdamW, bf16 compute, f32 params and optimizer state)."""
+def train_checks(card: str, cfg, label: str, batch_size: int):
+    """The full model's train step through ``make_train_step`` (the
+    config's mixup, activation checkpointing and optimizer; bf16 compute,
+    f32 params and optimizer state): warm-up steps, then timed steps with
+    the launch counts set to 0 just before and held to the counts the
+    model implies just after."""
     import torch
 
-    from aicity_action_tpu_torch.config import mvitv2_b_16x4_448_cfg
     from aicity_action_tpu_torch.data.mixup import build_mixup_from_cfg
     from aicity_action_tpu_torch.engine.steps import make_train_step
     from aicity_action_tpu_torch.models.build import build_model
     from aicity_action_tpu_torch.solver.optimizer import construct_optimizer
 
-    cfg = mvitv2_b_16x4_448_cfg()
-    cfg.MIXUP.ENABLE = True
-    if not cfg.MODEL.ACT_CHECKPOINT:
-        _fail("the 448 recipe is expected to checkpoint activations")
     model = build_model(cfg, device="cuda", seed=SEED)
     opt = construct_optimizer(cfg, model, steps_per_epoch=100)
     step = make_train_step(model, opt, cfg.MODEL.LOSS_FUNC,
@@ -732,9 +1041,9 @@ def train_checks(card: str):
                            num_classes=cfg.MODEL.NUM_CLASSES, seed=SEED)
     T, S = cfg.DATA.NUM_FRAMES, cfg.DATA.TRAIN_CROP_SIZE
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    batch = {"inputs": _normal(gen, (TRAIN_BATCH, T, S, S, 3)),
+    batch = {"inputs": _normal(gen, (batch_size, T, S, S, 3)),
              "labels": torch.randint(0, cfg.MODEL.NUM_CLASSES,
-                                     (TRAIN_BATCH,), generator=gen,
+                                     (batch_size,), generator=gen,
                                      device="cuda")}
     losses = []
     for _ in range(TRAIN_WARMUP):
@@ -750,25 +1059,26 @@ def train_checks(card: str):
     peak = torch.cuda.max_memory_allocated()
     losses += [float(m["loss"]) for m in metrics]
     norms = [float(m["grad_norm"]) for m in metrics]
-    want = {k: TRAIN_STEPS * v for k, v in train_per_step(model).items()}
-    print(f"# MViT-v2-B 16x4 @448 train step, batch {TRAIN_BATCH}, mixup, "
-          f"activation checkpointing, AdamW: {ms:.2f} ms/step, "
-          f"{TRAIN_BATCH / ms * 1e3:.3f} clips/s, peak memory "
+    want = {k: TRAIN_STEPS * v
+            for k, v in derived_counts(model, train=True).items()}
+    print(f"# {label} train step, batch {batch_size}: {ms:.2f} ms/step, "
+          f"{batch_size / ms * 1e3:.3f} clips/s, peak memory "
           f"{peak / 2 ** 30:.2f} GiB ({card}); losses {losses}; grad norms "
           f"{norms}; launches over {TRAIN_STEPS} steps {launches}")
     if not all(np.isfinite(losses)) or not all(np.isfinite(norms)):
-        _fail("non-finite loss or gradient norm in the train step")
+        _fail(f"{label}: non-finite loss or gradient norm in the train step")
     if launches != want:
-        _fail(f"train-step launches {launches} != {want}")
-    stats = {"ms_per_step": ms, "clips_per_s": TRAIN_BATCH / ms * 1e3,
-             "peak_mem_bytes": peak, "losses": losses, "grad_norms": norms,
-             "launches_per_step": {k: v // TRAIN_STEPS
-                                   for k, v in launches.items()}}
-    del step, opt, batch
-    return model, cfg, launches, stats
+        _fail(f"{label}: train-step launches {launches} != {want}")
+    del step, opt, batch, model
+    torch.cuda.empty_cache()
+    return {"ms_per_step": ms, "clips_per_s": batch_size / ms * 1e3,
+            "peak_mem_bytes": peak, "losses": losses, "grad_norms": norms,
+            "launches": launches,
+            "launches_per_step": {k: v // TRAIN_STEPS
+                                  for k, v in launches.items()}}
 
 
-def train_grad_check(cfg):
+def train_grad_check(cfg, label: str):
     """One batch-1 step's loss and gradients (no update) with the kernels
     against the same model in its plain reference mode: the same params,
     mixup draw and DropPath / dropout masks. The model is built afresh from
@@ -822,29 +1132,33 @@ def train_grad_check(cfg):
     rel = {i: ((grads_k[i] - grads_p[i]).norm()
                / grads_p[i].norm().clamp_min(1e-30)).item()
            for i in range(len(names)) if i not in zero}
-    worst = max(rel, key=rel.get)
-    floor = ((grads_n[worst] - grads_p[worst]).norm()
-             / grads_p[worst].norm()).item()
+    # each leaf within 5e-2 relative L2, or within what the plain reference
+    # itself moves it by for one bf16 rounding of its input
+    floors = {i: ((grads_n[i] - grads_p[i]).norm()
+                  / grads_p[i].norm().clamp_min(1e-30)).item() for i in rel}
+    bounds = {i: max(5e-2, floors[i]) for i in rel}
+    worst = max(rel, key=lambda i: rel[i] / bounds[i])
     loss_err = abs(loss_k - loss_p) / abs(loss_p)
     norm_err = abs(norm_k - norm_p) / norm_p
-    print(f"# batch-1 train step, kernels vs plain reference: loss "
+    print(f"# {label} batch-1 train step, kernels vs plain reference: loss "
           f"{loss_k:.6f} vs {loss_p:.6f} (rel {loss_err:.2e}, tol 1e-2), "
           f"grad_norm {norm_k:.6f} vs {norm_p:.6f} (rel {norm_err:.2e}, "
           f"tol 2e-2), worst leaf {names[worst]} relative L2 "
-          f"{rel[worst]:.3e} (tol 5e-2; the plain reference moves it by "
-          f"{floor:.3e} for a bf16 rounding of its input), median "
+          f"{rel[worst]:.3e} (tol {bounds[worst]:.3e}: 5e-2, or what the "
+          f"plain reference moves it by for a bf16 rounding of its input, "
+          f"{floors[worst]:.3e}), median "
           f"{float(np.median(list(rel.values()))):.3e}; {len(zero)} "
           f"zero-gradient leaves (k-norm biases) at most {zero_max:.3e} "
           f"(tol {1e-3 * norm_p:.3e})")
-    if not (loss_err <= 1e-2 and norm_err <= 2e-2 and rel[worst] <= 5e-2
-            and zero_max <= 1e-3 * norm_p):
-        _fail("the train step's kernel gradients disagree with the plain "
-              "reference")
+    if not (loss_err <= 1e-2 and norm_err <= 2e-2
+            and rel[worst] <= bounds[worst] and zero_max <= 1e-3 * norm_p):
+        _fail(f"{label}: the train step's kernel gradients disagree with "
+              "the plain reference")
     del model, grads_k, grads_p, grads_n
     torch.cuda.empty_cache()
     return {"loss_rel_err": loss_err, "grad_norm_rel_err": norm_err,
             "worst_leaf": names[worst], "worst_leaf_rel_l2": rel[worst],
-            "worst_leaf_plain_noise_floor": floor,
+            "worst_leaf_plain_noise_floor": floors[worst],
             "median_leaf_rel_l2": float(np.median(list(rel.values()))),
             "zero_grad_leaves_max_norm": zero_max}
 
@@ -870,6 +1184,8 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from aicity_action_tpu_torch.config import (mvit_b_16x4_224_cfg,
+                                                mvitv2_b_16x4_448_cfg)
 
     card = card_line()
     print(f"# card: {card}; torch {torch.__version__}, CUDA "
@@ -877,37 +1193,80 @@ def main() -> int:
     build_kernels()
     checks = kernel_checks()
     checks.update(train_kernel_checks())
+    checks.update(v1_kernel_checks())
     for name, cases in checks.items():
         for c in cases:
             print(f"# {name} {c['shape']}: err {c['max_abs_err']:.3e} "
                   f"(tol {c['tol']:.3e}), {c['ms']:.4f} ms, plain "
                   f"{c['plain_ms']:.4f} ms, library {c['library_ms']:.4f} "
                   f"ms, bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
-    model, cfg, model_stats = model_checks(card)
-    launches = scorer_checks(model, cfg)
+    # each path runs with the counts set to 0 just before it and read just
+    # after; the default switch (auto) unless stated
+    cfg = mvitv2_b_16x4_448_cfg()
+    model, model_stats = model_checks(card, cfg, "MViT-v2-B 16x4 @448")
+    launches = {"v2 scorer": scorer_checks(model, cfg)}
+    model_stats["unfused"] = unfused_eval_checks(card, model, cfg,
+                                                 "MViT-v2-B 16x4 @448")
+    launches["v2 unfused eval"] = model_stats["unfused"][
+        "launches_per_forward"]
     del model
     torch.cuda.empty_cache()
-    model, cfg, train_launches, train_stats = train_checks(card)
-    del model
-    torch.cuda.empty_cache()
-    train_stats["grad_check"] = train_grad_check(cfg)
+    cfg.MIXUP.ENABLE = True
+    if not cfg.MODEL.ACT_CHECKPOINT:
+        _fail("the 448 recipe is expected to checkpoint activations")
+    train_stats = train_checks(card, cfg, "MViT-v2-B 16x4 @448 (mixup, "
+                               "activation checkpointing, AdamW)", TRAIN_BATCH)
+    launches["v2 train"] = train_stats["launches"]
+    # the fused-LN attention in training, timed in the same call as the
+    # default step above
+    with fuse_switch("1"):
+        fused_stats = train_checks(
+            card, cfg, "MViT-v2-B 16x4 @448 with AICITY_TPU_FUSE_ATTN_LN=1",
+            TRAIN_BATCH)
+        fused_stats["grad_check"] = train_grad_check(
+            cfg, "MViT-v2-B @448, AICITY_TPU_FUSE_ATTN_LN=1")
+    launches["v2 fused train"] = fused_stats["launches"]
+    train_stats["grad_check"] = train_grad_check(cfg, "MViT-v2-B @448")
 
+    v1_cfg = mvit_b_16x4_224_cfg()
+    model, v1_stats = model_checks(card, v1_cfg, "MViT-B 16x4 @224 (cls)")
+    launches["v1 eval"] = v1_stats["launches_per_forward"]
+    del model
+    torch.cuda.empty_cache()
+    v1_train = train_checks(card, v1_cfg, "MViT-B 16x4 @224 (cls; mixup, "
+                            "AdamW)", BATCH)
+    v1_train["grad_check"] = train_grad_check(v1_cfg, "MViT-B 16x4 @224")
+    launches["v1 train"] = v1_train["launches"]
+
+    # launches of each kernel in the run of the path it serves: the scorer
+    # run for the inference kernels, the timed train steps for the others
+    owner = {**dict.fromkeys(KERNEL_FNS, "v2 scorer"),
+             **dict.fromkeys(TRAIN_KERNEL_FNS, "v2 train"),
+             **dict.fromkeys(V1_KERNEL_FNS, "v1 train"),
+             **dict.fromkeys(FUSED_KERNEL_FNS, "v2 fused train")}
     kernels_line = []
-    for name in KERNEL_FNS + TRAIN_KERNEL_FNS:
+    for name in ALL_FNS:
         first = checks[name][0]
         source, replaces = SOURCES[name]
         kernels_line.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": (launches if name in KERNEL_FNS
-                         else train_launches)[name],
+            "launches": launches[owner[name]][name],
             **{k: first[k] for k in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms")},
             "shape": first["shape"],
-            "train_launches_per_step": train_stats["launches_per_step"][name],
+            "launches_on": owner[name],
+            "launches_by_path": {path: n[name]
+                                 for path, n in launches.items()},
             "other_shapes": checks[name][1:],
         })
-    print(json.dumps({"model": model_stats, "train": train_stats}))
+    for extra in ("fused_ln_qkv odd tokens", "fused_ln_qkv_bwd odd tokens"):
+        base = extra.split()[0]
+        next(k for k in kernels_line if k["name"] == base)[
+            "odd_token_shapes"] = checks[extra]
+    print(json.dumps({"model": model_stats, "train": train_stats,
+                      "fused_train": fused_stats, "v1_model": v1_stats,
+                      "v1_train": v1_train}))
     print(json.dumps({"kernels": kernels_line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -21,6 +21,7 @@ from aicity_action_tpu_torch.ops import fused_dense as tfd
 from aicity_action_tpu_torch.ops import kernels
 from aicity_action_tpu_torch.ops import layer_norm as tln
 from torch_port_helpers import YAML, tiny_cfg
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG_DIR = os.path.dirname(aicity_action_tpu_torch.__file__)

@@ -23,6 +23,7 @@ from aicity_action_tpu_torch.ops import flash_attention as tfa
 from aicity_action_tpu_torch.ops import fused_dense as tfd
 from aicity_action_tpu_torch.ops import kernels
 from aicity_action_tpu_torch.ops import layer_norm as tln
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 2e-5
 
@@ -270,6 +271,77 @@ def test_fused_ln_mlp_backward_matches_pallas(m, d, variant):
     out = _grads(lambda *a: tfd.fused_ln_mlp(*a, 1e-6),
                  (x, g, b, w1.T.copy(), b1, w2.T.copy(), b2), (dout,))
     for o, r in zip(out, ref):
+        _close_grad(o, r)
+
+
+@pytest.mark.parametrize("Lq,Lk", [(1 + 4 * 4 * 4, 1 + 2 * 2 * 2),
+                                   (1 + 2 * 2 * 2, 1 + 4 * 4 * 4)])
+def test_flash_attention_padded_matches_pallas(Lq, Lk):
+    """A cls token's odd lengths 1 + T*H*W: the port's padded attention
+    (its plain version here; on the card the kernels' edge masks) against
+    the JAX wrapper that zero-pads q, k, v and masks the padded keys,
+    forward and VJP."""
+    G, d = 2, 16
+    rng = np.random.default_rng(24)
+    q, k, v = (_arr(rng, (G, n, d), 1.5, 0.3) for n in (Lq, Lk, Lk))
+    dout = _arr(rng, (G, Lq, d))
+    scale = d ** -0.5
+    out_ref, vjp = jax.vjp(
+        lambda a, b, c: jfa.flash_attention_padded(a, b, c, scale),
+        *(jnp.asarray(a) for a in (q, k, v)))
+    ref = vjp(jnp.asarray(dout))
+    with torch.no_grad():
+        out = tfa.flash_attention_padded(
+            *(torch.from_numpy(a) for a in (q, k, v)), scale)
+    _close(out, out_ref)
+    grads = _grads(lambda *a: tfa.flash_attention_padded(*a, scale),
+                   (q, k, v), (dout,))
+    for o, r in zip(grads, ref):
+        _close_grad(o, r)
+
+
+# every (norm_q, norm_k, norm_v) on the merged Pallas backward, add_qn
+# alternating; the K-chunked one (its q-side LN VJP runs in the wrapper)
+# with and without the q norm and the residual
+_LN_VJP_CASES = (
+    [("merged", f, sum(f) % 2 == 1)
+     for f in itertools.product((True, False), repeat=3)]
+    + [("chunked", (True, True, True), True),
+       ("chunked", (False, True, True), False)])
+
+
+@pytest.mark.parametrize("variant,flags,add_qn", _LN_VJP_CASES)
+def test_flash_attention_ln_backward_matches_pallas(variant, flags, add_qn,
+                                                    monkeypatch):
+    """All nine gradients of the fused-LN attention (q, k, v and the three
+    pool norms' gamma / beta; zeros where a flag is off): the port's plain
+    version under autograd against the JAX custom VJP through each Pallas
+    backward kernel, selected as tests/test_flash_ln.py selects them. In
+    f32 the JAX wrapper's recovery of the pure attention output (out -
+    LN(q), a bf16 rounding on the card) is exact to f32 rounding."""
+    if variant == "chunked":
+        monkeypatch.setattr(jfa, "_BWD_KV_RESIDENT_CAP", 8 * 1024)
+    G, Lq, Lk, d = 2, 64, 64, 16
+    assert (jfa._ln_bwd_fused_tile(Lq, Lk, d, flags) is None) == (
+        variant == "chunked")
+    rng = np.random.default_rng(25)
+    q, k, v = (_arr(rng, (G, n, d), 1.5, 0.3) for n in (Lq, Lk, Lk))
+    lnp = [a for _ in range(3)
+           for a in (_arr(rng, (d,), 0.1, 1.0), _arr(rng, (d,), 0.1))]
+    dout = _arr(rng, (G, Lq, d))
+    scale = d ** -0.5
+    _, vjp = jax.vjp(
+        lambda *a: jfa.flash_attention_ln(*a, scale, 1e-5, flags, add_qn),
+        *(jnp.asarray(a) for a in (q, k, v, *lnp)))
+    ref = vjp(jnp.asarray(dout))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v, *lnp)]
+    out = tfa.flash_attention_ln(*ts, scale, 1e-5, flags, add_qn)
+    grads = torch.autograd.grad(out, ts, torch.from_numpy(dout),
+                                allow_unused=True)
+    for i, (o, r) in enumerate(zip(grads, ref)):
+        if o is None:  # a parameter whose flag is off
+            assert i >= 3 and not flags[(i - 3) // 2]
+            o = torch.zeros(d)
         _close_grad(o, r)
 
 

@@ -21,13 +21,18 @@ from aicity_action_tpu.config import get_cfg as jax_get_cfg
 from aicity_action_tpu.models import mvit as jmvit
 from aicity_action_tpu.ops import pooling as jpool
 from aicity_action_tpu.utils.convert import convert_mvit_state_dict
-from aicity_action_tpu_torch.config import get_cfg, mvitv2_b_16x4_448_cfg
+from aicity_action_tpu_torch.config import (get_cfg, mvit_b_16x4_224_cfg,
+                                            mvitv2_b_16x4_448_cfg)
+from aicity_action_tpu_torch.config.defaults import _MVIT_B_16x4_224
 from aicity_action_tpu_torch.models import mvit as tmvit
 from aicity_action_tpu_torch.models.build import build_model
 from aicity_action_tpu_torch.models.common import FusedLayerNorm
 from aicity_action_tpu_torch.ops import pooling as tpool
 from aicity_action_tpu_torch.utils.convert import jax_params_to_state_dict
-from torch_port_helpers import YAML, jax_tiny_model, perturb, tiny_cfg
+from torch_port_helpers import (YAML, jax_tiny_model,
+                                jax_tiny_params_from_port, perturb, tiny_cfg,
+                                tiny_v1_cfg)
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 2e-5
 
@@ -181,12 +186,18 @@ def test_pool_mode_block_matches_jax(mode):
 
 # ------------------------------------------------------------------ spec
 
-@pytest.mark.parametrize("which", ["448", "tiny"])
+@pytest.mark.parametrize("which", ["448", "tiny", "v1_224"])
 def test_build_mvit_spec_matches_jax(which):
     if which == "448":
         jcfg = jax_get_cfg()
         jcfg.merge_from_file(YAML)
         pcfg = mvitv2_b_16x4_448_cfg()
+    elif which == "v1_224":
+        pcfg = mvit_b_16x4_224_cfg()
+        jcfg = jax_get_cfg()
+        for section in ("DATA", "MVIT", "MODEL"):
+            for key, value in _MVIT_B_16x4_224[section].items():
+                setattr(getattr(jcfg, section), key, value)
     else:
         jcfg, pcfg = tiny_cfg(jax_get_cfg), tiny_cfg(get_cfg)
     jspec = jmvit.build_mvit_spec(jcfg)
@@ -197,6 +208,14 @@ def test_build_mvit_spec_matches_jax(which):
         assert [(b.dim, b.dim_out, b.num_heads) for b in pspec.blocks] == (
             [(96, 96, 1), (96, 192, 2), (192, 192, 2), (192, 384, 4)]
             + [(384, 384, 4)] * 10 + [(384, 768, 8), (768, 768, 8)])
+    if which == "v1_224":
+        # attention at the input width (d = 96), channels changed in the
+        # MLPs of blocks 0, 2 and 13; 1 + 8*56*56 tokens
+        assert [(b.dim, b.dim_out, b.num_heads) for b in pspec.blocks] == (
+            [(96, 192, 1), (192, 192, 2), (192, 384, 2)]
+            + [(384, 384, 4)] * 10 + [(384, 768, 4), (768, 768, 8),
+                                      (768, 768, 8)])
+        assert pspec.cls_embed and pspec.patch_dims == (8, 56, 56)
 
 
 def test_state_dict_round_trips_through_the_jax_converter():
@@ -215,3 +234,19 @@ def test_state_dict_round_trips_through_the_jax_converter():
     assert len(flat_j) == len(flat_b)
     for path, leaf in flat_j:
         np.testing.assert_array_equal(flat_b[path], leaf)
+
+
+def test_v1_state_dict_round_trips_through_the_jax_converter():
+    """The cls-token MViT-v1's own parameters (cls_token, pos_embed_class,
+    the channel-change blocks' block-level proj) cross both ways: port
+    state_dict -> convert_mvit_state_dict -> jax_params_to_state_dict
+    gives the port's tensors back exactly, under every port name."""
+    model = build_model(tiny_v1_cfg(get_cfg), device="cpu", seed=3)
+    params = jax_tiny_params_from_port(seed=3, make_cfg=tiny_v1_cfg)
+    assert {"cls_token", "pos_embed_class"} <= set(params)
+    assert "proj" in params["blocks_0"] and "proj" not in params["blocks_1"]
+    back = jax_params_to_state_dict(params)
+    sd = model.state_dict()
+    assert set(back) == set(sd)
+    for name, t in sd.items():
+        torch.testing.assert_close(back[name], t, rtol=0, atol=0)

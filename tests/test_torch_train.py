@@ -3,7 +3,9 @@ in f32, and its pieces: losses, LR schedule, AdamW against optax, mixup,
 DropPath, and activation checkpointing with DropPath on.
 
 The whole-step tests use the tiny MViT-v2 (depth 4, crop 32, 4 frames,
-embed 32) with DropPath and head dropout off and mixup on. The JAX model's
+embed 32) and the tiny cls-token MViT-v1 of the same sizes, with DropPath
+and head dropout off and mixup on; the v2 also with the fused-LN attention
+switched on for training (``AICITY_TPU_FUSE_ATTN_LN=1``) on both sides. The JAX model's
 params (perturbed with numpy noise) go into the port through
 ``jax_params_to_state_dict``; the JAX step runs with ``ACT_CHECKPOINT
 False`` (its remat traces the block's (T, H, W)), the port's with
@@ -41,14 +43,17 @@ from aicity_action_tpu_torch.solver import lr_policy as tlr
 from aicity_action_tpu_torch.solver import optimizer as topt
 from aicity_action_tpu_torch.utils.convert import (jax_params_to_state_dict,
                                                    jax_tree_to_named)
-from torch_port_helpers import jax_tiny_params_from_port, perturb, tiny_cfg
+from aicity_action_tpu_torch.models import mvit as tmvit
+from torch_port_helpers import (jax_tiny_params_from_port, jax_tiny_v1_model,
+                                perturb, tiny_cfg, tiny_v1_cfg)
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 B = 2
 STEPS_PER_EPOCH = 2
 
 
-def _train_cfg(get, act_checkpoint):
-    cfg = tiny_cfg(get)
+def _train_cfg(get, act_checkpoint, make_cfg=tiny_cfg):
+    cfg = make_cfg(get)
     cfg.MODEL.ACT_CHECKPOINT = act_checkpoint
     cfg.MVIT.DROPPATH_RATE = 0.0
     cfg.MODEL.DROPOUT_RATE = 0.0
@@ -135,8 +140,9 @@ def _jax_steps(jcfg, module, params, x, y, nsteps):
     return out
 
 
-def _port_model(params, act_checkpoint, droppath=0.0, dropout=0.0):
-    pcfg = _train_cfg(get_cfg, act_checkpoint)
+def _port_model(params, act_checkpoint, droppath=0.0, dropout=0.0,
+                make_cfg=tiny_cfg):
+    pcfg = _train_cfg(get_cfg, act_checkpoint, make_cfg)
     pcfg.MVIT.DROPPATH_RATE = droppath
     pcfg.MODEL.DROPOUT_RATE = dropout
     model = build_model(pcfg, device="cpu")
@@ -190,6 +196,80 @@ def test_train_step_matches_jax_pallas_backwards(jax_side, batch,
     ref = _jax_steps(jcfg, module, params, x, y, 1)
     pcfg, model = _port_model(params, act_checkpoint=False)
     _check_steps(model, pcfg, x, y, ref, 1)
+
+
+def test_two_v1_train_steps_match_jax(batch):
+    """The cls-token MViT-v1 (no activation checkpointing, as its recipe):
+    two steps' loss, grad_norm, gradients (cls_token, pos_embed_class and
+    the channel-change blocks' proj included) and params."""
+    params = perturb(jax_tiny_v1_model()[1], 9)
+    jcfg = _train_cfg(jax_get_cfg, False, tiny_v1_cfg)
+    module = jmvit.MViT(spec=jmvit.build_mvit_spec(jcfg), dtype=jnp.float32)
+    x, y = batch
+    ref = _jax_steps(jcfg, module, params, x, y, 2)
+    assert {"cls_token", "pos_embed_class", "blocks.0.proj.weight"} <= set(
+        ref[0]["grads"])
+    pcfg, model = _port_model(params, act_checkpoint=False,
+                              make_cfg=tiny_v1_cfg)
+    _check_steps(model, pcfg, x, y, ref, 2)
+
+
+def test_fused_ln_train_steps_match_jax_pallas(jax_side, batch,
+                                               monkeypatch):
+    """Two steps with ``AICITY_TPU_FUSE_ATTN_LN=1`` on both sides: the JAX
+    step through its interpret-mode Pallas kernels, the fused-LN attention
+    with its Pallas backward included; the port (checkpointing on) through
+    flash_attention_ln under autograd. Both take KV strides of (1, 2, 2),
+    at which the JAX package's fused-LN kernels take every block."""
+    monkeypatch.setenv("AICITY_TPU_FUSE_ATTN_LN", "1")
+    monkeypatch.setattr(jfa, "INTERPRET", True)
+    monkeypatch.setattr(jmvit, "_use_pallas", lambda: True)
+    jcfg, _, params = jax_side
+    jcfg = jcfg.clone()
+    jcfg.MVIT.POOL_KV_STRIDE_ADAPTIVE = [1, 2, 2]
+    module = jmvit.MViT(spec=jmvit.build_mvit_spec(jcfg), dtype=jnp.float32)
+    for b in module.spec.blocks:
+        d = b.dim_out // b.num_heads
+        assert jfa.flash_attention_ln_supported(32, 32, d)
+    x, y = batch
+    ref = _jax_steps(jcfg, module, params, x, y, 2)
+    pcfg, model = _port_model(params, act_checkpoint=True)
+    pcfg.MVIT.POOL_KV_STRIDE_ADAPTIVE = [1, 2, 2]
+    model = build_model(pcfg, device="cpu")
+    model.load_state_dict(jax_params_to_state_dict(params), strict=True)
+    calls = []
+    fused = tmvit.flash_attention_ln
+    monkeypatch.setattr(tmvit, "flash_attention_ln",
+                        lambda *a: calls.append(1) or fused(*a))
+    _check_steps(model, pcfg, x, y, ref, 2)
+    # forward and recompute of every block, two steps
+    assert len(calls) == 2 * 2 * len(model.blocks)
+
+
+@pytest.mark.parametrize("switch,training,fused", [
+    ("auto", False, True), ("auto", True, False), ("0", False, False),
+    ("1", True, True)])
+def test_fuse_switch_picks_the_attention_path(switch, training, fused,
+                                              monkeypatch):
+    """``AICITY_TPU_FUSE_ATTN_LN`` as the JAX package reads it: ``auto``
+    fuses at eval only, ``0`` nowhere (the eval then launches the plain
+    flash attention), ``1`` in training too."""
+    monkeypatch.setenv("AICITY_TPU_FUSE_ATTN_LN", switch)
+    calls = {"flash_attention": 0, "flash_attention_ln": 0}
+    for name in calls:
+        fn = getattr(tmvit, name)
+
+        def counted(*a, name=name, fn=fn):
+            calls[name] += 1
+            return fn(*a)
+        monkeypatch.setattr(tmvit, name, counted)
+    model = build_model(_train_cfg(get_cfg, False), device="cpu")
+    model.train(training)
+    with torch.set_grad_enabled(training):
+        model(torch.zeros(1, 4, 32, 32, 3))
+    depth = len(model.blocks)
+    assert calls == {"flash_attention": 0 if fused else depth,
+                     "flash_attention_ln": depth if fused else 0}
 
 
 def test_checkpointing_keeps_the_gradients_with_droppath_on(jax_side, batch):

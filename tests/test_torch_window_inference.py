@@ -28,6 +28,7 @@ from aicity_action_tpu_torch.models.build import build_model
 from aicity_action_tpu_torch.pipeline import window_inference as twi
 from aicity_action_tpu_torch.utils.convert import jax_params_to_state_dict
 from torch_port_helpers import jax_tiny_model, perturb, tiny_cfg
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 cv2 = pytest.importorskip("cv2")
 

@@ -1,13 +1,27 @@
 """Shared set-up of the tests that hold the PyTorch port against the JAX
-package: the tiny MViT-v2 config, the JAX model built once per process, and
-numpy-made parameter noise."""
+package: the tiny MViT-v2 and MViT-v1 configs, the JAX models built once
+per process, numpy-made parameter noise, and the one-thread fixture each
+port test module imports."""
 
 import functools
 
 import jax
 import numpy as np
+import pytest
+import torch
 
 YAML = "configs/AICITY_MVITV2_B_16x4_448.yaml"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Runs a test module's torch work on one thread (restored after): the
+    port's test files share the CPU with the suite's other workers, and
+    their small tensors gain nothing from torch's thread pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def tiny_cfg(get):
@@ -59,18 +73,61 @@ def jax_tiny_model():
     return module, variables["params"]
 
 
-def jax_tiny_params_from_port(seed=0):
-    """The tiny MViT-v2's params for the JAX package made without building
-    the JAX model: the port's model drawn from ``seed``, its ``state_dict``
-    through the JAX package's own converter (``convert_mvit_state_dict``,
-    held exact by test_torch_modules). Numpy leaves."""
+@functools.lru_cache(maxsize=None)
+def jax_tiny_v1_model():
+    """``(module, params)`` of the JAX package's tiny cls-token MViT-v1
+    (:func:`tiny_v1_cfg`, no activation checkpointing), built once per
+    process. The params are the port's model drawn from seed 0, carried
+    over by the JAX package's own converter (no JAX init runs: it costs
+    seconds on a CPU). Callers must not mutate ``params``."""
+    from aicity_action_tpu.config import get_cfg
+    from aicity_action_tpu.models.build import build_module
+
+    module, _ = build_module(tiny_v1_cfg(get_cfg))
+    return module, jax_tiny_params_from_port(make_cfg=tiny_v1_cfg)
+
+
+def jax_tiny_params_from_port(seed=0, make_cfg=tiny_cfg):
+    """A tiny MViT's params for the JAX package (the v2 of ``tiny_cfg``
+    unless ``make_cfg`` says otherwise) made without building the JAX
+    model: the port's model drawn from ``seed``, its ``state_dict`` through
+    the JAX package's own converter (``convert_mvit_state_dict``, held
+    exact by test_torch_modules). Numpy leaves."""
     from aicity_action_tpu.utils.convert import convert_mvit_state_dict
     from aicity_action_tpu_torch.config import get_cfg
     from aicity_action_tpu_torch.models.build import build_model
 
-    model = build_model(tiny_cfg(get_cfg), device="cpu", seed=seed)
+    model = build_model(make_cfg(get_cfg), device="cpu", seed=seed)
     params, skipped = convert_mvit_state_dict(
         {k: v.numpy() for k, v in model.state_dict().items()})
     if skipped:
         raise ValueError(f"unconverted port parameters: {skipped}")
     return params
+
+
+def tiny_v1_cfg(get):
+    """A tiny MViT-v1 with a cls token (depth 4, crop 32, 4 frames, embed
+    32, f32, no activation checkpointing): the MVIT and SOLVER sections of
+    the port's ``mvit_b_16x4_224_cfg`` (PySlowFast's K400
+    MVIT_B_16x4_CONV), the model cut to depth 4, so that blocks 0 and 2 change the channels in the MLP. ``get``
+    is either package's ``get_cfg``."""
+    from aicity_action_tpu_torch.config.defaults import _MVIT_B_16x4_224
+
+    cfg = get()
+    for section in ("MVIT", "SOLVER"):
+        for key, value in _MVIT_B_16x4_224[section].items():
+            setattr(getattr(cfg, section), key, value)
+    cfg.MODEL.MODEL_NAME = "MViT"
+    cfg.MODEL.ARCH = "mvit"
+    cfg.MODEL.NUM_CLASSES = 18
+    cfg.DATA.TRAIN_CROP_SIZE = 32
+    cfg.DATA.TEST_CROP_SIZE = 32
+    cfg.DATA.NUM_FRAMES = 4
+    cfg.MVIT.DEPTH = 4
+    cfg.MVIT.DIM_MUL = [[1, 2.0], [3, 2.0]]
+    cfg.MVIT.HEAD_MUL = [[1, 2.0], [3, 2.0]]
+    cfg.MVIT.POOL_Q_STRIDE = [[1, 1, 2, 2], [3, 1, 2, 2]]
+    cfg.MVIT.EMBED_DIM = 32
+    cfg.MVIT.DROPPATH_RATE = 0.0
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    return cfg

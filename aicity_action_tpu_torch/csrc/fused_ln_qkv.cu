@@ -1,161 +1,126 @@
 // Fused LayerNorm + qkv projection for Hopper: (q, k, v) = split(LN(x) W^T + b).
 //
 // Replaces aicity_action_tpu/ops/pallas/fused_dense.py:_ln_qkv_kernel (reached
-// through fused_ln_qkv), MViT's norm1 + attn.qkv. At 448 it sees x [B*L, D]
-// with D in {96, 192, 384, 768} and 3C in {288, 576, 1152, 2304}: 2*D*3C flops
-// per row against 2*(D + 3C) bytes, i.e. 64-400 flops/byte -- below the
-// H100's ~295 flops/byte ridge for the narrow blocks and above it for the
-// wide ones, so both memory and the tensor cores matter.
+// through fused_ln_qkv), MViT's norm1 + attn.qkv. It sees x [B*L, D] with D
+// in {96, 192, 384, 768} and 3C in {288, 576, 1152, 2304}: 2*D*3C flops per
+// row against 2*(D + 3C) bytes, 64-400 flops/byte, so the narrow blocks are
+// bound by memory (x read once, q/k/v written once) and the wide ones by the
+// tensor cores and by how often a block re-reads the weight from L2.
 //
-// The Pallas kernel keeps the whole [D, 3C] weight resident in VMEM; at
-// D=768 that is 3.5 MB and does not fit in shared memory. Design: one block
-// owns a 128-row tile for ALL output columns. It loads the rows once,
-// computes the row LayerNorm once (f32 statistics over the full D) and keeps
-// the normalized bf16 rows in shared memory, then walks the output columns
-// in 128-wide tiles (64 where 128 does not divide 3C, or at D=768, where
-// the rows fill shared memory),
-// streaming each weight tile through a two-stage shared-memory ring in
-// 64-deep K chunks with cp.async, so the next chunk loads while this one
-// multiplies (the weight stays L2-resident across blocks; each row tile
-// re-reads it once). Products run on mma.sync m16n8k16 bf16 tiles with f32
-// accumulation; 8 warps each own a 32 x 64 (or 32 x 32) sub-tile, its B
-// fragments loaded two n8 tiles at a time by ldmatrix. The bias is added in
-// f32 and q, k, v are written channel-major, [B, C, L] each: the NCDHW
-// layout the depthwise pool convolutions read, so no transpose of the three
-// full-size tensors goes through device memory.
-#include "common.cuh"
+// The Pallas kernel keeps the whole [D, 3C] weight in VMEM (3.5 MB at
+// D=768, more than shared memory). Design (the mainloop of hopper.cuh): a
+// pre-pass writes each row's LN statistics (f32, two passes; one read of
+// x); then a 2-D queue of 128-row x TN-column tiles (TN from the plan in
+// ops/fused_dense.py: 96 or 192, dividing C, so 1176 tiles at block 15
+// where a row-tile grid had 98 blocks) is walked by persistent blocks of
+// one producer warp (TMA loads of raw x and weight chunks, 64 deep, through
+// a ring of at least 3 mbarrier stages, the tile's statistics copied in
+// with its first chunk) and two consumer warpgroups (64 rows each), which
+// normalize each A fragment in registers as they load it (ldmatrix from the
+// swizzled chunk, (x - mean) * rstd * gamma + beta in f32, rounded to
+// bf16) and issue wgmma with A from registers. The epilogue adds the bias
+// in f32 and writes q, k, v channel-major, [B, C, L] each (the layout the
+// depthwise pool convolutions read): through a [TN][64] shared-memory box
+// per consumer and one TMA store where L % 64 == 0, 16-byte stores of each
+// channel's run where L % 8 == 0, and 2-byte stores from registers at the
+// odd L of cls-token models (a TMA store cannot write rows of odd length).
+#include "hopper.cuh"
 
 namespace aicity {
 
-constexpr int QKV_TM = 128, QKV_KC = 64, QKV_THREADS = 256;
-constexpr int QKV_LDW = QKV_KC + 8;
+// The output descriptors of q, k, v (TMA stores), as one kernel argument.
+struct QkvMaps {
+  CUtensorMap m[3];
+};
 
-// Output columns per weight tile: 128 (warp tiles 32x64) where they divide
-// the 3C outputs evenly and the normalized rows leave room in shared memory
-// (D <= 384), else 64 (a partial last tile wastes less).
-inline int qkv_tn(int D, int C) {
-  return D <= 384 && (3 * C) % 128 == 0 ? 128 : 64;
+template <int TN>
+__global__ void __launch_bounds__(DENSE_THREADS, 1)
+    ln_qkv_kernel(const __grid_constant__ CUtensorMap map_x,
+                  const __grid_constant__ CUtensorMap map_w,
+                  const __grid_constant__ QkvMaps maps, const DenseArgs args,
+                  QkvStore out) {
+  if (out.maps) out.maps = maps.m;
+  dense_block<TN, true>(map_x, map_w, args, out);
+}
+
+// The LN statistics pre-pass.
+template <int VPL>
+__global__ void __launch_bounds__(256)
+    ln_qkv_kernel_stats(const bf16* __restrict__ x, float2* __restrict__ stats,
+                       int M, int D, float eps) {
+  ln_stats_rows<VPL>(x, stats, M, D, eps);
+}
+
+StatsKernel ln_qkv_kernel_stats_for(int vpl) {
+  switch (vpl) {
+    case 3: return ln_qkv_kernel_stats<3>;
+    case 6: return ln_qkv_kernel_stats<6>;
+    case 12: return ln_qkv_kernel_stats<12>;
+    default: return ln_qkv_kernel_stats<24>;
+  }
 }
 
 template <int TN>
-__global__ void __launch_bounds__(QKV_THREADS)
-    ln_qkv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
-                  const bf16* __restrict__ beta, const bf16* __restrict__ w,
-                  const bf16* __restrict__ bias, bf16* __restrict__ q,
-                  bf16* __restrict__ k, bf16* __restrict__ v, int M, int D,
-                  int C, float eps, int tokens) {
-  constexpr int NW = TN / 16;  // n8 tiles of a warp's 32 x TN/2 sub-tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);
-  const int ldx = D + 8;
-  bf16* ws = xs + QKV_TM * ldx;  // 2 stages of [TN][LDW]
-
-  const int row0 = blockIdx.x * QKV_TM;
-  const int N = 3 * C;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp & 3, wn = warp >> 2;
-  const int g = lane >> 2, t = lane & 3;
-  const int nk = (D + QKV_KC - 1) / QKV_KC;
-  const int ntile = ((N + TN - 1) / TN) * nk;  // (n0, k0) pairs
-
-  // weight tile s (n-major, k-minor) into ring stage s & 1
-  auto fetch = [&](int s) {
-    const int n0 = (s / nk) * TN, k0 = (s % nk) * QKV_KC;
-    load_tile_async(ws + (s & 1) * TN * QKV_LDW, QKV_LDW, w, D, n0, N, k0, TN,
-                    min(QKV_KC, D - k0));
-  };
-  fetch(0);
-  cp_async_commit();
-
-  load_tile(xs, ldx, x, D, row0, M, 0, QKV_TM, D);
-  __syncthreads();
-  norm_rows(xs, ldx, QKV_TM, D, gamma, beta, eps);
-
-  float acc[2][NW][4];
-  for (int s = 0; s < ntile; ++s) {
-    const int n0 = (s / nk) * TN, k0 = (s % nk) * QKV_KC;
-    const int kc = min(QKV_KC, D - k0);
-    if (k0 == 0) {
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < NW; ++ni)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-    }
-    if (s + 1 < ntile) fetch(s + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();  // tile s has landed (and, at s == 0, xs is normed)
-    const bf16* wt = ws + (s & 1) * TN * QKV_LDW;
-    for (int kk = 0; kk < kc; kk += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        load_a_frag(a[mi], xs, ldx, wm * 32 + mi * 16, k0 + kk, lane);
-#pragma unroll
-      for (int np = 0; np < NW / 2; ++np) {
-        uint32_t b[4];
-        load_b_frag_x2(b, wt, QKV_LDW, wn * (TN / 2) + np * 16, kk, lane);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma_16816(acc[mi][2 * np], a[mi], b);
-          mma_16816(acc[mi][2 * np + 1], a[mi], b + 2);
-        }
-      }
-    }
-    __syncthreads();  // this stage is refilled two tiles on
-
-    if (k0 + kc == D) {  // last K chunk of this column tile: epilogue
-#pragma unroll
-      for (int ni = 0; ni < NW; ++ni) {
-        const int col = n0 + wn * (TN / 2) + ni * 8 + 2 * t;
-        if (col >= N) continue;
-        const int which = col / C, cc = col - which * C;
-        bf16* out = which == 0 ? q : (which == 1 ? k : v);
-        const float b0 = bias ? __bfloat162float(bias[col]) : 0.f;
-        const float b1 = bias ? __bfloat162float(bias[col + 1]) : 0.f;
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {  // rows g and g + 8
-            const int r = row0 + wm * 32 + mi * 16 + g + 8 * h;
-            if (r >= M) continue;
-            const int b = r / tokens, l = r - b * tokens;
-            bf16* p = out + ((size_t)b * C + cc) * tokens + l;
-            p[0] = __float2bfloat16(acc[mi][ni][2 * h] + b0);
-            p[tokens] = __float2bfloat16(acc[mi][ni][2 * h + 1] + b1);
-          }
-        }
-      }
-    }
-  }
+int launch_ln_qkv(const CUtensorMap& mx, const CUtensorMap& mw,
+                  const QkvMaps& maps, const DenseArgs& a, const QkvStore& o,
+                  int grid, cudaStream_t stream) {
+  const size_t smem = dense_smem_bytes(TN, a.stages, a.K, true);
+  static bool ready = false;
+  cudaError_t err = prepare_dense(ln_qkv_kernel<TN>, ready);
+  if (err != cudaSuccess) return (int)err;
+  ln_qkv_kernel<TN><<<grid, DENSE_THREADS, smem, stream>>>(mx, mw, maps, a,
+                                                           o);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace aicity
 
-extern "C" int aicity_ln_qkv_smem_bytes(int D, int C) {
-  using namespace aicity;
-  return (QKV_TM * (D + 8) + 2 * qkv_tn(D, C) * QKV_LDW) * (int)sizeof(bf16);
+// Shared memory of a launch with the plan (tn, stages), for the wrapper to
+// hold against its own plan.
+extern "C" int aicity_ln_qkv_smem_bytes(int D, int tn, int stages) {
+  return aicity::dense_smem_bytes(tn, stages, D, true);
 }
 
 // x is [M, D] token rows of clips of `tokens` tokens; q, k, v are each
-// [M / tokens, C, tokens].
+// [M / tokens, C, tokens]. The plan (ops/fused_dense.py:_qkv_plan): column
+// tile tn, ring stages, persistent grid; the LN statistics pre-pass writes
+// the wrapper's scratch stats [ceil(M / 128) * 128][2] f32.
 extern "C" int aicity_ln_qkv(const void* x, const void* gamma, const void* beta,
                              const void* w, const void* bias, void* q, void* k,
-                             void* v, int M, int D, int C, float eps,
-                             int tokens, void* stream) {
+                             void* v, void* stats, int M, int D, int C,
+                             float eps, int tokens, int tn, int stages,
+                             int grid, void* stream) {
   using namespace aicity;
-  if (tokens <= 0 || M % tokens) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)aicity_ln_qkv_smem_bytes(D, C);
-  auto kernel = qkv_tn(D, C) == 128 ? ln_qkv_kernel<128> : ln_qkv_kernel<64>;
-  cudaError_t err = set_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (M + QKV_TM - 1) / QKV_TM;
-  if (blocks > 0)
-    kernel<<<blocks, QKV_THREADS, smem, (cudaStream_t)stream>>>(
-        (const bf16*)x, (const bf16*)gamma, (const bf16*)beta, (const bf16*)w,
-        (const bf16*)bias, (bf16*)q, (bf16*)k, (bf16*)v, M, D, C, eps,
-        tokens);
-  return (int)cudaGetLastError();
+  const int N = 3 * C;
+  if (tokens <= 0 || M % tokens || D % 16 || D > 768 || C % tn ||
+      stages < 3 || stages > DENSE_MAX_STAGES || grid < 1 || !stats)
+    return (int)cudaErrorInvalidValue;
+  if (M == 0) return 0;
+  // q, k, v as [B*C rows][tokens], written in boxes of tn x 64 tokens
+  // where each consumer's 64 rows lie in one clip
+  const bool tma_out = tokens % 64 == 0;
+  CUtensorMap mx, mw;
+  QkvMaps maps;
+  int err = make_tmap(&mx, x, M, D, D, DENSE_BM);
+  if (!err) err = weight_tmap(&mw, w, N, D, D, tn);
+  void* qkv[3] = {q, k, v};
+  for (int i = 0; i < 3 && tma_out && !err; ++i)
+    err = make_tmap(&maps.m[i], qkv[i], (uint64_t)(M / tokens) * C, tokens,
+                    tokens, tn);
+  if (err) return err;
+  cudaStream_t s = (cudaStream_t)stream;
+  err = (int)launch_stats(ln_qkv_kernel_stats_for, x, stats, M, D, eps, s);
+  if (err) return err;
+  const DenseArgs a{(const float2*)stats, (const bf16*)gamma,
+                    (const bf16*)beta, (const bf16*)bias, M, N, D, stages,
+                    (N + tn - 1) / tn};
+  // (a non-null maps marks the TMA stores; the kernel points it at its
+  // own copy of the descriptors)
+  const QkvStore o{(bf16*)q, (bf16*)k, (bf16*)v,
+                   tma_out ? maps.m : nullptr, C, tokens};
+  switch (tn) {
+    case 96: return launch_ln_qkv<96>(mx, mw, maps, a, o, grid, s);
+    case 192: return launch_ln_qkv<192>(mx, mw, maps, a, o, grid, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -36,10 +36,10 @@ _vp, _i, _l, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 # C signatures of csrc/*.cu's extern "C" functions: (argtypes, restype)
 _SIGNATURES = {
     "aicity_layer_norm": ([_vp] * 4 + [_l, _i, _i, _f, _vp], _i),
-    "aicity_ln_qkv": ([_vp] * 8 + [_i, _i, _i, _f, _i, _vp], _i),
-    "aicity_ln_qkv_smem_bytes": ([_i, _i], _i),
-    "aicity_ln_mlp": ([_vp] * 8 + [_i, _i, _i, _i, _f, _vp], _i),
-    "aicity_ln_mlp_supported": ([_i, _i, _i], _i),
+    "aicity_ln_qkv": ([_vp] * 9 + [_i, _i, _i, _f] + [_i] * 4 + [_vp], _i),
+    "aicity_ln_qkv_smem_bytes": ([_i] * 3, _i),
+    "aicity_ln_mlp": ([_vp] * 10 + [_i] * 4 + [_f] + [_i] * 7 + [_vp], _i),
+    "aicity_ln_mlp_smem_bytes": ([_i] * 5, _i),
     "aicity_flash_attention_ln": ([_vp] * 14 + [_i] * 4 + [_f, _f] + [_i] * 4
                                   + [_vp], _i),
     "aicity_flash_attention_ln_bwd": ([_vp] * 24 + [_i] * 4 + [_f, _f]
@@ -148,6 +148,20 @@ def stream() -> int:
 
 def ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
+
+
+_sm_counts: dict = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors (the persistent kernels' grid)."""
+    idx = torch.device(device).index
+    if idx is None:
+        idx = torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _sm_counts[idx]
 
 
 def use_kernel(t: torch.Tensor) -> bool:

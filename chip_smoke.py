@@ -6,11 +6,14 @@ NVIDIA card.
 
 1. Builds the CUDA kernels from ``aicity_action_tpu_torch/csrc`` with nvcc
    (sm_90a, one process per source) and prints the card's name and power
-   limit.
+   limit; prints the HGMMA (wgmma) and UTMALDG (TMA load) instruction
+   counts in the SASS of the LN+qkv and LN+MLP kernels, with their
+   registers and spills, and fails if either count is 0.
 2. Holds each inference kernel against its plain PyTorch version at
-   main-path shapes of MViT-v2-B 16x4 @ 448 (batch 8, bf16; every tile
-   configuration a kernel has on the path) and times the kernel, the plain
-   version and a PyTorch library yardstick with CUDA events.
+   main-path shapes of MViT-v2-B 16x4 @ 448 (batch 8, bf16: LN+qkv at
+   every distinct shape of the forward, LN+MLP at every width, both also at
+   batch 1) and times the kernel, the plain version and a PyTorch library
+   yardstick with CUDA events.
 3. Does the same for the training kernels (the flash attention forward
    with its logsumexp, and the backward kernels of attention, LayerNorm,
    LN+qkv and LN+MLP) at the batch-4 training shapes of blocks 0, 1 and 15.
@@ -19,7 +22,8 @@ NVIDIA card.
    ragged lengths of MViT-B 16x4 @ 224, batch 8, blocks 0, 1 and 15; the
    fused-LN attention's forward with its logsumexp and its backward at the
    448 batch-4 shapes of blocks 0, 1 and 15; LN+qkv forward and backward at
-   the odd 25089 tokens of the v1's blocks 0 and 1.
+   the odd 25089 tokens of the v1's blocks 0 and 1 (the forward also at
+   block 3), and LN+MLP at the v1's odd row counts of blocks 1, 4 and 15.
 5. Builds the full MViT-v2 (16 blocks, bf16, weights from a seed), runs
    batch-8 forwards through ``make_eval_step``, holds the kernel launches
    per forward to the counts the model implies, and compares a batch-1
@@ -118,6 +122,53 @@ def build_kernels():
         print(f"#   {ln}")
 
 
+# kernel-name substrings of the dense kernels whose machine code must use
+# Hopper's warpgroup products (HGMMA) and TMA loads (UTMALDG) (their LN
+# statistics pre-passes, *_stats, are plain loads)
+HOPPER_KERNELS = {"fused_ln_qkv": "ln_qkv_kernel",
+                  "fused_ln_mlp": "ln_mlp_kernel"}
+
+
+def hopper_sass_checks() -> dict:
+    """Counts the HGMMA and UTMALDG instructions in the SASS of every
+    instantiation of the LN+qkv and LN+MLP kernels (``cuobjdump -sass`` on
+    the built library) and reads their registers and spills from the
+    build log; fails if any of them lacks either instruction."""
+    from aicity_action_tpu_torch.ops import kernels
+
+    so = kernels.build()
+    tool = os.path.join(os.path.dirname(kernels.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ", 1)[1].strip()
+            continue
+        if fn and "bwd" not in fn and "stats" not in fn and any(
+                k in fn for k in HOPPER_KERNELS.values()):
+            c = counts.setdefault(fn, {"HGMMA": 0, "UTMALDG": 0})
+            for op in c:
+                c[op] += op in line
+    usage, entry = {}, None
+    log = (kernels.BUILD_DIR / "build.log").read_text()
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif entry in counts and ("spill" in line or "registers" in line):
+            usage.setdefault(entry, []).append(line.strip())
+    for name, key in HOPPER_KERNELS.items():
+        fns = [f for f in counts if key in f]
+        if not fns:
+            _fail(f"{name}: no {key} function in the library's SASS")
+        for f in fns:
+            print(f"# SASS {name} {f}: HGMMA {counts[f]['HGMMA']}, UTMALDG "
+                  f"{counts[f]['UTMALDG']}; {' / '.join(usage.get(f, []))}")
+            if not (counts[f]["HGMMA"] and counts[f]["UTMALDG"]):
+                _fail(f"{name}: {f} has no HGMMA or no UTMALDG")
+    return counts
+
+
 # ------------------------------------------------------------------ kernels
 
 def _normal(gen, shape, std=1.0, dtype=None, device="cuda"):
@@ -169,6 +220,39 @@ def _check_case(name, kernel_fn, plain_fn, library_fn, flops, nbytes,
     }
 
 
+def _mlp_case(gen, shape, M, C):
+    """fused_ln_mlp on x [M, C] (H = 4C) against its plain version and
+    LN + linear + GELU + linear."""
+    import torch
+    import torch.nn.functional as F
+
+    from aicity_action_tpu_torch.ops import fused_dense as fd
+
+    bf = torch.bfloat16
+    H = 4 * C
+    x = _normal(gen, (M, C), 1.0, bf)
+    g = _normal(gen, (C,), 0.1, bf) + 1
+    bb = _normal(gen, (C,), 0.1, bf)
+    w1 = _normal(gen, (H, C), C ** -0.5, bf)
+    b1 = _normal(gen, (H,), 0.1, bf)
+    w2 = _normal(gen, (C, H), H ** -0.5, bf)
+    b2 = _normal(gen, (C,), 0.1, bf)
+    args = (x, g, bb, w1, b1, w2, b2, 1e-6)
+
+    def library():
+        h = F.gelu(F.linear(F.layer_norm(x, (C,), g, bb, 1e-6), w1, b1))
+        return F.linear(h, w2, b2)
+
+    r = _check_case(
+        "fused_ln_mlp", lambda: fd.fused_ln_mlp(*args),
+        lambda: fd.ln_mlp_plain(*args), library,
+        flops=2 * M * (C * H + H * C),
+        nbytes=2 * (2 * M * C + 2 * C * H + H + 3 * C),
+        peak=PEAK_BF16, iters=10)
+    r["shape"] = shape
+    return r
+
+
 def kernel_checks():
     """Each kernel at its main-path shapes (batch 8 unless stated)."""
     import torch
@@ -200,14 +284,21 @@ def kernel_checks():
         cases.append(r)
     results["fused_layer_norm"] = cases
 
-    # fused_ln_qkv: block 0 (D 96 -> 3C 288 over 100352 tokens), blocks
-    # 4-13 (D 384 -> 3C 1152 over 6272 tokens; the 128-column tiles) and
-    # block 15 (D 768 -> 3C 2304 over 1568 tokens), writing channel-major
-    # [B, C, L]
+    # fused_ln_qkv at every distinct shape of the batch-8 forward: blocks 0
+    # (D 96 -> 3C 288 over 100352 tokens), 1 (96 -> 576), 2 (192 -> 576
+    # over 25088), 3 (192 -> 1152), 4-13 (384 -> 1152 over 6272), 14 (384
+    # -> 2304) and 15 (768 -> 2304 over 1568), then batch 1 at blocks 0 and
+    # 15; q, k, v written channel-major [B, C, L]
     cases = []
-    for blk, L, D, C in ((0, 100352, 96, 96), (4, 6272, 384, 384),
-                         (15, 1568, 768, 768)):
-        M = BATCH * L
+    for blk, b, L, D, C in ((0, BATCH, 100352, 96, 96),
+                            (1, BATCH, 100352, 96, 192),
+                            (2, BATCH, 25088, 192, 192),
+                            (3, BATCH, 25088, 192, 384),
+                            (4, BATCH, 6272, 384, 384),
+                            (14, BATCH, 6272, 384, 768),
+                            (15, BATCH, 1568, 768, 768),
+                            (0, 1, 100352, 96, 96), (15, 1, 1568, 768, 768)):
+        M = b * L
         x = _normal(gen, (M, D), 1.0, bf)
         g = _normal(gen, (D,), 0.1, bf) + 1
         bb = _normal(gen, (D,), 0.1, bf)
@@ -226,41 +317,23 @@ def kernel_checks():
             flops=2 * M * D * 3 * C,
             nbytes=2 * (M * D + 3 * M * C + 3 * C * D + 3 * C + 2 * D),
             peak=PEAK_BF16, iters=20)
-        r["shape"] = f"block {blk} x[{M},{D}] w[{3 * C},{D}] -> [B,C,L]"
+        r["shape"] = (f"block {blk} x[{M},{D}] w[{3 * C},{D}] -> [B,C,L]"
+                      + ("" if b == BATCH else f" (batch {b})"))
         cases.append(r)
         del x, w, args
     results["fused_ln_qkv"] = cases
 
-    # fused_ln_mlp: one block of each tile configuration: block 0 (C 96
-    # over 100352 tokens), block 1 (C 192 over 25088), block 4 (C 384 over
-    # 6272) and block 15 (C 768 over 1568); H = 4C
-    cases = []
-    for blk, L, C in ((0, 100352, 96), (1, 25088, 192), (4, 6272, 384),
-                      (15, 1568, 768)):
-        M, H = BATCH * L, 4 * C
-        x = _normal(gen, (M, C), 1.0, bf)
-        g = _normal(gen, (C,), 0.1, bf) + 1
-        bb = _normal(gen, (C,), 0.1, bf)
-        w1 = _normal(gen, (H, C), C ** -0.5, bf)
-        b1 = _normal(gen, (H,), 0.1, bf)
-        w2 = _normal(gen, (C, H), H ** -0.5, bf)
-        b2 = _normal(gen, (C,), 0.1, bf)
-        args = (x, g, bb, w1, b1, w2, b2, 1e-6)
-
-        def library(x=x, g=g, bb=bb, w1=w1, b1=b1, w2=w2, b2=b2, C=C):
-            h = F.gelu(F.linear(F.layer_norm(x, (C,), g, bb, 1e-6), w1, b1))
-            return F.linear(h, w2, b2)
-
-        r = _check_case(
-            "fused_ln_mlp",
-            lambda args=args: fd.fused_ln_mlp(*args),
-            lambda args=args: fd.ln_mlp_plain(*args),
-            library,
-            flops=2 * M * (C * H + H * C),
-            nbytes=2 * (2 * M * C + 2 * C * H + H + 3 * C),
-            peak=PEAK_BF16, iters=10)
-        r["shape"] = f"block {blk} x[{M},{C}] H {H}"
-        cases.append(r)
+    # fused_ln_mlp at each width: block 0 (C 96 over 100352 tokens) and
+    # block 1 (C 192 over 25088), the fused kernel; block 4 (C 384 over
+    # 6272) and block 15 (C 768 over 1568), two launches; then batch 1 at
+    # blocks 0 and 15; H = 4C
+    cases = [_mlp_case(gen, f"block {blk} x[{b * L},{C}] H {4 * C}"
+                       + ("" if b == BATCH else f" (batch {b})"), b * L, C)
+             for blk, b, L, C in ((0, BATCH, 100352, 96),
+                                  (1, BATCH, 25088, 192),
+                                  (4, BATCH, 6272, 384),
+                                  (15, BATCH, 1568, 768),
+                                  (0, 1, 100352, 96), (15, 1, 1568, 768))]
     results["fused_ln_mlp"] = cases
 
     # flash_attention_ln: block 0 (h 1, Lq 100352, Lk 1568) and block 1
@@ -652,9 +725,11 @@ def v1_kernel_checks():
     results["flash_attention_ln_bwd"] = bwd
 
     # fused_ln_qkv forward / backward at the odd 25089 tokens: v1 batch 8,
-    # blocks 0 (D 96 -> 3C 288) and 1 (D 192 -> 3C 576)
+    # blocks 0 (D 96 -> 3C 288) and 1 (D 192 -> 3C 576); the forward also
+    # at block 3 (6273 tokens, D 384 -> 3C 1152: statistics from global
+    # memory, 2-byte stores)
     qkv_f, qkv_b = [], []
-    for blk, L, D in ((0, 25089, 96), (1, 25089, 192)):
+    for blk, L, D in ((0, 25089, 96), (1, 25089, 192), (3, 6273, 384)):
         C, M = D, BATCH * L
         x = _normal(gen, (M, D), 1.0, bf)
         g = _normal(gen, (D,), 0.1, bf) + 1
@@ -678,6 +753,9 @@ def v1_kernel_checks():
             peak=PEAK_BF16, iters=10)
         r["shape"] = shape
         qkv_f.append(r)
+        if blk == 3:
+            del x, w, gs
+            continue
 
         def library_bwd(x=x, g=g, bb=bb, w=w, bias=bias, D=D, C=C, gs=gs):
             cot = torch.cat([t.transpose(1, 2).reshape(-1, C) for t in gs],
@@ -704,6 +782,13 @@ def v1_kernel_checks():
         torch.cuda.empty_cache()
     results["fused_ln_qkv odd tokens"] = qkv_f
     results["fused_ln_qkv_bwd odd tokens"] = qkv_b
+    # fused_ln_mlp at the v1's odd row counts (TMA's zero fill and the
+    # masked stores of a ragged last tile): block 1 (8 x 6273 rows, C 192,
+    # fused), block 4 (8 x 1569, C 384) and block 15 (8 x 393, C 768)
+    results["fused_ln_mlp odd tokens"] = [
+        _mlp_case(gen, f"v1 block {blk} x[{BATCH * L},{C}] H {4 * C} "
+                  f"tokens {L}", BATCH * L, C)
+        for blk, L, C in ((1, 6273, 192), (4, 1569, 384), (15, 393, 768))]
     return results
 
 
@@ -1191,6 +1276,7 @@ def main() -> int:
     print(f"# card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
     build_kernels()
+    hopper_sass_checks()
     checks = kernel_checks()
     checks.update(train_kernel_checks())
     checks.update(v1_kernel_checks())
@@ -1260,7 +1346,8 @@ def main() -> int:
                                  for path, n in launches.items()},
             "other_shapes": checks[name][1:],
         })
-    for extra in ("fused_ln_qkv odd tokens", "fused_ln_qkv_bwd odd tokens"):
+    for extra in ("fused_ln_qkv odd tokens", "fused_ln_qkv_bwd odd tokens",
+                  "fused_ln_mlp odd tokens"):
         base = extra.split()[0]
         next(k for k in kernels_line if k["name"] == base)[
             "odd_token_shapes"] = checks[extra]

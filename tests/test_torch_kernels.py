@@ -19,10 +19,13 @@ import torch
 from aicity_action_tpu.ops.pallas import flash_attention as jfa
 from aicity_action_tpu.ops.pallas import fused_dense as jfd
 from aicity_action_tpu.ops.pallas import layer_norm as jln
+from aicity_action_tpu_torch.config import (mvit_b_16x4_224_cfg,
+                                            mvitv2_b_16x4_448_cfg)
 from aicity_action_tpu_torch.ops import flash_attention as tfa
 from aicity_action_tpu_torch.ops import fused_dense as tfd
 from aicity_action_tpu_torch.ops import kernels
 from aicity_action_tpu_torch.ops import layer_norm as tln
+from torch_port_helpers import dense_call_shapes
 from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 2e-5
@@ -356,3 +359,71 @@ def test_kernel_splits_fill_the_card_in_whole_steps():
         assert rps % step == 0 and rps >= 256
         assert (n == 1 or n * tiles >= 0.95 * kernels.SPLIT_TARGET_BLOCKS
                 or rps == 256)
+
+
+# ------------------------------------------------ plans of the dense kernels
+
+H100_SMS = 132  # the persistent grids' size on an H100 SXM
+
+
+def _plan_cases():
+    """Every distinct fused_ln_qkv / fused_ln_mlp call of the MViT-v2 448
+    forward at batch 8, 4 (training) and 1, and of the cls-token MViT-v1
+    224 at batch 8 and 1, with whether the batch is full width."""
+    cases = {}
+    for name, cfg, batches in (("v2_448", mvitv2_b_16x4_448_cfg(), (8, 4, 1)),
+                               ("v1_224", mvit_b_16x4_224_cfg(), (8, 1))):
+        for batch in batches:
+            for call in dense_call_shapes(cfg, batch):
+                cases.setdefault(call, (name, batch))
+    return [pytest.param(call, batch > 1, id=f"{name}-b{batch}-" + "-".join(
+        map(str, call))) for call, (name, batch) in cases.items()]
+
+
+def _check_dense_plan(p, full_width):
+    assert tfd.MIN_STAGES <= p["stages"] <= 8
+    assert p["smem"] <= kernels.MAX_SMEM_BYTES
+    if "tn" in p:
+        assert p["tn"] % 8 == 0 and p["tn"] <= 256
+    assert p["grid"] == min(p["tiles"], H100_SMS)
+    if full_width:  # every SM gets tiles
+        assert p["tiles"] >= H100_SMS
+
+
+@pytest.mark.parametrize("call,full_width", _plan_cases())
+def test_dense_kernel_plans_fit_the_card(call, full_width):
+    """The launch plans of the LN+qkv and LN+MLP kernels at every shape the
+    forwards give them: shared memory within a block's 232,448 bytes,
+    column tiles a multiple of 8 up to 256, TMA strides of 16 bytes and
+    boxes of at most 256 rows, TMA stores of q/k/v only where a consumer's
+    64 rows lie in one clip and 16-byte stores only where every run of
+    tokens is 16-byte aligned, the persistent grid filling the 132 SMs at
+    full width, the fused MLP exactly for C <= 192."""
+    if call[0] == "qkv":
+        _, M, tokens, D, C = call
+        p = tfd._qkv_plan(M, D, C, tokens, H100_SMS)
+        _check_dense_plan(p, full_width)
+        assert p["store"] == ("tma" if tokens % 64 == 0 else
+                              "vec16" if tokens % 8 == 0 else "scalar")
+        assert C % p["tn"] == 0  # a tile writes one of q, k, v
+        assert p["smem"] == tfd._dense_smem(p["tn"], p["stages"], D, True)
+    else:
+        _, M, C, H = call
+        p = tfd._mlp_plan(M, C, H, C, H100_SMS)
+        assert p["fused"] == (C <= 192)
+        for sub in ((p,) if p["fused"] else (p["fc1"], p["fc2"])):
+            _check_dense_plan(sub, full_width)
+    for d in p["tma"]:
+        assert d["stride_bytes"] % 16 == 0 and 0 < d["box"][0] <= 256
+        assert d["box"][1] * 2 == 128  # the 128-byte swizzle
+
+
+def test_dense_kernel_plans_refuse_what_no_kernel_takes():
+    with pytest.raises(ValueError):
+        tfd._qkv_plan(64, 100, 96, 64, 132)  # D % 16
+    with pytest.raises(ValueError):
+        tfd._qkv_plan(64, 96, 96, 48, 132)  # rows not whole clips
+    with pytest.raises(ValueError):
+        tfd._mlp_plan(64, 96, 384, 192, 132)  # D != C
+    with pytest.raises(ValueError):
+        tfd._mlp_plan(64, 128, 512, 128, 132)  # no fused kernel for C 128

@@ -131,3 +131,28 @@ def tiny_v1_cfg(get):
     cfg.MVIT.DROPPATH_RATE = 0.0
     cfg.TPU.COMPUTE_DTYPE = "float32"
     return cfg
+
+
+def dense_call_shapes(cfg, batch):
+    """The ``fused_ln_qkv`` and ``fused_ln_mlp`` calls of the port's forward
+    at ``batch``, from the model's block schedule (no model is built):
+    ``("qkv", M, tokens, D, C)`` per block (x ``[M, D]`` -> q, k, v of C
+    channels) and ``("mlp", M, C, H)`` per block whose MLP keeps its
+    channels (the others run a separate norm2 and plain products)."""
+    from aicity_action_tpu_torch.models.mvit import build_mvit_spec
+
+    sp = build_mvit_spec(cfg)
+    thw, cls = list(sp.patch_dims), int(sp.cls_embed)
+    calls = []
+    for b in sp.blocks:
+        att = (b.dim_out if sp.channel_expand_front and b.dim != b.dim_out
+               else b.dim)
+        tokens = int(np.prod(thw)) + cls
+        calls.append(("qkv", batch * tokens, tokens, b.dim, att))
+        if b.stride_q and b.kernel_q:  # the conv q pool, padding k // 2
+            thw = [(n + 2 * (k // 2) - k) // s + 1
+                   for n, k, s in zip(thw, b.kernel_q, b.stride_q)]
+        if att == b.dim_out:
+            calls.append(("mlp", batch * (int(np.prod(thw)) + cls), att,
+                          int(att * sp.mlp_ratio)))
+    return calls

@@ -1,6 +1,7 @@
 // Hopper building blocks of the dense kernels (fused_ln_qkv.cu,
-// fused_ln_mlp.cu): TMA descriptors and loads, mbarriers, wgmma with A from
-// registers, setmaxnreg, and the warp-specialised GEMM mainloop they share.
+// fused_ln_mlp.cu, fused_ln_mlp_bwd.cu): TMA descriptors and loads,
+// mbarriers, wgmma with A from registers, setmaxnreg, and the
+// warp-specialised GEMM mainloop they share.
 //
 // The mainloop computes out[M, N] = A[M, K] B[N, K]^T + bias, A optionally
 // LayerNorm'd on the fly (f32 statistics, rounded to bf16 before the
@@ -22,9 +23,11 @@
 // walks the (row tile, column tile) queue with a stride of the grid,
 // column tiles fastest, so the blocks running together share the A rows in
 // L2 and the producer prefetches the next tile while the consumers store
-// this one. The tile width TN, the ring depth and the grid are a plan
-// computed in Python (ops/fused_dense.py) and passed in as launch
-// arguments.
+// this one. Without a LayerNorm, K may be split: each (tile, split) pair
+// is a queue entry of its own that writes an f32 partial (the LN+MLP
+// backward's weight gradients). The tile width TN, the ring depth, the
+// splits and the grid are a plan computed in Python (ops/fused_dense.py)
+// and passed in as launch arguments.
 #pragma once
 
 #include <cuda.h>
@@ -719,6 +722,11 @@ struct DenseArgs {
   int M, N, K;          // A [M, K], B [N, K], out [M, N]
   int stages;           // ring depth
   int n_tiles;          // column tiles of TN
+  // split-K (without a LayerNorm): K's 64-deep chunks cut into `splits`
+  // runs of `split_chunks`, each a tile of its own that writes the split's
+  // slab of the output (0: one split over all of K)
+  int splits;
+  int split_chunks;
 };
 
 // Epilogue: q, k, v channel-major [M / tokens, C, tokens] (columns [0, C)
@@ -780,7 +788,8 @@ __device__ __forceinline__ void store_tile(const QkvStore& st,
                                            const float* acc, bf16* stg,
                                            const TileBias<TN>& bias,
                                            float* bsm, int row0, int n0,
-                                           int cw, int rb, int lane) {
+                                           int cw, int rb, int lane,
+                                           int /*split*/) {
   const int g = lane >> 2, t = lane & 3, tid = threadIdx.x & 127;
   const int C = st.C, L = st.tokens;
   const int r0 = row0 + cw * 64;  // this warpgroup's first token row
@@ -893,7 +902,8 @@ __device__ __forceinline__ void store_tile(const RowStore& st,
                                            const float* acc, bf16* stg,
                                            const TileBias<TN>& bias,
                                            float* bsm, int row0, int n0,
-                                           int cw, int rb, int lane) {
+                                           int cw, int rb, int lane,
+                                           int /*split*/) {
   const int g = lane >> 2, t = lane & 3, tid = threadIdx.x & 127;
   unsigned char* boxes =
       reinterpret_cast<unsigned char*>(stg) + cw * TN * 128;
@@ -927,6 +937,38 @@ __device__ __forceinline__ void store_tile(const RowStore& st,
   }
 }
 
+// Epilogue: the f32 accumulator as it is (no bias), row-major into split
+// `split`'s slab of out [splits][M][N], 8-byte stores straight from the
+// registers (each row's 8-column run is one 32-byte sector): the dxn and
+// split-K weight-gradient partials of the LN+MLP backward.
+struct F32Store {
+  float* out;
+};
+
+template <int TN>
+__device__ __forceinline__ void store_tile(const F32Store& st,
+                                           const DenseArgs& p,
+                                           const float* acc, bf16* /*stg*/,
+                                           const TileBias<TN>& /*bias*/,
+                                           float* /*bsm*/, int row0, int n0,
+                                           int /*cw*/, int rb, int lane,
+                                           int split) {
+  const int g = lane >> 2, t = lane & 3;
+  float* out = st.out + (size_t)split * p.M * p.N;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + rb + g + 8 * h;
+    if (r >= p.M) continue;
+#pragma unroll
+    for (int j = 0; j < TN / 8; ++j) {
+      const int col = n0 + 8 * j + 2 * t;
+      if (col < p.N)
+        *reinterpret_cast<float2*>(out + (size_t)r * p.N + col) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
 // The whole block: barrier set-up, then the producer or a consumer for
 // every tile of this block's share of the queue. With LN, a consumer loads
 // its A fragments from the chunk with ldmatrix, normalizes them in
@@ -955,7 +997,11 @@ __device__ __forceinline__ void dense_block(const CUtensorMap& map_a,
 
   const int tid = threadIdx.x, lane = tid & 31, wg = tid >> 7;
   const int nk = (p.K + 63) / 64;
-  const int tiles = ((p.M + DENSE_BM - 1) / DENSE_BM) * p.n_tiles;
+  const int mn_tiles = ((p.M + DENSE_BM - 1) / DENSE_BM) * p.n_tiles;
+  // split-K only without a LayerNorm (whose consumers walk all of K)
+  const int nsplit = !LN && p.splits > 1 ? p.splits : 1;
+  const int kps = nsplit > 1 ? p.split_chunks : nk;
+  const int tiles = mn_tiles * nsplit;
   if (tid == 0) {
     for (int s = 0; s < p.stages; ++s) {
       mbar_init(&full[s], 1);
@@ -975,9 +1021,10 @@ __device__ __forceinline__ void dense_block(const CUtensorMap& map_a,
     if (tid != 0) return;
     int it = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const int row0 = (tile / p.n_tiles) * DENSE_BM;
+      const int row0 = (tile % mn_tiles / p.n_tiles) * DENSE_BM;
       const int n0 = (tile % p.n_tiles) * TN;
-      for (int kc = 0; kc < nk; ++kc, ++it) {
+      const int kc0 = tile / mn_tiles * kps, kc1 = min(nk, kc0 + kps);
+      for (int kc = kc0; kc < kc1; ++kc, ++it) {
         const int s = it % p.stages, round = it / p.stages;
         if (round > 0) mbar_wait(&empty[s], (round - 1) & 1);
         unsigned char* a_t = ring + s * stage_bytes;
@@ -1001,8 +1048,10 @@ __device__ __forceinline__ void dense_block(const CUtensorMap& map_a,
   };
   int it = 0;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int row0 = (tile / p.n_tiles) * DENSE_BM;
+    const int row0 = (tile % mn_tiles / p.n_tiles) * DENSE_BM;
     const int n0 = (tile % p.n_tiles) * TN;
+    const int split = tile / mn_tiles;
+    const int kc0 = split * kps, kc1 = min(nk, kc0 + kps);
     TileBias<TN> bias;
     bias.fetch(p.bias, p.N, n0);
     float acc[TN / 2];
@@ -1065,7 +1114,7 @@ __device__ __forceinline__ void dense_block(const CUtensorMap& map_a,
       it += nk;
     } else {
       int prev = -1;
-      for (int kc = 0; kc < nk; ++kc, ++it) {
+      for (int kc = kc0; kc < kc1; ++kc, ++it) {
         const int s = it % p.stages;
         mbar_wait(&full[s], (it / p.stages) & 1);
         const unsigned char* a_t = ring + s * stage_bytes;
@@ -1081,11 +1130,11 @@ __device__ __forceinline__ void dense_block(const CUtensorMap& map_a,
         prev = s;
       }
       wgmma_wait<0>();
-      release(prev);
+      if (prev >= 0) release(prev);
     }
     fence_regs<TN / 2>(acc);
     store_tile<TN>(st, p, acc, stg, bias, bias_sm + cw * TN, row0, n0, cw,
-                   rb, lane);
+                   rb, lane, split);
   }
   bulk_wait_done();  // this thread's asynchronous stores are complete
 }

@@ -280,6 +280,30 @@ def build_mvit_spec(cfg) -> MViTSpec:
     )
 
 
+def dense_call_shapes(cfg, batch: int) -> list:
+    """The ``fused_ln_qkv`` and ``fused_ln_mlp`` calls of one forward at
+    ``batch``, from the block schedule (no model is built): ``("qkv", M,
+    tokens, D, C)`` per block (x ``[M, D]`` -> q, k, v of C channels) and
+    ``("mlp", M, C, H)`` per block whose MLP keeps its channels (the others
+    run a separate norm2 and plain products). The kernels' plan tests and
+    the profiling tools take their shapes from it."""
+    sp = build_mvit_spec(cfg)
+    thw, cls = list(sp.patch_dims), int(sp.cls_embed)
+    calls = []
+    for b in sp.blocks:
+        att = (b.dim_out if sp.channel_expand_front and b.dim != b.dim_out
+               else b.dim)
+        tokens = int(np.prod(thw)) + cls
+        calls.append(("qkv", batch * tokens, tokens, b.dim, att))
+        if b.stride_q and b.kernel_q:  # the conv q pool, padding k // 2
+            thw = [(n + 2 * (k // 2) - k) // s + 1
+                   for n, k, s in zip(thw, b.kernel_q, b.stride_q)]
+        if att == b.dim_out:
+            calls.append(("mlp", batch * (int(np.prod(thw)) + cls), att,
+                          int(att * sp.mlp_ratio)))
+    return calls
+
+
 def _cast(t: torch.Tensor | None, dtype: torch.dtype):
     return None if t is None else t.to(dtype)
 

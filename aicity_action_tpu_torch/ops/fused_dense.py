@@ -37,13 +37,17 @@ kernel too: ``csrc/fused_ln_qkv_bwd.cu`` replaces ``_ln_qkv_bwd_kernel``
 and ``csrc/fused_ln_mlp_bwd.cu`` replaces ``_ln_mlp_bwd_kernel`` /
 ``_ln_mlp_bwd_hsplit_kernel``. As the Pallas forward rules do, they save
 only x and the parameters and recompute the LayerNorm (and, for the MLP,
-fc1 and GELU) in the backward; their notes say how the weight gradients
-are summed across blocks. On a CPU tensor each wrapper runs its plain
-version, which autograd differentiates.
+fc1 and GELU) in the backward. The MLP backward runs on the same Hopper
+mainloop: an LN pre-pass, a dual GEMM with a GELU-backward epilogue that
+stores the hidden activations once, ``dxn``, the LN backward and split-K
+weight gradients (:func:`_mlp_bwd_plan`); their notes say how the weight
+gradients are summed across blocks. On a CPU tensor each wrapper runs its
+plain version, which autograd differentiates.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -51,7 +55,7 @@ import torch
 from . import kernels
 from .layer_norm import layer_norm_plain
 
-# widths the backward kernels have tile configurations for (D == C)
+# widths the LN+qkv backward kernels have tile configurations for
 MLP_WIDTHS = (96, 192, 384, 768)
 
 # The forward kernels' plans. Rows of a block tile (two consumer
@@ -195,6 +199,132 @@ def _mlp_plan(M: int, D: int, H: int, C: int, sms: int) -> dict:
             "tma": tma + [_tma("w1", C, fc1["tn"]), _tma("h", H, ROW_TILE),
                           _tma("w2", H, fc2["tn"]), _tma("h out", H, 64),
                           _tma("out", C, 64)]}
+
+
+# The LN+MLP backward's plan (csrc/fused_ln_mlp_bwd.cu). The dual GEMM's
+# hidden tile (two f32 accumulators of 64 x 128 a consumer) and its least
+# ring (three stages of 64 KB fit beside the staging boxes); rows of a
+# pre-pass block; LN-backward blocks per SM (each warp at least one row);
+# the split-K weight gradients' least rows a split (eight 64-deep chunks,
+# so a split's f32 store stays a small share of its loads).
+MLP_BWD_TN = 128
+MLP_BWD_MIN_STAGES = 3
+PREP_ROWS = 32
+LN_BWD_WARPS = 8
+LN_BWD_BLOCKS_PER_SM = 4
+SPLIT_MIN_ROWS = 512
+# the split-K cost model: a tile's fixed cost (pipeline fill, epilogue) in
+# chunks, and the bytes of f32 partials (written, then read) the card moves
+# in one chunk's time (3.35 TB/s x ~0.65 us, a 64-deep chunk of a 128 x 128
+# tile loaded from L2 on one SM)
+SPLIT_TILE_CHUNKS = 3
+SPLIT_PARTIAL_BYTES = 2.2e6
+
+
+def _dual_smem(tn: int, stages: int) -> int:
+    """``csrc/fused_ln_mlp_bwd.cu:dual_smem_bytes``: slack, the ring of xn
+    and dout ``[128][64]`` and W1 and W2^T ``[tn][64]`` chunks, each
+    consumer's staging box, each consumer's b1 slice in f32, the
+    barriers."""
+    return (1024 + stages * (2 * ROW_TILE * 128 + 2 * tn * 128)
+            + 2 * tn * 128 + 2 * tn * 4 + 2 * 8 * 8)
+
+
+def _split_plan(rows: int, N: int, K: int, sms: int) -> dict:
+    """A split-K launch of the dense mainloop for an f32 ``[rows, N]``
+    product summed over K: the dense plan of its tiles, K cut into
+    ``splits`` runs of ``chunks`` whole 64-deep chunks (``split_rows``
+    rows, at least SPLIT_MIN_ROWS unless K is shorter), every split a tile
+    of the persistent queue. The splits minimize an estimate of the time,
+    in units of one chunk's loads on one SM: the grid's rounds times the
+    chunks (and a tile's fixed cost) each tile walks, plus writing and
+    summing each split's f32 partial; first among the splits that give
+    every SM a tile, if any do, and ties to fewer splits."""
+    p = _dense_plan(rows, N, K, FC_TILES, sms, ln=False)
+    nk = _cdiv(K, 64)
+    most = max(1, nk // (SPLIT_MIN_ROWS // 64))
+
+    def cost(s):
+        chunks = _cdiv(nk, s)
+        s = _cdiv(nk, chunks)
+        rounds = _cdiv(p["tiles"] * s, sms)
+        return (p["tiles"] * s < sms, rounds * (chunks + SPLIT_TILE_CHUNKS)
+                + s * rows * N * 8 / SPLIT_PARTIAL_BYTES, s)
+
+    best = min(range(1, most + 1), key=cost)
+    chunks = _cdiv(nk, best)
+    splits = _cdiv(nk, chunks)
+    tiles = p["tiles"] * splits
+    p.update(split_rows=64 * chunks, chunks=chunks, splits=splits,
+             tiles=tiles, grid=max(1, min(tiles, sms)))
+    return p
+
+
+@functools.lru_cache(maxsize=256)
+def _mlp_bwd_plan(M: int, C: int, H: int, sms: int) -> dict:
+    """Launch plan of ``csrc/fused_ln_mlp_bwd.cu`` for ``x [M, C]``, hidden
+    H: ``ld``, the row stride of the channel-major copies (M rounded up to
+    8: TMA strides are whole 16 bytes); ``prep`` (32-row blocks), ``dual``
+    (the dual GEMM: tile, ring, persistent grid over 128-row x 128-hidden
+    tiles), ``dxn`` (a dense plan, K = H), ``ln`` (blocks of ``rows``
+    rows), ``dw1`` and ``dw2`` (split-K plans, K = M), and every TMA
+    descriptor; ``scratch``, the byte offsets of the scratch tensors in
+    one workspace, and ``ints``, the plan as the C entry point reads it."""
+    if M < 1 or C % 8 or not 0 < C <= 768 or H % MLP_BWD_TN:
+        raise ValueError(
+            f"fused_ln_mlp_bwd: the kernels take M >= 1, C % 8 == 0, C <= 768 "
+            f"and H a multiple of {MLP_BWD_TN}, got M={M}, C={C}, H={H}")
+    ld = _cdiv(M, 8) * 8
+    tn = MLP_BWD_TN
+    stages = next((s for s in range(MAX_STAGES, MLP_BWD_MIN_STAGES - 1, -1)
+                   if _dual_smem(tn, s) <= kernels.MAX_SMEM_BYTES), None)
+    if stages is None:
+        raise ValueError("fused_ln_mlp_bwd: no dual-GEMM ring fits")
+    dual_tiles = _cdiv(M, ROW_TILE) * (H // tn)
+    blocks = min(_cdiv(M, LN_BWD_WARPS), LN_BWD_BLOCKS_PER_SM * sms)
+    rows = _cdiv(M, blocks)
+    blocks = _cdiv(M, rows)
+    plan = {
+        "ld": ld,
+        "prep": {"blocks": _cdiv(M, PREP_ROWS),
+                 "smem": PREP_ROWS * (C + 8) * 2},
+        "dual": {"tn": tn, "stages": stages, "tiles": dual_tiles,
+                 "grid": max(1, min(dual_tiles, sms)),
+                 "smem": _dual_smem(tn, stages)},
+        "dxn": _dense_plan(M, C, H, FC_TILES, sms, ln=False),
+        "ln": {"rows": rows, "blocks": blocks},
+        "dw1": _split_plan(H, C, M, sms),  # dhp^T xn
+        "dw2": _split_plan(C, H, M, sms),  # dout^T h
+    }
+    # one workspace of scratch, in the C entry point's order: W1^T, W2^T,
+    # the statistics, xn, xn^T, dout^T, h^T, dhp^T, dhp, dxn (f32), the
+    # partials of db1, of (dgamma, dbeta, db2), of dW1, of dW2 (f32)
+    sizes = (2 * C * H, 2 * H * C, 8 * _cdiv(M, ROW_TILE) * ROW_TILE,
+             2 * M * C, 2 * C * ld, 2 * C * ld, 2 * H * ld, 2 * H * ld,
+             2 * M * H, 4 * M * C, 4 * 2 * plan["dual"]["grid"] * H,
+             4 * plan["ln"]["blocks"] * 3 * C,
+             4 * plan["dw1"]["splits"] * H * C,
+             4 * plan["dw2"]["splits"] * C * H)
+    offsets, end = [], 0
+    for n in sizes:  # each 256-byte aligned
+        offsets.append(end)
+        end += _cdiv(n, 256) * 256
+    plan["scratch"] = {"offsets": tuple(offsets), "sizes": sizes,
+                       "bytes": end}
+    plan["ints"] = (ld, stages, plan["dual"]["grid"], plan["dxn"]["tn"],
+                    plan["dxn"]["stages"], plan["dxn"]["grid"], blocks,
+                    rows) + tuple(plan[k][f] for k in ("dw1", "dw2")
+                                  for f in ("tn", "stages", "grid", "splits",
+                                            "chunks"))
+    plan["tma"] = [
+        _tma("xn", C, ROW_TILE), _tma("dout", C, ROW_TILE),
+        _tma("w1", C, tn), _tma("w2^T", C, tn),
+        _tma("h^T store", ld, tn), _tma("dhp^T store", ld, tn),
+        _tma("dhp store", H, 64), _tma("dhp", H, ROW_TILE),
+        _tma("w1^T", H, plan["dxn"]["tn"]),
+        _tma("dhp^T", ld, ROW_TILE), _tma("xn^T", ld, plan["dw1"]["tn"]),
+        _tma("dout^T", ld, ROW_TILE), _tma("h^T", ld, plan["dw2"]["tn"])]
+    return plan
 
 
 def exact_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -407,22 +537,41 @@ class _LnQkv(torch.autograd.Function):
                 None)
 
 
+@functools.lru_cache(maxsize=256)
+def _checked_mlp_bwd_plan(M: int, C: int, H: int, sms: int) -> dict:
+    """:func:`_mlp_bwd_plan`, its shared memory held once against the
+    kernels' own."""
+    plan = _mlp_bwd_plan(M, C, H, sms)
+    smem = kernels.lib().aicity_ln_mlp_bwd_smem_bytes
+    dual = plan["dual"]
+    launches = [(0, dual["tn"], dual["stages"], dual["smem"])] + [
+        (1, plan[k]["tn"], plan[k]["stages"], plan[k]["smem"])
+        for k in ("dxn", "dw1", "dw2")] + [(2, 0, 0, plan["prep"]["smem"])]
+    for variant, tn, stages, want in launches:
+        if smem(variant, C, H, tn, stages) != want:
+            raise RuntimeError("fused_ln_mlp_bwd: the plan's shared memory "
+                               "differs from the kernel's")
+    return plan
+
+
 def fused_ln_mlp_bwd(x2, gamma, beta, w1, b1, w2, dout, eps):
     """The backward kernels of :func:`fused_ln_mlp`: ``(dx, dgamma, dbeta,
     dw1, db1, dw2, db2)`` from the forward's inputs and the output gradient
-    ``dout [M, C]``. The forward is recomputed per row tile and hidden
-    chunk; weight gradients are summed over row splits of f32 partials
-    (:func:`kernels.splits`) and rounded to bf16."""
+    ``dout [M, C]``, by the launches of ``csrc/fused_ln_mlp_bwd.cu`` under
+    the plan :func:`_mlp_bwd_plan`: the weights' transposes, the LN
+    pre-pass (statistics, ``xn``, ``xn^T``, ``dout^T``), the dual GEMM
+    (``h^T``, ``dhp``, ``dhp^T`` and the db1 partials), ``dxn = dhp W1``,
+    the LN backward, and the split-K weight gradients; the partials are
+    summed in a fixed order and rounded to bf16. One call counts one
+    launch."""
     M, D = x2.shape
     H = w1.shape[0]
     C = w2.shape[0]
-    lib = kernels.lib()
-    rows = lib.aicity_ln_mlp_bwd_cfg(C, 0)
-    if D != C or not rows or H % 64:
-        raise ValueError(
-            f"fused_ln_mlp_bwd: the kernels take D == C in {MLP_WIDTHS} and H "
-            f"a multiple of 64, got D={D}, H={H}, C={C}")
+    if D != C:
+        raise ValueError(f"fused_ln_mlp_bwd: the kernels take D == C, got "
+                         f"D={D}, C={C}")
     dev = x2.device
+    plan = _checked_mlp_bwd_plan(M, C, H, kernels.sm_count(dev))
     kernels.require(x2, "x")
     kernels.require(gamma, "gamma", (D,), dev)
     kernels.require(beta, "beta", (D,), dev)
@@ -430,24 +579,21 @@ def fused_ln_mlp_bwd(x2, gamma, beta, w1, b1, w2, dout, eps):
     kernels.require(b1, "b1", (H,), dev)
     kernels.require(w2, "w2", (C, H), dev)
     kernels.require(dout, "dout", (M, C), dev)
-    hc, step = lib.aicity_ln_mlp_bwd_cfg(C, 1), lib.aicity_ln_mlp_bwd_cfg(C, 2)
-    rps = kernels.splits(M, H // hc, step)
-    nsplit = -(-M // rps)
-    f32 = dict(dtype=torch.float32, device=dev)
     dx = torch.empty_like(x2)
     dw1, dw2 = torch.empty_like(w1), torch.empty_like(w2)
     db1 = torch.empty_like(b1)
     dgb = torch.empty((3, C), dtype=x2.dtype, device=dev)
-    part = torch.empty((-(-M // rows), 3, C), **f32)
-    dw1_part = torch.empty((nsplit, H, C), **f32)
-    dw2_part = torch.empty((nsplit, C, H), **f32)
-    db1_part = torch.empty((nsplit, H), **f32)
-    err = lib.aicity_ln_mlp_bwd(
-        x2.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
-        b1.data_ptr(), w2.data_ptr(), dout.data_ptr(), dx.data_ptr(),
-        dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), dgb.data_ptr(),
-        part.data_ptr(), dw1_part.data_ptr(), dw2_part.data_ptr(),
-        db1_part.data_ptr(), M, C, H, float(eps), rps, kernels.stream())
+    work = torch.empty(plan["scratch"]["bytes"], dtype=torch.uint8,
+                       device=dev)
+    base = work.data_ptr()
+    ptrs = [t.data_ptr() for t in (x2, gamma, beta, w1, b1, w2, dout, dx,
+                                   dw1, db1, dw2, dgb)]
+    ptrs += [base + off for off in plan["scratch"]["offsets"]]
+    ints = plan["ints"]
+    err = kernels.lib().aicity_ln_mlp_bwd(
+        ctypes.cast((ctypes.c_void_p * len(ptrs))(*ptrs), ctypes.c_void_p),
+        ctypes.cast((ctypes.c_int * len(ints))(*ints), ctypes.c_void_p),
+        M, C, H, float(eps), kernels.stream())
     kernels.check(err, "fused_ln_mlp_bwd")
     fused_ln_mlp_bwd.launches += 1
     return dx, dgb[0], dgb[1], dw1, db1, dw2, dgb[2]

@@ -1,0 +1,166 @@
+"""Where the time of the LN+MLP backward (``fused_ln_mlp_bwd``) goes on the
+card, launch by launch, at the shapes a train step gives it.
+
+    python -m aicity_action_tpu_torch.tools.profile_mlp_bwd
+        [--config v2_448|v1_224] [--batch N] [--shapes M,C,H ...]
+        [--iters 11] [--out FILE.json]
+
+For every distinct LN+MLP call of the config's train step at ``--batch``
+(4 for v2_448, 8 for v1_224 by default; from the model's block schedule, no
+model is built), or for each ``--shapes`` triple, it draws bf16 inputs from
+``--seed``, times the call's device work with CUDA events (median and
+interquartile range of ``--iters`` calls, each behind a spin kernel that
+hides the host's launches, after a warm-up), traces ``--iters`` calls
+with ``torch.profiler`` and sums the device time by launch: the weight
+transposes, the pre-pass, the dual GEMM, the dxn and split-K
+weight-gradient GEMMs, the LN backward and the partial sums. It also reads
+the call's peak of device memory above its inputs. Prints one line per shape, the card's name and power limit, and
+one JSON object (written to ``--out`` too). A card is required. With
+``--shapes`` it uses no more of the package than ``fused_ln_mlp_bwd`` and
+``tools/profile_forward.py``, so run as a file with another checkout first
+on ``PYTHONPATH`` it times that checkout's backward in the same way.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+from aicity_action_tpu_torch.tools.profile_forward import (_card,
+                                                           _device_kernels)
+
+# a spin kernel (~1 ms) ahead of each timed call, so that its events time
+# the device's work and not the host's launches
+SPIN_CYCLES = 2_000_000
+
+# kernel-name substrings -> launch, first match wins
+_LAUNCHES = (
+    ("mlp_bwd_transpose", "0 weight transposes"),
+    ("mlp_bwd_prep", "1 pre-pass"),
+    ("mlp_bwd_dual", "2 dual GEMM"),
+    ("mlp_bwd_gemm_kernel", "3+5 dxn and dW GEMMs"),
+    ("mlp_bwd_ln", "4 LN backward"),
+    ("mlp_bwd_reduce", "partial sums"),
+    ("reduce_splits", "partial sums"),
+)
+
+
+def _launch_of(name: str) -> str:
+    for key, label in _LAUNCHES:
+        if key in name:
+            return label
+    return "other"
+
+
+def _shapes(config: str, batch: int) -> list:
+    """``[((M, C, H), calls a step)]`` of the config's LN+MLP calls."""
+    from aicity_action_tpu_torch.config import (mvit_b_16x4_224_cfg,
+                                                mvitv2_b_16x4_448_cfg)
+    from aicity_action_tpu_torch.models.mvit import dense_call_shapes
+
+    cfg = (mvitv2_b_16x4_448_cfg() if config == "v2_448"
+           else mvit_b_16x4_224_cfg())
+    counts: dict = {}
+    for call in dense_call_shapes(cfg, batch):
+        if call[0] == "mlp":
+            counts[call[1:]] = counts.get(call[1:], 0) + 1
+    return sorted(counts.items(), key=lambda kv: -kv[0][0])
+
+
+def profile_shape(M: int, C: int, H: int, iters: int, seed: int) -> dict:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from aicity_action_tpu_torch.ops import fused_dense as fd
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def normal(shape, std):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * std).to(torch.bfloat16)
+
+    x, dout = normal((M, C), 1.0), normal((M, C), 1.0)
+    g, bb = normal((C,), 0.1) + 1, normal((C,), 0.1)
+    w1, b1, w2 = normal((H, C), C ** -0.5), normal((H,), 0.1), normal(
+        (C, H), H ** -0.5)
+
+    def call():
+        return fd.fused_ln_mlp_bwd(x, g, bb, w1, b1, w2, dout, 1e-6)
+
+    call()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    call()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    times = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)  # the host enqueues behind it
+        a.record()
+        call()
+        b.record()
+        times.append((a, b))
+    torch.cuda.synchronize()
+    ms = sorted(a.elapsed_time(b) for a, b in times)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            call()
+        torch.cuda.synchronize()
+    kernels, _ = _device_kernels(prof)
+    launches: dict = {}
+    for name, s, e in kernels:
+        label = _launch_of(name)
+        launches[label] = launches.get(label, 0.0) + (e - s) / 1e3 / iters
+    n = len(ms)
+    return {"M": M, "C": C, "H": H, "ms": ms[n // 2],
+            "ms_iqr": [ms[n // 4], ms[(3 * n) // 4]],
+            "launches_ms": dict(sorted(launches.items())),
+            "peak_bytes_above_inputs": peak}
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser()
+    p.add_argument("--config", choices=("v2_448", "v1_224"),
+                   default="v2_448")
+    p.add_argument("--batch", type=int, default=None)
+    p.add_argument("--shapes", nargs="*", default=None,
+                   help="M,C,H triples in place of the config's calls")
+    p.add_argument("--iters", type=int, default=11)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--out", default="")
+    args = p.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_mlp_bwd: needs a CUDA card")
+    batch = args.batch or (4 if args.config == "v2_448" else 8)
+    shapes = ([(tuple(int(v) for v in t.split(",")), 1) for t in args.shapes]
+              if args.shapes else _shapes(args.config, batch))
+    rows = []
+    for (M, C, H), calls in shapes:
+        r = profile_shape(M, C, H, args.iters, args.seed)
+        r["calls_per_step"] = calls
+        rows.append(r)
+        parts = ", ".join(f"{k} {v:.4f}" for k, v in r["launches_ms"].items())
+        print(f"x[{M},{C}] H {H} (x{calls} a step): {r['ms']:.4f} ms "
+              f"(iqr {r['ms_iqr'][0]:.4f}-{r['ms_iqr'][1]:.4f}); {parts}; "
+              f"peak {r['peak_bytes_above_inputs'] / 2 ** 20:.1f} MiB")
+    total = sum(r["ms"] * r["calls_per_step"] for r in rows)
+    card = _card()
+    what = "the shapes given" if args.shapes else (
+        f"{args.config} batch {batch}: a train step")
+    print(f"{total:.3f} ms of LN+MLP backward for {what} ({card})")
+    out = {"config": None if args.shapes else args.config, "batch": batch,
+           "card": card, "ms_total": total, "shapes": rows}
+    print(json.dumps(out))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -7,13 +7,16 @@ NVIDIA card.
 1. Builds the CUDA kernels from ``aicity_action_tpu_torch/csrc`` with nvcc
    (sm_90a, one process per source) and prints the card's name and power
    limit; prints the HGMMA (wgmma) and UTMALDG (TMA load) instruction
-   counts in the SASS of the LN+qkv and LN+MLP kernels, with their
-   registers and spills, and fails if either count is 0.
+   counts in the SASS of the LN+qkv and LN+MLP forward kernels and of the
+   LN+MLP backward's GEMM kernels, with their registers and spills, and
+   fails if either count is 0.
 2. Holds each inference kernel against its plain PyTorch version at
    main-path shapes of MViT-v2-B 16x4 @ 448 (batch 8, bf16: LN+qkv at
    every distinct shape of the forward, LN+MLP at every width, both also at
    batch 1) and times the kernel, the plain version and a PyTorch library
-   yardstick with CUDA events.
+   yardstick with CUDA events: kernel and library call as the medians of
+   YARDSTICK_N calls taken in turns, printed with their interquartile
+   ranges.
 3. Does the same for the training kernels (the flash attention forward
    with its logsumexp, and the backward kernels of attention, LayerNorm,
    LN+qkv and LN+MLP) at the batch-4 training shapes of blocks 0, 1 and 15.
@@ -23,7 +26,8 @@ NVIDIA card.
    fused-LN attention's forward with its logsumexp and its backward at the
    448 batch-4 shapes of blocks 0, 1 and 15; LN+qkv forward and backward at
    the odd 25089 tokens of the v1's blocks 0 and 1 (the forward also at
-   block 3), and LN+MLP at the v1's odd row counts of blocks 1, 4 and 15.
+   block 3), LN+MLP at the v1's odd row counts of blocks 1, 4 and 15, and
+   the LN+MLP backward at the v1's block 1, batch 8 and batch 1.
 5. Builds the full MViT-v2 (16 blocks, bf16, weights from a seed), runs
    batch-8 forwards through ``make_eval_step``, holds the kernel launches
    per forward to the counts the model implies, and compares a batch-1
@@ -92,20 +96,57 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int, warmup: int = 1) -> float:
-    """Mean device time of ``fn()`` over ``iters`` back-to-back calls."""
+# repeats of a kernel and its library call, interleaved, for their medians
+YARDSTICK_N = 11
+# a spin kernel ahead of each timed call (~1 ms at the H100's clocks) keeps
+# the device busy while the host enqueues the call, so that its events
+# time the device's work and not the host's launches
+SPIN_CYCLES = 2_000_000
+
+
+def _spread(times: list) -> dict:
+    """Median, count, min-max and interquartile range of per-call times."""
+    t = sorted(times)
+    n = len(t)
+
+    def q(f):  # linear interpolation between order statistics
+        i = f * (n - 1)
+        lo = int(i)
+        return t[lo] + (t[min(lo + 1, n - 1)] - t[lo]) * (i - lo)
+
+    return {"ms": q(0.5), "n": n, "min": t[0], "max": t[-1],
+            "iqr": [q(0.25), q(0.75)]}
+
+
+def time_interleaved(fns, n: int, warmup: int = 2) -> list:
+    """Device time of each of ``fns`` as the median of ``n`` calls taken in
+    turns (f0, f1, ..., f0, f1, ...), each call between its own CUDA
+    events behind a spin kernel (SPIN_CYCLES), after ``warmup`` calls of
+    each: a yardstick that a clock or cache state drifting during the run
+    moves alike for all of them. Returns one :func:`_spread` per
+    function."""
     import torch
 
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
+    for f in fns:
+        for _ in range(warmup):
+            f()
+    events = [[] for _ in fns]
+    for _ in range(n):
+        for i, f in enumerate(fns):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SPIN_CYCLES)
+            a.record()
+            f()
+            b.record()
+            events[i].append((a, b))
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return [_spread([a.elapsed_time(b) for a, b in ev]) for ev in events]
+
+
+def time_ms(fn, iters: int, warmup: int = 1) -> float:
+    """Median device time of ``fn()`` over ``iters`` calls."""
+    return time_interleaved([fn], iters, warmup)[0]["ms"]
 
 
 def build_kernels():
@@ -123,17 +164,21 @@ def build_kernels():
 
 
 # kernel-name substrings of the dense kernels whose machine code must use
-# Hopper's warpgroup products (HGMMA) and TMA loads (UTMALDG) (their LN
-# statistics pre-passes, *_stats, are plain loads)
-HOPPER_KERNELS = {"fused_ln_qkv": "ln_qkv_kernel",
-                  "fused_ln_mlp": "ln_mlp_kernel"}
+# Hopper's warpgroup products (HGMMA) and TMA loads (UTMALDG): the LN+qkv
+# and LN+MLP forwards and every GEMM launch of the LN+MLP backward (their
+# pre-passes and the LN backward over rows are plain loads)
+HOPPER_KERNELS = {"fused_ln_qkv": ("ln_qkv_kernel",),
+                  "fused_ln_mlp": ("ln_mlp_kernel",),
+                  "fused_ln_mlp_bwd": ("mlp_bwd_dual_kernel",
+                                       "mlp_bwd_gemm_kernel")}
 
 
 def hopper_sass_checks() -> dict:
     """Counts the HGMMA and UTMALDG instructions in the SASS of every
-    instantiation of the LN+qkv and LN+MLP kernels (``cuobjdump -sass`` on
-    the built library) and reads their registers and spills from the
-    build log; fails if any of them lacks either instruction."""
+    instantiation of the LN+qkv and LN+MLP forward kernels and of the LN+MLP
+    backward's GEMM kernels (``cuobjdump -sass`` on the built library) and
+    reads their registers and spills from the build log; fails if any of
+    them lacks either instruction."""
     from aicity_action_tpu_torch.ops import kernels
 
     so = kernels.build()
@@ -145,8 +190,8 @@ def hopper_sass_checks() -> dict:
         if "Function : " in line:
             fn = line.split("Function : ", 1)[1].strip()
             continue
-        if fn and "bwd" not in fn and "stats" not in fn and any(
-                k in fn for k in HOPPER_KERNELS.values()):
+        if fn and "stats" not in fn and any(
+                k in fn for keys in HOPPER_KERNELS.values() for k in keys):
             c = counts.setdefault(fn, {"HGMMA": 0, "UTMALDG": 0})
             for op in c:
                 c[op] += op in line
@@ -157,10 +202,11 @@ def hopper_sass_checks() -> dict:
             entry = line.split("'")[1]
         elif entry in counts and ("spill" in line or "registers" in line):
             usage.setdefault(entry, []).append(line.strip())
-    for name, key in HOPPER_KERNELS.items():
-        fns = [f for f in counts if key in f]
-        if not fns:
-            _fail(f"{name}: no {key} function in the library's SASS")
+    for name, keys in HOPPER_KERNELS.items():
+        fns = [f for f in counts if any(k in f for k in keys)]
+        missing = [k for k in keys if not any(k in f for f in fns)]
+        if missing:
+            _fail(f"{name}: no {missing} function in the library's SASS")
         for f in fns:
             print(f"# SASS {name} {f}: HGMMA {counts[f]['HGMMA']}, UTMALDG "
                   f"{counts[f]['UTMALDG']}; {' / '.join(usage.get(f, []))}")
@@ -180,7 +226,10 @@ def _normal(gen, shape, std=1.0, dtype=None, device="cuda"):
 
 def _check_case(name, kernel_fn, plain_fn, library_fn, flops, nbytes,
                 peak, iters, zero_grads=None):
-    """Compare one kernel call with its plain version, time all three.
+    """Compare one kernel call with its plain version, time all three: the
+    kernel and its library call as medians of YARDSTICK_N calls taken in
+    turns (``iters`` sets only the plain version's repeats, ``iters //
+    5``).
     ``zero_grads`` maps an output whose exact value is zero (a gradient
     that cancels, so both sides hold only rounding noise) to the output
     whose largest magnitude sets its tolerance instead."""
@@ -206,17 +255,23 @@ def _check_case(name, kernel_fn, plain_fn, library_fn, flops, nbytes,
             _fail(f"{name}: output {i}: max |kernel - plain| {e} > {t}")
         err, tol, rel = max(err, e), max(tol, t), max(rel, e / t * KERNEL_RTOL)
     del out, ref, outs, refs
-    ms = time_ms(kernel_fn, iters)
+    # kernel and library call in turns, medians of YARDSTICK_N each
+    timed = time_interleaved(
+        [kernel_fn] + ([library_fn] if library_fn else []), YARDSTICK_N)
     plain_ms = time_ms(plain_fn, max(1, iters // 5))
-    library_ms = time_ms(library_fn, iters) if library_fn else None
     bound_ms = max(flops / peak, nbytes / PEAK_BYTES) * 1e3
+    kern, lib = timed[0], (timed[1] if library_fn else None)
     return {
-        "max_abs_err": err, "tol": tol, "max_rel_err": rel, "ms": ms,
+        "max_abs_err": err, "tol": tol, "max_rel_err": rel,
+        "ms": kern["ms"], "n": kern["n"],
+        "ms_spread": [kern["min"], kern["max"]], "ms_iqr": kern["iqr"],
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": "operations" if flops / peak > nbytes / PEAK_BYTES
         else "bytes",
-        "library_ms": library_ms,
+        "library_ms": lib["ms"] if lib else None,
+        "library_spread": [lib["min"], lib["max"]] if lib else None,
+        "library_iqr": lib["iqr"] if lib else None,
     }
 
 
@@ -373,6 +428,48 @@ def kernel_checks():
 
 
 # ------------------------------------------------------- training kernels
+
+def _mlp_bwd_case(gen, shape, M, C):
+    """fused_ln_mlp_bwd on x [M, C] (H = 4C) against autograd of the plain
+    version in f32 and of LN + linear + GELU + linear."""
+    import torch
+    import torch.nn.functional as F
+
+    from aicity_action_tpu_torch.ops import fused_dense as fd
+
+    bf = torch.bfloat16
+    H = 4 * C
+    x = _normal(gen, (M, C), 1.0, bf)
+    g = _normal(gen, (C,), 0.1, bf) + 1
+    bb = _normal(gen, (C,), 0.1, bf)
+    w1 = _normal(gen, (H, C), C ** -0.5, bf)
+    b1 = _normal(gen, (H,), 0.1, bf)
+    w2 = _normal(gen, (C, H), H ** -0.5, bf)
+    b2 = _normal(gen, (C,), 0.1, bf)
+    dout = _normal(gen, (M, C), 1.0, bf)
+    args = (x, g, bb, w1, b1, w2, b2)
+
+    def library():
+        return _library_grads(
+            lambda a, b, c, u1, c1, u2, c2: F.linear(F.gelu(F.linear(
+                F.layer_norm(a, (C,), b, c, 1e-6), u1, c1)), u2, c2),
+            args, (dout,))
+
+    r = _check_case(
+        "fused_ln_mlp_bwd",
+        lambda: fd.fused_ln_mlp_bwd(*args[:6], dout, 1e-6),
+        lambda: _plain_grads(lambda *a: fd.ln_mlp_plain(*a, 1e-6), args,
+                             (dout,)),
+        library,
+        # fc1 recomputed, dh, dW2, dW1, dLN(x): five products
+        flops=10 * M * C * H,
+        nbytes=2 * (3 * M * C + 4 * C * H + 2 * H + 5 * C),
+        peak=PEAK_BF16, iters=10)
+    r["shape"] = shape
+    del x, dout, args
+    torch.cuda.empty_cache()
+    return r
+
 
 def _plain_grads(fn, inputs, cotangents):
     """Gradients of the plain version ``fn`` in f32 at the kernel's bf16
@@ -546,41 +643,9 @@ def train_kernel_checks():
 
     # LN+MLP backward: block 0 (C 96 over 401408 rows), block 1 (C 192
     # over 100352), block 15 (C 768 over 6272); H = 4C
-    cases = []
-    for blk, M, C in ((0, B * 100352, 96), (1, B * 25088, 192),
-                      (15, B * 1568, 768)):
-        H = 4 * C
-        x = _normal(gen, (M, C), 1.0, bf)
-        g = _normal(gen, (C,), 0.1, bf) + 1
-        bb = _normal(gen, (C,), 0.1, bf)
-        w1 = _normal(gen, (H, C), C ** -0.5, bf)
-        b1 = _normal(gen, (H,), 0.1, bf)
-        w2 = _normal(gen, (C, H), H ** -0.5, bf)
-        b2 = _normal(gen, (C,), 0.1, bf)
-        dout = _normal(gen, (M, C), 1.0, bf)
-        args = (x, g, bb, w1, b1, w2, b2)
-
-        def library(args=args, dout=dout, C=C):
-            return _library_grads(
-                lambda a, b, c, u1, c1, u2, c2: F.linear(F.gelu(F.linear(
-                    F.layer_norm(a, (C,), b, c, 1e-6), u1, c1)), u2, c2),
-                args, (dout,))
-
-        r = _check_case(
-            "fused_ln_mlp_bwd",
-            lambda args=args, dout=dout: fd.fused_ln_mlp_bwd(
-                *args[:6], dout, 1e-6),
-            lambda args=args, dout=dout: _plain_grads(
-                lambda *a: fd.ln_mlp_plain(*a, 1e-6), args, (dout,)),
-            library,
-            # fc1 recomputed, dh, dW2, dW1, dLN(x): five products
-            flops=10 * M * C * H,
-            nbytes=2 * (3 * M * C + 4 * C * H + 2 * H + 5 * C),
-            peak=PEAK_BF16, iters=3)
-        r["shape"] = f"block {blk} x[{M},{C}] H {H}"
-        cases.append(r)
-        del x, dout, args
-        torch.cuda.empty_cache()
+    cases = [_mlp_bwd_case(gen, f"block {blk} x[{M},{C}] H {4 * C}", M, C)
+             for blk, M, C in ((0, B * 100352, 96), (1, B * 25088, 192),
+                               (15, B * 1568, 768))]
     results["fused_ln_mlp_bwd"] = cases
     return results
 
@@ -594,8 +659,9 @@ def v1_kernel_checks():
     length is a tile multiple (Lk 393 is six 64-key tiles and 9 keys, Lq
     25089 leaves a one-row tail); the fused-LN attention's forward with
     the lse and its backward at the 448 batch-4 training shapes of blocks
-    0, 1 and 15 (d-major q, k, v, all three norms and the residual); and
-    LN+qkv forward and backward at the odd 25089 tokens of blocks 0 and 1.
+    0, 1 and 15 (d-major q, k, v, all three norms and the residual);
+    LN+qkv forward and backward at the odd 25089 tokens of blocks 0 and 1;
+    LN+MLP forward and backward at the v1's odd row counts.
     Plain versions in f32 from the same bf16 inputs; plain and library
     times of a backward are of forward + backward."""
     import torch
@@ -789,6 +855,14 @@ def v1_kernel_checks():
         _mlp_case(gen, f"v1 block {blk} x[{BATCH * L},{C}] H {4 * C} "
                   f"tokens {L}", BATCH * L, C)
         for blk, L, C in ((1, 6273, 192), (4, 1569, 384), (15, 393, 768))]
+    # fused_ln_mlp_bwd at the v1's odd row counts: block 1 at batch 8 (8 x
+    # 6273 rows, C 192) and batch 1 (6273 rows: odd M, the channel-major
+    # copies' padded stride); block 0 changes channels (no fused MLP)
+    results["fused_ln_mlp_bwd odd tokens"] = [
+        _mlp_bwd_case(gen, f"v1 block 1 x[{b * 6273},192] H 768 tokens 6273"
+                      + ("" if b == BATCH else f" (batch {b})"), b * 6273,
+                      192)
+        for b in (BATCH, 1)]
     return results
 
 
@@ -1283,9 +1357,12 @@ def main() -> int:
     for name, cases in checks.items():
         for c in cases:
             print(f"# {name} {c['shape']}: err {c['max_abs_err']:.3e} "
-                  f"(tol {c['tol']:.3e}), {c['ms']:.4f} ms, plain "
+                  f"(tol {c['tol']:.3e}), {c['ms']:.4f} ms (n {c['n']}, "
+                  f"iqr {c['ms_iqr'][0]:.4f}-{c['ms_iqr'][1]:.4f}), plain "
                   f"{c['plain_ms']:.4f} ms, library {c['library_ms']:.4f} "
-                  f"ms, bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
+                  f"ms (iqr {c['library_iqr'][0]:.4f}-"
+                  f"{c['library_iqr'][1]:.4f}), bound {c['bound_ms']:.4f} "
+                  f"ms ({c['bound_by']})")
     # each path runs with the counts set to 0 just before it and read just
     # after; the default switch (auto) unless stated
     cfg = mvitv2_b_16x4_448_cfg()
@@ -1347,7 +1424,7 @@ def main() -> int:
             "other_shapes": checks[name][1:],
         })
     for extra in ("fused_ln_qkv odd tokens", "fused_ln_qkv_bwd odd tokens",
-                  "fused_ln_mlp odd tokens"):
+                  "fused_ln_mlp odd tokens", "fused_ln_mlp_bwd odd tokens"):
         base = extra.split()[0]
         next(k for k in kernels_line if k["name"] == base)[
             "odd_token_shapes"] = checks[extra]

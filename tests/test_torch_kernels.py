@@ -21,11 +21,11 @@ from aicity_action_tpu.ops.pallas import fused_dense as jfd
 from aicity_action_tpu.ops.pallas import layer_norm as jln
 from aicity_action_tpu_torch.config import (mvit_b_16x4_224_cfg,
                                             mvitv2_b_16x4_448_cfg)
+from aicity_action_tpu_torch.models.mvit import dense_call_shapes
 from aicity_action_tpu_torch.ops import flash_attention as tfa
 from aicity_action_tpu_torch.ops import fused_dense as tfd
 from aicity_action_tpu_torch.ops import kernels
 from aicity_action_tpu_torch.ops import layer_norm as tln
-from torch_port_helpers import dense_call_shapes
 from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 2e-5
@@ -252,14 +252,49 @@ def test_fused_ln_qkv_backward_matches_pallas(d, c, tokens):
         _close_grad(o, r)
 
 
+def _ln_mlp_bwd_staged(x, gamma, beta, w1, b1, w2, dout, eps):
+    """The launches of ``csrc/fused_ln_mlp_bwd.cu`` written out in plain
+    torch, with the kernel's rounding points to ``x.dtype`` (none in f32):
+    the pre-pass (f32 statistics, ``xn`` rounded), the dual GEMM (``h_pre``
+    and ``dh`` in f32, ``h`` and ``dhp`` rounded, db1 from the f32
+    ``dh_pre``), ``dxn = dhp W1`` in f32, the LN backward, the weight
+    gradients from the rounded operands; every sum in f32, the gradients
+    rounded at the end. Weights in the torch layout; returns ``(dx, dgamma,
+    dbeta, dw1, db1, dw2, db2)``."""
+    dt = x.dtype
+    xf, g, dof = x.float(), gamma.float(), dout.float()
+    xc = xf - xf.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps)
+    xhat = xc * rstd
+    xn = (xhat * g + beta.float()).to(dt)
+    h_pre = xn.float() @ w1.float().t() + b1.float()
+    dh = dof @ w2.float()
+    cdf = 0.5 * (1.0 + torch.erf(h_pre * 0.7071067811865476))
+    dh_pre = dh * (cdf + h_pre * torch.exp(-0.5 * h_pre * h_pre)
+                   * 0.3989422804014327)
+    h, dhp = (h_pre * cdf).to(dt), dh_pre.to(dt)
+    dxn = dhp.float() @ w1.float()
+    e = dxn * g
+    m1 = e.mean(-1, keepdim=True)
+    m2 = (e * xhat).mean(-1, keepdim=True)
+    dx = rstd * (e - m1 - xhat * m2)
+    grads = (dx, (dxn * xhat).sum(0), dxn.sum(0),
+             dhp.float().t() @ xn.float(), dh_pre.sum(0),
+             dof.t() @ h.float(), dof.sum(0))
+    return tuple(t.to(dt) for t in grads)
+
+
 @pytest.mark.parametrize("m,d,variant", [(64, 96, "whole"),
-                                         (16, 512, "hsplit")])
+                                         (16, 512, "hsplit"),
+                                         (64, 96, "staged")])
 def test_fused_ln_mlp_backward_matches_pallas(m, d, variant):
     """Both Pallas backward variants: whole weights, and the hidden-split
     one the JAX package takes when the weights do not fit (C = 768 at 448;
-    reached here at C = 512)."""
+    reached here at C = 512); and the CUDA backward's launches written out
+    in plain torch (``_ln_mlp_bwd_staged``) against the whole-weights
+    one."""
     h = 4 * d
-    assert jfd.ln_mlp_bwd_supported(m, d, h, d) == (variant == "whole")
+    assert jfd.ln_mlp_bwd_supported(m, d, h, d) == (variant != "hsplit")
     assert jfd.ln_mlp_bwd_hsplit_supported(m, d, h, d)
     rng = np.random.default_rng(23)
     x = _arr(rng, (m, d))
@@ -271,10 +306,39 @@ def test_fused_ln_mlp_backward_matches_pallas(m, d, variant):
                      *(jnp.asarray(a) for a in (x, g, b, w1, b1, w2, b2)))
     ref = list(vjp(jnp.asarray(dout)))
     ref[3], ref[5] = np.asarray(ref[3]).T, np.asarray(ref[5]).T
-    out = _grads(lambda *a: tfd.fused_ln_mlp(*a, 1e-6),
-                 (x, g, b, w1.T.copy(), b1, w2.T.copy(), b2), (dout,))
+    if variant == "staged":
+        out = _ln_mlp_bwd_staged(*(torch.from_numpy(a) for a in (
+            x, g, b, w1.T.copy(), b1, w2.T.copy(), dout)), 1e-6)
+    else:
+        out = _grads(lambda *a: tfd.fused_ln_mlp(*a, 1e-6),
+                     (x, g, b, w1.T.copy(), b1, w2.T.copy(), b2), (dout,))
     for o, r in zip(out, ref):
         _close_grad(o, r)
+
+
+@pytest.mark.parametrize("m,d", [(64, 96), (40, 64)])
+def test_ln_mlp_backward_rounding_points_in_bf16(m, d):
+    """In bf16, the staged backward (the CUDA kernel's rounding points)
+    against autograd of the plain version in f32 at the same bf16 inputs,
+    within 2% of each gradient's largest magnitude: the tolerance
+    chip_smoke.py holds the kernel to on the card."""
+    h = 4 * d
+    rng = np.random.default_rng(26)
+    x = _arr(rng, (m, d))
+    g, b = _arr(rng, (d,), 0.1, 1.0), _arr(rng, (d,), 0.1)
+    w1, b1 = _arr(rng, (h, d), d ** -0.5), _arr(rng, (h,), 0.1)
+    w2, b2 = _arr(rng, (d, h), h ** -0.5), _arr(rng, (d,), 0.1)
+    dout = _arr(rng, (m, d))
+    bf = [torch.from_numpy(a).bfloat16() for a in (x, g, b, w1, b1, w2, b2,
+                                                    dout)]
+    staged = _ln_mlp_bwd_staged(*bf[:6], bf[7], 1e-6)
+    ts = [t.float().requires_grad_() for t in bf[:7]]
+    ref = torch.autograd.grad(tfd.ln_mlp_plain(*ts, 1e-6), ts,
+                              bf[7].float())
+    for i, (o, r) in enumerate(zip(staged, ref)):
+        assert o.dtype == torch.bfloat16 and o.shape == r.shape
+        err = (o.float() - r).abs().max().item()
+        assert err <= 0.02 * r.abs().max().item(), (i, err)
 
 
 @pytest.mark.parametrize("Lq,Lk", [(1 + 4 * 4 * 4, 1 + 2 * 2 * 2),
@@ -427,3 +491,73 @@ def test_dense_kernel_plans_refuse_what_no_kernel_takes():
         tfd._mlp_plan(64, 96, 384, 192, 132)  # D != C
     with pytest.raises(ValueError):
         tfd._mlp_plan(64, 128, 512, 128, 132)  # no fused kernel for C 128
+
+
+def _mlp_bwd_cases():
+    """Every LN+MLP backward call of the MViT-v2 448 train step at batch 4
+    and 1 and of the cls-token MViT-v1 224 train step at batch 8 and 1
+    (the forward's LN+MLP shapes), with whether the batch is full width."""
+    cases = {}
+    for name, cfg, batches in (("v2_448", mvitv2_b_16x4_448_cfg(), (4, 1)),
+                               ("v1_224", mvit_b_16x4_224_cfg(), (8, 1))):
+        for batch in batches:
+            for call in dense_call_shapes(cfg, batch):
+                if call[0] == "mlp":
+                    cases.setdefault(call, (name, batch))
+    return [pytest.param(call, batch > 1, id=f"{name}-b{batch}-" + "-".join(
+        map(str, call))) for call, (name, batch) in cases.items()]
+
+
+@pytest.mark.parametrize("call,full_width", _mlp_bwd_cases())
+def test_mlp_backward_plans_fit_the_card(call, full_width):
+    """The LN+MLP backward's launch plan at every shape the train steps
+    give it: shared memory within a block's 232,448 bytes (the dual GEMM
+    on a ring of at least 3 stages), TMA strides of 16 bytes and boxes of
+    at most 256 rows, the channel-major copies' row stride M rounded up to
+    8 (odd M at batch 1), the weight gradients' split-K runs in whole
+    64-deep chunks covering M with no empty split, the LN backward's blocks covering M, and the
+    persistent grids filling the 132 SMs at full width, and the scratch
+    laid out in one workspace."""
+    _, M, C, H = call
+    p = tfd._mlp_bwd_plan(M, C, H, H100_SMS)
+    assert p["ld"] % 8 == 0 and M <= p["ld"] < M + 8
+    dual = p["dual"]
+    assert dual["tn"] == tfd.MLP_BWD_TN and H % dual["tn"] == 0
+    assert tfd.MLP_BWD_MIN_STAGES <= dual["stages"] <= 8
+    assert dual["smem"] <= kernels.MAX_SMEM_BYTES
+    assert dual["smem"] == tfd._dual_smem(dual["tn"], dual["stages"])
+    assert dual["grid"] == min(dual["tiles"], H100_SMS)
+    assert p["prep"]["smem"] <= kernels.MAX_SMEM_BYTES
+    for k in ("dxn", "dw1", "dw2"):
+        _check_dense_plan(p[k], full_width)
+    for k, K in (("dw1", M), ("dw2", M)):
+        q = p[k]
+        assert q["split_rows"] == 64 * q["chunks"]
+        assert q["split_rows"] >= min(tfd.SPLIT_MIN_ROWS, 64 * -(-K // 64))
+        assert (q["splits"] - 1) * q["split_rows"] < K <= (
+            q["splits"] * q["split_rows"])
+    ln = p["ln"]
+    assert (ln["blocks"] - 1) * ln["rows"] < M <= ln["blocks"] * ln["rows"]
+    if full_width:
+        assert dual["tiles"] >= H100_SMS
+    for d in p["tma"]:
+        assert d["stride_bytes"] % 16 == 0 and 0 < d["box"][0] <= 256
+    # the workspace: 14 scratch tensors, 256-byte aligned, none overlapping
+    ws = p["scratch"]
+    assert len(ws["offsets"]) == len(ws["sizes"]) == 14
+    ends = [o + n for o, n in zip(ws["offsets"], ws["sizes"])]
+    assert all(o % 256 == 0 for o in ws["offsets"])
+    assert all(e <= o for e, o in zip(ends, ws["offsets"][1:]))
+    assert ends[-1] <= ws["bytes"]
+    assert len(p["ints"]) == 18
+
+
+def test_mlp_backward_plan_refuses_what_no_kernel_takes():
+    with pytest.raises(ValueError):
+        tfd._mlp_bwd_plan(64, 100, 400, 132)  # C % 8
+    with pytest.raises(ValueError):
+        tfd._mlp_bwd_plan(64, 96, 320, 132)  # H not whole hidden tiles
+    with pytest.raises(ValueError):
+        tfd._mlp_bwd_plan(64, 1024, 4096, 132)  # C > 768
+    with pytest.raises(ValueError):
+        tfd._mlp_bwd_plan(0, 96, 384, 132)  # no rows

@@ -38,13 +38,13 @@
 //     dW1 [H, C] = dhp^T xn from the channel-major copies (K-major, the
 //     mainloop's only layout), each split an f32 partial.
 // Every cross-block sum is a set of f32 partials summed in a fixed order
-// (reduce_parts; no atomics), rounded to bf16 at the end, as the Pallas
-// wrapper rounds the gradients to the weights' compute type. Rounding points
-// are the Pallas kernel's: xn, h and dhp bf16; h_pre, dh, dh_pre, dxn and
-// every sum f32. GELU is the exact erff and its derivative 0.5 (1 +
-// erf(x / sqrt2)) + x phi(x) (the Pallas kernel's polynomial exists only
-// because Mosaic has no erf).
-#include "hopper.cuh"
+// (mlp_bwd_reduce_kernel, one launch; no atomics), rounded to bf16 at the
+// end, as the Pallas wrapper rounds the gradients to the weights' compute
+// type. Rounding points are the Pallas kernel's: xn, h and dhp bf16; h_pre,
+// dh, dh_pre, dxn and every sum f32. GELU is the exact erff and its
+// derivative 0.5 (1 + erf(x / sqrt2)) + x phi(x) (the Pallas kernel's
+// polynomial exists only because Mosaic has no erf).
+#include "ln_bwd.cuh"
 
 namespace aicity {
 
@@ -56,42 +56,12 @@ __device__ __forceinline__ float gelu_cdf(float x) {
 
 // ------------------------------------------------- launch 1: the pre-pass
 
-// rows of a pre-pass block, four threads a row: small blocks, so that the
-// narrow batch-1 and block-15 calls still spread over every SM
-constexpr int PREP_ROWS = 32;
-constexpr int PREP_THREADS = 4 * PREP_ROWS;
-
 __host__ __device__ inline int prep_smem_bytes(int C) {
   return PREP_ROWS * (C + 8) * 2;
 }
 
-// Columns [row0, row0 + PREP_ROWS) of outT [C][ld] from the block's
-// [PREP_ROWS][C + 8] shared tile: one thread per (channel, 8 rows), 16-byte
-// stores (ld is a multiple of 8, so a run that starts below M ends within
-// ld).
-__device__ __forceinline__ void store_transposed(const bf16* tile, int C,
-                                                 bf16* outT, int ld,
-                                                 int row0, int M) {
-  const int ldt = C + 8;
-  const unsigned short* u = reinterpret_cast<const unsigned short*>(tile);
-  constexpr int RUNS = PREP_ROWS / 8;  // 8-row runs of a channel
-  for (int i = threadIdx.x; i < C * RUNS; i += blockDim.x) {
-    const int c = i / RUNS, k = i % RUNS, t0 = row0 + 8 * k;
-    if (t0 >= M) continue;
-    uint32_t w[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      w[e] = (uint32_t)u[(8 * k + 2 * e) * ldt + c] |
-             ((uint32_t)u[(8 * k + 2 * e + 1) * ldt + c] << 16);
-    *reinterpret_cast<uint4*>(outT + (size_t)c * ld + t0) =
-        make_uint4(w[0], w[1], w[2], w[3]);
-  }
-}
-
-// PREP_ROWS rows a block, four lanes a row, each holding VPL 16-byte
-// vectors (C <= 32 * VPL): the statistics as hopper.cuh:ln_stats_rows
-// computes them (stats [Mpad][2], rows past M as (0, 0)), xn = bf16(LN(x))
-// as hopper.cuh:ln_rows_smem rounds it, then xn^T and dOut^T.
+// PREP_ROWS rows a block (ln_bwd.cuh:ln_prep_rows): the statistics and xn,
+// then xn^T and dOut^T.
 template <int VPL>
 __global__ void __launch_bounds__(PREP_THREADS)
     mlp_bwd_prep_kernel(const bf16* __restrict__ x,
@@ -104,51 +74,10 @@ __global__ void __launch_bounds__(PREP_THREADS)
   extern __shared__ __align__(16) unsigned char prep_smem[];
   bf16* tile = reinterpret_cast<bf16*>(prep_smem);
   const int ldt = C + 8;
-  const int lane = threadIdx.x & 31, q = lane & 3, nv = C / 8;
+  const int q = threadIdx.x & 3, nv = C / 8;
   const int rl = threadIdx.x >> 2;
   const int row0 = blockIdx.x * PREP_ROWS, r = row0 + rl;
-  uint4 v[VPL];
-#pragma unroll
-  for (int i = 0; i < VPL; ++i) {
-    const int c = q + 4 * i;
-    v[i] = r < M && c < nv ? *reinterpret_cast<const uint4*>(
-                                 x + (size_t)r * C + 8 * c)
-                           : make_uint4(0u, 0u, 0u, 0u);
-  }
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < VPL; ++i) s += sum8(v[i]);
-  s += __shfl_xor_sync(~0u, s, 1);
-  s += __shfl_xor_sync(~0u, s, 2);
-  const float mu = s / C;
-  float d2 = 0.f;
-#pragma unroll
-  for (int i = 0; i < VPL; ++i)
-    if (q + 4 * i < nv) d2 += sqdev8(v[i], mu);
-  d2 += __shfl_xor_sync(~0u, d2, 1);
-  d2 += __shfl_xor_sync(~0u, d2, 2);
-  const float rs = rsqrtf(d2 / C + eps);
-  if (q == 0)
-    stats[r] = r < M ? make_float2(mu, rs) : make_float2(0.f, 0.f);
-#pragma unroll
-  for (int i = 0; i < VPL; ++i) {
-    const int c = q + 4 * i;
-    if (c >= nv) continue;
-    const uint4 gv = *reinterpret_cast<const uint4*>(gamma + 8 * c);
-    const uint4 bv = *reinterpret_cast<const uint4*>(beta + 8 * c);
-    const uint32_t w[4] = {v[i].x, v[i].y, v[i].z, v[i].w};
-    const uint32_t gw[4] = {gv.x, gv.y, gv.z, gv.w};
-    const uint32_t bw[4] = {bv.x, bv.y, bv.z, bv.w};
-    uint32_t o[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      o[e] = pack_bf16(
-          (bf16_lo(w[e]) - mu) * rs * bf16_lo(gw[e]) + bf16_lo(bw[e]),
-          (bf16_hi(w[e]) - mu) * rs * bf16_hi(gw[e]) + bf16_hi(bw[e]));
-    const uint4 ov = make_uint4(o[0], o[1], o[2], o[3]);
-    *reinterpret_cast<uint4*>(tile + rl * ldt + 8 * c) = ov;
-    if (r < M) *reinterpret_cast<uint4*>(xn + (size_t)r * C + 8 * c) = ov;
-  }
+  ln_prep_rows<VPL>(x, gamma, beta, stats, tile, xn, row0, M, C, eps);
   __syncthreads();
   store_transposed(tile, C, xnT, ld, row0, M);
   __syncthreads();
@@ -421,31 +350,7 @@ __global__ void __launch_bounds__(DENSE_THREADS, 1)
 
 // ------------------------------------------ launch 4: the LN backward
 
-constexpr int LNB_THREADS = 256;
-
-// Dynamic shared memory of the LN backward: each warp's column sums [3][C].
-__host__ __device__ inline int ln_bwd_smem_bytes(int C) {
-  return (LNB_THREADS / 32) * 3 * C * 4;
-}
-
-__device__ __forceinline__ void add4(float* p, float a, float b, float c,
-                                     float d) {
-  float4 v = *reinterpret_cast<float4*>(p);
-  v.x += a;
-  v.y += b;
-  v.z += c;
-  v.w += d;
-  *reinterpret_cast<float4*>(p) = v;
-}
-
-// Rows [blockIdx.x * rpb, + rpb) of x, one warp a row, each lane 4-column
-// groups lane + 32 i (C <= 128 * NI):
-//   xhat = (x - mean) * rstd;  dxhat = dxn * gamma
-//   dx = rstd * (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat))
-// and the block's column sums of dxn * xhat (dgamma), dxn (dbeta) and dOut
-// (db2): each lane adds its columns of a row to its warp's sums in shared
-// memory (few registers, so that several blocks share an SM), then the
-// warps' sums in order go to part [gridDim.x][3][C].
+// ln_bwd.cuh:ln_bwd_rows with db2, the column sums of dOut, as its third
 template <int NI>
 __global__ void __launch_bounds__(LNB_THREADS)
     mlp_bwd_ln_kernel(const bf16* __restrict__ x,
@@ -455,149 +360,48 @@ __global__ void __launch_bounds__(LNB_THREADS)
                       const bf16* __restrict__ gout, bf16* __restrict__ dx,
                       float* __restrict__ part, int M, int C, int rpb) {
   extern __shared__ __align__(16) float ln_sums[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int ng = C / 4;
-  const int row0 = blockIdx.x * rpb, row1 = min(M, row0 + rpb);
-  float* mine = ln_sums + warp * 3 * C;  // this warp's [3][C]
-#pragma unroll
-  for (int i = 0; i < NI; ++i) {
-    const int q = lane + 32 * i;
-    if (q < ng)
-      for (int k = 0; k < 3; ++k)
-        *reinterpret_cast<float4*>(mine + k * C + 4 * q) =
-            make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  for (int rr = row0 + warp; rr < row1; rr += LNB_THREADS / 32) {
-    const float2 st = stats[rr];
-    float xh[NI][4], e[NI][4];
-    float p1 = 0.f, p2 = 0.f;
-#pragma unroll
-    for (int i = 0; i < NI; ++i) {
-      const int q = lane + 32 * i;
-      if (q < ng) {
-        const size_t off = (size_t)rr * C + 4 * q;
-        const float4 d = *reinterpret_cast<const float4*>(dxn + off);
-        const uint2 xv = *reinterpret_cast<const uint2*>(x + off);
-        const uint2 gv = *reinterpret_cast<const uint2*>(gout + off);
-        const uint2 gmv = *reinterpret_cast<const uint2*>(gamma + 4 * q);
-        const float dv[4] = {d.x, d.y, d.z, d.w};
-        const float xs[4] = {bf16_lo(xv.x), bf16_hi(xv.x), bf16_lo(xv.y),
-                             bf16_hi(xv.y)};
-        const float gm[4] = {bf16_lo(gmv.x), bf16_hi(gmv.x), bf16_lo(gmv.y),
-                             bf16_hi(gmv.y)};
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          xh[i][k] = (xs[k] - st.x) * st.y;
-          e[i][k] = dv[k] * gm[k];
-          p1 += e[i][k];
-          p2 += e[i][k] * xh[i][k];
-        }
-        add4(mine + 4 * q, dv[0] * xh[i][0], dv[1] * xh[i][1],
-             dv[2] * xh[i][2], dv[3] * xh[i][3]);
-        add4(mine + C + 4 * q, dv[0], dv[1], dv[2], dv[3]);
-        add4(mine + 2 * C + 4 * q, bf16_lo(gv.x), bf16_hi(gv.x),
-             bf16_lo(gv.y), bf16_hi(gv.y));
-      } else {
-#pragma unroll
-        for (int k = 0; k < 4; ++k) xh[i][k] = e[i][k] = 0.f;
-      }
-    }
-    const float m1 = warp_sum(p1) / C, m2 = warp_sum(p2) / C;
-#pragma unroll
-    for (int i = 0; i < NI; ++i) {
-      const int q = lane + 32 * i;
-      if (q >= ng) continue;
-      float o[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        o[k] = st.y * (e[i][k] - m1 - xh[i][k] * m2);
-      *reinterpret_cast<uint2*>(dx + (size_t)rr * C + 4 * q) =
-          make_uint2(pack_bf16(o[0], o[1]), pack_bf16(o[2], o[3]));
-    }
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < 3 * C; c += LNB_THREADS) {
-    float total = 0.f;
-#pragma unroll
-    for (int w = 0; w < LNB_THREADS / 32; ++w) total += ln_sums[w * 3 * C + c];
-    part[(size_t)blockIdx.x * 3 * C + c] = total;
-  }
+  ln_bwd_rows<NI, 3>(x, stats, dxn, gamma, gout, dx, part, M, C, rpb,
+                     ln_sums);
 }
 
-// ------------------------------------------- the weights' transposes
+// ------------------------------- the weight transposes, the partial sums
 
-// W2^T [H][C] from w2 [C][H] (blockIdx.y 0) and W1^T [C][H] from w1 [H][C]
-// (blockIdx.y 1), 32 x 32 tiles through shared memory, blocks of 32 x 8
-// threads.
 __global__ void __launch_bounds__(256)
-    mlp_bwd_transpose_kernel(const bf16* __restrict__ w1,
-                             const bf16* __restrict__ w2,
-                             bf16* __restrict__ w1t, bf16* __restrict__ w2t,
-                             int C, int H) {
-  __shared__ unsigned short tile[32][33];
-  const bool second = blockIdx.y == 1;
-  const unsigned short* src = reinterpret_cast<const unsigned short*>(
-      second ? w1 : w2);
-  unsigned short* dst = reinterpret_cast<unsigned short*>(second ? w1t : w2t);
-  const int rows = second ? H : C, cols = second ? C : H;
-  const int tiles_c = (cols + 31) / 32;
-  const int r0 = (blockIdx.x / tiles_c) * 32, c0 = (blockIdx.x % tiles_c) * 32;
-  const int x = threadIdx.x & 31, y = threadIdx.x >> 5;
-  for (int k = y; k < 32; k += 8)
-    if (r0 + k < rows && c0 + x < cols)
-      tile[k][x] = src[(size_t)(r0 + k) * cols + c0 + x];
-  __syncthreads();
-  for (int k = y; k < 32; k += 8)  // row c0 + k of the transpose
-    if (c0 + k < cols && r0 + x < rows)
-      dst[(size_t)(c0 + k) * rows + r0 + x] = tile[x][k];
+    mlp_bwd_transpose_kernel(const Transpose a, const Transpose b) {
+  transpose_tile(blockIdx.y == 0 ? a : b, blockIdx.x);
 }
 
-// ---------------------------------------------------- the partial sums
-
-// reduce_splits (common.cuh) for many splits of a short row: 32 columns a
-// block, its 8 warps each summing every 8th split in order, then the 8 sums
-// in order (a fixed order, as reduce_splits'), rounded to bf16.
 __global__ void __launch_bounds__(256)
-    mlp_bwd_reduce_kernel(const float* __restrict__ part,
-                          bf16* __restrict__ out, int nsplit, long n) {
-  __shared__ float sums[8][33];
-  const int x = threadIdx.x & 31, y = threadIdx.x >> 5;
-  const long i = (long)blockIdx.x * 32 + x;
-  float s = 0.f;
-  if (i < n)
-    for (int k = y; k < nsplit; k += 8) s += part[(long)k * n + i];
-  sums[y][x] = s;
-  __syncthreads();
-  if (y == 0 && i < n) {
-    float total = 0.f;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) total += sums[k][x];
-    out[i] = __float2bfloat16(total);
-  }
-}
-
-// The sum of nsplit f32 slabs of n: one thread a column where the splits
-// are few, a block of 32 columns where they are many.
-inline cudaError_t reduce_parts(const float* part, bf16* out, int nsplit,
-                                long n, cudaStream_t s) {
-  if (nsplit <= 16) return reduce_splits(part, out, nsplit, n, s);
-  mlp_bwd_reduce_kernel<<<(unsigned)((n + 31) / 32), 256, 0, s>>>(
-      part, out, nsplit, n);
-  return cudaGetLastError();
+    mlp_bwd_reduce_kernel(const PartialSums p) {
+  sum_partials(p);
 }
 
 // ------------------------------------------------------------- host side
+
+// W2^T and W1^T in one launch (blockIdx.y 0 and 1).
+inline cudaError_t launch_transposes(const Transpose& a, const Transpose& b,
+                                     cudaStream_t s) {
+  mlp_bwd_transpose_kernel<<<
+      dim3(max(transpose_tiles(a), transpose_tiles(b)), 2), 256, 0, s>>>(a,
+                                                                          b);
+  return cudaGetLastError();
+}
 
 inline cudaError_t launch_prep(const void* x, const void* gamma,
                                const void* beta, const void* gout,
                                void* stats, void* xn, void* xnT, void* goutT,
                                int M, int C, int ld, float eps,
                                cudaStream_t s) {
-  const int vpl = (C / 8 + 3) / 4;
-  const PrepKernel k = vpl <= 3    ? mlp_bwd_prep_kernel<3>
-                       : vpl <= 6  ? mlp_bwd_prep_kernel<6>
-                       : vpl <= 12 ? mlp_bwd_prep_kernel<12>
-                                   : mlp_bwd_prep_kernel<24>;
+  const PrepKernel k = prep_kernel_for(
+      [](int vpl) -> PrepKernel {
+        switch (vpl) {
+          case 3: return mlp_bwd_prep_kernel<3>;
+          case 6: return mlp_bwd_prep_kernel<6>;
+          case 12: return mlp_bwd_prep_kernel<12>;
+          default: return mlp_bwd_prep_kernel<24>;
+        }
+      },
+      C);
   const int smem = prep_smem_bytes(C);
   cudaError_t err = set_smem(k, smem);
   if (err != cudaSuccess) return err;
@@ -648,21 +452,16 @@ inline cudaError_t launch_ln(const void* x, const void* stats,
                              const void* dxn, const void* gamma,
                              const void* gout, void* dx, void* part, int M,
                              int C, int rpb, int blocks, cudaStream_t s) {
-  typedef void (*K)(const bf16*, const float2*, const float*, const bf16*,
-                    const bf16*, bf16*, float*, int, int, int);
-  const int ni = (C + 127) / 128;
-  const K k = ni <= 1   ? mlp_bwd_ln_kernel<1>
-              : ni <= 2 ? mlp_bwd_ln_kernel<2>
-              : ni <= 3 ? mlp_bwd_ln_kernel<3>
-                        : mlp_bwd_ln_kernel<6>;
-  const int smem = ln_bwd_smem_bytes(C);
-  cudaError_t err = set_smem(k, smem);
-  if (err != cudaSuccess) return err;
-  k<<<blocks, LNB_THREADS, smem, s>>>(
-      (const bf16*)x, (const float2*)stats, (const float*)dxn,
-      (const bf16*)gamma, (const bf16*)gout, (bf16*)dx, (float*)part, M, C,
-      rpb);
-  return cudaGetLastError();
+  return launch_ln_bwd<3>(
+      [](int ni) -> LnBwdKernel {
+        switch (ni) {
+          case 1: return mlp_bwd_ln_kernel<1>;
+          case 2: return mlp_bwd_ln_kernel<2>;
+          case 3: return mlp_bwd_ln_kernel<3>;
+          default: return mlp_bwd_ln_kernel<6>;
+        }
+      },
+      x, stats, dxn, gamma, gout, dx, part, M, C, rpb, blocks, s);
 }
 
 }  // namespace aicity
@@ -735,10 +534,9 @@ extern "C" int aicity_ln_mlp_bwd(const void* const* ptr, const int* plan,
   if (!err) err = make_tmap(&m_ht, hT, H, M, ld, pw2[0]);
   if (err) return err;
 
-  mlp_bwd_transpose_kernel<<<dim3(((C + 31) / 32) * ((H + 31) / 32), 2),
-                             256, 0, s>>>(
-      (const bf16*)w1, (const bf16*)w2, (bf16*)w1t, (bf16*)w2t, C, H);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e =
+      launch_transposes(Transpose{(const bf16*)w2, (bf16*)w2t, C, H},
+                        Transpose{(const bf16*)w1, (bf16*)w1t, H, C}, s);
   if (e == cudaSuccess)
     e = launch_prep(x, gamma, beta, gout, stats, xn, xnT, goutT, M, C, ld,
                     eps, s);
@@ -764,13 +562,13 @@ extern "C" int aicity_ln_mlp_bwd(const void* const* ptr, const int* plan,
                       (H + pw2[0] - 1) / pw2[0], pw2[3], pw2[4]};
     e = launch_gemm_tn(pw2[0], m_dot, m_ht, a, dw2_part, pw2[2], s);
   }
-  if (e == cudaSuccess)
-    e = reduce_parts(dgb_part, (bf16*)dgb, blocks4, 3L * C, s);
-  if (e == cudaSuccess)
-    e = reduce_parts(db1_part, (bf16*)db1, 2 * grid2, (long)H, s);
-  if (e == cudaSuccess)
-    e = reduce_parts(dw1_part, (bf16*)dw1, pw1[3], (long)H * C, s);
-  if (e == cudaSuccess)
-    e = reduce_parts(dw2_part, (bf16*)dw2, pw2[3], (long)C * H, s);
-  return (int)e;
+  if (e != cudaSuccess) return (int)e;
+  PartialSums sums;
+  int jobs = 0;
+  add_sum(sums, jobs, dgb_part, (bf16*)dgb, blocks4, 3L * C);
+  add_sum(sums, jobs, db1_part, (bf16*)db1, 2 * grid2, H);
+  add_sum(sums, jobs, dw1_part, (bf16*)dw1, pw1[3], (long)H * C);
+  add_sum(sums, jobs, dw2_part, (bf16*)dw2, pw2[3], (long)C * H);
+  mlp_bwd_reduce_kernel<<<sums.start[SUM_JOBS], 256, 0, s>>>(sums);
+  return (int)cudaGetLastError();
 }

@@ -28,11 +28,6 @@
 
 namespace aicity {
 
-// The output descriptors of q, k, v (TMA stores), as one kernel argument.
-struct QkvMaps {
-  CUtensorMap m[3];
-};
-
 template <int TN>
 __global__ void __launch_bounds__(DENSE_THREADS, 1)
     ln_qkv_kernel(const __grid_constant__ CUtensorMap map_x,

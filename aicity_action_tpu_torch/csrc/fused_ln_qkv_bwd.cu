@@ -5,347 +5,488 @@
 // (:175, reached through fused_ln_qkv's custom VJP, :285), which every MViT
 // block runs in training. At 448 and batch 4 it sees x [M, D] with M from
 // 401408 (blocks 0-1) down to 6272, D in {96, 192, 384, 768} and 3C in
-// {288, ..., 2304}: dx = dLN(G W) and dW = G^T LN(x) are 4*M*D*3C flops
-// against 2*M*(2D + 3C) bytes, 64-400 flops per byte, so both the tensor
-// cores and memory matter.
+// {288, ..., 2304}; the cls-token MViT-v1 adds odd token counts (1 + T*H*W).
+// dxn = G W and dW = G^T xn are 4*M*D*3C flops against 2*M*(2D + 3C)
+// bytes: the narrow blocks are bound by memory, the wide ones by the tensor
+// cores.
 //
-// The Pallas kernel walks row tiles in order and adds dW, db, dgamma and
-// dbeta into blocks that stay resident across its sequential grid. GPU
-// blocks run in no order, so the work is split in two kernels, each with
-// per-block f32 partials summed by a second pass (reduce_splits, fixed
-// order, no atomics):
-// - qkv_bwd_dx_kernel owns a row tile (TM rows x all D, the dLN(x)
-//   accumulator in registers, TM * D <= 24576): it streams the incoming
-//   gradients in 32-column chunks with the matching 32 rows of W through a
-//   two-stage cp.async ring, accumulates dLN(x) = G W on mma.sync tiles, then
-//   runs the LN backward (ln_bwd.cuh) from the row statistics and writes dx,
-//   the tile's dgamma / dbeta partials and the row statistics, which the
-//   second kernel reuses.
-// - qkv_bwd_dw_kernel owns a 96 x 96 tile of dW and a range of rows: it
-//   rebuilds bf16(LN(x)) for its 96 columns from the statistics, and sums
-//   G^T LN(x) over its rows (and db from the tile's first column blocks).
-//   Blocks 0-1 have only 3-6 such tiles, so the rows are split to fill the
-//   card; each split writes an f32 partial.
-// Layout: the forward wrote q, k, v channel-major, [B, C, L] each, for the
-// pool convolutions, so their gradients arrive that way: both kernels read
-// G as it lies, 8 tokens (16 bytes) at a time where L % 8 == 0, else (the
-// odd 1 + T*H*W of a cls-token model) one element at a time.
-// bf16 products, f32 sums; dW, db, dgamma and dbeta are rounded to bf16 at
-// the end as the Pallas wrapper rounds them to the weights' compute type.
-#include "common.cuh"
+// The Pallas kernel adds dW, db, dgamma and dbeta into blocks that stay
+// resident across its sequential grid. Here every product runs once on the
+// wgmma mainloop of hopper.cuh (TMA loads through an mbarrier ring, both
+// operands K-major in shared memory), which takes operands in one layout
+// only; the gradients of q, k, v arrive channel-major ([B, C, tokens] each,
+// the forward's layout for the pool convolutions), so a pre-pass writes the
+// copies the products read:
+//  1. qkv_bwd_prep_kernel: W^T [D][3C] (the K-major operand of launch 2),
+//     the LN statistics (mean, rstd) of every row and xn^T = bf16(LN(x))^T
+//     channel-major ([D][ld], ld = M rounded up to 8 so that TMA's strides
+//     are whole 16 bytes), transposed through shared memory;
+//     qkv_bwd_grad_kernel: the gradients G, read once (16 bytes at a time
+//     where tokens % 8 == 0, else one element at a time: odd token counts
+//     are paid here only), into g [M][3C] token-major (transposed through
+//     shared memory, stored by TMA) and, unless tokens % 64 == 0, gT
+//     [3C][ld] (the clips side by side), and db = colsum(G) as per-block
+//     partials (persistent blocks, so that they are few).
+//  2. qkv_bwd_gemm_kernel: dxn [M, D] = g W, K = 3C, f32 out.
+//  3. qkv_bwd_ln_kernel: the LN backward of each row (ln_bwd.cuh:
+//     ln_bwd_rows, shared with the LN+MLP backward) from dxn and the
+//     statistics -> dx; per block of rows the dgamma and dbeta partials.
+//  4. split over K = M, dW [3C, D] = G^T xn, each split an f32 partial, B
+//     xn^T: qkv_bwd_dw_kernel where tokens % 64 == 0 (every v2 shape but
+//     block 15's), its A read in place from dq, dk, dv through TMA views
+//     (a 64-token chunk lies in one clip), else qkv_bwd_gemm_kernel from gT.
+// Every cross-block sum is a set of f32 partials summed in a fixed order
+// (qkv_bwd_reduce_kernel, one launch; no atomics), rounded to bf16 at the
+// end, as the Pallas wrapper rounds the gradients to the weights' compute
+// type. Rounding points are the Pallas kernel's: xn bf16, dxn and every sum
+// f32.
 #include "ln_bwd.cuh"
 
 namespace aicity {
 
-constexpr int QB_THREADS = 256, QB_KC = 32;
-constexpr int QW_T = 96, QW_TM = 32, QW_THREADS = 128;
+// ------------------------------------------------ launch 1: the pre-passes
 
-// Source of 16 bytes of gradient rows [r, r + 8) of channel column n (of
-// the 3C) in the channel-major q / k / v gradients.
-__device__ __forceinline__ const bf16* grad_src(const bf16* dq, const bf16* dk,
-                                                const bf16* dv, int n, int r,
-                                                int C, int tokens) {
-  const int which = n / C, cc = n - which * C;
-  const bf16* base = which == 0 ? dq : (which == 1 ? dk : dv);
-  const int b = r / tokens, l = r - b * tokens;
-  return base + ((size_t)b * C + cc) * tokens + l;
+// The x tile [PREP_ROWS][D + 8] bf16.
+__host__ __device__ inline int qkv_prep_smem_bytes(int D) {
+  return PREP_ROWS * (D + 8) * 2;
 }
 
-// Gradient columns [n0, n0 + nc) x rows [row0, row0 + nrows) into smem as
-// [n][row] (rows contiguous), rows past M zero-filled. Clips of a multiple
-// of 8 tokens are read 8 tokens (16 bytes) at a time with cp.async; other
-// token counts (a cls token's 1 + T*H*W) element by element, since their
-// channel rows are not 16-byte aligned and 8 rows may span two clips.
-__device__ __forceinline__ void load_grad_tile(bf16* s, int lds, const bf16* dq,
-                                               const bf16* dk, const bf16* dv,
-                                               int n0, int nc, int row0,
-                                               int nrows, int M, int C,
-                                               int tokens) {
-  if (tokens % 8 == 0) {
-    const int vpr = nrows / 8;
-    for (int i = threadIdx.x; i < nc * vpr; i += blockDim.x) {
-      const int n = i / vpr, r = (i - n * vpr) * 8;
-      const bool ok = row0 + r < M;
-      cp_async16(s + n * lds + r,
-                 grad_src(dq, dk, dv, n0 + n, ok ? row0 + r : 0, C, tokens),
-                 ok);
-    }
+// PREP_ROWS rows of x a block (ln_bwd.cuh:ln_prep_rows): the statistics,
+// then xn^T; the blocks past ceil(M / PREP_ROWS) transpose the weight, a
+// 32 x 32 tile each.
+template <int VPL>
+__global__ void __launch_bounds__(PREP_THREADS)
+    qkv_bwd_prep_kernel(const bf16* __restrict__ x,
+                        const bf16* __restrict__ gamma,
+                        const bf16* __restrict__ beta,
+                        float2* __restrict__ stats, bf16* __restrict__ xnT,
+                        const Transpose wt, int M, int D, int ld, float eps) {
+  extern __shared__ __align__(16) unsigned char prep_smem[];
+  bf16* tile = reinterpret_cast<bf16*>(prep_smem);
+  const int blocks = (M + PREP_ROWS - 1) / PREP_ROWS;
+  if ((int)blockIdx.x >= blocks) {
+    transpose_tile(wt, blockIdx.x - blocks);
     return;
   }
-  for (int i = threadIdx.x; i < nc * nrows; i += blockDim.x) {
-    const int n = i / nrows, r = i - n * nrows;
-    s[n * lds + r] = row0 + r < M
-                         ? *grad_src(dq, dk, dv, n0 + n, row0 + r, C, tokens)
-                         : __float2bfloat16(0.f);
-  }
-}
-
-template <int D, int TM, int WGM>
-__global__ void __launch_bounds__(QB_THREADS)
-    qkv_bwd_dx_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
-                      const bf16* __restrict__ w, const bf16* __restrict__ dq,
-                      const bf16* __restrict__ dk, const bf16* __restrict__ dv,
-                      bf16* __restrict__ dx, float* __restrict__ part,
-                      float* __restrict__ g_mean, float* __restrict__ g_rstd,
-                      int M, int C, float eps, int tokens) {
-  constexpr int LDG = TM + 8, LDW = D + 8;
-  constexpr int G_ELEMS = QB_KC * LDG, W_ELEMS = QB_KC * LDW;
-  constexpr int NW = (D / 8) / (8 / WGM);  // n8 tiles of a warp
-  static_assert(TM / 16 == WGM && NW % 2 == 0, "warp grid");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // 2 x (G chunk, W chunk)
-  float* s_mean = reinterpret_cast<float*>(ring + 2 * (G_ELEMS + W_ELEMS));
-  float* s_rstd = s_mean + TM;
-  float* s_m1 = s_rstd + TM;
-  float* s_m2 = s_m1 + TM;
-  float* s_dg = s_m2 + TM;
-  float* s_db = s_dg + D;
-
-  const int row0 = blockIdx.x * TM;
-  const int N = 3 * C;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp % WGM, wn = warp / WGM;
-  const int nchunks = N / QB_KC;
-
-  auto fetch = [&](int i) {
-    bf16* gs = ring + (i & 1) * (G_ELEMS + W_ELEMS);
-    load_grad_tile(gs, LDG, dq, dk, dv, i * QB_KC, QB_KC, row0, TM, M, C,
-                   tokens);
-    load_tile_async(gs + G_ELEMS, LDW, w, D, i * QB_KC, N, 0, QB_KC, D);
-  };
-  fetch(0);
-  cp_async_commit();
-  for (int i = threadIdx.x; i < 2 * TM + 2 * D; i += blockDim.x)
-    s_m1[i] = 0.f;  // s_m1, s_m2, s_dg, s_db
-  row_stats(x, row0, M, D, TM, eps, s_mean, s_rstd, g_mean, g_rstd);
-
-  float acc[1][NW][4];
-#pragma unroll
-  for (int ni = 0; ni < NW; ++ni)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[0][ni][e] = 0.f;
-
-  for (int i = 0; i < nchunks; ++i) {
-    if (i + 1 < nchunks) fetch(i + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* gs = ring + (i & 1) * (G_ELEMS + W_ELEMS);
-    const bf16* ws = gs + G_ELEMS;
-#pragma unroll
-    for (int kk = 0; kk < QB_KC; kk += 16) {
-      uint32_t a[4];
-      load_a_frag_trans(a, gs, LDG, wm * 16, kk, lane);
-#pragma unroll
-      for (int np = 0; np < NW / 2; ++np) {
-        uint32_t b[4];
-        load_b_frag_trans_x2(b, ws, LDW, kk, (wn * NW + 2 * np) * 8, lane);
-        mma_16816(acc[0][2 * np], a, b);
-        mma_16816(acc[0][2 * np + 1], a, b + 2);
-      }
-    }
-    __syncthreads();  // this stage is refilled two chunks on
-  }
-
-  ln_bwd_epilogue<1, NW>(acc, wm * 16, wn * NW * 8, row0, M, D, x, gamma,
-                         s_mean, s_rstd, s_m1, s_m2, s_dg, s_db, dx);
+  const int row0 = blockIdx.x * PREP_ROWS;
+  ln_prep_rows<VPL>(x, gamma, beta, stats, tile, nullptr, row0, M, D, eps);
   __syncthreads();
-  for (int c = threadIdx.x; c < 2 * D; c += blockDim.x)
-    part[(size_t)blockIdx.x * 2 * D + c] = s_dg[c];  // s_dg then s_db
+  store_transposed(tile, D, xnT, ld, row0, M);
 }
 
-// One 96 x 96 tile (n0, d0) of dW [3C][D] over rows [split * rps, ...):
-// 4 warps in 2 x 2, each 48 x 48; 32-row steps, double buffered.
-__global__ void __launch_bounds__(QW_THREADS)
-    qkv_bwd_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
-                      const bf16* __restrict__ beta,
-                      const float* __restrict__ g_mean,
-                      const float* __restrict__ g_rstd,
-                      const bf16* __restrict__ dq, const bf16* __restrict__ dk,
-                      const bf16* __restrict__ dv, float* __restrict__ dw_part,
-                      float* __restrict__ db_part, int M, int D, int C,
-                      int tokens, int rps) {
-  constexpr int LDG = QW_TM + 8, LDX = QW_T + 8;
-  constexpr int G_ELEMS = QW_T * LDG, X_ELEMS = QW_TM * LDX;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // 2 x (G^T tile, x tile)
+typedef void (*QkvPrepKernel)(const bf16*, const bf16*, const bf16*,
+                              float2*, bf16*, const Transpose, int, int, int,
+                              float);
 
-  const int n0 = blockIdx.x * QW_T, d0 = blockIdx.y * QW_T;
-  const int split = blockIdx.z;
-  const int N = 3 * C;
-  const int ms = split * rps, me = min(M, ms + rps);
-  const int nsteps = (me - ms + QW_TM - 1) / QW_TM;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp & 1, wn = warp >> 1;
-  const bool do_db = blockIdx.y == 0;
+// The gradients' pass: a block owns QKV_GC channels of the 3C (blockIdx.y;
+// 3C is a multiple of 96) and walks 128-token tiles with a stride of
+// gridDim.x. A tile lands in shared memory as [channel][token] (rows of 65
+// words: the token-major reads below are free of bank conflicts), is
+// transposed into a dense [token][channel] box and leaves by one TMA store:
+// whole lines of g, where 16-byte stores to 128 rows ran at a third of the
+// card's bandwidth. Every load of a tile is issued before its first store.
+constexpr int QKV_GC = 96, QKV_GT = 128, QKV_GRAD_THREADS = 256;
+constexpr int QKV_GLD = QKV_GT + 2;
 
-  auto fetch = [&](int i) {
-    bf16* gs = ring + (i & 1) * (G_ELEMS + X_ELEMS);
-    const int m0 = ms + i * QW_TM;
-    load_grad_tile(gs, LDG, dq, dk, dv, n0, QW_T, m0, QW_TM, me, C, tokens);
-    load_tile_async(gs + G_ELEMS, LDX, x, D, m0, me, d0, QW_TM, QW_T);
-  };
-  if (nsteps > 0) fetch(0);
-  cp_async_commit();
+// The [channel][token] tile, then (1024-byte aligned) the [token][channel]
+// box of g; the slack for the alignment.
+__host__ __device__ inline int qkv_grad_smem_bytes() {
+  return QKV_GC * QKV_GLD * 2 + 1024 + QKV_GT * QKV_GC * 2;
+}
 
-  float acc[3][6][4];
-#pragma unroll
-  for (int mi = 0; mi < 3; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 6; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-  float dbacc = 0.f;
+// Where token row r of gradient channel n (of the 3C) lies in dq, dk, dv
+// [M / L, C, L]; next(s) steps to channel n + s (s < C), a division only
+// for the first (the odd-token path's 48 loads a thread a tile).
+struct GradRow {
+  const bf16 *dq, *dk, *dv;
+  const bf16* p;
+  size_t off;  // token row r's offset within a channel-major tensor
+  int C, L, which, c;
 
-  for (int i = 0; i < nsteps; ++i) {
-    if (i + 1 < nsteps) fetch(i + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    bf16* gs = ring + (i & 1) * (G_ELEMS + X_ELEMS);
-    bf16* xs = gs + G_ELEMS;
-    const int m0 = ms + i * QW_TM;
-    // x -> bf16(LN(x)) for the tile's columns, from the row statistics
-    for (int e = threadIdx.x; e < QW_TM * QW_T; e += blockDim.x) {
-      const int r = e / QW_T, c = e - r * QW_T;
-      const int gr = m0 + r;
-      float y = 0.f;
-      if (gr < me)
-        y = (__bfloat162float(xs[r * LDX + c]) - g_mean[gr]) * g_rstd[gr] *
-                __bfloat162float(gamma[d0 + c]) +
-            __bfloat162float(beta[d0 + c]);
-      xs[r * LDX + c] = __float2bfloat16(y);
+  __device__ __forceinline__ GradRow(const bf16* q, const bf16* k,
+                                     const bf16* v, int n, int C_, int L_,
+                                     int r)
+      : dq(q), dk(k), dv(v), C(C_), L(L_) {
+    const int b = r / L;
+    off = (size_t)b * C * L + (r - b * L);
+    which = n / C;
+    c = n - which * C;
+    p = base() + off + (size_t)c * L;
+  }
+  __device__ __forceinline__ const bf16* base() const {
+    return which == 0 ? dq : (which == 1 ? dk : dv);
+  }
+  __device__ __forceinline__ void next(int s) {
+    c += s;
+    p += (size_t)s * L;
+    if (c >= C) {
+      c -= C;
+      ++which;
+      p = base() + off + (size_t)c * L;
     }
-    if (do_db && threadIdx.x < QW_T)
-      for (int r = 0; r < QW_TM; ++r)
-        dbacc += __bfloat162float(gs[threadIdx.x * LDG + r]);
-    __syncthreads();
+  }
+};
+
+// G from dq, dk, dv [M / L, C, L] into g [M][3C] token-major (map_g: boxes
+// of QKV_GT rows x QKV_GC columns) and, unless gT is null, gT [3C][ld] (the
+// clips side by side); and db's partials, db_part [gridDim.x][3C]: this
+// block's column sums over its tiles, in order.
+__global__ void __launch_bounds__(QKV_GRAD_THREADS)
+    qkv_bwd_grad_kernel(const __grid_constant__ CUtensorMap map_g,
+                        const bf16* __restrict__ dq,
+                        const bf16* __restrict__ dk,
+                        const bf16* __restrict__ dv, bf16* __restrict__ gT,
+                        float* __restrict__ db_part, int M, int C, int L,
+                        int ld) {
+  extern __shared__ __align__(16) unsigned char grad_smem[];
+  unsigned short* tile = reinterpret_cast<unsigned short*>(grad_smem);
+  unsigned char* box = reinterpret_cast<unsigned char*>(
+      ((uintptr_t)(grad_smem + QKV_GC * QKV_GLD * 2) + 1023) &
+      ~(uintptr_t)1023);
+  uint32_t* tw = reinterpret_cast<uint32_t*>(tile);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int N3 = 3 * C, n0 = blockIdx.y * QKV_GC;
+  unsigned short* gTu = reinterpret_cast<unsigned short*>(gT);
+  const int tiles = (M + QKV_GT - 1) / QKV_GT;
+  // db: threads 2ch and 2ch + 1 sum the first and second half of the
+  // tokens of channel n0 + ch of each tile
+  float dbacc = 0.f;
+  for (int tix = blockIdx.x; tix < tiles; tix += gridDim.x) {
+    const int row0 = tix * QKV_GT;
+    if (L % 8 == 0) {
+      // thread: channels tid / 16 + 16 k, tokens [8 (tid % 16), + 8) of the
+      // tile (16 bytes within one clip, as L % 8 == 0; M % 8 == 0)
+      constexpr int NV = QKV_GC / 16;
+      const int run = tid & 15, r = row0 + 8 * run, b = r / L;
+      const size_t off = (size_t)b * C * L + (r - b * L);
+      uint4 v[NV];
 #pragma unroll
-    for (int kk = 0; kk < QW_TM; kk += 16) {
-      uint32_t a[3][4];
+      for (int k = 0; k < NV; ++k) {  // (faster here than GradRow's steps)
+        const int n = n0 + (tid >> 4) + 16 * k, which = n / C;
+        v[k] = r < M ? *reinterpret_cast<const uint4*>(
+                           (which == 0 ? dq : which == 1 ? dk : dv) + off +
+                           (size_t)(n - which * C) * L)
+                     : make_uint4(0u, 0u, 0u, 0u);
+      }
 #pragma unroll
-      for (int mi = 0; mi < 3; ++mi)
-        load_a_frag(a[mi], gs, LDG, wm * 48 + mi * 16, kk, lane);
+      for (int k = 0; k < NV; ++k) {
+        const int ch = (tid >> 4) + 16 * k;
+        if (gTu != nullptr && r < M)
+          *reinterpret_cast<uint4*>(gTu + (size_t)(n0 + ch) * ld + r) = v[k];
+        uint32_t* d = tw + ch * (QKV_GLD / 2) + 4 * run;
+        d[0] = v[k].x;
+        d[1] = v[k].y;
+        d[2] = v[k].z;
+        d[3] = v[k].w;
+      }
+    } else {
+      // odd token counts: thread: token tid % 128, channels tid / 128 + 2 k
+      constexpr int NE = QKV_GC / 2;
+      const int r = row0 + (tid & 127);
+      GradRow src(dq, dk, dv, n0 + (tid >> 7), C, L, r);
+      unsigned short v[NE];
 #pragma unroll
-      for (int np = 0; np < 3; ++np) {
-        uint32_t b[4];
-        load_b_frag_trans_x2(b, xs, LDX, kk, wn * 48 + np * 16, lane);
+      for (int k = 0; k < NE; ++k, src.next(2)) {
+        v[k] = r < M ? *reinterpret_cast<const unsigned short*>(src.p)
+                     : (unsigned short)0;
+      }
 #pragma unroll
-        for (int mi = 0; mi < 3; ++mi) {
-          mma_16816(acc[mi][2 * np], a[mi], b);
-          mma_16816(acc[mi][2 * np + 1], a[mi], b + 2);
-        }
+      for (int k = 0; k < NE; ++k) {
+        const int ch = (tid >> 7) + 2 * k;
+        if (gTu != nullptr && r < M) gTu[(size_t)(n0 + ch) * ld + r] = v[k];
+        tile[ch * QKV_GLD + (tid & 127)] = v[k];
       }
     }
+    if (tid == 0) bulk_wait_read();  // the last tile's store has left box
     __syncthreads();
-  }
-
-  const int g = lane >> 2, t = lane & 3;
-  float* out = dw_part + (size_t)split * N * D;
-#pragma unroll
-  for (int mi = 0; mi < 3; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 6; ++ni) {
-      const int r = n0 + wm * 48 + mi * 16 + g;
-      const int c = d0 + wn * 48 + ni * 8 + 2 * t;
-      *reinterpret_cast<float2*>(out + (size_t)r * D + c) =
-          make_float2(acc[mi][ni][0], acc[mi][ni][1]);
-      *reinterpret_cast<float2*>(out + (size_t)(r + 8) * D + c) =
-          make_float2(acc[mi][ni][2], acc[mi][ni][3]);
+    if (tid < 2 * QKV_GC) {  // warps 0-5, whole
+      const uint32_t* p = tw + (tid >> 1) * (QKV_GLD / 2) + (QKV_GT / 4) *
+                                                                (tid & 1);
+      float s = 0.f;
+#pragma unroll 8
+      for (int k = 0; k < QKV_GT / 4; ++k) s += bf16_lo(p[k]) + bf16_hi(p[k]);
+      dbacc += s + __shfl_xor_sync(~0u, s, 1);
     }
-  if (do_db && threadIdx.x < QW_T)
-    db_part[(size_t)split * N + n0 + threadIdx.x] = dbacc;
+    // the box: row t (a token) holds channels n0 .. + 96; a warp fills 8
+    // tokens x 4 groups of 8 channels, a quarter-warp 2 tokens x 4 groups
+    // (32 distinct banks)
+#pragma unroll
+    for (int k = 0; k < (QKV_GT / 8) * (QKV_GC / 32) / 8; ++k) {
+      const int task = warp + 8 * k;
+      const int t = 8 * (task % (QKV_GT / 8)) + 2 * (lane >> 3) +
+                    ((lane >> 2) & 1);
+      const int j = 4 * (task / (QKV_GT / 8)) + (lane & 3);
+      uint32_t w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        w[e] = (uint32_t)tile[(8 * j + 2 * e) * QKV_GLD + t] |
+               ((uint32_t)tile[(8 * j + 2 * e + 1) * QKV_GLD + t] << 16);
+      *reinterpret_cast<uint4*>(box + t * (QKV_GC * 2) + 16 * j) =
+          make_uint4(w[0], w[1], w[2], w[3]);
+    }
+    fence_proxy_async();  // the box, visible to TMA
+    __syncthreads();      // (and the tile read before the next one lands)
+    if (tid == 0) {
+      tma_store(&map_g, box, n0, row0);  // rows past M are not written
+      bulk_commit();
+    }
+  }
+  if (tid == 0) bulk_wait_done();
+  if (tid < 2 * QKV_GC && (tid & 1) == 0)
+    db_part[(size_t)blockIdx.x * N3 + n0 + (tid >> 1)] = dbacc;
 }
 
-template <int D, int TM, int WGM>
-int launch_qkv_bwd_dx(const void* x, const void* gamma, const void* w,
-                      const void* dq, const void* dk, const void* dv,
-                      void* dx, void* part, void* mean, void* rstd, int M,
-                      int C, float eps, int tokens, cudaStream_t stream) {
-  auto kernel = qkv_bwd_dx_kernel<D, TM, WGM>;
-  const size_t smem =
-      (size_t)2 * (QB_KC * (TM + 8) + QB_KC * (D + 8)) * sizeof(bf16) +
-      (4 * TM + 2 * D) * sizeof(float);
-  cudaError_t err = set_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<(M + TM - 1) / TM, QB_THREADS, smem, stream>>>(
-      (const bf16*)x, (const bf16*)gamma, (const bf16*)w, (const bf16*)dq,
-      (const bf16*)dk, (const bf16*)dv, (bf16*)dx, (float*)part,
-      (float*)mean, (float*)rstd, M, C, eps, tokens);
-  return (int)cudaGetLastError();
+// ------------------------------ launches 2 and 4: the K-major mainloop
+
+template <int TN>
+__global__ void __launch_bounds__(DENSE_THREADS, 1)
+    qkv_bwd_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
+                        const __grid_constant__ CUtensorMap map_b,
+                        const DenseArgs args, float* out) {
+  dense_block<TN, false>(map_a, map_b, args, F32Store{out});
+}
+
+// dW's A operand read in place where L % 64 == 0: rows n of the product are
+// the 3C channels of the channel-major gradients (the forward's layout),
+// through TMA views [B*C rows][L] of q, k, v, one 64-token chunk at a time
+// (within one clip, as L % 64 == 0), in boxes of `box` rows (a multiple of
+// 32 that divides C, so that a box lies in one of q, k, v) placed
+// where one 128-row box would land, so that the 128-byte swizzle is the one
+// wgmma expects. Rows past 3C are not loaded; their products are rows the
+// epilogue drops.
+struct ChannelMajorA {
+  const CUtensorMap* maps;  // q, k, v
+  int C, L, box;
+
+  __device__ __forceinline__ int boxes(int row0) const {
+    return min(DENSE_BM, 3 * C - row0) / box;
+  }
+  __device__ __forceinline__ uint32_t bytes(int row0) const {
+    return boxes(row0) * box * 128;
+  }
+  __device__ __forceinline__ void load(void* dst, uint64_t* bar, int kc,
+                                       int row0) const {
+    const int m0 = kc * 64, b = m0 / L;
+    for (int i = 0; i < boxes(row0); ++i) {
+      const int n = row0 + box * i, which = n / C;
+      tma_load(static_cast<unsigned char*>(dst) + i * box * 128, maps + which,
+               bar, m0 - b * L, b * C + n - which * C);
+    }
+  }
+};
+
+template <int TN>
+__global__ void __launch_bounds__(DENSE_THREADS, 1)
+    qkv_bwd_dw_kernel(const __grid_constant__ QkvMaps maps,
+                      const __grid_constant__ CUtensorMap map_b,
+                      const DenseArgs args, int C, int L, int box,
+                      float* out) {
+  dense_block<TN, false>(ChannelMajorA{maps.m, C, L, box}, map_b, args,
+                         F32Store{out});
+}
+
+// ------------------------------------------ launch 3: the LN backward
+
+template <int NI>
+__global__ void __launch_bounds__(LNB_THREADS)
+    qkv_bwd_ln_kernel(const bf16* __restrict__ x,
+                      const float2* __restrict__ stats,
+                      const float* __restrict__ dxn,
+                      const bf16* __restrict__ gamma,
+                      const bf16* __restrict__ /*gout: none*/,
+                      bf16* __restrict__ dx, float* __restrict__ part, int M,
+                      int D, int rpb) {
+  extern __shared__ __align__(16) float ln_sums[];
+  ln_bwd_rows<NI, 2>(x, stats, dxn, gamma, nullptr, dx, part, M, D, rpb,
+                     ln_sums);
+}
+
+// ------------------------------------------------------ the partial sums
+
+__global__ void __launch_bounds__(256)
+    qkv_bwd_reduce_kernel(const PartialSums p) {
+  sum_partials(p);
+}
+
+// ------------------------------------------------------------- host side
+
+inline cudaError_t launch_qkv_prep(const void* const* ptr, void* stats,
+                                   void* xnT, const Transpose& wt, int M,
+                                   int D, int ld, float eps, cudaStream_t s) {
+  const QkvPrepKernel k = prep_kernel_for(
+      [](int vpl) -> QkvPrepKernel {
+        switch (vpl) {
+          case 3: return qkv_bwd_prep_kernel<3>;
+          case 6: return qkv_bwd_prep_kernel<6>;
+          case 12: return qkv_bwd_prep_kernel<12>;
+          default: return qkv_bwd_prep_kernel<24>;
+        }
+      },
+      D);
+  const int smem = qkv_prep_smem_bytes(D);
+  cudaError_t err = set_smem(k, smem);
+  if (err != cudaSuccess) return err;
+  k<<<(M + PREP_ROWS - 1) / PREP_ROWS + transpose_tiles(wt), PREP_THREADS,
+      smem, s>>>((const bf16*)ptr[0], (const bf16*)ptr[1],
+                 (const bf16*)ptr[2], (float2*)stats, (bf16*)xnT, wt, M, D,
+                 ld, eps);
+  return cudaGetLastError();
+}
+
+template <int TN>
+inline cudaError_t launch_qkv_gemm(const CUtensorMap& ma,
+                                   const CUtensorMap& mb, const DenseArgs& a,
+                                   float* out, int grid, cudaStream_t s) {
+  static bool ready = false;
+  cudaError_t err = prepare_dense(qkv_bwd_gemm_kernel<TN>, ready);
+  if (err != cudaSuccess) return err;
+  qkv_bwd_gemm_kernel<TN><<<grid, DENSE_THREADS,
+                            dense_smem_bytes(TN, a.stages, a.K, false), s>>>(
+      ma, mb, a, out);
+  return cudaGetLastError();
+}
+
+template <int TN>
+inline cudaError_t launch_qkv_dw(const QkvMaps& maps, const CUtensorMap& mb,
+                                 const DenseArgs& a, int C, int L, int box,
+                                 float* out, int grid, cudaStream_t s) {
+  static bool ready = false;
+  cudaError_t err = prepare_dense(qkv_bwd_dw_kernel<TN>, ready);
+  if (err != cudaSuccess) return err;
+  qkv_bwd_dw_kernel<TN><<<grid, DENSE_THREADS,
+                          dense_smem_bytes(TN, a.stages, a.K, false), s>>>(
+      maps, mb, a, C, L, box, out);
+  return cudaGetLastError();
+}
+
+inline cudaError_t launch_qkv_gemm_tn(int tn, const CUtensorMap& ma,
+                                      const CUtensorMap& mb,
+                                      const DenseArgs& a, float* out,
+                                      int grid, cudaStream_t s) {
+  switch (tn) {
+    case 128: return launch_qkv_gemm<128>(ma, mb, a, out, grid, s);
+    case 192: return launch_qkv_gemm<192>(ma, mb, a, out, grid, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace aicity
 
-// Row tile of the dx kernel for width D (0 where D has no configuration).
-extern "C" int aicity_ln_qkv_bwd_rows(int D) {
-  switch (D) {
-    case 96: case 192: return 128;
-    case 384: return 64;
-    case 768: return 32;
-    default: return 0;
+// Shared memory of a launch of the plan (ops/fused_dense.py:_qkv_bwd_plan):
+// variant 1 a K-major GEMM (tn, stages), 2 the x pre-pass (D), 3 the
+// gradients' pass.
+extern "C" int aicity_ln_qkv_bwd_smem_bytes(int variant, int D, int tn,
+                                            int stages) {
+  using namespace aicity;
+  switch (variant) {
+    case 1: return dense_smem_bytes(tn, stages, 64, false);
+    case 2: return qkv_prep_smem_bytes(D);
+    default: return qkv_grad_smem_bytes();
   }
 }
 
-// x [M, D]; w [3C, D]; dq, dk, dv [M / tokens, C, tokens] (the forward's
-// channel-major layout). Outputs: dx [M, D] bf16; dw [3C, D], db [3C],
-// dgb [2, D] (dgamma, dbeta) bf16. Scratch (f32): part
-// [ceil(M / rows), 2, D], stats [2, M], dw_part [nsplit, 3C, D], db_part
-// [nsplit, 3C], nsplit = ceil(M / rps), rps a multiple of 32.
-extern "C" int aicity_ln_qkv_bwd(const void* x, const void* gamma,
-                                 const void* beta, const void* w,
-                                 const void* dq, const void* dk,
-                                 const void* dv, void* dx, void* dw, void* db,
-                                 void* dgb, void* part, void* stats,
-                                 void* dw_part, void* db_part, int M, int D,
-                                 int C, float eps, int tokens, int rps,
+// ptr[]: the inputs x [M, D], gamma, beta [D], w [3C, D], dq, dk, dv
+// [M / tokens, C, tokens] (the forward's channel-major layout); the outputs
+// (bf16) dx [M, D], dw [3C, D], db [3C], dgb [2][D] (dgamma, dbeta); the
+// scratch wt (W^T [D][3C]), stats [ceil(M / 128) * 128][2] f32, xnT
+// [D][ld], g [M][3C], gT [3C][ld] (bf16; unused where tokens % 64 == 0:
+// dW then reads dq, dk, dv in place), dxn [M, D] f32, and the f32 partials
+// db [blocks1][3C], dgb [blocks3][2][D], dw [splits4][3C][D].
+// plan[]: ld (M rounded up to 8), blocks1 (the gradients' pass: blocks over
+// the tokens, each for every 96-channel chunk), tn2, stages2,
+// grid2 (dxn), blocks3, rows3 (the LN backward), then for dW tn, stages,
+// grid, splits, split_chunks (64-deep K chunks a split) and box: the rows
+// of a box of its A read in place from dq, dk, dv (a divisor of C; tokens %
+// 64 == 0), or 0 for A from gT.
+extern "C" int aicity_ln_qkv_bwd(const void* const* ptr, const int* plan,
+                                 int M, int D, int C, int tokens, float eps,
                                  void* stream) {
   using namespace aicity;
   cudaStream_t s = (cudaStream_t)stream;
-  const int rows = aicity_ln_qkv_bwd_rows(D);
-  if (!rows || C % QW_T || tokens <= 0 || M % tokens || rps <= 0 ||
-      rps % 32)
+  if (M <= 0 || D % 8 || D > 768 || C <= 0 || C % 32 || tokens <= 0 ||
+      M % tokens)
     return (int)cudaErrorInvalidValue;
-  if (M <= 0) return (int)cudaSuccess;
-  float* mean = (float*)stats;
-  float* rstd = mean + M;
-  int err;
-  switch (D) {
-    case 96:
-      err = launch_qkv_bwd_dx<96, 128, 8>(x, gamma, w, dq, dk, dv, dx, part,
-                                          mean, rstd, M, C, eps, tokens, s);
-      break;
-    case 192:
-      err = launch_qkv_bwd_dx<192, 128, 8>(x, gamma, w, dq, dk, dv, dx, part,
-                                           mean, rstd, M, C, eps, tokens, s);
-      break;
-    case 384:
-      err = launch_qkv_bwd_dx<384, 64, 4>(x, gamma, w, dq, dk, dv, dx, part,
-                                          mean, rstd, M, C, eps, tokens, s);
-      break;
-    default:
-      err = launch_qkv_bwd_dx<768, 32, 2>(x, gamma, w, dq, dk, dv, dx, part,
-                                          mean, rstd, M, C, eps, tokens, s);
-  }
+  const int N3 = 3 * C;
+  const void* w = ptr[3];
+  void *dx = (void*)ptr[7], *dw = (void*)ptr[8], *db = (void*)ptr[9],
+       *dgb = (void*)ptr[10];
+  void *wt = (void*)ptr[11], *stats = (void*)ptr[12], *xnT = (void*)ptr[13],
+       *g = (void*)ptr[14], *gT = (void*)ptr[15], *dxn = (void*)ptr[16];
+  float *db_part = (float*)ptr[17], *dgb_part = (float*)ptr[18],
+        *dw_part = (float*)ptr[19];
+  const int ld = plan[0], blocks1 = plan[1], tn2 = plan[2], stages2 = plan[3],
+            grid2 = plan[4], blocks3 = plan[5], rows3 = plan[6];
+  const int* pw = plan + 7;  // tn, stages, grid, splits, split_chunks
+  const int box = plan[12];
+  const bool in_place = box > 0;
+  if (ld < M || ld % 8 || blocks1 < 1 || (long)blocks3 * rows3 < M ||
+      (in_place && (tokens % 64 || C % box || box % 32)))
+    return (int)cudaErrorInvalidValue;
+
+  // descriptors: g's stores, then dxn's operands and dW's (K-major;
+  // columns past M load as zero): dW's A in place, views [B*C rows][tokens]
+  // of dq, dk, dv, or the packed gT
+  CUtensorMap m_gs, m_g, m_wt, m_gt, m_xnt;
+  QkvMaps views;
+  int err = make_tmap(&m_gs, g, M, N3, N3, QKV_GT, QKV_GC);
+  if (!err) err = make_tmap(&m_g, g, M, N3, N3, DENSE_BM);
+  if (!err) err = make_tmap(&m_wt, wt, D, N3, N3, tn2);
+  for (int i = 0; i < 3 && !err && in_place; ++i)
+    err = make_tmap(&views.m[i], ptr[4 + i], (uint64_t)(M / tokens) * C,
+                    tokens, tokens, box);
+  if (!err && !in_place) err = make_tmap(&m_gt, gT, N3, M, ld, DENSE_BM);
+  if (!err) err = make_tmap(&m_xnt, xnT, D, M, ld, pw[0]);
   if (err) return err;
-  const int nblocks = (M + rows - 1) / rows;
-  cudaError_t e = reduce_splits((const float*)part, (bf16*)dgb, nblocks,
-                                2L * D, s);
+
+  cudaError_t e = launch_qkv_prep(
+      ptr, stats, xnT, Transpose{(const bf16*)w, (bf16*)wt, N3, D}, M, D, ld,
+      eps, s);
+  if (e == cudaSuccess)
+    e = set_smem(qkv_bwd_grad_kernel, qkv_grad_smem_bytes());
+  if (e == cudaSuccess) {
+    qkv_bwd_grad_kernel<<<dim3(blocks1, N3 / QKV_GC), QKV_GRAD_THREADS,
+                          qkv_grad_smem_bytes(), s>>>(
+        m_gs, (const bf16*)ptr[4], (const bf16*)ptr[5], (const bf16*)ptr[6],
+        in_place ? nullptr : (bf16*)gT, db_part, M, C, tokens, ld);
+    e = cudaGetLastError();
+  }
+  if (e == cudaSuccess) {  // dxn [M, D] = g W
+    const DenseArgs a{nullptr, nullptr, nullptr, nullptr, M, D, N3, stages2,
+                      (D + tn2 - 1) / tn2, 1, 0};
+    e = launch_qkv_gemm_tn(tn2, m_g, m_wt, a, (float*)dxn, grid2, s);
+  }
+  if (e == cudaSuccess)
+    e = launch_ln_bwd<2>(
+        [](int ni) -> LnBwdKernel {
+          switch (ni) {
+            case 1: return qkv_bwd_ln_kernel<1>;
+            case 2: return qkv_bwd_ln_kernel<2>;
+            case 3: return qkv_bwd_ln_kernel<3>;
+            default: return qkv_bwd_ln_kernel<6>;
+          }
+        },
+        ptr[0], stats, dxn, ptr[1], nullptr, dx, dgb_part, M, D, rows3,
+        blocks3, s);
+  if (e == cudaSuccess) {  // dW [3C, D] = G^T xn
+    const DenseArgs a{nullptr, nullptr, nullptr, nullptr, N3, D, M, pw[1],
+                      (D + pw[0] - 1) / pw[0], pw[3], pw[4]};
+    if (!in_place)
+      e = launch_qkv_gemm_tn(pw[0], m_gt, m_xnt, a, dw_part, pw[2], s);
+    else if (pw[0] == 128)
+      e = launch_qkv_dw<128>(views, m_xnt, a, C, tokens, box, dw_part, pw[2],
+                             s);
+    else if (pw[0] == 192)
+      e = launch_qkv_dw<192>(views, m_xnt, a, C, tokens, box, dw_part, pw[2],
+                             s);
+    else
+      e = cudaErrorInvalidValue;
+  }
   if (e != cudaSuccess) return (int)e;
-  const int nsplit = (M + rps - 1) / rps;
-  const size_t smem = (size_t)2 *
-                      (QW_T * (QW_TM + 8) + QW_TM * (QW_T + 8)) * sizeof(bf16);
-  e = set_smem(qkv_bwd_dw_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  qkv_bwd_dw_kernel<<<dim3(3 * C / QW_T, D / QW_T, nsplit), QW_THREADS, smem,
-                      s>>>(
-      (const bf16*)x, (const bf16*)gamma, (const bf16*)beta, mean, rstd,
-      (const bf16*)dq, (const bf16*)dk, (const bf16*)dv, (float*)dw_part,
-      (float*)db_part, M, D, C, tokens, rps);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  e = reduce_splits((const float*)dw_part, (bf16*)dw, nsplit, 3L * C * D, s);
-  if (e != cudaSuccess) return (int)e;
-  return (int)reduce_splits((const float*)db_part, (bf16*)db, nsplit, 3L * C,
-                            s);
+  PartialSums sums;
+  int jobs = 0;
+  add_sum(sums, jobs, dgb_part, (bf16*)dgb, blocks3, 2L * D);
+  add_sum(sums, jobs, db_part, (bf16*)db, blocks1, N3);
+  add_sum(sums, jobs, dw_part, (bf16*)dw, pw[3], (long)N3 * D);
+  qkv_bwd_reduce_kernel<<<sums.start[SUM_JOBS], 256, 0, s>>>(sums);
+  return (int)cudaGetLastError();
 }

@@ -67,23 +67,26 @@ inline EncodeTiledFn encode_tiled_fn() {
 
 // Descriptor of a row-major bf16 matrix [rows][cols] (leading dim ld
 // elements) read in boxes of box_rows x 64 columns (128 bytes, the
-// 128-byte swizzle that the wgmma descriptors below expect). Elements past
-// the matrix's edge load as zero. Returns a cudaError_t.
+// 128-byte swizzle that the wgmma descriptors below expect), or, with
+// box_cols given, written in unswizzled boxes of box_rows x box_cols (a
+// dense row-major box in shared memory). Elements past the matrix's edge
+// load as zero and are not stored. Returns a cudaError_t.
 inline int make_tmap(CUtensorMap* map, const void* base, uint64_t rows,
-                     uint64_t cols, uint64_t ld, uint32_t box_rows) {
+                     uint64_t cols, uint64_t ld, uint32_t box_rows,
+                     uint32_t box_cols = 0) {
   EncodeTiledFn enc = encode_tiled_fn();
   if (!enc || (uintptr_t)base % 16 || (ld * 2) % 16 || box_rows == 0 ||
-      box_rows > 256)
+      box_rows > 256 || box_cols > 256 || (box_cols * 2) % 16)
     return (int)cudaErrorInvalidValue;
   const cuuint64_t dims[2] = {cols, rows};
   const cuuint64_t strides[1] = {ld * 2};
-  const cuuint32_t box[2] = {64, box_rows};
+  const cuuint32_t box[2] = {box_cols ? box_cols : 64, box_rows};
   const cuuint32_t elem[2] = {1, 1};
   const CUresult r = enc(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      box_cols ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
@@ -969,14 +972,37 @@ __device__ __forceinline__ void store_tile(const F32Store& st,
   }
 }
 
+// The producer's loads of a ring stage's A chunk [128][64] (column kc * 64,
+// rows from row0): bytes(row0), the bytes they bring, and load(...), the
+// TMA loads that complete on the stage's barrier. The rule: one box of 128
+// rows of a row-major A (rows past its edge load as zero).
+struct TmaRowsA {
+  const CUtensorMap* map;
+
+  __device__ __forceinline__ uint32_t bytes(int /*row0*/) const {
+    return DENSE_BM * 128;
+  }
+  __device__ __forceinline__ void load(void* dst, uint64_t* bar, int kc,
+                                       int row0) const {
+    tma_load(dst, map, bar, kc * 64, row0);
+  }
+};
+
+// q, k, v's TMA maps, each viewing a channel-major [B, C, tokens] tensor as
+// [B*C rows][tokens], as one kernel argument.
+struct QkvMaps {
+  CUtensorMap m[3];
+};
+
 // The whole block: barrier set-up, then the producer or a consumer for
 // every tile of this block's share of the queue. With LN, a consumer loads
 // its A fragments from the chunk with ldmatrix, normalizes them in
 // registers and issues wgmma with A from registers; the fragments are
 // double-buffered, so the next chunk is loaded and normalized while this
 // chunk's group is in flight. Without, A and B come from shared memory.
-template <int TN, bool LN, class Store>
-__device__ __forceinline__ void dense_block(const CUtensorMap& map_a,
+// The producer loads A by a_load (TmaRowsA, or a policy of the same shape).
+template <int TN, bool LN, class Store, class ALoad>
+__device__ __forceinline__ void dense_block(const ALoad& a_load,
                                             const CUtensorMap& map_b,
                                             const DenseArgs& p,
                                             const Store& st) {
@@ -1029,9 +1055,9 @@ __device__ __forceinline__ void dense_block(const CUtensorMap& map_a,
         if (round > 0) mbar_wait(&empty[s], (round - 1) & 1);
         unsigned char* a_t = ring + s * stage_bytes;
         const bool stats = LN && kc == 0;
-        mbar_arrive_expect_tx(&full[s],
-                              B_OFF + TN * 128 + (stats ? 1024 : 0));
-        tma_load(a_t, &map_a, &full[s], kc * 64, row0);
+        mbar_arrive_expect_tx(&full[s], a_load.bytes(row0) + TN * 128 +
+                                            (stats ? 1024 : 0));
+        a_load.load(a_t, &full[s], kc, row0);
         tma_load(a_t + B_OFF, &map_b, &full[s], kc * 64, n0);
         if (stats) bulk_load(a_t + stats_off, p.stats + row0, 1024, &full[s]);
       }
@@ -1137,6 +1163,14 @@ __device__ __forceinline__ void dense_block(const CUtensorMap& map_a,
                    rb, lane, split);
   }
   bulk_wait_done();  // this thread's asynchronous stores are complete
+}
+
+template <int TN, bool LN, class Store>
+__device__ __forceinline__ void dense_block(const CUtensorMap& map_a,
+                                            const CUtensorMap& map_b,
+                                            const DenseArgs& p,
+                                            const Store& st) {
+  dense_block<TN, LN>(TmaRowsA{&map_a}, map_b, p, st);
 }
 
 // Host side of a dense launch, once per kernel (`ready` is the caller's

@@ -37,11 +37,14 @@ kernel too: ``csrc/fused_ln_qkv_bwd.cu`` replaces ``_ln_qkv_bwd_kernel``
 and ``csrc/fused_ln_mlp_bwd.cu`` replaces ``_ln_mlp_bwd_kernel`` /
 ``_ln_mlp_bwd_hsplit_kernel``. As the Pallas forward rules do, they save
 only x and the parameters and recompute the LayerNorm (and, for the MLP,
-fc1 and GELU) in the backward. The MLP backward runs on the same Hopper
-mainloop: an LN pre-pass, a dual GEMM with a GELU-backward epilogue that
-stores the hidden activations once, ``dxn``, the LN backward and split-K
-weight gradients (:func:`_mlp_bwd_plan`); their notes say how the weight
-gradients are summed across blocks. On a CPU tensor each wrapper runs its
+fc1 and GELU) in the backward. Both backwards run on the same Hopper
+mainloop: an LN pre-pass that also writes the copies the products read
+(for the qkv, the gradients of q, k, v token-major and packed
+channel-major), ``dxn`` (for the MLP after a dual GEMM with a
+GELU-backward epilogue that stores the hidden activations once), the LN
+backward over rows and split-K weight gradients (:func:`_qkv_bwd_plan`,
+:func:`_mlp_bwd_plan`); their notes say how the weight gradients are
+summed across blocks. On a CPU tensor each wrapper runs its
 plain version, which autograd differentiates.
 """
 
@@ -54,9 +57,6 @@ import torch
 
 from . import kernels
 from .layer_norm import layer_norm_plain
-
-# widths the LN+qkv backward kernels have tile configurations for
-MLP_WIDTHS = (96, 192, 384, 768)
 
 # The forward kernels' plans. Rows of a block tile (two consumer
 # warpgroups of 64), the column tiles each kernel is compiled for (the
@@ -122,14 +122,19 @@ def _pick_tn(N: int, rows: int, tiles: tuple, sms: int) -> int:
     return min(fits, key=key)
 
 
-def _tma(name: str, ld: int, box_rows: int) -> dict:
+def _tma(name: str, ld: int, box_rows: int, box_cols: int = 64) -> dict:
     """A TMA descriptor of a row-major bf16 matrix read in ``box_rows`` x 64
-    boxes: its global stride must be a multiple of 16 bytes and a box at
-    most 256 rows."""
-    d = {"tensor": name, "stride_bytes": 2 * ld, "box": (box_rows, 64)}
-    if d["stride_bytes"] % 16 or not 0 < box_rows <= 256:
+    boxes with the 128-byte swizzle (or, with ``box_cols``, stored from
+    unswizzled ``box_rows`` x ``box_cols`` boxes): its global stride must be
+    a multiple of 16 bytes, a box at most 256 rows and columns, and a box
+    row whole 16 bytes."""
+    d = {"tensor": name, "stride_bytes": 2 * ld, "box": (box_rows, box_cols),
+         "swizzle": 128 if box_cols == 64 else 0}
+    if (d["stride_bytes"] % 16 or not 0 < box_rows <= 256
+            or not 0 < box_cols <= 256 or 2 * box_cols % 16):
         raise ValueError(f"{name}: a TMA descriptor needs a 16-byte row "
-                         f"stride and at most 256 box rows, got {d}")
+                         f"stride, at most 256 box rows and columns and "
+                         f"16-byte box rows, got {d}")
     return d
 
 
@@ -260,6 +265,24 @@ def _split_plan(rows: int, N: int, K: int, sms: int) -> dict:
     return p
 
 
+def _workspace(sizes: tuple) -> dict:
+    """Byte offsets of scratch tensors of ``sizes`` bytes in one workspace,
+    each 256-byte aligned."""
+    offsets, end = [], 0
+    for n in sizes:
+        offsets.append(end)
+        end += _cdiv(n, 256) * 256
+    return {"offsets": tuple(offsets), "sizes": sizes, "bytes": end}
+
+
+def _ln_bwd_blocks(M: int, sms: int) -> dict:
+    """The LN backward over rows: ``blocks`` of ``rows`` contiguous rows,
+    each warp at least one row, at most LN_BWD_BLOCKS_PER_SM a SM."""
+    blocks = min(_cdiv(M, LN_BWD_WARPS), LN_BWD_BLOCKS_PER_SM * sms)
+    rows = _cdiv(M, blocks)
+    return {"rows": rows, "blocks": _cdiv(M, rows)}
+
+
 @functools.lru_cache(maxsize=256)
 def _mlp_bwd_plan(M: int, C: int, H: int, sms: int) -> dict:
     """Launch plan of ``csrc/fused_ln_mlp_bwd.cu`` for ``x [M, C]``, hidden
@@ -281,9 +304,6 @@ def _mlp_bwd_plan(M: int, C: int, H: int, sms: int) -> dict:
     if stages is None:
         raise ValueError("fused_ln_mlp_bwd: no dual-GEMM ring fits")
     dual_tiles = _cdiv(M, ROW_TILE) * (H // tn)
-    blocks = min(_cdiv(M, LN_BWD_WARPS), LN_BWD_BLOCKS_PER_SM * sms)
-    rows = _cdiv(M, blocks)
-    blocks = _cdiv(M, rows)
     plan = {
         "ld": ld,
         "prep": {"blocks": _cdiv(M, PREP_ROWS),
@@ -292,30 +312,24 @@ def _mlp_bwd_plan(M: int, C: int, H: int, sms: int) -> dict:
                  "grid": max(1, min(dual_tiles, sms)),
                  "smem": _dual_smem(tn, stages)},
         "dxn": _dense_plan(M, C, H, FC_TILES, sms, ln=False),
-        "ln": {"rows": rows, "blocks": blocks},
+        "ln": _ln_bwd_blocks(M, sms),
         "dw1": _split_plan(H, C, M, sms),  # dhp^T xn
         "dw2": _split_plan(C, H, M, sms),  # dout^T h
     }
     # one workspace of scratch, in the C entry point's order: W1^T, W2^T,
     # the statistics, xn, xn^T, dout^T, h^T, dhp^T, dhp, dxn (f32), the
     # partials of db1, of (dgamma, dbeta, db2), of dW1, of dW2 (f32)
-    sizes = (2 * C * H, 2 * H * C, 8 * _cdiv(M, ROW_TILE) * ROW_TILE,
-             2 * M * C, 2 * C * ld, 2 * C * ld, 2 * H * ld, 2 * H * ld,
-             2 * M * H, 4 * M * C, 4 * 2 * plan["dual"]["grid"] * H,
-             4 * plan["ln"]["blocks"] * 3 * C,
-             4 * plan["dw1"]["splits"] * H * C,
-             4 * plan["dw2"]["splits"] * C * H)
-    offsets, end = [], 0
-    for n in sizes:  # each 256-byte aligned
-        offsets.append(end)
-        end += _cdiv(n, 256) * 256
-    plan["scratch"] = {"offsets": tuple(offsets), "sizes": sizes,
-                       "bytes": end}
+    plan["scratch"] = _workspace((
+        2 * C * H, 2 * H * C, 8 * _cdiv(M, ROW_TILE) * ROW_TILE, 2 * M * C,
+        2 * C * ld, 2 * C * ld, 2 * H * ld, 2 * H * ld, 2 * M * H, 4 * M * C,
+        4 * 2 * plan["dual"]["grid"] * H, 4 * plan["ln"]["blocks"] * 3 * C,
+        4 * plan["dw1"]["splits"] * H * C,
+        4 * plan["dw2"]["splits"] * C * H))
     plan["ints"] = (ld, stages, plan["dual"]["grid"], plan["dxn"]["tn"],
-                    plan["dxn"]["stages"], plan["dxn"]["grid"], blocks,
-                    rows) + tuple(plan[k][f] for k in ("dw1", "dw2")
-                                  for f in ("tn", "stages", "grid", "splits",
-                                            "chunks"))
+                    plan["dxn"]["stages"], plan["dxn"]["grid"],
+                    plan["ln"]["blocks"], plan["ln"]["rows"]) + tuple(
+        plan[k][f] for k in ("dw1", "dw2")
+        for f in ("tn", "stages", "grid", "splits", "chunks"))
     plan["tma"] = [
         _tma("xn", C, ROW_TILE), _tma("dout", C, ROW_TILE),
         _tma("w1", C, tn), _tma("w2^T", C, tn),
@@ -324,6 +338,80 @@ def _mlp_bwd_plan(M: int, C: int, H: int, sms: int) -> dict:
         _tma("w1^T", H, plan["dxn"]["tn"]),
         _tma("dhp^T", ld, ROW_TILE), _tma("xn^T", ld, plan["dw1"]["tn"]),
         _tma("dout^T", ld, ROW_TILE), _tma("h^T", ld, plan["dw2"]["tn"])]
+    return plan
+
+
+# The LN+qkv backward's plan (csrc/fused_ln_qkv_bwd.cu): the gradients'
+# pass takes 96-channel chunks of the 3C, each over 128-token tiles, and
+# aims at this many blocks a SM (persistent blocks over the tiles, so that
+# db has few partials)
+QKV_GRAD_GC, QKV_GRAD_TOKENS = 96, 128
+QKV_GRAD_BLOCKS_PER_SM = 8
+
+
+def _qkv_grad_smem() -> int:
+    """``csrc/fused_ln_qkv_bwd.cu:qkv_grad_smem_bytes``: the [channel][token]
+    tile (rows of 130), alignment slack, the [token][channel] box."""
+    return (QKV_GRAD_GC * (QKV_GRAD_TOKENS + 2) * 2 + 1024
+            + QKV_GRAD_TOKENS * QKV_GRAD_GC * 2)
+
+
+@functools.lru_cache(maxsize=256)
+def _qkv_bwd_plan(M: int, D: int, C: int, tokens: int, sms: int) -> dict:
+    """Launch plan of ``csrc/fused_ln_qkv_bwd.cu`` for ``x [M, D]`` and the
+    gradients of q, k, v ``[M / tokens, C, tokens]``: ``ld``, the row
+    stride of the channel-major copies (M rounded up to 8: TMA strides are
+    whole 16 bytes); ``prep`` (the x pre-pass, 32-row blocks), ``grad``
+    (the gradients' pass: ``blocks`` over the tokens for each of the
+    ``chunks`` of 96 channels), ``dxn`` (a dense plan, K = 3C), ``ln``
+    (blocks of ``rows`` rows), ``dw`` (a split-K plan, K = M; its A read in
+    place from q, k, v where tokens % 64 == 0, else from a packed copy),
+    and every TMA descriptor; ``scratch``, the byte offsets of the scratch
+    tensors in one workspace, and ``ints``, the plan as the C entry point
+    reads it."""
+    if (M < 1 or D % 8 or not 0 < D <= 768 or C < 1 or C % 32 or tokens < 1
+            or M % tokens):
+        raise ValueError(
+            f"fused_ln_qkv_bwd: the kernels take D % 8 == 0, D <= 768, "
+            f"C % 32 == 0 and whole clips, got D={D}, C={C}, {M} rows of "
+            f"{tokens} tokens")
+    ld = _cdiv(M, 8) * 8
+    N3 = 3 * C
+    chunks = N3 // QKV_GRAD_GC
+    grad_blocks = max(1, min(_cdiv(M, QKV_GRAD_TOKENS),
+                             QKV_GRAD_BLOCKS_PER_SM * sms // chunks))
+    plan = {
+        "ld": ld,
+        "prep": {"blocks": _cdiv(M, PREP_ROWS),
+                 "smem": PREP_ROWS * (D + 8) * 2},
+        "grad": {"blocks": grad_blocks, "chunks": chunks,
+                 "smem": _qkv_grad_smem()},
+        "dxn": _dense_plan(M, D, N3, FC_TILES, sms, ln=False),  # g W
+        "ln": _ln_bwd_blocks(M, sms),
+        "dw": _split_plan(N3, D, M, sms),  # G^T xn
+    }
+    # dW reads q, k, v in place where a 64-token chunk lies in one clip, in
+    # boxes of the most rows (of 128, 64, 32) that divide C (a box lies in
+    # one of q, k, v)
+    in_place = tokens % 64 == 0
+    box = next(b for b in (128, 64, 32) if C % b == 0) if in_place else 0
+    # one workspace of scratch, in the C entry point's order: W^T, the
+    # statistics, xn^T, g, g^T (none where dW reads q, k, v in place), dxn
+    # (f32), the partials of db, of (dgamma, dbeta), of dW (f32)
+    plan["scratch"] = _workspace((
+        2 * D * N3, 8 * _cdiv(M, ROW_TILE) * ROW_TILE, 2 * D * ld,
+        2 * M * N3, 0 if in_place else 2 * N3 * ld, 4 * M * D,
+        4 * grad_blocks * N3, 4 * plan["ln"]["blocks"] * 2 * D,
+        4 * plan["dw"]["splits"] * N3 * D))
+    dxn, dw = plan["dxn"], plan["dw"]
+    plan["ints"] = (ld, grad_blocks, dxn["tn"], dxn["stages"], dxn["grid"],
+                    plan["ln"]["blocks"], plan["ln"]["rows"]) + tuple(
+        dw[f] for f in ("tn", "stages", "grid", "splits", "chunks")) + (box,)
+    plan["tma"] = [_tma("g", N3, ROW_TILE), _tma("w^T", N3, dxn["tn"]),
+                   _tma("q, k, v", tokens, box) if in_place
+                   else _tma("g^T", ld, ROW_TILE),
+                   _tma("xn^T", ld, dw["tn"]),
+                   _tma("g store", N3, QKV_GRAD_TOKENS, QKV_GRAD_GC)]
     return plan
 
 
@@ -466,46 +554,62 @@ def _ln_mlp_forward(x2, gamma, beta, w1, b1, w2, b2, eps):
 fused_ln_mlp.launches = 0
 
 
+@functools.lru_cache(maxsize=256)
+def _checked_qkv_bwd_plan(M: int, D: int, C: int, tokens: int,
+                          sms: int) -> dict:
+    """:func:`_qkv_bwd_plan`, its shared memory held once against the
+    kernels' own."""
+    plan = _qkv_bwd_plan(M, D, C, tokens, sms)
+    smem = kernels.lib().aicity_ln_qkv_bwd_smem_bytes
+    launches = [(1, plan[k]["tn"], plan[k]["stages"], plan[k]["smem"])
+                for k in ("dxn", "dw")] + [(2, 0, 0, plan["prep"]["smem"]),
+                                           (3, 0, 0, plan["grad"]["smem"])]
+    for variant, tn, stages, want in launches:
+        if smem(variant, D, tn, stages) != want:
+            raise RuntimeError("fused_ln_qkv_bwd: the plan's shared memory "
+                               "differs from the kernel's")
+    return plan
+
+
 def fused_ln_qkv_bwd(x2, gamma, beta, w, dq, dk, dv, eps, tokens):
     """The backward kernels of :func:`fused_ln_qkv`: ``(dx, dgamma, dbeta,
     dw, db)`` from the forward's inputs and the gradients of q, k, v in
-    the layout the forward wrote them, channel-major ``[B, C, tokens]``.
-    The weight / bias gradients are summed over row splits of f32 partials
-    (:func:`kernels.splits`) and, like dgamma / dbeta, rounded to bf16."""
+    the layout the forward wrote them, channel-major ``[B, C, tokens]``,
+    by the launches of ``csrc/fused_ln_qkv_bwd.cu`` under the plan
+    :func:`_qkv_bwd_plan`: the pre-passes (the statistics, ``xn^T`` and
+    the weight's transpose; the gradients token-major and, where dW cannot
+    read them in place, packed channel-major, and db's partials), ``dxn =
+    G W``, the LN backward and the split-K ``dW = G^T xn``; the partials
+    are summed in a fixed order and rounded to bf16. One call counts one
+    launch."""
     M, D = x2.shape
     C3 = w.shape[0]
+    if C3 % 3:
+        raise ValueError(f"fused_ln_qkv_bwd: 3C={C3} is not a multiple of 3")
     C = C3 // 3
-    lib = kernels.lib()
-    rows = lib.aicity_ln_qkv_bwd_rows(D)
-    if not rows or C3 % 3 or C % 96 or tokens < 1 or M % tokens:
-        raise ValueError(
-            f"fused_ln_qkv_bwd: the kernels take D in {MLP_WIDTHS}, C a "
-            f"multiple of 96 and whole clips, got D={D}, 3C={C3}, {M} rows "
-            f"of {tokens} tokens")
     dev = x2.device
+    plan = _checked_qkv_bwd_plan(M, D, C, tokens, kernels.sm_count(dev))
     kernels.require(x2, "x")
     kernels.require(gamma, "gamma", (D,), dev)
     kernels.require(beta, "beta", (D,), dev)
     kernels.require(w, "w", (C3, D), dev)
     for name, t in (("dq", dq), ("dk", dk), ("dv", dv)):
         kernels.require(t, name, (M // tokens, C, tokens), dev)
-    rps = kernels.splits(M, (C3 // 96) * (D // 96), 32)
-    nsplit = -(-M // rps)
-    f32 = dict(dtype=torch.float32, device=dev)
     dx = torch.empty_like(x2)
     dw = torch.empty_like(w)
     db = torch.empty((C3,), dtype=x2.dtype, device=dev)
     dgb = torch.empty((2, D), dtype=x2.dtype, device=dev)
-    part = torch.empty((-(-M // rows), 2, D), **f32)
-    stats = torch.empty((2, M), **f32)
-    dw_part = torch.empty((nsplit, C3, D), **f32)
-    db_part = torch.empty((nsplit, C3), **f32)
-    err = lib.aicity_ln_qkv_bwd(
-        x2.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dx.data_ptr(),
-        dw.data_ptr(), db.data_ptr(), dgb.data_ptr(), part.data_ptr(),
-        stats.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(), M, D, C,
-        float(eps), tokens, rps, kernels.stream())
+    work = torch.empty(plan["scratch"]["bytes"], dtype=torch.uint8,
+                       device=dev)
+    base = work.data_ptr()
+    ptrs = [t.data_ptr() for t in (x2, gamma, beta, w, dq, dk, dv, dx, dw,
+                                   db, dgb)]
+    ptrs += [base + off for off in plan["scratch"]["offsets"]]
+    ints = plan["ints"]
+    err = kernels.lib().aicity_ln_qkv_bwd(
+        ctypes.cast((ctypes.c_void_p * len(ptrs))(*ptrs), ctypes.c_void_p),
+        ctypes.cast((ctypes.c_int * len(ints))(*ints), ctypes.c_void_p),
+        M, D, C, tokens, float(eps), kernels.stream())
     kernels.check(err, "fused_ln_qkv_bwd")
     fused_ln_qkv_bwd.launches += 1
     return dx, dgb[0], dgb[1], dw, db

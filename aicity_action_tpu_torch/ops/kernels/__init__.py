@@ -49,8 +49,8 @@ _SIGNATURES = {
     "aicity_flash_attention": ([_vp] * 5 + [_i] * 4 + [_f, _vp], _i),
     "aicity_flash_attention_bwd": ([_vp] * 11 + [_i] * 4 + [_f, _i, _vp],
                                    _i),
-    "aicity_ln_qkv_bwd": ([_vp] * 15 + [_i] * 3 + [_f, _i, _i, _vp], _i),
-    "aicity_ln_qkv_bwd_rows": ([_i], _i),
+    "aicity_ln_qkv_bwd": ([_vp, _vp] + [_i] * 4 + [_f, _vp], _i),
+    "aicity_ln_qkv_bwd_smem_bytes": ([_i] * 4, _i),
     "aicity_ln_mlp_bwd": ([_vp, _vp] + [_i] * 3 + [_f, _vp], _i),
     "aicity_ln_mlp_bwd_smem_bytes": ([_i] * 5, _i),
     "aicity_error_string": ([_i], ctypes.c_char_p),

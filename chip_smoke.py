@@ -8,8 +8,9 @@ NVIDIA card.
    (sm_90a, one process per source) and prints the card's name and power
    limit; prints the HGMMA (wgmma) and UTMALDG (TMA load) instruction
    counts in the SASS of the LN+qkv and LN+MLP forward kernels and of the
-   LN+MLP backward's GEMM kernels, with their registers and spills, and
-   fails if either count is 0.
+   LN+qkv and LN+MLP backwards' GEMM kernels, with their registers and
+   spills, and fails if either count is 0, or if a backward's GEMM kernel
+   spills or has other than 168 registers.
 2. Holds each inference kernel against its plain PyTorch version at
    main-path shapes of MViT-v2-B 16x4 @ 448 (batch 8, bf16: LN+qkv at
    every distinct shape of the forward, LN+MLP at every width, both also at
@@ -19,14 +20,16 @@ NVIDIA card.
    ranges.
 3. Does the same for the training kernels (the flash attention forward
    with its logsumexp, and the backward kernels of attention, LayerNorm,
-   LN+qkv and LN+MLP) at the batch-4 training shapes of blocks 0, 1 and 15.
+   LN+qkv and LN+MLP) at the batch-4 training shapes of blocks 0, 1 and 15
+   (the LN+qkv backward also at blocks 4-13, its ten calls a step).
 4. Does the same for the kernels of the cls-token MViT-v1 and the fused-LN
    training path: the padded attention (forward and backward) at the
    ragged lengths of MViT-B 16x4 @ 224, batch 8, blocks 0, 1 and 15; the
    fused-LN attention's forward with its logsumexp and its backward at the
    448 batch-4 shapes of blocks 0, 1 and 15; LN+qkv forward and backward at
    the odd 25089 tokens of the v1's blocks 0 and 1 (the forward also at
-   block 3), LN+MLP at the v1's odd row counts of blocks 1, 4 and 15, and
+   block 3; the backward also at the 1569 tokens of blocks 4-13, batch 8
+   and batch 1), LN+MLP at the v1's odd row counts of blocks 1, 4 and 15, and
    the LN+MLP backward at the v1's block 1, batch 8 and batch 1.
 5. Builds the full MViT-v2 (16 blocks, bf16, weights from a seed), runs
    batch-8 forwards through ``make_eval_step``, holds the kernel launches
@@ -165,20 +168,27 @@ def build_kernels():
 
 # kernel-name substrings of the dense kernels whose machine code must use
 # Hopper's warpgroup products (HGMMA) and TMA loads (UTMALDG): the LN+qkv
-# and LN+MLP forwards and every GEMM launch of the LN+MLP backward (their
-# pre-passes and the LN backward over rows are plain loads)
+# and LN+MLP forwards and every GEMM launch of the LN+qkv and LN+MLP
+# backwards (their pre-passes and the LN backward over rows are plain
+# loads); the backwards' GEMM kernels must also have the 168 registers
+# setmaxnreg assumes and no spills
 HOPPER_KERNELS = {"fused_ln_qkv": ("ln_qkv_kernel",),
                   "fused_ln_mlp": ("ln_mlp_kernel",),
+                  "fused_ln_qkv_bwd": ("qkv_bwd_gemm_kernel",
+                                       "qkv_bwd_dw_kernel"),
                   "fused_ln_mlp_bwd": ("mlp_bwd_dual_kernel",
                                        "mlp_bwd_gemm_kernel")}
+NO_SPILL_KERNELS = ("fused_ln_qkv_bwd", "fused_ln_mlp_bwd")
+HOPPER_REGISTERS = 168
 
 
 def hopper_sass_checks() -> dict:
     """Counts the HGMMA and UTMALDG instructions in the SASS of every
-    instantiation of the LN+qkv and LN+MLP forward kernels and of the LN+MLP
-    backward's GEMM kernels (``cuobjdump -sass`` on the built library) and
-    reads their registers and spills from the build log; fails if any of
-    them lacks either instruction."""
+    instantiation of the LN+qkv and LN+MLP forward kernels and of the
+    LN+qkv and LN+MLP backwards' GEMM kernels (``cuobjdump -sass`` on the
+    built library) and reads their registers and spills from the build
+    log; fails if any of them lacks either instruction, or if a kernel of
+    NO_SPILL_KERNELS spills or was not given HOPPER_REGISTERS registers."""
     from aicity_action_tpu_torch.ops import kernels
 
     so = kernels.build()
@@ -208,10 +218,18 @@ def hopper_sass_checks() -> dict:
         if missing:
             _fail(f"{name}: no {missing} function in the library's SASS")
         for f in fns:
+            lines = usage.get(f, [])
             print(f"# SASS {name} {f}: HGMMA {counts[f]['HGMMA']}, UTMALDG "
-                  f"{counts[f]['UTMALDG']}; {' / '.join(usage.get(f, []))}")
+                  f"{counts[f]['UTMALDG']}; {' / '.join(lines)}")
             if not (counts[f]["HGMMA"] and counts[f]["UTMALDG"]):
                 _fail(f"{name}: {f} has no HGMMA or no UTMALDG")
+            text = " ".join(lines)
+            if name in NO_SPILL_KERNELS and (
+                    f"Used {HOPPER_REGISTERS} registers" not in text
+                    or " 0 bytes spill stores, 0 bytes spill loads"
+                    not in text):
+                _fail(f"{name}: {f} spills or was not given "
+                      f"{HOPPER_REGISTERS} registers: {text}")
     return counts
 
 
@@ -471,6 +489,55 @@ def _mlp_bwd_case(gen, shape, M, C):
     return r
 
 
+def _qkv_inputs(gen, B, L, D, C):
+    """bf16 inputs of fused_ln_qkv on x [B*L, D] (x, gamma, beta, w, bias)
+    and the gradients of its q, k, v, channel-major [B, C, L] as the
+    forward writes them."""
+    import torch
+
+    bf = torch.bfloat16
+    x = _normal(gen, (B * L, D), 1.0, bf)
+    g = _normal(gen, (D,), 0.1, bf) + 1
+    bb = _normal(gen, (D,), 0.1, bf)
+    w = _normal(gen, (3 * C, D), D ** -0.5, bf)
+    bias = _normal(gen, (3 * C,), 0.1, bf)
+    gs = tuple(_normal(gen, (B, C, L), 1.0, bf) for _ in range(3))
+    return x, g, bb, w, bias, gs
+
+
+def _qkv_bwd_case(shape, x, g, bb, w, bias, gs, L, calls=None):
+    """fused_ln_qkv_bwd (from :func:`_qkv_inputs`) against autograd of the
+    plain version in f32 and of LN + linear; ``calls``, its calls a train
+    step at this shape, where stated."""
+    import torch
+    import torch.nn.functional as F
+
+    from aicity_action_tpu_torch.ops import fused_dense as fd
+
+    M, D = x.shape
+    C = w.shape[0] // 3
+
+    def library():
+        cot = torch.cat([t.transpose(1, 2).reshape(-1, C) for t in gs], 1)
+        return _library_grads(
+            lambda a, b, c, ww, wb: F.linear(
+                F.layer_norm(a, (D,), b, c, 1e-6), ww, wb),
+            (x, g, bb, w, bias), (cot,))
+
+    r = _check_case(
+        "fused_ln_qkv_bwd",
+        lambda: fd.fused_ln_qkv_bwd(x, g, bb, w, *gs, 1e-6, L),
+        lambda: _plain_grads(lambda *a: fd.ln_qkv_plain(*a, 1e-6, L),
+                             (x, g, bb, w, bias), gs),
+        library, flops=4 * M * D * 3 * C,
+        nbytes=2 * (2 * M * D + 3 * M * C + 2 * 3 * C * D + 3 * C + 4 * D),
+        peak=PEAK_BF16, iters=5)
+    r["shape"] = shape
+    if calls is not None:
+        r["calls_a_step"] = calls
+    return r
+
+
 def _plain_grads(fn, inputs, cotangents):
     """Gradients of the plain version ``fn`` in f32 at the kernel's bf16
     inputs: the plain forward, then autograd (zeros for an input the
@@ -601,43 +668,17 @@ def train_kernel_checks():
     results["fused_layer_norm_bwd"] = cases
 
     # LN+qkv backward: block 0 (D 96, 3C 288, L 100352), block 1 (D 96,
-    # 3C 576, L 100352), block 15 (D 768, 3C 2304, L 1568); the gradients
-    # of q, k, v channel-major [B, C, L] as the forward wrote them
+    # 3C 576, L 100352), block 15 (D 768, 3C 2304, L 1568), and blocks 4-13
+    # (D 384, 3C 1152, L 6272: ten calls a step); the gradients of q, k, v
+    # channel-major [B, C, L] as the forward wrote them
     cases = []
-    for blk, L, D, C in ((0, 100352, 96, 96), (1, 100352, 96, 192),
-                         (15, 1568, 768, 768)):
-        M = B * L
-        x = _normal(gen, (M, D), 1.0, bf)
-        g = _normal(gen, (D,), 0.1, bf) + 1
-        bb = _normal(gen, (D,), 0.1, bf)
-        w = _normal(gen, (3 * C, D), D ** -0.5, bf)
-        bias = _normal(gen, (3 * C,), 0.1, bf)
-        gq, gk, gv = (_normal(gen, (B, C, L), 1.0, bf) for _ in range(3))
-
-        def library(x=x, g=g, bb=bb, w=w, bias=bias, D=D, L=L, C=C,
-                    gs=(gq, gk, gv)):
-            cot = torch.cat([t.transpose(1, 2).reshape(-1, C) for t in gs],
-                            1)
-            return _library_grads(
-                lambda a, b, c, ww, wb: F.linear(
-                    F.layer_norm(a, (D,), b, c, 1e-6), ww, wb),
-                (x, g, bb, w, bias), (cot,))
-
-        r = _check_case(
-            "fused_ln_qkv_bwd",
-            lambda x=x, g=g, bb=bb, w=w, gs=(gq, gk, gv), L=L:
-                fd.fused_ln_qkv_bwd(x, g, bb, w, *gs, 1e-6, L),
-            lambda x=x, g=g, bb=bb, w=w, bias=bias, gs=(gq, gk, gv), L=L:
-                _plain_grads(lambda *a: fd.ln_qkv_plain(*a, 1e-6, L),
-                             (x, g, bb, w, bias), gs),
-            library,
-            flops=4 * M * D * 3 * C,
-            nbytes=2 * (2 * M * D + 3 * M * C + 2 * 3 * C * D + 3 * C
-                        + 4 * D),
-            peak=PEAK_BF16, iters=5)
-        r["shape"] = f"block {blk} x[{M},{D}] w[{3 * C},{D}]"
-        cases.append(r)
-        del x, w, gq, gk, gv
+    for blocks, L, D, C, calls in (("block 0", 100352, 96, 96, 1),
+                                   ("block 1", 100352, 96, 192, 1),
+                                   ("block 15", 1568, 768, 768, 1),
+                                   ("blocks 4-13", 6272, 384, 384, 10)):
+        cases.append(_qkv_bwd_case(
+            f"{blocks} x[{B * L},{D}] w[{3 * C},{D}]",
+            *_qkv_inputs(gen, B, L, D, C), L, calls))
         torch.cuda.empty_cache()
     results["fused_ln_qkv_bwd"] = cases
 
@@ -822,29 +863,17 @@ def v1_kernel_checks():
         if blk == 3:
             del x, w, gs
             continue
-
-        def library_bwd(x=x, g=g, bb=bb, w=w, bias=bias, D=D, C=C, gs=gs):
-            cot = torch.cat([t.transpose(1, 2).reshape(-1, C) for t in gs],
-                            1)
-            return _library_grads(
-                lambda a, b, c, ww, wb: F.linear(
-                    F.layer_norm(a, (D,), b, c, 1e-6), ww, wb),
-                (x, g, bb, w, bias), (cot,))
-
-        r = _check_case(
-            "fused_ln_qkv_bwd",
-            lambda x=x, g=g, bb=bb, w=w, gs=gs, L=L:
-                fd.fused_ln_qkv_bwd(x, g, bb, w, *gs, 1e-6, L),
-            lambda x=x, g=g, bb=bb, w=w, bias=bias, gs=gs, L=L:
-                _plain_grads(lambda *a: fd.ln_qkv_plain(*a, 1e-6, L),
-                             (x, g, bb, w, bias), gs),
-            library_bwd, flops=4 * M * D * 3 * C,
-            nbytes=2 * (2 * M * D + 3 * M * C + 2 * 3 * C * D + 3 * C
-                        + 4 * D),
-            peak=PEAK_BF16, iters=5)
-        r["shape"] = shape
-        qkv_b.append(r)
+        qkv_b.append(_qkv_bwd_case(shape, x, g, bb, w, bias, gs, L, 1))
         del x, w, gs
+        torch.cuda.empty_cache()
+    # the LN+qkv backward's most launched v1 shape, blocks 4-13 (1569
+    # tokens, D 384, 3C 1152: ten calls a step), at batch 8 and at batch 1
+    # (odd M: the channel-major copies' padded stride)
+    for b in (BATCH, 1):
+        qkv_b.append(_qkv_bwd_case(
+            f"v1 blocks 4-13 x[{b * 1569},384] w[1152,384] tokens 1569"
+            + ("" if b == BATCH else f" (batch {b})"),
+            *_qkv_inputs(gen, b, 1569, 384, 384), 1569, 10))
         torch.cuda.empty_cache()
     results["fused_ln_qkv odd tokens"] = qkv_f
     results["fused_ln_qkv_bwd odd tokens"] = qkv_b

@@ -252,6 +252,87 @@ def test_fused_ln_qkv_backward_matches_pallas(d, c, tokens):
         _close_grad(o, r)
 
 
+def _ln_qkv_bwd_staged(x, gamma, beta, w, dq, dk, dv, eps):
+    """The launches of ``csrc/fused_ln_qkv_bwd.cu`` written out in plain
+    torch, with the kernel's rounding points to ``x.dtype`` (none in f32):
+    the pre-pass (f32 statistics, ``xn`` rounded, the gradients of q, k, v
+    as they arrive, channel-major ``[B, C, L]``, copied token-major, ``g
+    [M, 3C]``, and with the clips side by side, ``gT [3C, M]``, and db their
+    column sums), ``dxn = g W`` in f32, the LN backward, ``dW = gT xn``;
+    every sum in f32, the gradients rounded at the end. The weight in the
+    torch layout ``[3C, D]``; returns ``(dx, dgamma, dbeta, dw, db)``."""
+    dt = x.dtype
+    M = x.shape[0]
+    xf, g = x.float(), gamma.float()
+    xc = xf - xf.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps)
+    xhat = xc * rstd
+    xn = (xhat * g + beta.float()).to(dt)
+    gtok = torch.cat([t.transpose(1, 2).reshape(M, -1) for t in (dq, dk, dv)],
+                     1)
+    gT = torch.cat([t.transpose(0, 1).reshape(t.shape[1], M)
+                    for t in (dq, dk, dv)], 0)
+    dxn = gtok.float() @ w.float()
+    e = dxn * g
+    m1 = e.mean(-1, keepdim=True)
+    m2 = (e * xhat).mean(-1, keepdim=True)
+    dx = rstd * (e - m1 - xhat * m2)
+    grads = (dx, (dxn * xhat).sum(0), dxn.sum(0), gT.float() @ xn.float(),
+             gT.float().sum(1))
+    return tuple(t.to(dt) for t in grads)
+
+
+def _channel_major(rows, tokens):
+    """Token rows ``[M, C]`` as the port's channel-major ``[B, C, L]``."""
+    m, c = rows.shape
+    return rows.reshape(m // tokens, tokens, c).transpose(0, 2, 1).copy()
+
+
+@pytest.mark.parametrize("m,d,c,tokens", [(64, 96, 96, 32), (72, 64, 32, 9)])
+def test_ln_qkv_backward_staged_matches_pallas(m, d, c, tokens):
+    """The CUDA backward's launches written out in plain torch
+    (``_ln_qkv_bwd_staged``) against the JAX custom VJP through its Pallas
+    backward kernel, in f32: at 32 tokens a clip, and at 9 (the odd token
+    counts of a cls-token model, element-wise gradient reads)."""
+    rng = np.random.default_rng(27)
+    x = _arr(rng, (m, d))
+    g, b = _arr(rng, (d,), 0.1, 1.0), _arr(rng, (d,), 0.1)
+    w = _arr(rng, (d, 3 * c), d ** -0.5)
+    bb = _arr(rng, (3 * c,), 0.1)
+    cts = [_arr(rng, (m, c)) for _ in range(3)]
+    _, vjp = jax.vjp(lambda *a: jfd.fused_ln_qkv(*a, 1e-6),
+                     *(jnp.asarray(a) for a in (x, g, b, w, bb)))
+    dx, dg, db_, dw, dbias = vjp(tuple(jnp.asarray(t) for t in cts))
+    out = _ln_qkv_bwd_staged(
+        *(torch.from_numpy(a) for a in (x, g, b, w.T.copy())),
+        *(torch.from_numpy(_channel_major(t, tokens)) for t in cts), 1e-6)
+    for o, r in zip(out, (dx, dg, db_, np.asarray(dw).T, dbias)):
+        _close_grad(o, r)
+
+
+@pytest.mark.parametrize("m,d,c,tokens", [(64, 96, 96, 32), (45, 64, 32, 9)])
+def test_ln_qkv_backward_rounding_points_in_bf16(m, d, c, tokens):
+    """In bf16, the staged backward (the CUDA kernel's rounding points)
+    against autograd of the plain version in f32 at the same bf16 inputs,
+    within 2% of each gradient's largest magnitude: the tolerance
+    chip_smoke.py holds the kernel to on the card."""
+    rng = np.random.default_rng(28)
+    x = _arr(rng, (m, d))
+    g, b = _arr(rng, (d,), 0.1, 1.0), _arr(rng, (d,), 0.1)
+    w, bb = _arr(rng, (3 * c, d), d ** -0.5), _arr(rng, (3 * c,), 0.1)
+    bf = [torch.from_numpy(a).bfloat16() for a in (x, g, b, w, bb)]
+    grads = [torch.from_numpy(_arr(rng, (m // tokens, c, tokens))).bfloat16()
+             for _ in range(3)]
+    staged = _ln_qkv_bwd_staged(*bf[:4], *grads, 1e-6)
+    ts = [t.float().requires_grad_() for t in bf]
+    ref = torch.autograd.grad(tfd.ln_qkv_plain(*ts, 1e-6, tokens), ts,
+                              [t.float() for t in grads])
+    for i, (o, r) in enumerate(zip(staged, ref)):
+        assert o.dtype == torch.bfloat16 and o.shape == r.shape
+        err = (o.float() - r).abs().max().item()
+        assert err <= 0.02 * r.abs().max().item(), (i, err)
+
+
 def _ln_mlp_bwd_staged(x, gamma, beta, w1, b1, w2, dout, eps):
     """The launches of ``csrc/fused_ln_mlp_bwd.cu`` written out in plain
     torch, with the kernel's rounding points to ``x.dtype`` (none in f32):
@@ -561,3 +642,87 @@ def test_mlp_backward_plan_refuses_what_no_kernel_takes():
         tfd._mlp_bwd_plan(64, 1024, 4096, 132)  # C > 768
     with pytest.raises(ValueError):
         tfd._mlp_bwd_plan(0, 96, 384, 132)  # no rows
+
+
+def _qkv_bwd_cases():
+    """Every LN+qkv backward call of the MViT-v2 448 train step at batch 4
+    and 1 and of the cls-token MViT-v1 224 train step at batch 8 and 1
+    (the forward's LN+qkv shapes), with whether the batch is full width."""
+    cases = {}
+    for name, cfg, batches in (("v2_448", mvitv2_b_16x4_448_cfg(), (4, 1)),
+                               ("v1_224", mvit_b_16x4_224_cfg(), (8, 1))):
+        for batch in batches:
+            for call in dense_call_shapes(cfg, batch):
+                if call[0] == "qkv":
+                    cases.setdefault(call, (name, batch))
+    return [pytest.param(call, batch > 1, id=f"{name}-b{batch}-" + "-".join(
+        map(str, call))) for call, (name, batch) in cases.items()]
+
+
+@pytest.mark.parametrize("call,full_width", _qkv_bwd_cases())
+def test_qkv_backward_plans_fit_the_card(call, full_width):
+    """The LN+qkv backward's launch plan at every shape the train steps
+    give it: shared memory within a block's 232,448 bytes, TMA strides of
+    16 bytes and boxes of at most 256 rows, the channel-major copies' row
+    stride M rounded up to 8 (odd M at batch 1), dW's split-K runs in whole
+    64-deep chunks covering M with no empty split, the pre-pass's and the
+    LN backward's blocks covering M, the GEMMs' persistent grids filling
+    the 132 SMs at full width, and the scratch laid out in one workspace
+    with no overlaps."""
+    _, M, tokens, D, C = call
+    p = tfd._qkv_bwd_plan(M, D, C, tokens, H100_SMS)
+    assert p["ld"] % 8 == 0 and M <= p["ld"] < M + 8
+    prep, grad = p["prep"], p["grad"]
+    assert prep["smem"] <= kernels.MAX_SMEM_BYTES
+    assert prep["blocks"] * tfd.PREP_ROWS >= M
+    # the gradients' pass: whole 96-channel chunks, at least one 64-token
+    # tile a block, about QKV_GRAD_BLOCKS_PER_SM blocks a SM in all
+    assert grad["chunks"] * tfd.QKV_GRAD_GC == 3 * C
+    assert 1 <= grad["blocks"] <= -(-M // tfd.QKV_GRAD_TOKENS)
+    assert grad["blocks"] * grad["chunks"] <= max(
+        grad["chunks"], tfd.QKV_GRAD_BLOCKS_PER_SM * H100_SMS)
+    assert grad["smem"] <= kernels.MAX_SMEM_BYTES
+    for k in ("dxn", "dw"):
+        _check_dense_plan(p[k], full_width)
+    q = p["dw"]
+    assert q["split_rows"] == 64 * q["chunks"]
+    assert q["split_rows"] >= min(tfd.SPLIT_MIN_ROWS, 64 * -(-M // 64))
+    assert (q["splits"] - 1) * q["split_rows"] < M <= (
+        q["splits"] * q["split_rows"])
+    ln = p["ln"]
+    assert (ln["blocks"] - 1) * ln["rows"] < M <= ln["blocks"] * ln["rows"]
+    for d in p["tma"]:
+        assert d["stride_bytes"] % 16 == 0 and 0 < d["box"][0] <= 256
+        # loads in the 128-byte swizzle; g's stores from dense boxes
+        assert d["box"][1] * 2 == 128 or (
+            d["tensor"] == "g store" and d["swizzle"] == 0)
+    # dW reads q, k, v in place where a 64-token chunk lies in one clip
+    # (in boxes that lie in one of them), else a packed copy g^T (the fifth
+    # scratch tensor)
+    in_place = tokens % 64 == 0
+    assert (p["tma"][2]["tensor"] == "q, k, v") == in_place
+    if in_place:
+        assert C % p["tma"][2]["box"][0] == 0
+    # the workspace: 9 scratch tensors, 256-byte aligned, none overlapping
+    ws = p["scratch"]
+    assert (ws["sizes"][4] == 0) == in_place
+    assert len(ws["offsets"]) == len(ws["sizes"]) == 9
+    ends = [o + n for o, n in zip(ws["offsets"], ws["sizes"])]
+    assert all(o % 256 == 0 for o in ws["offsets"])
+    assert all(e <= o for e, o in zip(ends, ws["offsets"][1:]))
+    assert ends[-1] <= ws["bytes"]
+    assert len(p["ints"]) == 13 and p["ints"][-1] == (
+        p["tma"][2]["box"][0] if in_place else 0)
+
+
+def test_qkv_backward_plan_refuses_what_no_kernel_takes():
+    with pytest.raises(ValueError):
+        tfd._qkv_bwd_plan(64, 100, 96, 64, 132)  # D % 8
+    with pytest.raises(ValueError):
+        tfd._qkv_bwd_plan(64, 1024, 96, 64, 132)  # D > 768
+    with pytest.raises(ValueError):
+        tfd._qkv_bwd_plan(64, 96, 48, 64, 132)  # C % 32
+    with pytest.raises(ValueError):
+        tfd._qkv_bwd_plan(64, 96, 96, 48, 132)  # rows not whole clips
+    with pytest.raises(ValueError):
+        tfd._qkv_bwd_plan(0, 96, 96, 1, 132)  # no rows

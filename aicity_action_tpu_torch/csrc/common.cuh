@@ -1,8 +1,8 @@
-// Shared device helpers for the hand-written Hopper kernels of
+// Shared device helpers for the hand-written kernels of
 // aicity_action_tpu_torch: warp reductions, bf16 mma.sync tiles
-// (m16n8k16, f32 accumulate), fragment loads from shared memory, cooperative
-// 16-byte tile copies (synchronous and cp.async) and the row LayerNorm the
-// fused kernels share.
+// (m16n8k16, f32 accumulate) and their fragment loads from shared memory
+// (the attention forwards), cooperative 16-byte tile copies, the partial
+// sums of the backwards and the shared-memory opt-in.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -40,19 +40,10 @@ __device__ __forceinline__ void load_a_frag(uint32_t* a, const bf16* s, int ld,
   a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * ld + 8);
 }
 
-// B fragment of the 16x8 tile at (k0, n0) of a matrix kept in smem as
-// [n][k] (k contiguous) -- the layout of a torch Linear weight [out, in].
-__device__ __forceinline__ void load_b_frag(uint32_t* b, const bf16* s, int ld,
-                                            int n0, int k0, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const bf16* p = s + (n0 + g) * ld + k0 + 2 * t;
-  b[0] = *reinterpret_cast<const uint32_t*>(p);
-  b[1] = *reinterpret_cast<const uint32_t*>(p + 8);
-}
-
-// load_b_frag of two adjacent 16x8 tiles, (k0, n0) and (k0, n0 + 8), of a
-// [n][k] smem matrix through one ldmatrix.x4: b[0..1] is the first tile's
-// fragment, b[2..3] the second's. Rows must be 16-byte aligned.
+// B fragments of two adjacent 16x8 tiles, (k0, n0) and (k0, n0 + 8), of a
+// matrix kept in smem as [n][k] (k contiguous), through one ldmatrix.x4:
+// b[0..1] is the first tile's fragment, b[2..3] the second's. Rows must be
+// 16-byte aligned.
 __device__ __forceinline__ void load_b_frag_x2(uint32_t* b, const bf16* s,
                                                int ld, int n0, int k0,
                                                int lane) {
@@ -81,34 +72,6 @@ __device__ __forceinline__ void load_b_frag_trans_x2(uint32_t* b,
       : "r"(addr));
 }
 
-// B fragment of the 16x8 tile at (k0, n0) of a matrix kept in smem
-// row-major as [k][n] (n contiguous), through ldmatrix.trans (one tile).
-__device__ __forceinline__ void load_b_frag_trans(uint32_t* b, const bf16* s,
-                                                  int ld, int k0, int n0,
-                                                  int lane) {
-  const bf16* p = s + (k0 + (lane & 15)) * ld + n0;
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-      : "=r"(b[0]), "=r"(b[1])
-      : "r"(addr));
-}
-
-// A fragment of the 16x16 tile at (row0, k0) of a matrix kept in smem
-// transposed, as [k][m] (m contiguous), through ldmatrix.trans. Rows must
-// be 16-byte aligned.
-__device__ __forceinline__ void load_a_frag_trans(uint32_t* a, const bf16* s,
-                                                  int ld, int row0, int k0,
-                                                  int lane) {
-  const bf16* p = s + (k0 + (lane & 7) + ((lane >> 4) << 3)) * ld + row0 +
-                  ((lane >> 3) & 1) * 8;
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-      : "r"(addr));
-}
-
 // 16-byte asynchronous copy global -> shared; with pred false the 16 bytes
 // are zero-filled and global memory is not read.
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
@@ -128,8 +91,9 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// load_tile masked by column instead of row: columns [col0, col0 + ncols)
-// of rows [0, nrows), zero-filled from cols_total on (a multiple of 8).
+// Copy columns [col0, col0 + ncols) of rows [0, nrows) of a row-major
+// global matrix (leading dim ldg) into smem (leading dim lds) with 16-byte
+// vectors, zero-filled from cols_total on (a multiple of 8).
 __device__ __forceinline__ void load_tile_cols(bf16* s, int lds, const bf16* g,
                                                int ldg, int col0,
                                                int cols_total, int nrows,
@@ -145,8 +109,11 @@ __device__ __forceinline__ void load_tile_cols(bf16* s, int lds, const bf16* g,
   }
 }
 
-// load_tile's asynchronous form: rows past rows_total are zero-filled (their
-// global address is clamped to row 0 and not read).
+// Copy rows [row0, row0 + nrows) x cols [col0, col0 + ncols) of a row-major
+// global matrix (leading dim ldg) into smem (leading dim lds) with 16-byte
+// cp.async copies; rows past rows_total are zero-filled (their global
+// address is clamped to row 0 and not read). ncols, col0, ldg and lds are
+// multiples of 8 and the base is 16-byte aligned.
 __device__ __forceinline__ void load_tile_async(bf16* s, int lds,
                                                 const bf16* g, int ldg,
                                                 int row0, int rows_total,
@@ -165,51 +132,6 @@ __device__ __forceinline__ void load_tile_async(bf16* s, int lds,
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Copy rows [row0, row0 + nrows) x cols [col0, col0 + ncols) of a row-major
-// global matrix (leading dim ldg, rows_total rows) into smem (leading dim
-// lds) with 16-byte vectors; rows past rows_total are zero-filled. ncols,
-// col0, ldg and lds are multiples of 8 and the base is 16-byte aligned.
-__device__ __forceinline__ void load_tile(bf16* s, int lds, const bf16* g,
-                                          int ldg, int row0, int rows_total,
-                                          int col0, int nrows, int ncols) {
-  const int vpr = ncols / 8;
-  const int nvec = nrows * vpr;
-  for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
-    const int r = i / vpr, c = (i - r * vpr) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < rows_total)
-      v = *reinterpret_cast<const uint4*>(g + (size_t)(row0 + r) * ldg + col0 +
-                                          c);
-    *reinterpret_cast<uint4*>(s + r * lds + c) = v;
-  }
-}
-
-// In-place row LayerNorm of nrows smem rows of width D (f32 statistics, two
-// passes, rounded back to bf16), one warp per row; each lane reads and
-// writes only its own columns.
-__device__ __forceinline__ void norm_rows(bf16* s, int lds, int nrows, int D,
-                                          const bf16* gamma, const bf16* beta,
-                                          float eps) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
-  for (int r = warp; r < nrows; r += nwarps) {
-    bf16* row = s + r * lds;
-    float sum = 0.f;
-    for (int c = lane; c < D; c += 32) sum += __bfloat162float(row[c]);
-    const float mean = warp_sum(sum) / D;
-    float q = 0.f;
-    for (int c = lane; c < D; c += 32) {
-      const float d = __bfloat162float(row[c]) - mean;
-      q += d * d;
-    }
-    const float rstd = rsqrtf(warp_sum(q) / D + eps);
-    for (int c = lane; c < D; c += 32)
-      row[c] = __float2bfloat16((__bfloat162float(row[c]) - mean) * rstd *
-                                    __bfloat162float(gamma[c]) +
-                                __bfloat162float(beta[c]));
-  }
 }
 
 // Second pass of a cross-block reduction: out[i] = sum over s of

@@ -10,9 +10,9 @@
 // it in every MViT block; at 448 and batch 4 it sees G = B*h groups of
 // q [G, Lq, 96] against k, v [G, Lk, 96], from (4, 100352, 1568) at block 0
 // to (32, 1568, 1568). Like the plain attention backward it is bound by the
-// tensor cores (10 products per (q, k) pair and d, 14 with the logits
-// recomputed in both kernels) and the softmax's exponentials; the LN work is
-// O((Lq + Lk) * d).
+// tensor cores (10 products per (q, k) pair and d, 16 as executed: the
+// logits recomputed in both kernels, dq's product twice for dS's hi + lo)
+// and the softmax's exponentials; the LN work is O((Lq + Lk) * d).
 //
 // Translation from the TPU design: the Pallas kernels add dk / dv and the
 // dgamma / dbeta rows into blocks resident across a sequential grid and
@@ -23,15 +23,18 @@
 //    scratch, as the forward does.
 // 2. flash_ln_bwd_dq_kernel owns 64 query rows: it normalizes its q tile
 //    (kept raw too, for the VJP), writes the LN(q) rows to scratch for pass
-//    3, computes delta = rowsum(dO * O) from the attention output before the
-//    residual, which the forward saved (the Pallas wrapper recovers it as
-//    out - LN(q) from the bf16 out, one rounding of O + LN(q) more), runs the
-//    dq loop of the plain backward (flash_bwd.cuh) on the normalized K/V,
-//    adds dO for the residual, and applies the row-LN VJP in its epilogue (a
-//    row of 96 lies in one quad of lanes). It writes dq channel-major and
-//    per-block dgamma_q / dbeta_q partials.
-// 3. flash_bwd_dkv_kernel (flash_bwd.cuh) on the LN(q) rows: f32 partial
-//    d(LN k) / d(LN v) per query split.
+//    3 already scaled, bf16(bf16(LN q) * s), the operand of the logits and
+//    of dk, computes delta = rowsum(dO * O) from the attention output
+//    before the residual, which the forward saved (the Pallas wrapper
+//    recovers it as out - LN(q) from the bf16 out, one rounding of O + LN(q)
+//    more), and writes (lse, delta) per row padded to whole 64-row tiles;
+//    then it runs the dq loop of the plain backward (flash_bwd.cuh: wgmma,
+//    the normalized K/V tiles through a TMA ring), adds dO for the
+//    residual, and applies the row-LN VJP in its epilogue (a row of 96 lies
+//    in one quad of lanes). It writes dq channel-major and per-block
+//    dgamma_q / dbeta_q partials.
+// 3. flash_bwd_dkv_kernel (flash_bwd.cuh) on the scaled LN(q) rows: f32
+//    partial d(LN k) / d(LN v) per query split.
 // 4. kv_ln_bwd_kernel sums the splits and applies the row-LN VJP of k and v,
 //    one thread per key row, writing dk / dv channel-major and per-block
 //    dgamma / dbeta partials.
@@ -54,38 +57,44 @@ __host__ __device__ constexpr int ln_dq_xs_elems() {
   return D * (BW_T + 8) > BW_T * (D + 8) ? D * (BW_T + 8) : BW_T * (D + 8);
 }
 
+// Dynamic shared memory of the dq kernel: alignment slack, the K/V ring,
+// the LN(q) and dO rows, the raw q tile, the O rows / dq staging, the row
+// statistics, delta and the column sums.
 template <int D>
-size_t ln_dq_smem_bytes() {
-  return (size_t)(6 * BW_T * (D + 8) + D * (BW_T + 8) + ln_dq_xs_elems<D>()) *
-             sizeof(bf16) +
-         (size_t)(3 * BW_T + 8 * D) * sizeof(float);
+__host__ __device__ constexpr int ln_dq_smem_bytes() {
+  return 1024 + KvRing<DQ_LN_STAGES>::ring_bytes() +
+         (2 * BW_T * (D + 8) + D * (BW_T + 8) + ln_dq_xs_elems<D>()) *
+             (int)sizeof(bf16) +
+         (3 * BW_T + 8 * D) * (int)sizeof(float);
 }
 
-// dq of a 64-row q tile: 4 warps own 16 rows each. q is d-major [G][D][Lq]
-// (Lq % 8 == 0); kn, vn, oa (the attention output before the residual),
-// dout and the qn scratch are token rows.
+// dq of a 64-row q tile, one warpgroup (warp w owns rows 16w + g, 16w + g +
+// 8). q is d-major [G][D][Lq] (Lq % 8 == 0); oa (the attention output
+// before the residual) and dout are token rows; the LN(k) / LN(v) rows come
+// through the TMA maps kmap / vmap. Writes the scaled LN(q) rows qn and
+// ld [G][Lqp] = (lse, delta), (+inf, 0) past Lq.
 template <int D>
-__global__ void __launch_bounds__(BW_THREADS)
-    flash_ln_bwd_dq_kernel(const bf16* __restrict__ q,
-                           const bf16* __restrict__ kn,
-                           const bf16* __restrict__ vn,
+__global__ void __launch_bounds__(BW_THREADS, 2)
+    flash_ln_bwd_dq_kernel(const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap,
+                           const bf16* __restrict__ q,
                            const bf16* __restrict__ oa,
                            const bf16* __restrict__ dout,
                            const float* __restrict__ lse,
                            const bf16* __restrict__ gq,
                            const bf16* __restrict__ bq, bf16* __restrict__ qn,
-                           float* __restrict__ delta, bf16* __restrict__ dq,
-                           float* __restrict__ part, int Lq, int Lk,
+                           float2* __restrict__ ld, bf16* __restrict__ dq,
+                           float* __restrict__ part, int Lq, int Lk, int Lqp,
                            float scale, float eps, int fq, int add_qn) {
   constexpr int LD = D + 8, LDT = BW_T + 8;
   constexpr int KS = D / 16, ND = D / 8;
   constexpr int TILE = BW_T * LD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [64][LD] LN(q) rows
-  bf16* dos = qs + TILE;                         // [64][LD] dO rows
-  bf16* ks = dos + TILE;                         // 2 stages of LN(k) rows
-  bf16* vs = ks + 2 * TILE;                      // 2 stages of LN(v) rows
-  bf16* qt = vs + 2 * TILE;                      // [D][LDT] raw q, d-major
+  extern __shared__ unsigned char bw_smem_raw[];
+  unsigned char* ring_base = align1024(bw_smem_raw);
+  bf16* qs = reinterpret_cast<bf16*>(
+      ring_base + KvRing<DQ_LN_STAGES>::ring_bytes());  // [64][LD] LN(q) s
+  bf16* dos = qs + TILE;                                 // [64][LD] dO rows
+  bf16* qt = dos + TILE;                                 // [D][LDT] raw q
   bf16* xs = qt + D * LDT;  // oa rows [64][LD], then dq staging [D][LDT]
   float* s_mean = reinterpret_cast<float*>(xs + ln_dq_xs_elems<D>());
   float* s_rstd = s_mean + BW_T;
@@ -95,19 +104,17 @@ __global__ void __launch_bounds__(BW_THREADS)
   const int grp = blockIdx.y;
   const int q0 = blockIdx.x * BW_T;
   const bf16* qg = q + (size_t)grp * D * Lq;
-  const bf16* kg = kn + (size_t)grp * Lk * D;
-  const bf16* vg = vn + (size_t)grp * Lk * D;
   const bf16* og = oa + (size_t)grp * Lq * D;
   const bf16* dg = dout + (size_t)grp * Lq * D;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int wr = warp * 16;
 
-  // dO, O and the first K/V tile are in flight while q is normalized
+  // the first K/V tiles, dO and O are in flight while q is normalized
+  const KvRing<DQ_LN_STAGES> ring(ring_base, &kmap, &vmap, grp, Lk);
+  ring.start();
   load_tile_async(dos, LD, dg, D, q0, Lq, 0, BW_T, D);
   load_tile_async(xs, LD, og, D, q0, Lq, 0, BW_T, D);
-  load_tile_async(ks, LD, kg, D, 0, Lk, 0, BW_T, D);
-  load_tile_async(vs, LD, vg, D, 0, Lk, 0, BW_T, D);
   cp_async_commit();
   load_tile_cols(qt, LDT, qg, Lq, q0, Lq, D, BW_T);
   __syncthreads();
@@ -116,15 +123,24 @@ __global__ void __launch_bounds__(BW_THREADS)
   cp_async_wait<0>();
   __syncthreads();
 
-  // the LN(q) rows for the dk/dv kernel
+  // bf16(LN(q) * s) in place, the operand of the logits and of dk as the
+  // Pallas kernels round it, and its rows for the dk/dv kernel
   bf16* qng = qn + (size_t)grp * Lq * D;
   for (int i = threadIdx.x; i < BW_T * (D / 8); i += blockDim.x) {
     const int r = i / (D / 8), c = (i - r * (D / 8)) * 8;
+    uint4* p = reinterpret_cast<uint4*>(qs + r * LD + c);
+    const uint4 x = *p;
+    const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+    uint32_t y[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      y[e] = pack_bf16(bf16_lo(w[e]) * scale, bf16_hi(w[e]) * scale);
+    *p = make_uint4(y[0], y[1], y[2], y[3]);
     if (q0 + r < Lq)
-      *reinterpret_cast<uint4*>(qng + (size_t)(q0 + r) * D + c) =
-          *reinterpret_cast<const uint4*>(qs + r * LD + c);
+      *reinterpret_cast<uint4*>(qng + (size_t)(q0 + r) * D + c) = *p;
   }
-  // delta = rowsum(dO * O), one warp per row (rows past Lq: 0)
+  // delta = rowsum(dO * O), one warp per row (rows past Lq: 0), and the
+  // rows' (lse, delta) for the dk/dv kernel
   for (int r = warp; r < BW_T; r += BW_THREADS / 32) {
     float sum = 0.f;
     for (int c = lane; c < D; c += 32)
@@ -133,7 +149,9 @@ __global__ void __launch_bounds__(BW_THREADS)
     sum = warp_sum(sum);
     if (lane == 0) {
       s_delta[r] = sum;
-      if (q0 + r < Lq) delta[(size_t)grp * Lq + q0 + r] = sum;
+      ld[(size_t)grp * Lqp + q0 + r] =
+          q0 + r < Lq ? make_float2(lse[(size_t)grp * Lq + q0 + r], sum)
+                      : make_float2(INFINITY, 0.f);
     }
   }
   __syncthreads();
@@ -143,12 +161,6 @@ __global__ void __launch_bounds__(BW_THREADS)
   for (int kk = 0; kk < KS; ++kk) {
     load_a_frag(qa[kk], qs, LD, wr, kk * 16, lane);
     load_a_frag(da[kk], dos, LD, wr, kk * 16, lane);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      __nv_bfloat162 p = *reinterpret_cast<__nv_bfloat162*>(&qa[kk][e]);
-      qa[kk][e] = pack_bf16(__bfloat162float(p.x) * scale,
-                            __bfloat162float(p.y) * scale);
-    }
   }
   // rows past Lq get lse = +inf: P = 0 there
   const int r0 = q0 + wr + g, r1 = r0 + 8;
@@ -159,8 +171,8 @@ __global__ void __launch_bounds__(BW_THREADS)
   for (int nd = 0; nd < ND; ++nd)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
-  dq_tile_loop<D>(qa, da, ks, vs, kg, vg, Lk, lse0, lse1, s_delta[wr + g],
-                  s_delta[wr + g + 8], acc);
+  dq_tile_loop(qa, da, ring, Lk, lse0, lse1, s_delta[wr + g],
+               s_delta[wr + g + 8], acc);
 
   // epilogue: d(LN q) = s * dS k (+ dO), then the row-LN VJP of q
   float cg[ND][2], cb[ND][2];  // this thread's column sums over its rows
@@ -335,25 +347,31 @@ __global__ void __launch_bounds__(KV_BWD_ROWS)
 
 }  // namespace aicity
 
+// Shared memory of the dq kernel, for the wrapper's plan to check its own
+// against.
+extern "C" int aicity_flash_ln_bwd_dq_smem_bytes() {
+  return aicity::ln_dq_smem_bytes<96>();
+}
+
 // q, k, v d-major [G, d, L] (Lq % 8 == 0), gamma / beta [d] each; oa (the
 // forward's attention output before the residual) and dout [G, Lq, d] token
 // rows; lse [G, Lq] f32. Outputs: dq, dk, dv d-major like
 // q, k, v; dgb [6, d] (dgamma, dbeta of q, k, v) bf16. Scratch: qn
-// [G, Lq, d], kn, vn [G, Lk, d] bf16; delta [G, Lq], part_q
-// [G * ceil(Lq / 64), 2, d], dk_part / dv_part [nsplit, G, Lk, d] with
-// nsplit = ceil(Lq / qps) query splits of qps rows (a multiple of 64), and
-// part_kv [2, G * ceil(Lk / 128), 2, d], all f32.
+// [G, Lq, d], kn, vn [G, Lk, d] bf16; ld [G, Lqp] float2 (Lqp = Lq rounded
+// up to 64), part_q [G * ceil(Lq / 64), 2, d], dk_part / dv_part [nsplit, G,
+// Lk, d] with nsplit = ceil(Lq / qps) query splits of qps rows (a multiple
+// of 64), and part_kv [2, G * ceil(Lk / 128), 2, d], all f32.
 extern "C" int aicity_flash_attention_ln_bwd(
     const void* q, const void* k, const void* v, const void* gq,
     const void* bq, const void* gk, const void* bk, const void* gv,
     const void* bv, const void* oa, const void* lse, const void* dout,
     void* dq, void* dk, void* dv, void* dgb, void* qn, void* kn, void* vn,
-    void* delta, void* part_q, void* dk_part, void* dv_part, void* part_kv,
+    void* ld, void* part_q, void* dk_part, void* dv_part, void* part_kv,
     int G, int Lq, int Lk, int d, float scale, float eps, int fq, int fk,
     int fv, int add_qn, int qps, void* stream) {
   using namespace aicity;
   cudaStream_t s = (cudaStream_t)stream;
-  if (d != 96 || Lq % 8 || qps <= 0 || qps % BW_T)
+  if (d != BW_D || Lq % 8 || qps <= 0 || qps % BW_T)
     return (int)cudaErrorInvalidValue;
   if (G <= 0 || Lq <= 0 || Lk <= 0) return (int)cudaSuccess;
   const dim3 kv_grid((Lk + 127) / 128, G);
@@ -364,32 +382,27 @@ extern "C" int aicity_flash_attention_ln_bwd(
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
+  CUtensorMap mk, mv;
+  if (make_tmap3_sw64(&mk, kn, G, Lk, BW_D, BW_T) ||
+      make_tmap3_sw64(&mv, vn, G, Lk, BW_D, BW_T))
+    return (int)cudaErrorInvalidValue;
   const int nqt = (Lq + BW_T - 1) / BW_T;
-  const size_t smem_dq = ln_dq_smem_bytes<96>();
+  const int smem_dq = ln_dq_smem_bytes<96>();
   err = set_smem(flash_ln_bwd_dq_kernel<96>, smem_dq);
   if (err != cudaSuccess) return (int)err;
   flash_ln_bwd_dq_kernel<96><<<dim3(nqt, G), BW_THREADS, smem_dq, s>>>(
-      (const bf16*)q, (const bf16*)kn, (const bf16*)vn, (const bf16*)oa,
-      (const bf16*)dout, (const float*)lse, (const bf16*)gq, (const bf16*)bq,
-      (bf16*)qn, (float*)delta, (bf16*)dq, (float*)part_q, Lq, Lk, scale, eps,
+      mk, mv, (const bf16*)q, (const bf16*)oa, (const bf16*)dout,
+      (const float*)lse, (const bf16*)gq, (const bf16*)bq, (bf16*)qn,
+      (float2*)ld, (bf16*)dq, (float*)part_q, Lq, Lk, nqt * BW_T, scale, eps,
       fq, add_qn);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const int nsplit = (Lq + qps - 1) / qps;
-  constexpr int LD = 96 + 8;
-  const size_t smem_kv =
-      (size_t)6 * BW_T * LD * sizeof(bf16) + 4 * BW_T * sizeof(float);
-  err = set_smem(flash_bwd_dkv_kernel<96>, smem_kv);
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkv_kernel<96><<<dim3((Lk + BW_T - 1) / BW_T, G, nsplit),
-                             BW_THREADS, smem_kv, s>>>(
-      (const bf16*)qn, (const bf16*)kn, (const bf16*)vn, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (float*)dk_part,
-      (float*)dv_part, G, Lq, Lk, scale, qps);
-  err = cudaGetLastError();
+  err = launch_dkv(qn, dout, kn, vn, (const float2*)ld, (float*)dk_part,
+                   (float*)dv_part, G, Lq, Lk, nqt * BW_T, qps, s);
   if (err != cudaSuccess) return (int)err;
 
+  const int nsplit = (Lq + qps - 1) / qps;
   const int nkb = (Lk + KV_BWD_ROWS - 1) / KV_BWD_ROWS;
   kv_ln_bwd_kernel<96><<<dim3(nkb, G, 2), KV_BWD_ROWS, 0, s>>>(
       (const float*)dk_part, (const float*)dv_part, (const bf16*)k,

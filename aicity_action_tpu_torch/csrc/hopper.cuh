@@ -1,7 +1,9 @@
 // Hopper building blocks of the dense kernels (fused_ln_qkv.cu,
-// fused_ln_mlp.cu, fused_ln_mlp_bwd.cu): TMA descriptors and loads,
-// mbarriers, wgmma with A from registers, setmaxnreg, and the
-// warp-specialised GEMM mainloop they share.
+// fused_ln_mlp.cu, fused_ln_mlp_bwd.cu, fused_ln_qkv_bwd.cu) and of the
+// attention backward (flash_bwd.cuh): TMA descriptors and loads, mbarriers,
+// wgmma with A from registers or shared memory (128- and 64-byte swizzles,
+// B K-major or MN-major), setmaxnreg, and the warp-specialised GEMM
+// mainloop the dense kernels share.
 //
 // The mainloop computes out[M, N] = A[M, K] B[N, K]^T + bias, A optionally
 // LayerNorm'd on the fly (f32 statistics, rounded to bf16 before the
@@ -87,6 +89,30 @@ inline int make_tmap(CUtensorMap* map, const void* base, uint64_t rows,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       box_cols ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Descriptor of a bf16 tensor [groups][rows][cols] (rows and groups dense,
+// cols * 2 a multiple of 16 bytes) read in boxes of box_rows x 32 columns
+// of one group, in the 64-byte swizzle that desc_sw64_k / desc_sw64_mn
+// expect. Rows past `rows` load as zero, so a box never reaches into the
+// next group. Returns a cudaError_t.
+inline int make_tmap3_sw64(CUtensorMap* map, const void* base,
+                           uint64_t groups, uint64_t rows, uint64_t cols,
+                           uint32_t box_rows) {
+  EncodeTiledFn enc = encode_tiled_fn();
+  if (!enc || (uintptr_t)base % 16 || (cols * 2) % 16 || box_rows == 0 ||
+      box_rows > 256 || groups == 0 || rows == 0)
+    return (int)cudaErrorInvalidValue;
+  const cuuint64_t dims[3] = {cols, rows, groups};
+  const cuuint64_t strides[2] = {cols * 2, rows * cols * 2};
+  const cuuint32_t box[3] = {32, box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = enc(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
@@ -194,6 +220,18 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// 3-D TMA load of the box at (column c0, row c1, group c2) into dst,
+// completing on bar.
+__device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // Bulk copy of `bytes` (a multiple of 16) from global to shared memory,
 // completing on bar.
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
@@ -286,6 +324,27 @@ __device__ __forceinline__ void fence_regs(uint32_t* r) {
 __device__ __forceinline__ uint64_t desc_sw128(const void* tile) {
   return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) | (1ull << 16) |
          (64ull << 32) | (1ull << 62);
+}
+
+// wgmma descriptors of a [rows][32] bf16 box as TMA writes it with the
+// 64-byte swizzle (512-byte aligned; the swizzle repeats every 8 rows of 64
+// bytes): layout type 2 (64B swizzle), 8-row groups 512 bytes apart.
+// K-major (the 32 columns are the reduction): the stride byte offset is the
+// 8-row groups' 512 bytes (32 x 16 B), the leading one unused; step k16 of
+// the box starts 32 bytes on (add 2). MN-major (the rows are the
+// reduction, read through wgmma's transpose bit): atoms of 32 columns x 8
+// rows; the leading byte offset is the distance from one 32-column atom to
+// the next (the next box, `box_bytes` on), the stride byte offset the 8-row
+// groups' 512 bytes; step k16 (16 rows) starts 1024 bytes on.
+__device__ __forceinline__ uint64_t desc_sw64_k(const void* box) {
+  return (uint64_t)((smem_u32(box) & 0x3FFFF) >> 4) | (1ull << 16) |
+         (32ull << 32) | (2ull << 62);
+}
+
+__device__ __forceinline__ uint64_t desc_sw64_mn(const void* box,
+                                                 uint32_t box_bytes) {
+  return (uint64_t)((smem_u32(box) & 0x3FFFF) >> 4) |
+         ((uint64_t)(box_bytes >> 4) << 16) | (32ull << 32) | (2ull << 62);
 }
 
 // The A fragment of wgmma m64k16 (see WgmmaRS) for this warp's 16 rows
@@ -491,8 +550,32 @@ __device__ __forceinline__ float gelu_erf(float v) {
 template <int N>
 struct WgmmaRS;
 
+// m64n64k16, for the attention backward's logits (flash_bwd.cuh).
+template <>
+struct WgmmaRS<64> {
+  __device__ __forceinline__ static void mma(float* d, const uint32_t* a,
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
 template <>
 struct WgmmaRS<96> {
+  template <int TB = 0>
   __device__ __forceinline__ static void mma(float* d, const uint32_t* a,
                                              uint64_t b) {
     asm volatile(
@@ -504,7 +587,7 @@ struct WgmmaRS<96> {
         "%24, %25, %26, %27, %28, %29, %30, %31,"
         "%32, %33, %34, %35, %36, %37, %38, %39,"
         "%40, %41, %42, %43, %44, %45, %46, %47"
-        "}, {%48, %49, %50, %51}, %52, p, 1, 1, 0;\n}\n"
+        "}, {%48, %49, %50, %51}, %52, p, 1, 1, %54;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -513,7 +596,7 @@ struct WgmmaRS<96> {
           "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
           "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
           "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
   }
 };
 

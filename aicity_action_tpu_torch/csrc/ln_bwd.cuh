@@ -311,15 +311,19 @@ __device__ __forceinline__ void reduce_cols(const float* __restrict__ part,
 
 // The gradients that a backward sums from f32 partials, all in one launch:
 // job j sums nsplit[j] slabs of n[j] into out[j] (bf16) with the grid's
-// blocks [start[j], start[j + 1]), each of 256 columns (a thread a column,
-// the splits in order, as common.cuh:reduce_splits) where the splits are
-// few, else of 32 columns (reduce_cols). The order of every sum is fixed.
+// blocks [start[j], start[j + 1]), each of 256 threads. Where the splits
+// are few, a thread sums its columns over the splits in order (as
+// common.cuh:reduce_splits): four columns by 16-byte loads where n % 4 ==
+// 0 and the slabs and out are aligned for it (vec), else one; where they
+// are many, a block takes 32 columns (reduce_cols). The order of every sum
+// is fixed.
 constexpr int SUM_JOBS = 4, FEW_SPLITS = 16;
 
 struct PartialSums {
   const float* part[SUM_JOBS];
   bf16* out[SUM_JOBS];
   int nsplit[SUM_JOBS];
+  int vec[SUM_JOBS];
   long n[SUM_JOBS];
   int start[SUM_JOBS + 1];
 };
@@ -328,11 +332,16 @@ struct PartialSums {
 inline void add_sum(PartialSums& p, int& jobs, const float* part, bf16* out,
                     int nsplit, long n) {
   if (jobs == 0) p.start[0] = 0;
+  const bool few = nsplit <= FEW_SPLITS;
+  const bool vec = few && n % 4 == 0 && (uintptr_t)part % 16 == 0 &&
+                   (uintptr_t)out % 8 == 0;
   p.part[jobs] = part;
   p.out[jobs] = out;
   p.nsplit[jobs] = nsplit;
+  p.vec[jobs] = vec;
   p.n[jobs] = n;
-  const long blocks = nsplit <= FEW_SPLITS ? (n + 255) / 256 : (n + 31) / 32;
+  const long blocks =
+      vec ? (n + 1023) / 1024 : few ? (n + 255) / 256 : (n + 31) / 32;
   p.start[jobs + 1] = p.start[jobs] + (int)blocks;
   for (int j = jobs + 2; j <= SUM_JOBS; ++j) p.start[j] = p.start[jobs + 1];
   ++jobs;
@@ -346,7 +355,7 @@ __device__ __forceinline__ void sum_partials(const PartialSums& p) {
   const int b = blockIdx.x;
   const float* part = nullptr;
   bf16* out = nullptr;
-  int nsplit = 0;
+  int nsplit = 0, vec = 0;
   long n = 0, cb = 0;
 #pragma unroll
   for (int j = 0; j < SUM_JOBS; ++j)
@@ -354,6 +363,7 @@ __device__ __forceinline__ void sum_partials(const PartialSums& p) {
       part = p.part[j];
       out = p.out[j];
       nsplit = p.nsplit[j];
+      vec = p.vec[j];
       n = p.n[j];
       cb = b - p.start[j];
     }
@@ -362,6 +372,22 @@ __device__ __forceinline__ void sum_partials(const PartialSums& p) {
     return;
   }
   const long i = cb * 256 + threadIdx.x;
+  if (vec) {
+    const long n4 = n / 4;
+    if (i >= n4) return;
+    const float4* p4 = reinterpret_cast<const float4*>(part);
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int k = 0; k < nsplit; ++k) {
+      const float4 a = p4[(long)k * n4 + i];
+      s.x += a.x;
+      s.y += a.y;
+      s.z += a.z;
+      s.w += a.w;
+    }
+    reinterpret_cast<uint2*>(out)[i] =
+        make_uint2(pack_bf16(s.x, s.y), pack_bf16(s.z, s.w));
+    return;
+  }
   if (i >= n) return;
   float s = 0.f;
   for (int k = 0; k < nsplit; ++k) s += part[(long)k * n + i];

@@ -304,6 +304,33 @@ def dense_call_shapes(cfg, batch: int) -> list:
     return calls
 
 
+def attention_call_shapes(cfg, batch: int) -> list:
+    """The attention of each block of one forward at ``batch``, from the
+    block schedule (no model is built): ``(G, Lq, Lk, d)``, ``G = batch *
+    heads`` groups of ``Lq`` pooled queries against ``Lk`` pooled keys
+    (each ``+ 1`` with a cls token) of head dim ``d``. The attention
+    backward's plan tests take their shapes from it."""
+    sp = build_mvit_spec(cfg)
+    thw, cls = list(sp.patch_dims), int(sp.cls_embed)
+
+    def pooled(kernel, stride):
+        if not _pool_active(kernel, stride):
+            return thw
+        return [(n + 2 * (k // 2) - k) // s + 1
+                for n, k, s in zip(thw, kernel, stride)]
+
+    calls = []
+    for b in sp.blocks:
+        att = (b.dim_out if sp.channel_expand_front and b.dim != b.dim_out
+               else b.dim)
+        tq = pooled(b.kernel_q, b.stride_q)
+        tk = pooled(b.kernel_kv, b.stride_kv)
+        calls.append((batch * b.num_heads, int(np.prod(tq)) + cls,
+                      int(np.prod(tk)) + cls, att // b.num_heads))
+        thw = tq
+    return calls
+
+
 def _cast(t: torch.Tensor | None, dtype: torch.dtype):
     return None if t is None else t.to(dtype)
 

@@ -37,6 +37,8 @@ cu``) writes dq, dk, dv back in that layout.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import kernels
@@ -46,6 +48,91 @@ from .layer_norm import layer_norm_plain
 KERNEL_HEAD_DIM = 96
 # logits the plain version materializes at once (f32 elements)
 _PLAIN_CHUNK = 1 << 28
+
+# the backward's tiles (query rows or keys a block, csrc/flash_bwd.cuh:BW_T)
+BWD_TILE = 64
+# backward blocks an SM holds at once (__launch_bounds__(128, 2): registers
+# and shared memory leave room for two)
+BWD_BLOCKS_PER_SM = 2
+# shared memory an SM gives its blocks (228 KB, 1 KB of it reserved per
+# block)
+SM_SMEM_BYTES = 233_472
+_BWD_TILE_BYTES = BWD_TILE * KERNEL_HEAD_DIM * 2
+# the ring depths of csrc/flash_bwd.cuh (DQ_STAGES, DQ_LN_STAGES,
+# DKV_STAGES)
+_DQ_STAGES, _DQ_LN_STAGES, _DKV_STAGES = 3, 2, 3
+# the dk/dv kernel's query splits a plan considers at most
+_MAX_SPLITS = 64
+
+
+def _bwd_smem() -> dict:
+    """Dynamic shared memory of the backward's kernels (bytes), as
+    ``csrc/flash_bwd.cuh`` and ``csrc/flash_attention_ln_bwd.cu`` lay it
+    out: 1 KB of alignment slack; the dq kernels' K/V ring (a K and a V
+    tile and a barrier a stage), the fused-LN one also its LN(q) and dO
+    rows, the raw q tile, the O rows / dq staging (each padded by 8 bf16 a
+    row) and its f32 statistics and column sums; the dk/dv kernel's ring of
+    (qs, dO) tiles with their (lse, delta) rows and a barrier a stage (its
+    K and V stay in registers)."""
+    d, t = KERNEL_HEAD_DIM, BWD_TILE
+    ring = 2 * _BWD_TILE_BYTES + 8
+    ln_rows = 2 * (2 * t * (d + 8) + d * (t + 8) + max(d * (t + 8),
+                                                       t * (d + 8)))
+    return {"dq": 1024 + _DQ_STAGES * ring,
+            "ln_dq": 1024 + _DQ_LN_STAGES * ring + ln_rows
+            + 4 * (3 * t + 8 * d),
+            "dkv": 1024 + _DKV_STAGES * (2 * _BWD_TILE_BYTES + t * 8 + 8)}
+
+
+def _attn_bwd_plan(G: int, Lq: int, Lk: int, d: int, sms: int) -> dict:
+    """The query splits of the attention backward's dk/dv kernel (rows 3, 4
+    and 7), whose grid is (key tiles, G, splits): ``qps`` query rows a
+    split, a whole number of 64-row tiles, and ``nsplit`` splits. The
+    splits give the grid at least every block slot of the card
+    (BWD_BLOCKS_PER_SM an SM) wherever Lq has the tiles for it; from there
+    the count takes the fewest waves x tiles a block over the slots, plus
+    the bytes each split's f32 partials add to the sums, counted in tile
+    steps. ``lqp``: Lq rounded up to whole tiles, the rows of the padded
+    (lse, delta) scratch. The dq kernel's grid is one block a tile."""
+    if d != KERNEL_HEAD_DIM:
+        raise ValueError(f"flash attention backward: the kernel takes head "
+                         f"dim {KERNEL_HEAD_DIM}, got {d}")
+    if not 0 < G <= 65535 or Lq <= 0 or Lk <= 0:
+        raise ValueError(f"flash attention backward: no kernel takes "
+                         f"G {G}, Lq {Lq}, Lk {Lk}")
+    ntq, nkt = -(-Lq // BWD_TILE), -(-Lk // BWD_TILE)
+    slots = BWD_BLOCKS_PER_SM * sms
+    # (rows a split in tiles, splits) for every split count the tiles allow
+    plans = {(-(-ntq // n), -(-ntq // -(-ntq // n)))
+             for n in range(1, min(ntq, _MAX_SPLITS) + 1)}
+    fewest = min(max(n for _, n in plans), -(-slots // (G * nkt)))
+    # a split writes and sums G * Lk * 96 f32 pairs: at 3.35 TB/s about
+    # G * Lk / 7000 tile steps of a full wave (~1.6 us each)
+    split_cost = G * Lk / 7000.0
+    best = min((-(-G * nkt * n // slots) * per + n * split_cost, n, per)
+               for per, n in plans if n >= fewest)
+    _, nsplit, per = best
+    return {"qps": per * BWD_TILE, "nsplit": nsplit, "lqp": ntq * BWD_TILE}
+
+
+@functools.cache
+def _check_kernel_smem() -> None:
+    """Holds :func:`_bwd_smem` against the kernels' own shared memory, once
+    a process."""
+    lib = kernels.lib()
+    theirs = (lib.aicity_flash_bwd_smem_bytes(0),
+              lib.aicity_flash_ln_bwd_dq_smem_bytes(),
+              lib.aicity_flash_bwd_smem_bytes(1))
+    if theirs != tuple(_bwd_smem().values()):
+        raise RuntimeError("flash attention backward: _bwd_smem differs from "
+                           "the kernels' shared memory")
+
+
+def _checked_attn_bwd_plan(G: int, Lq: int, Lk: int, d: int,
+                           device: torch.device) -> dict:
+    """:func:`_attn_bwd_plan` for the card of ``device``."""
+    _check_kernel_smem()
+    return _attn_bwd_plan(G, Lq, Lk, d, kernels.sm_count(device))
 
 
 def _rounded_scale(scale: float, dtype: torch.dtype) -> float:
@@ -189,8 +276,9 @@ def flash_attention_ln_bwd(q, k, v, gq, bq, gk, bk, gv, bv, o_attn, lse,
     of contiguous ``[G, d, L]`` gradients, the layout the pool
     convolutions' backward takes; the LN parameter gradients are bf16
     ``[d]``, zeros where the flag is off. ``delta = rowsum(dout * o_attn)``
-    is computed in the dq kernel; dk / dv are summed over query splits of
-    f32 partials (:func:`kernels.splits`) before their LN backward."""
+    is computed in the dq kernel, which also writes the scaled LN(q) rows
+    that the dk/dv kernel reads; dk / dv are summed over query splits of
+    f32 partials (:func:`_attn_bwd_plan`) before their LN backward."""
     (G, Lq, Lk, d), (q, k, v) = _ln_operands(
         "flash_attention_ln_bwd", q, k, v, (gq, bq, gk, bk, gv, bv))
     dev = q.device
@@ -203,11 +291,10 @@ def flash_attention_ln_bwd(q, k, v, gq, bq, gk, bk, gv, bv, o_attn, lse,
     dgb = torch.empty((6, d), **bf)
     qn = torch.empty((G, Lq, d), **bf)
     kn, vn = (torch.empty((G, Lk, d), **bf) for _ in range(2))
-    delta = torch.empty((G, Lq), **f32)
-    part_q = torch.empty((G * -(-Lq // 64), 2, d), **f32)
-    qps = kernels.splits(Lq, G * -(-Lk // 64), 64, min_rows=1024)
-    nsplit = -(-Lq // qps)
-    dk_part, dv_part = (torch.empty((nsplit, G, Lk, d), **f32)
+    plan = _checked_attn_bwd_plan(G, Lq, Lk, d, dev)
+    ld = torch.empty((G, plan["lqp"], 2), **f32)
+    part_q = torch.empty((G * -(-Lq // BWD_TILE), 2, d), **f32)
+    dk_part, dv_part = (torch.empty((plan["nsplit"], G, Lk, d), **f32)
                         for _ in range(2))
     part_kv = torch.empty((2, G * -(-Lk // 128), 2, d), **f32)
     fq, fk, fv = (int(bool(f)) for f in flags)
@@ -216,10 +303,11 @@ def flash_attention_ln_bwd(q, k, v, gq, bq, gk, bk, gv, bv, o_attn, lse,
         bq.data_ptr(), gk.data_ptr(), bk.data_ptr(), gv.data_ptr(),
         bv.data_ptr(), o_attn.data_ptr(), lse.data_ptr(), dout.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dgb.data_ptr(),
-        qn.data_ptr(), kn.data_ptr(), vn.data_ptr(), delta.data_ptr(),
+        qn.data_ptr(), kn.data_ptr(), vn.data_ptr(), ld.data_ptr(),
         part_q.data_ptr(), dk_part.data_ptr(), dv_part.data_ptr(),
         part_kv.data_ptr(), G, Lq, Lk, d, _rounded_scale(scale, q.dtype),
-        float(eps), fq, fk, fv, int(bool(add_qn)), qps, kernels.stream())
+        float(eps), fq, fk, fv, int(bool(add_qn)), plan["qps"],
+        kernels.stream())
     kernels.check(err, "flash_attention_ln_bwd")
     flash_attention_ln_bwd.launches += 1
     return (dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2),
@@ -323,26 +411,28 @@ def _attention_fwd(q, k, v, scale: float, with_lse: bool):
 
 def _attention_bwd(q, k, v, out, lse, dout, scale: float):
     """The backward kernels: ``(dq, dk, dv)`` from the forward's inputs,
-    ``out`` and ``lse`` and the output gradient ``dout``. ``delta =
-    rowsum(dout * out)`` is computed here, outside the kernels, as the
-    Pallas backward does; dk / dv are summed over query splits of f32
-    partials (:func:`kernels.splits`)."""
+    ``out`` and ``lse`` and the output gradient ``dout``, by the four
+    launches of ``csrc/flash_attention.cu``'s backward under
+    :func:`_attn_bwd_plan`: a pre-pass (``bf16(q * s)`` rows and the
+    padded ``(lse, delta = rowsum(dout * out))`` rows), dq, dk / dv as f32
+    partials over query splits, and their sums."""
     G, Lq, d = q.shape
     Lk = k.shape[1]
     _require_rows("flash_attention_bwd", G, d, ("q", q, Lq), ("k", k, Lk),
                   ("v", v, Lk), ("out", out, Lq), ("dout", dout, Lq))
     kernels.require(lse, "lse", (G, Lq), q.device, torch.float32)
-    delta = (dout.float() * out.float()).sum(-1)
-    qps = kernels.splits(Lq, G * -(-Lk // 64), 64, min_rows=1024)
-    nsplit = -(-Lq // qps)
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    dk_part, dv_part = (torch.empty((nsplit, G, Lk, d), dtype=torch.float32,
-                                    device=q.device) for _ in range(2))
+    plan = _checked_attn_bwd_plan(G, Lq, Lk, d, q.device)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dq, dk, dv, qs = (torch.empty_like(t) for t in (q, k, v, q))
+    ld = torch.empty((G, plan["lqp"], 2), **f32)
+    dk_part, dv_part = (torch.empty((plan["nsplit"], G, Lk, d), **f32)
+                        for _ in range(2))
     err = kernels.lib().aicity_flash_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), dk_part.data_ptr(), dv_part.data_ptr(), G, Lq, Lk, d,
-        _rounded_scale(scale, q.dtype), qps, kernels.stream())
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), qs.data_ptr(), ld.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dk_part.data_ptr(),
+        dv_part.data_ptr(), G, Lq, Lk, d, _rounded_scale(scale, q.dtype),
+        plan["qps"], kernels.stream())
     kernels.check(err, "flash_attention_bwd")
     return dq, dk, dv
 

@@ -47,8 +47,11 @@ _SIGNATURES = {
     "aicity_layer_norm_bwd": ([_vp] * 6 + [_l, _i, _i, _f, _vp], _i),
     "aicity_layer_norm_bwd_blocks": ([_l, _i], _i),
     "aicity_flash_attention": ([_vp] * 5 + [_i] * 4 + [_f, _vp], _i),
-    "aicity_flash_attention_bwd": ([_vp] * 11 + [_i] * 4 + [_f, _i, _vp],
+    "aicity_flash_attention_bwd": ([_vp] * 13 + [_i] * 4 + [_f, _i, _vp],
                                    _i),
+    "aicity_flash_bwd_smem_bytes": ([_i], _i),
+    "aicity_flash_ln_bwd_dq_smem_bytes": ([], _i),
+    "aicity_wgmma_sw64_probe": ([_vp] * 5, _i),
     "aicity_ln_qkv_bwd": ([_vp, _vp] + [_i] * 4 + [_f, _vp], _i),
     "aicity_ln_qkv_bwd_smem_bytes": ([_i] * 4, _i),
     "aicity_ln_mlp_bwd": ([_vp, _vp] + [_i] * 3 + [_f, _vp], _i),
@@ -186,20 +189,6 @@ def plain_reference():
         yield
     finally:
         _force_plain = prev
-
-
-# blocks a backward kernel's row splits aim for: four per SM of an H100
-SPLIT_TARGET_BLOCKS = 528
-
-
-def splits(rows: int, tiles: int, step: int, min_rows: int = 256) -> int:
-    """Rows per split of a backward kernel that sums over ``rows`` for
-    ``tiles`` independent output tiles: enough splits that tiles x splits
-    reaches SPLIT_TARGET_BLOCKS, each split a multiple of ``step`` rows and
-    at least ``min_rows`` of them."""
-    want = max(1, -(-SPLIT_TARGET_BLOCKS // max(1, tiles)))
-    per = max(min_rows, -(-rows // want))
-    return -(-per // step) * step
 
 
 def require(t: torch.Tensor, name: str, shape: tuple | None = None,

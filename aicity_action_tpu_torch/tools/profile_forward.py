@@ -16,7 +16,8 @@ up, then traces ``--iters`` forwards with ``torch.profiler`` (CPU and CUDA
 activities). Prints, and writes to ``--out`` as JSON: the forward's host
 wall time, the device time summed over kernels, the device's busy and idle
 share of the wall time, and the device time by kernel name, largest first,
-each with the group it belongs to (one of the port's four kernels, the
+each with the group it belongs to (one of the port's kernels, the
+attention backward split by launch: its pre-pass, dk/dv, dq and sums; the
 depthwise pool convolutions, other convolutions, GEMMs, or elementwise and
 copy work). A card is required; nothing runs on the CPU.
 
@@ -48,11 +49,14 @@ import time
 # kernel-name substrings -> group, first match wins
 _GROUPS = (
     ("flash_ln_kernel", "flash_attention_ln (port)"),
-    ("flash_ln_bwd_dq", "flash_attention_ln bwd (port)"),
-    ("kv_ln_bwd", "flash_attention_ln bwd (port)"),
+    ("flash_ln_bwd_dq", "attention bwd: fused-LN dq + LN VJP (port)"),
+    ("kv_ln_bwd", "attention bwd: fused-LN dk/dv sums + LN VJP (port)"),
     ("kv_rows_kernel", "flash_attention_ln K/V rows (port)"),
     ("flash_fwd_kernel", "flash_attention fwd (port)"),
-    ("flash_bwd_", "flash_attention bwd (port)"),
+    ("flash_bwd_prep", "attention bwd: pre-pass (port)"),
+    ("flash_bwd_dkv", "attention bwd: dk/dv (port)"),
+    ("flash_bwd_dq", "attention bwd: dq (port)"),
+    ("flash_bwd_sum", "attention bwd: dk/dv sums (port)"),
     ("qkv_bwd_", "fused_ln_qkv bwd (port)"),
     ("mlp_bwd_", "fused_ln_mlp bwd (port)"),
     ("layer_norm_bwd_kernel", "fused_layer_norm bwd (port)"),

@@ -7,10 +7,13 @@ NVIDIA card.
 1. Builds the CUDA kernels from ``aicity_action_tpu_torch/csrc`` with nvcc
    (sm_90a, one process per source) and prints the card's name and power
    limit; prints the HGMMA (wgmma) and UTMALDG (TMA load) instruction
-   counts in the SASS of the LN+qkv and LN+MLP forward kernels and of the
-   LN+qkv and LN+MLP backwards' GEMM kernels, with their registers and
-   spills, and fails if either count is 0, or if a backward's GEMM kernel
-   spills or has other than 168 registers.
+   counts in the SASS of the LN+qkv and LN+MLP forward kernels, of the
+   LN+qkv and LN+MLP backwards' GEMM kernels and of the attention
+   backward's dk/dv and dq kernels, with their registers and spills, and
+   fails if either count is 0, if a dense backward's GEMM kernel spills or
+   has other than 168 registers, or if an attention backward kernel spills
+   or has more than 255; then holds the 64-byte-swizzle wgmma descriptors
+   that the attention backward builds on against torch on one tile.
 2. Holds each inference kernel against its plain PyTorch version at
    main-path shapes of MViT-v2-B 16x4 @ 448 (batch 8, bf16: LN+qkv at
    every distinct shape of the forward, LN+MLP at every width, both also at
@@ -21,12 +24,14 @@ NVIDIA card.
 3. Does the same for the training kernels (the flash attention forward
    with its logsumexp, and the backward kernels of attention, LayerNorm,
    LN+qkv and LN+MLP) at the batch-4 training shapes of blocks 0, 1 and 15
-   (the LN+qkv backward also at blocks 4-13, its ten calls a step).
+   (the LN+qkv backward also at blocks 4-13, its ten calls a step; the
+   attention backward also at blocks 3, 4-13 and 14).
 4. Does the same for the kernels of the cls-token MViT-v1 and the fused-LN
    training path: the padded attention (forward and backward) at the
    ragged lengths of MViT-B 16x4 @ 224, batch 8, blocks 0, 1 and 15; the
    fused-LN attention's forward with its logsumexp and its backward at the
-   448 batch-4 shapes of blocks 0, 1 and 15; LN+qkv forward and backward at
+   448 batch-4 shapes of blocks 0, 1 and 15 (the backward also at blocks
+   3, 4-13 and 14); LN+qkv forward and backward at
    the odd 25089 tokens of the v1's blocks 0 and 1 (the forward also at
    block 3; the backward also at the 1569 tokens of blocks 4-13, batch 8
    and batch 1), LN+MLP at the v1's odd row counts of blocks 1, 4 and 15, and
@@ -62,6 +67,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -166,29 +172,40 @@ def build_kernels():
         print(f"#   {ln}")
 
 
-# kernel-name substrings of the dense kernels whose machine code must use
+# kernel-name substrings of the kernels whose machine code must use
 # Hopper's warpgroup products (HGMMA) and TMA loads (UTMALDG): the LN+qkv
-# and LN+MLP forwards and every GEMM launch of the LN+qkv and LN+MLP
+# and LN+MLP forwards, every GEMM launch of the LN+qkv and LN+MLP
 # backwards (their pre-passes and the LN backward over rows are plain
-# loads); the backwards' GEMM kernels must also have the 168 registers
-# setmaxnreg assumes and no spills
+# loads), and the attention backward's dk/dv kernel and both dq kernels;
+# the dense backwards' GEMM kernels must also have the 168 registers
+# setmaxnreg assumes and no spills, the attention backward's kernels no
+# spills and at most the 255 registers that let two blocks share an SM
 HOPPER_KERNELS = {"fused_ln_qkv": ("ln_qkv_kernel",),
                   "fused_ln_mlp": ("ln_mlp_kernel",),
                   "fused_ln_qkv_bwd": ("qkv_bwd_gemm_kernel",
                                        "qkv_bwd_dw_kernel"),
                   "fused_ln_mlp_bwd": ("mlp_bwd_dual_kernel",
-                                       "mlp_bwd_gemm_kernel")}
-NO_SPILL_KERNELS = ("fused_ln_qkv_bwd", "fused_ln_mlp_bwd")
+                                       "mlp_bwd_gemm_kernel"),
+                  "flash_attention_bwd": ("flash_bwd_dkv_kernel",
+                                          "flash_bwd_dq_kernel"),
+                  "flash_attention_ln_bwd": ("flash_ln_bwd_dq_kernel",)}
 HOPPER_REGISTERS = 168
+# kernels that must not spill: (registers, whether exactly that many or at
+# most)
+NO_SPILL_KERNELS = {"fused_ln_qkv_bwd": (HOPPER_REGISTERS, True),
+                    "fused_ln_mlp_bwd": (HOPPER_REGISTERS, True),
+                    "flash_attention_bwd": (255, False),
+                    "flash_attention_ln_bwd": (255, False)}
 
 
 def hopper_sass_checks() -> dict:
     """Counts the HGMMA and UTMALDG instructions in the SASS of every
-    instantiation of the LN+qkv and LN+MLP forward kernels and of the
-    LN+qkv and LN+MLP backwards' GEMM kernels (``cuobjdump -sass`` on the
-    built library) and reads their registers and spills from the build
+    instantiation of the kernels of HOPPER_KERNELS (``cuobjdump -sass`` on
+    the built library) and reads their registers and spills from the build
     log; fails if any of them lacks either instruction, or if a kernel of
-    NO_SPILL_KERNELS spills or was not given HOPPER_REGISTERS registers."""
+    NO_SPILL_KERNELS spills or breaks its register budget: exactly
+    HOPPER_REGISTERS (168) for the dense backwards' GEMM kernels, whose
+    setmaxnreg assumes it, at most 255 for the attention backward's."""
     from aicity_action_tpu_torch.ops import kernels
 
     so = kernels.build()
@@ -224,13 +241,50 @@ def hopper_sass_checks() -> dict:
             if not (counts[f]["HGMMA"] and counts[f]["UTMALDG"]):
                 _fail(f"{name}: {f} has no HGMMA or no UTMALDG")
             text = " ".join(lines)
-            if name in NO_SPILL_KERNELS and (
-                    f"Used {HOPPER_REGISTERS} registers" not in text
-                    or " 0 bytes spill stores, 0 bytes spill loads"
-                    not in text):
-                _fail(f"{name}: {f} spills or was not given "
-                      f"{HOPPER_REGISTERS} registers: {text}")
+            if name not in NO_SPILL_KERNELS:
+                continue
+            regs, exact = NO_SPILL_KERNELS[name]
+            used = re.search(r"Used (\d+) registers", text)
+            used = int(used.group(1)) if used else None
+            ok_regs = used is not None and (
+                used == regs if exact else used <= regs)
+            if not ok_regs or (" 0 bytes spill stores, 0 bytes spill loads"
+                               not in text):
+                _fail(f"{name}: {f} spills or breaks its budget of {regs} "
+                      f"registers: {text}")
     return counts
+
+
+def descriptor_checks() -> None:
+    """The one-tile check of the 64-byte-swizzle wgmma descriptors that the
+    attention backward builds on (``csrc/flash_attention.cu:
+    wgmma_sw64_probe_kernel``): a b^T with A from registers and B K-major
+    (the logits), and bf16(a b^T) b through an MN-major B (dq, dk, dv),
+    against torch in f32 from the same bf16 inputs, within 1e-3 of each
+    product's largest magnitude (f32 sums in another order; a wrong byte
+    offset moves whole rows)."""
+    import torch
+
+    from aicity_action_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    a, b = (_normal(gen, (64, 96), 1.0, torch.bfloat16) for _ in range(2))
+    c1 = torch.empty((64, 64), device="cuda")
+    c2 = torch.empty((64, 96), device="cuda")
+    kernels.check(kernels.lib().aicity_wgmma_sw64_probe(
+        a.data_ptr(), b.data_ptr(), c1.data_ptr(), c2.data_ptr(),
+        kernels.stream()), "wgmma_sw64_probe")
+    torch.cuda.synchronize()
+    for name, out, want in (
+            ("A from registers, B K-major", c1, a.float() @ b.float().t()),
+            ("B MN-major", c2, c1.bfloat16().float() @ b.float())):
+        err = (out - want).abs().max().item()
+        tol = 1e-3 * want.abs().max().item()
+        print(f"# wgmma 64-byte swizzle, {name}: max err {err:.3e} "
+              f"(tol {tol:.3e})")
+        if not err <= tol:
+            _fail(f"wgmma 64-byte swizzle descriptors, {name}: max err "
+                  f"{err} > {tol}")
 
 
 # ------------------------------------------------------------------ kernels
@@ -564,11 +618,55 @@ def _library_grads(fn, inputs, cotangents):
     return torch.autograd.grad(outs, ts, cotangents)
 
 
+# the attention of the batch-4 448 train step, (block, heads, Lq, Lk):
+# blocks 0, 1 and 15 (forward and backward), then, for the backwards, block
+# 3 (Lq = Lk = 6272), blocks 4-13 (ten calls a step, the most launched
+# shape) and block 14 (the only Lq < Lk)
+ATTN_TRAIN_SHAPES = ((0, 1, 100352, 1568), (1, 2, 25088, 6272),
+                     (15, 8, 1568, 1568), (3, 4, 6272, 6272),
+                     ("4-13", 4, 6272, 1568), (14, 8, 1568, 6272))
+ATTN_FWD_BLOCKS = (0, 1, 15)
+
+
+def _attn_shape(blk, G, Lq, Lk, d=96) -> str:
+    calls = " (10 calls a step)" if blk == "4-13" else ""
+    kind = "blocks" if blk == "4-13" else "block"
+    return f"{kind} {blk} q[{G},{Lq},{d}] k,v[{G},{Lk},{d}]{calls}"
+
+
+def _train_fwd_checks(fa, F, fwd, q, k, v, shape, flops, io, blk, scale):
+    """The flash attention forward with its lse (and, at block 0, the
+    lse-free mode of inference with pool modes max / avg) against its plain
+    version, appended to ``fwd``; returns the forward's ``(out, lse)``."""
+    G, Lq = q.shape[:2]
+    r = _check_case(
+        "flash_attention",
+        lambda: fa.flash_attention_fwd(q, k, v, scale, True),
+        lambda: fa.flash_attention_lse_plain(q.float(), k.float(),
+                                             v.float(), scale),
+        lambda: F.scaled_dot_product_attention(q, k, v),
+        flops=flops, nbytes=io + 4 * G * Lq, peak=PEAK_BF16, iters=3)
+    r["shape"] = shape + " (+ lse)"
+    fwd.append(r)
+    if blk == 0:
+        r = _check_case(
+            "flash_attention",
+            lambda: fa.flash_attention_fwd(q, k, v, scale, False)[0],
+            lambda: fa.flash_attention_plain(q.float(), k.float(),
+                                             v.float(), scale),
+            lambda: F.scaled_dot_product_attention(q, k, v),
+            flops=flops, nbytes=io, peak=PEAK_BF16, iters=3)
+        r["shape"] = shape + " (no lse)"
+        fwd.append(r)
+    return fa.flash_attention_fwd(q, k, v, scale, True)
+
+
 def train_kernel_checks():
     """The training kernels at the batch-4 training shapes of blocks 0, 1
-    and 15 (each kernel against its plain version, computed in f32 from
-    the same bf16 inputs, differentiated by autograd; plain and library
-    times are of forward + backward)."""
+    and 15, the attention backward also at blocks 3, 4-13 and 14 (each
+    kernel against its plain version, computed in f32 from the same bf16
+    inputs, differentiated by autograd; plain and library times are of
+    forward + backward)."""
     import torch
     import torch.nn.functional as F
 
@@ -582,40 +680,20 @@ def train_kernel_checks():
     scale = d ** -0.5
     results = {}
 
-    # flash attention forward (with lse) and backward: block 0 (h 1, Lq
-    # 100352, Lk 1568), block 1 (h 2, Lq 25088, Lk 6272), block 15 (h 8,
-    # Lq = Lk = 1568), head-major token rows
+    # flash attention forward (with lse) and backward at ATTN_TRAIN_SHAPES,
+    # head-major token rows (the forward at blocks 0, 1 and 15)
     fwd, bwd = [], []
-    for blk, h, Lq, Lk in ((0, 1, 100352, 1568), (1, 2, 25088, 6272),
-                           (15, 8, 1568, 1568)):
+    for blk, h, Lq, Lk in ATTN_TRAIN_SHAPES:
         G = B * h
         q, k, v = (_normal(gen, (G, n, d), 1.0, bf) for n in (Lq, Lk, Lk))
-        shape = f"block {blk} q[{G},{Lq},{d}] k,v[{G},{Lk},{d}]"
+        shape = _attn_shape(blk, G, Lq, Lk)
         flops = 4 * G * Lq * Lk * d
         io = 2 * (2 * G * Lq * d + 2 * G * Lk * d)
-        r = _check_case(
-            "flash_attention",
-            lambda q=q, k=k, v=v: fa.flash_attention_fwd(q, k, v, scale,
-                                                         True),
-            lambda q=q, k=k, v=v: fa.flash_attention_lse_plain(
-                q.float(), k.float(), v.float(), scale),
-            lambda q=q, k=k, v=v: F.scaled_dot_product_attention(q, k, v),
-            flops=flops, nbytes=io + 4 * G * Lq, peak=PEAK_BF16, iters=3)
-        r["shape"] = shape + " (+ lse)"
-        fwd.append(r)
-        if blk == 0:  # the lse-free mode (inference with pool modes max/avg)
-            r = _check_case(
-                "flash_attention",
-                lambda q=q, k=k, v=v: fa.flash_attention_fwd(
-                    q, k, v, scale, False)[0],
-                lambda q=q, k=k, v=v: fa.flash_attention_plain(
-                    q.float(), k.float(), v.float(), scale),
-                lambda q=q, k=k, v=v: F.scaled_dot_product_attention(q, k,
-                                                                     v),
-                flops=flops, nbytes=io, peak=PEAK_BF16, iters=3)
-            r["shape"] = shape + " (no lse)"
-            fwd.append(r)
-        out, lse = fa.flash_attention_fwd(q, k, v, scale, True)
+        if blk not in ATTN_FWD_BLOCKS:
+            out, lse = fa.flash_attention_fwd(q, k, v, scale, True)
+        else:
+            out, lse = _train_fwd_checks(fa, F, fwd, q, k, v, shape, flops,
+                                         io, blk, scale)
         dout = _normal(gen, (G, Lq, d), 1.0, bf)
         r = _check_case(
             "flash_attention_bwd",
@@ -637,7 +715,6 @@ def train_kernel_checks():
         torch.cuda.empty_cache()
     results["flash_attention"] = fwd
     results["flash_attention_bwd"] = bwd
-
     # LayerNorm backward: block 0's q norm (per head over d 96, 401408
     # rows), block 1's k norm (50176 rows), block 15's q norm (50176 rows)
     # and the final norm [B*1568, 768]
@@ -700,7 +777,8 @@ def v1_kernel_checks():
     length is a tile multiple (Lk 393 is six 64-key tiles and 9 keys, Lq
     25089 leaves a one-row tail); the fused-LN attention's forward with
     the lse and its backward at the 448 batch-4 training shapes of blocks
-    0, 1 and 15 (d-major q, k, v, all three norms and the residual);
+    0, 1 and 15, the backward also at blocks 3, 4-13 and 14 (d-major q, k,
+    v, all three norms and the residual);
     LN+qkv forward and backward at the odd 25089 tokens of blocks 0 and 1;
     LN+MLP forward and backward at the v1's odd row counts.
     Plain versions in f32 from the same bf16 inputs; plain and library
@@ -765,19 +843,18 @@ def v1_kernel_checks():
     results["flash_attention_padded"] = fwd
     results["flash_attention_padded_bwd"] = bwd
 
-    # flash_attention_ln_lse / _bwd: 448 batch 4 (blocks 0, 1, 15)
+    # flash_attention_ln_lse / _bwd: 448 batch 4 at ATTN_TRAIN_SHAPES (the
+    # forward at blocks 0, 1 and 15)
     fwd, bwd = [], []
     flags = (True, True, True)
-    for blk, h, Lq, Lk in ((0, 1, 100352, 1568), (1, 2, 25088, 6272),
-                           (15, 8, 1568, 1568)):
+    for blk, h, Lq, Lk in ATTN_TRAIN_SHAPES:
         G = TRAIN_BATCH * h
         q, k, v = (_normal(gen, (G, d, n), 1.0, bf).transpose(1, 2)
                    for n in (Lq, Lk, Lk))
         lnp = [t for _ in range(3) for t in (
             _normal(gen, (d,), 0.1, bf) + 1, _normal(gen, (d,), 0.1, bf))]
         args = (q, k, v, *lnp, scale, 1e-5, flags, True)
-        shape = (f"448 block {blk} q[{G},{Lq},{d}] k,v[{G},{Lk},{d}] "
-                 "d-major")
+        shape = f"448 {_attn_shape(blk, G, Lq, Lk)} d-major"
         flops = 4 * G * Lq * Lk * d
         io = 2 * (2 * G * Lq * d + 2 * G * Lk * d + 6 * d)
 
@@ -799,15 +876,16 @@ def v1_kernel_checks():
                                        1e-5) for i, t in enumerate((q, k, v)))
             return F.scaled_dot_product_attention(qn, kn, vn) + qn
 
-        r = _check_case(
-            "flash_attention_ln_lse",
-            lambda args=args: fa.flash_attention_ln_lse(*args)[:2],
-            plain_lse, library, flops=flops,
-            # out, lse and the attention output before the residual
-            nbytes=io + 4 * G * Lq + 2 * G * Lq * d,
-            peak=PEAK_BF16, iters=3)
-        r["shape"] = shape
-        fwd.append(r)
+        if blk in ATTN_FWD_BLOCKS:
+            r = _check_case(
+                "flash_attention_ln_lse",
+                lambda args=args: fa.flash_attention_ln_lse(*args)[:2],
+                plain_lse, library, flops=flops,
+                # out, lse and the attention output before the residual
+                nbytes=io + 4 * G * Lq + 2 * G * Lq * d,
+                peak=PEAK_BF16, iters=3)
+            r["shape"] = shape
+            fwd.append(r)
         out, lse, oa = fa.flash_attention_ln_lse(*args)
         dout = _normal(gen, (G, Lq, d), 1.0, bf)
         r = _check_case(
@@ -1380,6 +1458,7 @@ def main() -> int:
           f"{torch.version.cuda}")
     build_kernels()
     hopper_sass_checks()
+    descriptor_checks()
     checks = kernel_checks()
     checks.update(train_kernel_checks())
     checks.update(v1_kernel_checks())

@@ -21,7 +21,8 @@ from aicity_action_tpu.ops.pallas import fused_dense as jfd
 from aicity_action_tpu.ops.pallas import layer_norm as jln
 from aicity_action_tpu_torch.config import (mvit_b_16x4_224_cfg,
                                             mvitv2_b_16x4_448_cfg)
-from aicity_action_tpu_torch.models.mvit import dense_call_shapes
+from aicity_action_tpu_torch.models.mvit import (attention_call_shapes,
+                                                dense_call_shapes)
 from aicity_action_tpu_torch.ops import flash_attention as tfa
 from aicity_action_tpu_torch.ops import fused_dense as tfd
 from aicity_action_tpu_torch.ops import kernels
@@ -493,17 +494,218 @@ def test_flash_attention_ln_backward_matches_pallas(variant, flags, add_qn,
         _close_grad(o, r)
 
 
-def test_kernel_splits_fill_the_card_in_whole_steps():
-    """Rows per split of the backward kernels: multiples of the step, at
-    least min_rows, and splits x tiles within 5% of the target block count
-    (rounding the rows up to whole steps loses a few splits)."""
-    for rows, tiles, step in ((401408, 3, 32), (6272, 192, 32),
-                              (100352, 100, 64), (100, 1, 64)):
-        rps = kernels.splits(rows, tiles, step)
-        n = -(-rows // rps)
-        assert rps % step == 0 and rps >= 256
-        assert (n == 1 or n * tiles >= 0.95 * kernels.SPLIT_TARGET_BLOCKS
-                or rps == 256)
+def _flash_bwd_staged(q, k, v, out, lse, dout, scale, qps, qs=None):
+    """The launches of the attention backward (``csrc/flash_attention.cu``
+    and ``csrc/flash_bwd.cuh``) written out in plain torch, with the
+    kernels' rounding points to ``q.dtype`` (none in f32): the pre-pass
+    (``qs = bf16(q * s)``, ``delta = rowsum(dout * out)`` in f32), dq from
+    dS as the pair hi + lo scaled by s in f32, dk / dv as f32 partials
+    over query splits of ``qps`` rows (P and dS rounded) summed in split
+    order. ``qs``: the scaled query rows where the caller made them (the
+    fused-LN dq kernel's), else the pre-pass's from ``q``. Returns ``(dq,
+    dk, dv)``."""
+    dt = q.dtype
+    s = tfa._rounded_scale(scale, dt)
+    qs = ((q.float() * s).to(dt) if qs is None else qs).float()
+    delta = (dout.float() * out.float()).sum(-1, keepdim=True)
+    kf, vf, dof = k.float(), v.float(), dout.float()
+    p = torch.exp(qs @ kf.transpose(1, 2) - lse.float()[..., None])
+    ds = p * (dof @ vf.transpose(1, 2) - delta)
+    hi = ds.to(dt).float()
+    lo = (ds - hi).to(dt).float()
+    dq = ((hi @ kf + lo @ kf) * s).to(dt)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for q0 in range(0, q.shape[1], qps):
+        rows = slice(q0, q0 + qps)
+        dv = dv + p[:, rows].to(dt).float().transpose(1, 2) @ dof[:, rows]
+        dk = dk + ds[:, rows].to(dt).float().transpose(1, 2) @ qs[:, rows]
+    return dq, dk.to(dt), dv.to(dt)
+
+
+@pytest.mark.parametrize("Lq,Lk", [(130, 70), (129, 65)])
+def test_flash_backward_staged_matches_pallas(Lq, Lk):
+    """The staged backward (``_flash_bwd_staged``, query splits of 64
+    rows) against the JAX custom VJP through its padded Pallas backward,
+    in f32, at lengths no tile divides (even and odd)."""
+    G, d = 2, 16
+    rng = np.random.default_rng(29)
+    q, k, v = (_arr(rng, (G, n, d), 1.5, 0.3) for n in (Lq, Lk, Lk))
+    dout = _arr(rng, (G, Lq, d))
+    scale = d ** -0.5
+    _, vjp = jax.vjp(
+        lambda a, b, c: jfa.flash_attention_padded(a, b, c, scale),
+        *(jnp.asarray(a) for a in (q, k, v)))
+    ref = vjp(jnp.asarray(dout))
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, dout))
+    out, lse = tfa.flash_attention_lse_plain(tq, tk, tv, scale)
+    for o, r in zip(_flash_bwd_staged(tq, tk, tv, out, lse, tdo, scale, 64),
+                    ref):
+        _close_grad(o, r)
+
+
+@pytest.mark.parametrize("Lq,Lk", [(130, 70), (129, 65)])
+def test_flash_backward_rounding_points_in_bf16(Lq, Lk):
+    """In bf16, the staged backward against autograd of the plain version
+    in f32 at the same bf16 inputs (its out and lse from the plain forward
+    in bf16, as the kernel's forward saves them), within 2% of each
+    gradient's largest magnitude: the tolerance chip_smoke.py holds the
+    kernels to on the card."""
+    G, d = 2, 96
+    rng = np.random.default_rng(30)
+    q, k, v = (torch.from_numpy(_arr(rng, (G, n, d))).bfloat16()
+               for n in (Lq, Lk, Lk))
+    dout = torch.from_numpy(_arr(rng, (G, Lq, d))).bfloat16()
+    scale = d ** -0.5
+    out, lse = tfa.flash_attention_lse_plain(q, k, v, scale)
+    staged = _flash_bwd_staged(q, k, v, out, lse, dout, scale, 64)
+    ts = [t.float().requires_grad_() for t in (q, k, v)]
+    ref = torch.autograd.grad(tfa.flash_attention_plain(*ts, scale), ts,
+                              dout.float())
+    for i, (o, r) in enumerate(zip(staged, ref)):
+        assert o.dtype == torch.bfloat16 and o.shape == r.shape
+        err = (o.float() - r).abs().max().item()
+        assert err <= 0.02 * r.abs().max().item(), (i, err)
+
+
+def _flash_ln_bwd_staged(q, k, v, lnp, dout, scale, eps, flags, add_qn,
+                         qps):
+    """The fused-LN backward (``csrc/flash_attention_ln_bwd.cu``) staged in
+    plain torch: LN(q), LN(k), LN(v) rows rounded to ``q.dtype`` (f32
+    statistics) where ``flags`` says; the dq kernel's query rows written
+    already scaled, ``bf16(bf16(LN q) * s)``, and handed to the shared core
+    (:func:`_flash_bwd_staged`); the residual's ``dout`` added to LN(q)'s
+    gradient under ``add_qn``; then each norm's VJP in f32. Returns the nine
+    gradients of :func:`tfa.flash_attention_ln`, zeros where a flag is
+    off, and the scaled query rows."""
+    dt = q.dtype
+    rows, vjps = [], []
+    for x, g, b, on in zip((q, k, v), lnp[0::2], lnp[1::2], flags):
+        if not on:
+            rows.append(x)
+            vjps.append(None)
+            continue
+        xs = [t.float().requires_grad_() for t in (x, g, b)]
+        y = tln.layer_norm_plain(*xs, eps)
+        rows.append(y.detach().to(dt))
+        vjps.append((y, xs))
+    qn, kn, vn = rows
+    qs = (qn.float() * tfa._rounded_scale(scale, dt)).to(dt)
+    o_attn, lse = tfa.flash_attention_lse_plain(qn, kn, vn, scale)
+    grads = list(_flash_bwd_staged(qn, kn, vn, o_attn, lse, dout, scale, qps,
+                                   qs))
+    if add_qn:
+        grads[0] = grads[0].float() + dout.float()
+    out, params = [], []
+    for gr, vjp in zip(grads, vjps):
+        if vjp is None:
+            out.append(gr)
+            params += [torch.zeros(q.shape[-1])] * 2
+            continue
+        y, xs = vjp
+        dx, dg, db = torch.autograd.grad(y, xs, gr.float())
+        out.append(dx.to(dt))
+        params += [dg, db]
+    return (*out, *params), qs
+
+
+def test_fused_ln_backward_scales_q_rows_once():
+    """The fused-LN backward's dq kernel writes the LN(q) rows already
+    scaled, and the shared dk/dv core no longer rescales them: staged so,
+    the nine gradients against the JAX custom VJP through its Pallas
+    backward in f32 (two query splits of 64 rows); in bf16, dk and dv from
+    the pre-scaled rows bit for bit what the core gives when it scales the
+    unscaled LN(q) rows itself."""
+    G, Lq, Lk, d = 2, 128, 64, 16
+    flags, add_qn, eps = (True, True, True), True, 1e-5
+    rng = np.random.default_rng(31)
+    q, k, v = (_arr(rng, (G, n, d), 1.5, 0.3) for n in (Lq, Lk, Lk))
+    lnp = [a for _ in range(3)
+           for a in (_arr(rng, (d,), 0.1, 1.0), _arr(rng, (d,), 0.1))]
+    dout = _arr(rng, (G, Lq, d))
+    scale = d ** -0.5
+    _, vjp = jax.vjp(
+        lambda *a: jfa.flash_attention_ln(*a, scale, eps, flags, add_qn),
+        *(jnp.asarray(a) for a in (q, k, v, *lnp)))
+    ref = vjp(jnp.asarray(dout))
+    staged, _ = _flash_ln_bwd_staged(
+        *(torch.from_numpy(a) for a in (q, k, v)),
+        [torch.from_numpy(a) for a in lnp], torch.from_numpy(dout), scale,
+        eps, flags, add_qn, 64)
+    for o, r in zip(staged, ref):
+        _close_grad(o, r)
+
+    tq, tk, tv, tdo = (torch.from_numpy(a).bfloat16()
+                       for a in (q, k, v, dout))
+    tlnp = [torch.from_numpy(a).bfloat16() for a in lnp]
+    _, qs = _flash_ln_bwd_staged(tq, tk, tv, tlnp, tdo, scale, eps, flags,
+                                 False, 64)
+    qn, kn, vn = (tln.layer_norm_plain(x.float(), g.float(), b.float(),
+                                       eps).bfloat16()
+                  for x, g, b in zip((tq, tk, tv), tlnp[0::2], tlnp[1::2]))
+    o_attn, lse = tfa.flash_attention_lse_plain(qn, kn, vn, scale)
+    pre = _flash_bwd_staged(qn, kn, vn, o_attn, lse, tdo, scale, 64, qs)
+    own = _flash_bwd_staged(qn, kn, vn, o_attn, lse, tdo, scale, 64)
+    assert qs.dtype == torch.bfloat16
+    for got, want in zip(pre[1:], own[1:]):
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+def _attn_bwd_cases(steps=(("v2_448", 4), ("v1_224", 8))):
+    """Every distinct attention of the given train steps (the MViT-v2 448
+    at batch 4 and the cls-token MViT-v1 224 at batch 8 by default):
+    ``(G, Lq, Lk, d)``."""
+    cfgs = {"v2_448": mvitv2_b_16x4_448_cfg, "v1_224": mvit_b_16x4_224_cfg}
+    cases = {}
+    for name, batch in steps:
+        for call in attention_call_shapes(cfgs[name](), batch):
+            cases.setdefault(call, f"{name}-b{batch}")
+    return [pytest.param(call, id=f"{name}-" + "-".join(map(str, call)))
+            for call, name in cases.items()]
+
+
+@pytest.mark.parametrize("call", _attn_bwd_cases())
+def test_attention_backward_plans_fit_the_card(call):
+    """The attention backward's plan at every shape the train steps give
+    it: query splits of whole 64-row tiles that cover Lq with no empty
+    split, the padded (lse, delta) rows covering them, a dq grid that gives
+    every one of the 132 SMs blocks, and each kernel's shared memory
+    within a block's 232,448 bytes and low enough for two blocks an SM."""
+    G, Lq, Lk, d = call
+    p = tfa._attn_bwd_plan(G, Lq, Lk, d, H100_SMS)
+    tile = tfa.BWD_TILE
+    assert p["qps"] % tile == 0 and p["lqp"] % tile == 0
+    assert p["lqp"] - tile < Lq <= p["lqp"]
+    assert (p["nsplit"] - 1) * p["qps"] < Lq <= p["nsplit"] * p["qps"]
+    assert G * p["lqp"] // tile >= H100_SMS
+    for smem in tfa._bwd_smem().values():
+        assert smem <= kernels.MAX_SMEM_BYTES
+        assert tfa.BWD_BLOCKS_PER_SM * (smem + 1024) <= tfa.SM_SMEM_BYTES
+
+
+@pytest.mark.parametrize("call", _attn_bwd_cases(
+    (("v2_448", 4), ("v1_224", 8), ("v2_448", 1), ("v1_224", 1))))
+def test_kernel_splits_fill_the_card_in_whole_steps(call):
+    """The dk/dv kernel's query splits at every attention of the v2 and v1
+    train steps, batch 1 too: each split a whole number of 64-row tiles,
+    and enough splits that the grid (key tiles x G x splits) takes every
+    block slot of the card (two an SM), wherever Lq has the tiles for it
+    (at most _MAX_SPLITS splits of whole tiles)."""
+    G, Lq, Lk, d = call
+    p = tfa._attn_bwd_plan(G, Lq, Lk, d, H100_SMS)
+    tile = tfa.BWD_TILE
+    ntq, nkt = -(-Lq // tile), -(-Lk // tile)
+    assert p["qps"] % tile == 0 and p["nsplit"] == -(-Lq // p["qps"])
+    most = max(-(-ntq // -(-ntq // n))
+               for n in range(1, min(ntq, tfa._MAX_SPLITS) + 1))
+    slots = tfa.BWD_BLOCKS_PER_SM * H100_SMS
+    assert G * nkt * p["nsplit"] >= min(slots, G * nkt * most)
+
+
+def test_attention_backward_plan_refuses_what_no_kernel_takes():
+    for args in ((4, 1568, 1568, 64), (4, 1568, 1568, 128),
+                 (70000, 64, 64, 96), (4, 0, 64, 96)):
+        with pytest.raises(ValueError):
+            tfa._attn_bwd_plan(*args, H100_SMS)
 
 
 # ------------------------------------------------ plans of the dense kernels

@@ -1,8 +1,8 @@
 // Shared device helpers for the hand-written kernels of
-// aicity_action_tpu_torch: warp reductions, bf16 mma.sync tiles
-// (m16n8k16, f32 accumulate) and their fragment loads from shared memory
-// (the attention forwards), cooperative 16-byte tile copies, the partial
-// sums of the backwards and the shared-memory opt-in.
+// aicity_action_tpu_torch: warp reductions, a bf16 A-fragment load from
+// shared memory, cooperative 16-byte tile copies (the fused-LN backward's
+// dq kernel), the partial sums of the backwards and the shared-memory
+// opt-in.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -19,16 +19,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// d[0..3] += A(16x16, row) * B(16x8, col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_16816(float* d, const uint32_t* a,
-                                          const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // A fragment of the 16x16 tile at (row0, k0) of a row-major smem matrix.
 __device__ __forceinline__ void load_a_frag(uint32_t* a, const bf16* s, int ld,
                                             int row0, int k0, int lane) {
@@ -38,38 +28,6 @@ __device__ __forceinline__ void load_a_frag(uint32_t* a, const bf16* s, int ld,
   a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * ld);
   a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
   a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * ld + 8);
-}
-
-// B fragments of two adjacent 16x8 tiles, (k0, n0) and (k0, n0 + 8), of a
-// matrix kept in smem as [n][k] (k contiguous), through one ldmatrix.x4:
-// b[0..1] is the first tile's fragment, b[2..3] the second's. Rows must be
-// 16-byte aligned.
-__device__ __forceinline__ void load_b_frag_x2(uint32_t* b, const bf16* s,
-                                               int ld, int n0, int k0,
-                                               int lane) {
-  const bf16* p = s + (n0 + (lane & 7) + ((lane >> 4) << 3)) * ld + k0 +
-                  ((lane >> 3) & 1) * 8;
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-      : "r"(addr));
-}
-
-// B fragments of two adjacent 16x8 tiles, (k0, n0) and (k0, n0 + 8), of a
-// matrix kept in smem row-major as [k][n] (n contiguous), through
-// ldmatrix.trans: b[0..1] is the first tile's fragment, b[2..3] the
-// second's. Rows must be 16-byte aligned.
-__device__ __forceinline__ void load_b_frag_trans_x2(uint32_t* b,
-                                                     const bf16* s, int ld,
-                                                     int k0, int n0,
-                                                     int lane) {
-  const bf16* p = s + (k0 + (lane & 15)) * ld + n0 + (lane >> 4) * 8;
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-      : "r"(addr));
 }
 
 // 16-byte asynchronous copy global -> shared; with pred false the 16 bytes

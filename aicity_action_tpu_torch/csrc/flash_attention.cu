@@ -20,11 +20,13 @@
 // bytes: bound by the tensor cores and by the CUDA-core exponentials of
 // the softmax.
 //
-// Forward (FlashAttention-2 on mma.sync m16n8k16 bf16 tiles, f32 sums): 4
-// warps own 32 query rows each of a 128-row q tile; 64-key K/V tiles stream
-// through shared memory (cp.async, double buffered) under the running max /
-// sum of online softmax. The Pallas kernel keeps a group's whole K/V in
-// VMEM; 227 KB of shared memory cannot, hence the streaming.
+// Forward (flash_fwd.cuh's core, on wgmma with TMA): a block owns 128 query
+// rows, two consumer warpgroups of 64; a producer warp streams the group's
+// 64-key K/V tiles through a TMA ring that both consumers share, under the
+// running max / sum of online softmax. The Pallas kernel keeps a group's
+// whole K/V in VMEM; 227 KB of shared memory cannot, hence the streaming.
+// Each consumer reads its query rows straight into A fragments, scaled
+// and rounded once, bf16(q * s).
 //
 // Backward (wgmma with TMA, flash_bwd.cuh), no sequential grid: the Pallas
 // kernels add dk / dv into blocks that stay resident over a sequential q
@@ -55,201 +57,45 @@
 #include <math.h>
 
 #include "common.cuh"
-#include "flash_bwd.cuh"
+#include "flash_fwd.cuh"
 #include "ln_bwd.cuh"
 
 namespace aicity {
 
-constexpr int FW_TQ = 128, FW_TK = 64, FW_THREADS = 128;
-
-template <int D>
-__global__ void __launch_bounds__(FW_THREADS, 2)
-    flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o,
+// The forward of 128 query rows of group blockIdx.y (flash_fwd.cuh): the
+// producer warp loads K and V through kmap / vmap ([G][Lk][96] token
+// rows); each consumer reads its 64 rows of q ([G][Lq][96], rows past Lq as
+// zeros) into A fragments of bf16(q * s), runs the K/V loop and stores out
+// (and lse when given). LAST: the last key tile's product width
+// (fwd_last_width).
+template <int LAST>
+__global__ void __launch_bounds__(FW_THREADS, 1)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     const bf16* __restrict__ q, bf16* __restrict__ o,
                      float* __restrict__ lse, int Lq, int Lk, float scale) {
-  constexpr int LD = D + 8;
-  constexpr int KS = D / 16;
-  constexpr int ND = D / 8;
-  constexpr int TILE = FW_TK * LD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [TQ][LD]
-  bf16* ks = qs + FW_TQ * LD;                    // 2 stages of [TK][LD]
-  bf16* vs = ks + 2 * TILE;
-
-  const int grp = blockIdx.y;
-  const int q0 = blockIdx.x * FW_TQ;
-  const bf16* qg = q + (size_t)grp * Lq * D;
-  const bf16* kg = k + (size_t)grp * Lk * D;
-  const bf16* vg = v + (size_t)grp * Lk * D;
-  bf16* og = o + (size_t)grp * Lq * D;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wr = warp * 32;
-  const int ntiles = (Lk + FW_TK - 1) / FW_TK;
-
-  load_tile_async(qs, LD, qg, D, q0, Lq, 0, FW_TQ, D);
-  load_tile_async(ks, LD, kg, D, 0, Lk, 0, FW_TK, D);
-  load_tile_async(vs, LD, vg, D, 0, Lk, 0, FW_TK, D);
-  cp_async_commit();
-  cp_async_wait<0>();
+  extern __shared__ unsigned char fw_smem_raw[];
+  unsigned char* base = align1024(fw_smem_raw);
+  const int grp = blockIdx.y, q0 = blockIdx.x * FW_ROWS;
+  const FwdRing ring(base, &kmap, &vmap, grp, Lk);
+  if (threadIdx.x == 0) ring.init();
   __syncthreads();
-
-  uint32_t qa[2][KS][4];  // bf16(q * scale), as the Pallas kernel rounds it
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      load_a_frag(qa[mi][kk], qs, LD, wr + mi * 16, kk * 16, lane);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        __nv_bfloat162 p = *reinterpret_cast<__nv_bfloat162*>(&qa[mi][kk][e]);
-        qa[mi][kk][e] = pack_bf16(__bfloat162float(p.x) * scale,
-                                  __bfloat162float(p.y) * scale);
-      }
-    }
-
-  float acc[2][ND][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][nd][e] = 0.f;
-  float m[2][2] = {{-INFINITY, -INFINITY}, {-INFINITY, -INFINITY}};
-  float l[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-
-  for (int j = 0; j < ntiles; ++j) {
-    if (j + 1 < ntiles) {
-      const int nb = (j + 1) & 1;
-      const int j1 = (j + 1) * FW_TK;
-      load_tile_async(ks + nb * TILE, LD, kg, D, j1, Lk, 0, FW_TK, D);
-      load_tile_async(vs + nb * TILE, LD, vg, D, j1, Lk, 0, FW_TK, D);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* kt = ks + (j & 1) * TILE;
-    const bf16* vt = vs + (j & 1) * TILE;
-
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int kb = half * 32;
-      float s[2][4][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[mi][nt][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          uint32_t b[4];
-          load_b_frag_x2(b, kt, LD, kb + np * 16, kk * 16, lane);
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            mma_16816(s[mi][2 * np], qa[mi][kk], b);
-            mma_16816(s[mi][2 * np + 1], qa[mi][kk], b + 2);
-          }
-        }
-
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int key = j * FW_TK + kb + nt * 8 + 2 * t;
-          if (key >= Lk) { s[mi][nt][0] = -INFINITY; s[mi][nt][2] = -INFINITY; }
-          if (key + 1 >= Lk) {
-            s[mi][nt][1] = -INFINITY;
-            s[mi][nt][3] = -INFINITY;
-          }
-          mx0 = fmaxf(mx0, fmaxf(s[mi][nt][0], s[mi][nt][1]));
-          mx1 = fmaxf(mx1, fmaxf(s[mi][nt][2], s[mi][nt][3]));
-        }
-#pragma unroll
-        for (int off = 1; off <= 2; off <<= 1) {
-          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-        }
-        // a fully masked half keeps the old max (never the first half)
-        const float mn0 = fmaxf(m[mi][0], mx0), mn1 = fmaxf(m[mi][1], mx1);
-        const float al0 = __expf(m[mi][0] - mn0), al1 = __expf(m[mi][1] - mn1);
-        m[mi][0] = mn0;
-        m[mi][1] = mn1;
-        float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          s[mi][nt][0] = __expf(s[mi][nt][0] - mn0);
-          s[mi][nt][1] = __expf(s[mi][nt][1] - mn0);
-          s[mi][nt][2] = __expf(s[mi][nt][2] - mn1);
-          s[mi][nt][3] = __expf(s[mi][nt][3] - mn1);
-          rs0 += s[mi][nt][0] + s[mi][nt][1];
-          rs1 += s[mi][nt][2] + s[mi][nt][3];
-        }
-        l[mi][0] = l[mi][0] * al0 + rs0;
-        l[mi][1] = l[mi][1] * al1 + rs1;
-#pragma unroll
-        for (int nd = 0; nd < ND; ++nd) {
-          acc[mi][nd][0] *= al0;
-          acc[mi][nd][1] *= al0;
-          acc[mi][nd][2] *= al1;
-          acc[mi][nd][3] *= al1;
-        }
-      }
-
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        uint32_t a[2][4];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          a[mi][0] = pack_bf16(s[mi][2 * kk][0], s[mi][2 * kk][1]);
-          a[mi][1] = pack_bf16(s[mi][2 * kk][2], s[mi][2 * kk][3]);
-          a[mi][2] = pack_bf16(s[mi][2 * kk + 1][0], s[mi][2 * kk + 1][1]);
-          a[mi][3] = pack_bf16(s[mi][2 * kk + 1][2], s[mi][2 * kk + 1][3]);
-        }
-#pragma unroll
-        for (int nd = 0; nd < ND; nd += 2) {
-          uint32_t b[4];
-          load_b_frag_trans_x2(b, vt, LD, kb + kk * 16, nd * 8, lane);
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            mma_16816(acc[mi][nd], a[mi], b);
-            mma_16816(acc[mi][nd + 1], a[mi], b + 2);
-          }
-        }
-      }
-    }
-    __syncthreads();
+  if (threadIdx.x >= 256) {  // the producer warp
+    if (threadIdx.x == 256) ring.produce();
+    return;
   }
-
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-    float l0 = l[mi][0], l1 = l[mi][1];
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-    }
-    const int r0 = q0 + wr + mi * 16 + g, r1 = r0 + 8;
-    if (lse != nullptr && t == 0) {
-      if (r0 < Lq) lse[(size_t)grp * Lq + r0] = m[mi][0] + logf(l0);
-      if (r1 < Lq) lse[(size_t)grp * Lq + r1] = m[mi][1] + logf(l1);
-    }
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      const int col = nd * 8 + 2 * t;
-      if (r0 < Lq)
-        *reinterpret_cast<uint32_t*>(og + (size_t)r0 * D + col) =
-            pack_bf16(acc[mi][nd][0] / l0, acc[mi][nd][1] / l0);
-      if (r1 < Lq)
-        *reinterpret_cast<uint32_t*>(og + (size_t)r1 * D + col) =
-            pack_bf16(acc[mi][nd][2] / l1, acc[mi][nd][3] / l1);
-    }
-  }
+  const int cw = threadIdx.x >> 7, lane = threadIdx.x & 31;
+  const int row0 = q0 + 64 * cw;  // this consumer's first row
+  const int r0 = row0 + 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+  uint32_t qa[6][4];
+  rows_to_a(q + (size_t)grp * Lq * BW_D, r0, Lq, lane & 3, qa);
+  scale_a(qa, scale);
+  float acc[48], m[2], l[2];
+  fwd_tile_loop<LAST>(qa, ring, Lk, acc, m, l);
+  bf16* st = ring.staging(cw);
+  const FwdOut out{o + (size_t)grp * Lq * BW_D, nullptr,
+                   lse == nullptr ? nullptr : lse + (size_t)grp * Lq, false};
+  fwd_epilogue(acc, m, l, st, row0, Lq, cw, out);
 }
 
 // The backward's pre-pass: qs = bf16(q * s) token rows (the logits' and
@@ -419,15 +265,21 @@ extern "C" int aicity_flash_attention(const void* q, const void* k,
                                       int G, int Lq, int Lk, int d,
                                       float scale, void* stream) {
   using namespace aicity;
-  if (d != 96) return (int)cudaErrorInvalidValue;
+  if (d != BW_D) return (int)cudaErrorInvalidValue;
   if (G <= 0 || Lq <= 0 || Lk <= 0) return (int)cudaSuccess;
-  const size_t smem = (size_t)(FW_TQ + 4 * FW_TK) * (96 + 8) * sizeof(bf16);
-  cudaError_t err = set_smem(flash_fwd_kernel<96>, smem);
+  const int last = fwd_last_width(Lk);
+  auto kernel = last == 16   ? flash_fwd_kernel<16>
+                : last == 32 ? flash_fwd_kernel<32>
+                             : flash_fwd_kernel<BW_T>;
+  cudaError_t err = set_smem(kernel, fwd_smem_bytes());
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Lq + FW_TQ - 1) / FW_TQ, G);
-  flash_fwd_kernel<96><<<grid, FW_THREADS, smem, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse,
-      Lq, Lk, scale);
+  CUtensorMap mk, mv;
+  if (make_tmap3_sw64(&mk, k, G, Lk, BW_D, BW_T) ||
+      make_tmap3_sw64(&mv, v, G, Lk, BW_D, BW_T))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((Lq + FW_ROWS - 1) / FW_ROWS, G);
+  kernel<<<grid, FW_THREADS, fwd_smem_bytes(), (cudaStream_t)stream>>>(
+      mk, mv, (const bf16*)q, (bf16*)o, (float*)lse, Lq, Lk, scale);
   return (int)cudaGetLastError();
 }
 

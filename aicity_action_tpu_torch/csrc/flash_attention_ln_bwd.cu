@@ -118,8 +118,8 @@ __global__ void __launch_bounds__(BW_THREADS, 2)
   cp_async_commit();
   load_tile_cols(qt, LDT, qg, Lq, q0, Lq, D, BW_T);
   __syncthreads();
-  norm_cols_to_rows<D>(qt, LDT, qs, LD, BW_T, gq, bq, eps, fq, s_mean,
-                       s_rstd);
+  norm_cols_to_rows<D>(qt, LDT, qs, LD, BW_T, gq, bq, eps, fq, threadIdx.x,
+                       blockDim.x, s_mean, s_rstd);
   cp_async_wait<0>();
   __syncthreads();
 

@@ -9,44 +9,57 @@
 namespace aicity {
 
 // Columns of a d-major smem tile (src[c][tok], D rows) become LayerNormed
-// rows of dst[tok][c] (f32 statistics; a plain transpose when !apply), one
-// thread per token, the column held in registers. With s_mean given, each
-// token's mean and rstd are kept there too.
-template <int D>
+// rows of dst[tok][c] (f32 statistics; a plain transpose when !apply),
+// LANES threads a token, each holding D / LANES channels of its column in
+// registers: the forward's query tiles (flash_attention_ln.cu) and the
+// backward's recompute of them (flash_attention_ln_bwd.cu) sum alike, so
+// both get the same LN(q). Thread tid of nthreads (both multiples of 32,
+// like ntok * LANES: the lanes of a token meet by shuffle). With s_mean
+// given, each token's mean and rstd are kept there too.
+template <int D, int LANES = 2>
 __device__ __forceinline__ void norm_cols_to_rows(
     const bf16* src, int lds, bf16* dst, int ldd, int ntok,
-    const bf16* gamma, const bf16* beta, float eps, int apply,
-    float* s_mean = nullptr, float* s_rstd = nullptr) {
-  for (int tok = threadIdx.x; tok < ntok; tok += blockDim.x) {
-    float x[D];
+    const bf16* gamma, const bf16* beta, float eps, int apply, int tid,
+    int nthreads, float* s_mean = nullptr, float* s_rstd = nullptr) {
+  constexpr int DL = D / LANES;
+  static_assert(D % LANES == 0 && DL % 2 == 0 && 32 % LANES == 0,
+                "a token's channels split evenly over its lanes");
+  for (int i = tid; i < ntok * LANES; i += nthreads) {
+    const int tok = i / LANES, c0 = DL * (i % LANES);
+    float x[DL];
     float sum = 0.f;
 #pragma unroll
-    for (int c = 0; c < D; ++c) {
-      x[c] = __bfloat162float(src[c * lds + tok]);
+    for (int c = 0; c < DL; ++c) {
+      x[c] = __bfloat162float(src[(c0 + c) * lds + tok]);
       sum += x[c];
     }
+#pragma unroll
+    for (int o = 1; o < LANES; o <<= 1) sum += __shfl_xor_sync(~0u, sum, o);
     float mean = 0.f, rstd = 1.f;
     if (apply) {
       mean = sum / D;
       float q = 0.f;
 #pragma unroll
-      for (int c = 0; c < D; ++c) q += (x[c] - mean) * (x[c] - mean);
+      for (int c = 0; c < DL; ++c) q += (x[c] - mean) * (x[c] - mean);
+#pragma unroll
+      for (int o = 1; o < LANES; o <<= 1) q += __shfl_xor_sync(~0u, q, o);
       rstd = rsqrtf(q / D + eps);
     }
-    if (s_mean != nullptr) {
+    if (s_mean != nullptr && c0 == 0) {
       s_mean[tok] = mean;
       s_rstd[tok] = rstd;
     }
 #pragma unroll
-    for (int c = 0; c < D; c += 2) {
+    for (int c = 0; c < DL; c += 2) {
       float y0 = x[c], y1 = x[c + 1];
       if (apply) {
-        y0 = (y0 - mean) * rstd * __bfloat162float(gamma[c]) +
-             __bfloat162float(beta[c]);
-        y1 = (y1 - mean) * rstd * __bfloat162float(gamma[c + 1]) +
-             __bfloat162float(beta[c + 1]);
+        y0 = (y0 - mean) * rstd * __bfloat162float(gamma[c0 + c]) +
+             __bfloat162float(beta[c0 + c]);
+        y1 = (y1 - mean) * rstd * __bfloat162float(gamma[c0 + c + 1]) +
+             __bfloat162float(beta[c0 + c + 1]);
       }
-      *reinterpret_cast<uint32_t*>(dst + tok * ldd + c) = pack_bf16(y0, y1);
+      *reinterpret_cast<uint32_t*>(dst + tok * ldd + c0 + c) =
+          pack_bf16(y0, y1);
     }
   }
 }

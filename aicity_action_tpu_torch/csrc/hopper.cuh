@@ -116,6 +116,30 @@ inline int make_tmap3_sw64(CUtensorMap* map, const void* base,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// Descriptor of a bf16 tensor [groups][rows][cols] (cols * 2 a multiple of
+// 16 bytes) read in unswizzled boxes of all its rows by box_cols columns of
+// one group (a dense [rows][box_cols] box in shared memory); columns past
+// `cols` load as zero. Returns a cudaError_t.
+inline int make_tmap3_cols(CUtensorMap* map, const void* base,
+                           uint64_t groups, uint64_t rows, uint64_t cols,
+                           uint32_t box_cols) {
+  EncodeTiledFn enc = encode_tiled_fn();
+  if (!enc || (uintptr_t)base % 16 || (cols * 2) % 16 || rows == 0 ||
+      rows > 256 || groups == 0 || box_cols == 0 || box_cols > 256 ||
+      (box_cols * 2) % 16)
+    return (int)cudaErrorInvalidValue;
+  const cuuint64_t dims[3] = {cols, rows, groups};
+  const cuuint64_t strides[2] = {cols * 2, rows * cols * 2};
+  const cuuint32_t box[3] = {box_cols, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = enc(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 // make_tmap for a weight: a descriptor is a pure function of (pointer,
 // dims, stride, box), so one cached under that key cannot go stale. The
 // table keeps the last 64 (round robin); activations are encoded per call.
@@ -550,11 +574,49 @@ __device__ __forceinline__ float gelu_erf(float v) {
 template <int N>
 struct WgmmaRS;
 
-// m64n64k16, for the attention backward's logits (flash_bwd.cuh).
+// m64n16k16 and m64n32k16, for the logits of the attention forward's last
+// key tile where it holds at most 16 or 32 keys (flash_fwd.cuh): the first
+// 8 or 16 registers of WgmmaRS<64>'s layout. With accumulate 0, d = A * B.
+template <>
+struct WgmmaRS<16> {
+  __device__ __forceinline__ static void mma(float* d, const uint32_t* a,
+                                             uint64_t b, int accumulate = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaRS<32> {
+  __device__ __forceinline__ static void mma(float* d, const uint32_t* a,
+                                             uint64_t b, int accumulate = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(accumulate));
+  }
+};
+
+// m64n64k16, for the attention's logits (flash_bwd.cuh, flash_fwd.cuh).
+// With accumulate 0, d = A * B: the old d is not read.
 template <>
 struct WgmmaRS<64> {
   __device__ __forceinline__ static void mma(float* d, const uint32_t* a,
-                                             uint64_t b) {
+                                             uint64_t b, int accumulate = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -569,7 +631,8 @@ struct WgmmaRS<64> {
           "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(accumulate));
   }
 };
 

@@ -28,8 +28,9 @@ bytes, so the tensor cores (and the softmax's exponentials) bound it. The
 Pallas kernel keeps a group's whole K/V in VMEM and normalizes it once per
 group; GPU blocks share nothing, so ``csrc/flash_attention_ln.cu``
 normalizes K and V once, into token-row scratch the wrapper allocates,
-then streams 64-key tiles of them through shared memory (cp.async,
-double-buffered) with the running max / sum of online softmax. It reads q,
+then runs the forward core of ``csrc/flash_fwd.cuh`` on them (128 query
+rows a block, 64-key tiles through a TMA ring, ``wgmma``, online
+softmax), as the plain forward does. It reads q,
 k, v in the d-major layout the pool convolutions leave, so no transpose
 goes through device memory; its backward (``csrc/flash_attention_ln_bwd.
 cu``) writes dq, dk, dv back in that layout.

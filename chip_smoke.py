@@ -8,30 +8,36 @@ NVIDIA card.
    (sm_90a, one process per source) and prints the card's name and power
    limit; prints the HGMMA (wgmma) and UTMALDG (TMA load) instruction
    counts in the SASS of the LN+qkv and LN+MLP forward kernels, of the
-   LN+qkv and LN+MLP backwards' GEMM kernels and of the attention
-   backward's dk/dv and dq kernels, with their registers and spills, and
-   fails if either count is 0, if a dense backward's GEMM kernel spills or
-   has other than 168 registers, or if an attention backward kernel spills
-   or has more than 255; then holds the 64-byte-swizzle wgmma descriptors
-   that the attention backward builds on against torch on one tile.
+   LN+qkv and LN+MLP backwards' GEMM kernels, of both attention forwards
+   and of the attention backward's dk/dv and dq kernels, with their
+   registers and spills, and fails if either count is 0, if a dense
+   backward's GEMM kernel spills or has other than 168 registers, if an
+   attention forward spills or has more than 168, or if an attention
+   backward kernel spills or has more than 255; then holds the
+   64-byte-swizzle wgmma descriptors that the attention kernels build on
+   against torch on one tile.
 2. Holds each inference kernel against its plain PyTorch version at
    main-path shapes of MViT-v2-B 16x4 @ 448 (batch 8, bf16: LN+qkv at
    every distinct shape of the forward, LN+MLP at every width, both also at
-   batch 1) and times the kernel, the plain version and a PyTorch library
-   yardstick with CUDA events: kernel and library call as the medians of
-   YARDSTICK_N calls taken in turns, printed with their interquartile
-   ranges.
+   batch 1, the fused-LN attention at blocks 0, 1, 4-13 and 15) and times
+   the kernel, the plain version and a PyTorch library yardstick with CUDA
+   events: kernel and library call as the medians of YARDSTICK_N calls
+   taken in turns, printed with their interquartile ranges; each attention
+   forward's comment line also with its exponential floor (PEAK_EX2), the
+   K/V bytes its blocks would read from L2 at one read of their group's K
+   and V a block (a model, not a reading) and its waves of blocks.
 3. Does the same for the training kernels (the flash attention forward
    with its logsumexp, and the backward kernels of attention, LayerNorm,
    LN+qkv and LN+MLP) at the batch-4 training shapes of blocks 0, 1 and 15
-   (the LN+qkv backward also at blocks 4-13, its ten calls a step; the
-   attention backward also at blocks 3, 4-13 and 14).
+   (the attention forward and the LN+qkv backward also at blocks 4-13,
+   their ten calls a step; the attention backward also at blocks 3, 4-13
+   and 14).
 4. Does the same for the kernels of the cls-token MViT-v1 and the fused-LN
    training path: the padded attention (forward and backward) at the
    ragged lengths of MViT-B 16x4 @ 224, batch 8, blocks 0, 1 and 15; the
    fused-LN attention's forward with its logsumexp and its backward at the
-   448 batch-4 shapes of blocks 0, 1 and 15 (the backward also at blocks
-   3, 4-13 and 14); LN+qkv forward and backward at
+   448 batch-4 shapes of blocks 0, 1, 4-13 and 15 (the backward also at
+   blocks 3 and 14); LN+qkv forward and backward at
    the odd 25089 tokens of the v1's blocks 0 and 1 (the forward also at
    block 3; the backward also at the 1569 tokens of blocks 4-13, batch 8
    and batch 1), LN+MLP at the v1's odd row counts of blocks 1, 4 and 15, and
@@ -84,6 +90,14 @@ TRAIN_WARMUP, TRAIN_STEPS = 2, 5
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
+# exponentials a second: the SFU's ex2 at 16 a clock an SM, 132 SMs, at
+# the 1.83 GHz of the bf16 peak; G*Lq*Lk of them over this rate is an
+# attention forward's exponential floor, printed on its comment line beside
+# bound_ms, which stays the larger of the bytes' and the products' times
+PEAK_EX2 = 16 * 132 * 1.83e9
+# query rows a block of the attention forward (csrc/flash_fwd.cuh:FW_ROWS),
+# for the waves of blocks on the comment lines
+FWD_ROWS = 128
 # kernel vs plain version in bf16: outputs are rounded to bf16 (relative
 # step 2^-8) and the two may round their bf16 intermediates (LN'd operands,
 # softmax weights, the MLP hidden) one ulp apart, so allow 2% of the
@@ -176,16 +190,20 @@ def build_kernels():
 # Hopper's warpgroup products (HGMMA) and TMA loads (UTMALDG): the LN+qkv
 # and LN+MLP forwards, every GEMM launch of the LN+qkv and LN+MLP
 # backwards (their pre-passes and the LN backward over rows are plain
-# loads), and the attention backward's dk/dv kernel and both dq kernels;
-# the dense backwards' GEMM kernels must also have the 168 registers
-# setmaxnreg assumes and no spills, the attention backward's kernels no
-# spills and at most the 255 registers that let two blocks share an SM
+# loads), both attention forwards, and the attention backward's dk/dv
+# kernel and both dq kernels; the dense backwards' GEMM kernels must also
+# have the 168 registers setmaxnreg assumes and no spills, the attention
+# forwards no spills and at most the 168 registers that three warps on an
+# SM sub-partition allow, the attention backward's kernels no spills and
+# at most the 255 registers that let two blocks share an SM
 HOPPER_KERNELS = {"fused_ln_qkv": ("ln_qkv_kernel",),
                   "fused_ln_mlp": ("ln_mlp_kernel",),
                   "fused_ln_qkv_bwd": ("qkv_bwd_gemm_kernel",
                                        "qkv_bwd_dw_kernel"),
                   "fused_ln_mlp_bwd": ("mlp_bwd_dual_kernel",
                                        "mlp_bwd_gemm_kernel"),
+                  "flash_attention": ("flash_fwd_kernel",),
+                  "flash_attention_ln": ("flash_ln_kernel",),
                   "flash_attention_bwd": ("flash_bwd_dkv_kernel",
                                           "flash_bwd_dq_kernel"),
                   "flash_attention_ln_bwd": ("flash_ln_bwd_dq_kernel",)}
@@ -194,6 +212,8 @@ HOPPER_REGISTERS = 168
 # most)
 NO_SPILL_KERNELS = {"fused_ln_qkv_bwd": (HOPPER_REGISTERS, True),
                     "fused_ln_mlp_bwd": (HOPPER_REGISTERS, True),
+                    "flash_attention": (HOPPER_REGISTERS, False),
+                    "flash_attention_ln": (HOPPER_REGISTERS, False),
                     "flash_attention_bwd": (255, False),
                     "flash_attention_ln_bwd": (255, False)}
 
@@ -202,10 +222,11 @@ def hopper_sass_checks() -> dict:
     """Counts the HGMMA and UTMALDG instructions in the SASS of every
     instantiation of the kernels of HOPPER_KERNELS (``cuobjdump -sass`` on
     the built library) and reads their registers and spills from the build
-    log; fails if any of them lacks either instruction, or if a kernel of
-    NO_SPILL_KERNELS spills or breaks its register budget: exactly
-    HOPPER_REGISTERS (168) for the dense backwards' GEMM kernels, whose
-    setmaxnreg assumes it, at most 255 for the attention backward's."""
+    log; fails if any of them lacks either instruction, if ptxas serialized
+    its wgmma (C7511), or if a kernel of NO_SPILL_KERNELS spills or breaks
+    its register budget: exactly HOPPER_REGISTERS (168) for the dense
+    backwards' GEMM kernels, whose setmaxnreg assumes it, at most 168 for
+    the attention forwards and 255 for the attention backward's."""
     from aicity_action_tpu_torch.ops import kernels
 
     so = kernels.build()
@@ -229,6 +250,12 @@ def hopper_sass_checks() -> dict:
             entry = line.split("'")[1]
         elif entry in counts and ("spill" in line or "registers" in line):
             usage.setdefault(entry, []).append(line.strip())
+    # ptxas's C7511: it serialized a kernel's wgmma (too few registers for
+    # the pipeline), which loses the overlap of its products
+    for line in log.splitlines():
+        if ("wgmma.mma_async instructions are serialized" in line
+                and any(f in line for f in counts)):
+            _fail(f"ptxas serialized a Hopper kernel's wgmma: {line.strip()}")
     for name, keys in HOPPER_KERNELS.items():
         fns = [f for f in counts if any(k in f for k in keys)]
         missing = [k for k in keys if not any(k in f for f in fns)]
@@ -296,25 +323,20 @@ def _normal(gen, shape, std=1.0, dtype=None, device="cuda"):
     return t.to(dtype) if dtype is not None else t
 
 
-def _check_case(name, kernel_fn, plain_fn, library_fn, flops, nbytes,
-                peak, iters, zero_grads=None):
-    """Compare one kernel call with its plain version, time all three: the
-    kernel and its library call as medians of YARDSTICK_N calls taken in
-    turns (``iters`` sets only the plain version's repeats, ``iters //
-    5``).
+def check_outputs(name, outs, refs, zero_grads=None):
+    """Each of a kernel's outputs within KERNEL_RTOL of its plain version's
+    largest magnitude, finite and of its shape; fails otherwise.
     ``zero_grads`` maps an output whose exact value is zero (a gradient
     that cancels, so both sides hold only rounding noise) to the output
-    whose largest magnitude sets its tolerance instead."""
+    whose largest magnitude sets its tolerance instead. Returns the largest
+    error, the largest tolerance and the largest error as a share of its
+    tolerance times KERNEL_RTOL."""
     import torch
 
-    out = kernel_fn()
-    ref = plain_fn()
-    torch.cuda.synchronize()
-    outs = out if isinstance(out, tuple) else (out,)
-    refs = ref if isinstance(ref, tuple) else (ref,)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    refs = refs if isinstance(refs, tuple) else (refs,)
     if len(outs) != len(refs):
         _fail(f"{name}: {len(outs)} outputs against {len(refs)}")
-    # each output within KERNEL_RTOL of its own largest magnitude
     err, tol, rel = 0.0, 0.0, 0.0
     zero_grads = zero_grads or {}
     for i, (o, r) in enumerate(zip(outs, refs)):
@@ -326,7 +348,22 @@ def _check_case(name, kernel_fn, plain_fn, library_fn, flops, nbytes,
         if not e <= t:
             _fail(f"{name}: output {i}: max |kernel - plain| {e} > {t}")
         err, tol, rel = max(err, e), max(tol, t), max(rel, e / t * KERNEL_RTOL)
-    del out, ref, outs, refs
+    return err, tol, rel
+
+
+def _check_case(name, kernel_fn, plain_fn, library_fn, flops, nbytes,
+                peak, iters, zero_grads=None):
+    """Compare one kernel call with its plain version
+    (:func:`check_outputs`), time all three: the kernel and its library
+    call as medians of YARDSTICK_N calls taken in turns (``iters`` sets only
+    the plain version's repeats, ``iters // 5``)."""
+    import torch
+
+    out = kernel_fn()
+    ref = plain_fn()
+    torch.cuda.synchronize()
+    err, tol, rel = check_outputs(name, out, ref, zero_grads)
+    del out, ref
     # kernel and library call in turns, medians of YARDSTICK_N each
     timed = time_interleaved(
         [kernel_fn] + ([library_fn] if library_fn else []), YARDSTICK_N)
@@ -345,6 +382,19 @@ def _check_case(name, kernel_fn, plain_fn, library_fn, flops, nbytes,
         "library_spread": [lib["min"], lib["max"]] if lib else None,
         "library_iqr": lib["iqr"] if lib else None,
     }
+
+
+def _sdpa(q, k, v):
+    """``F.scaled_dot_product_attention`` of token rows ``[G, L, d]`` as
+    the 4-D ``[1, G, L, d]`` its fused backends take, pinned to them
+    (FlashAttention-2 first, else the memory-efficient kernel; never the
+    math path): the attention rows' library yardstick."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                      SDPBackend.EFFICIENT_ATTENTION]):
+        return F.scaled_dot_product_attention(q[None], k[None], v[None])[0]
 
 
 def _mlp_case(gen, shape, M, C):
@@ -463,13 +513,15 @@ def kernel_checks():
                                   (0, 1, 100352, 96), (15, 1, 1568, 768))]
     results["fused_ln_mlp"] = cases
 
-    # flash_attention_ln: block 0 (h 1, Lq 100352, Lk 1568) and block 1
-    # (h 2, Lq 25088, Lk 6272); d 96, all three LNs and the q-residual; q,
-    # k, v are the d-major views the main path passes (pool outputs
-    # [G, d, L])
+    # flash_attention_ln: block 0 (h 1, Lq 100352, Lk 1568), block 1 (h 2,
+    # Lq 25088, Lk 6272), blocks 4-13 (h 4, Lq 6272, Lk 1568: ten of its 16
+    # calls a forward) and block 15 (h 8, Lq = Lk = 1568); d 96, all three
+    # LNs and the q-residual; q, k, v are the d-major views the main path
+    # passes (pool outputs [G, d, L])
     cases = []
     d = 96
-    for blk, h, Lq, Lk in ((0, 1, 100352, 1568), (1, 2, 25088, 6272)):
+    for blk, h, Lq, Lk in ((0, 1, 100352, 1568), (1, 2, 25088, 6272),
+                           ("4-13", 4, 6272, 1568), (15, 8, 1568, 1568)):
         G = BATCH * h
         q, k, v = (_normal(gen, (G, d, n), 1.0, bf).transpose(1, 2)
                    for n in (Lq, Lk, Lk))
@@ -480,7 +532,7 @@ def kernel_checks():
         def library(q=q, k=k, v=v, lnp=lnp):
             qn, kn, vn = (F.layer_norm(t, (d,), lnp[2 * i], lnp[2 * i + 1],
                                        1e-5) for i, t in enumerate((q, k, v)))
-            return F.scaled_dot_product_attention(qn, kn, vn) + qn
+            return _sdpa(qn, kn, vn) + qn
 
         r = _check_case(
             "flash_attention_ln",
@@ -490,10 +542,20 @@ def kernel_checks():
             flops=4 * G * Lq * Lk * d,
             nbytes=2 * (2 * G * Lq * d + 2 * G * Lk * d + 6 * d),
             peak=PEAK_BF16, iters=5)
-        r["shape"] = (f"block {blk} q[{G},{Lq},{d}] k,v[{G},{Lk},{d}] "
-                      "d-major")
-        cases.append(r)
-        del q, k, v, args
+        r["shape"] = (f"block{'s' if blk == '4-13' else ''} {blk} "
+                      f"q[{G},{Lq},{d}] k,v[{G},{Lk},{d}] d-major"
+                      + (" (10 calls a forward)" if blk == "4-13" else ""))
+        # the attention alone: without the residual, whose LN(q) (of order
+        # 1) sets the tolerance above, the output is held within 2% of its
+        # own largest magnitude
+        pre = args[:-1] + (False,)
+        r["pre_residual"] = dict(zip(
+            ("max_abs_err", "tol", "max_rel_err"), check_outputs(
+                f"flash_attention_ln {r['shape']} before the residual",
+                fa.flash_attention_ln(*pre),
+                fa.flash_attention_ln_plain(*pre))))
+        cases.append(_mark_fwd(r, G, Lq, Lk))
+        del q, k, v, args, pre
     results["flash_attention_ln"] = cases
     torch.cuda.empty_cache()
     return results
@@ -625,7 +687,35 @@ def _library_grads(fn, inputs, cotangents):
 ATTN_TRAIN_SHAPES = ((0, 1, 100352, 1568), (1, 2, 25088, 6272),
                      (15, 8, 1568, 1568), (3, 4, 6272, 6272),
                      ("4-13", 4, 6272, 1568), (14, 8, 1568, 6272))
-ATTN_FWD_BLOCKS = (0, 1, 15)
+ATTN_FWD_BLOCKS = (0, 1, 15, "4-13")
+
+
+def _mark_fwd(r, G, Lq, Lk):
+    """Marks case ``r`` as an attention forward over ``G`` groups of ``Lq``
+    queries and ``Lk`` keys, for its comment line (:func:`_fwd_note`); the
+    mark stays off the JSON lines."""
+    r["_fwd"] = (G, Lq, Lk)
+    return r
+
+
+def _public(case: dict) -> dict:
+    """A case's result without its marks (keys starting with ``_``), for
+    the JSON lines."""
+    return {k: v for k, v in case.items() if not k.startswith("_")}
+
+
+def _fwd_note(G, Lq, Lk) -> str:
+    """An attention forward's figures computed from its shape, not read:
+    its exponential floor (G Lq Lk over PEAK_EX2), the K/V bytes its blocks
+    would read from L2 if each read its group's K and V once (a model) and
+    its waves of FWD_ROWS-row blocks over the card's SMs."""
+    import torch
+
+    blocks = -(-Lq // FWD_ROWS) * G
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return (f"; computed: exp floor {G * Lq * Lk / PEAK_EX2 * 1e3:.4f} ms, "
+            f"K/V at one read a block {blocks * 2 * Lk * 96 * 2 / 1e9:.3f} "
+            f"GB (model), {blocks / sms:.2f} waves")
 
 
 def _attn_shape(blk, G, Lq, Lk, d=96) -> str:
@@ -634,7 +724,7 @@ def _attn_shape(blk, G, Lq, Lk, d=96) -> str:
     return f"{kind} {blk} q[{G},{Lq},{d}] k,v[{G},{Lk},{d}]{calls}"
 
 
-def _train_fwd_checks(fa, F, fwd, q, k, v, shape, flops, io, blk, scale):
+def _train_fwd_checks(fa, fwd, q, k, v, shape, flops, io, blk, scale):
     """The flash attention forward with its lse (and, at block 0, the
     lse-free mode of inference with pool modes max / avg) against its plain
     version, appended to ``fwd``; returns the forward's ``(out, lse)``."""
@@ -644,20 +734,20 @@ def _train_fwd_checks(fa, F, fwd, q, k, v, shape, flops, io, blk, scale):
         lambda: fa.flash_attention_fwd(q, k, v, scale, True),
         lambda: fa.flash_attention_lse_plain(q.float(), k.float(),
                                              v.float(), scale),
-        lambda: F.scaled_dot_product_attention(q, k, v),
+        lambda: _sdpa(q, k, v),
         flops=flops, nbytes=io + 4 * G * Lq, peak=PEAK_BF16, iters=3)
     r["shape"] = shape + " (+ lse)"
-    fwd.append(r)
+    fwd.append(_mark_fwd(r, G, Lq, k.shape[1]))
     if blk == 0:
         r = _check_case(
             "flash_attention",
             lambda: fa.flash_attention_fwd(q, k, v, scale, False)[0],
             lambda: fa.flash_attention_plain(q.float(), k.float(),
                                              v.float(), scale),
-            lambda: F.scaled_dot_product_attention(q, k, v),
+            lambda: _sdpa(q, k, v),
             flops=flops, nbytes=io, peak=PEAK_BF16, iters=3)
         r["shape"] = shape + " (no lse)"
-        fwd.append(r)
+        fwd.append(_mark_fwd(r, G, Lq, k.shape[1]))
     return fa.flash_attention_fwd(q, k, v, scale, True)
 
 
@@ -692,7 +782,7 @@ def train_kernel_checks():
         if blk not in ATTN_FWD_BLOCKS:
             out, lse = fa.flash_attention_fwd(q, k, v, scale, True)
         else:
-            out, lse = _train_fwd_checks(fa, F, fwd, q, k, v, shape, flops,
+            out, lse = _train_fwd_checks(fa, fwd, q, k, v, shape, flops,
                                          io, blk, scale)
         dout = _normal(gen, (G, Lq, d), 1.0, bf)
         r = _check_case(
@@ -703,7 +793,7 @@ def train_kernel_checks():
                 lambda a, b, c: fa.flash_attention_plain(a, b, c, scale),
                 (q, k, v), (dout,)),
             lambda q=q, k=k, v=v, dout=dout: _library_grads(
-                F.scaled_dot_product_attention, (q, k, v), (dout,)),
+                _sdpa, (q, k, v), (dout,)),
             # the five products of the backward (S recomputed once), the
             # inputs q, k, v, out, dout, lse read once, dq, dk, dv written
             flops=10 * G * Lq * Lk * d,
@@ -815,13 +905,12 @@ def v1_kernel_checks():
                     fa.flash_attention_lse_plain if w
                     else fa.flash_attention_plain)(
                         q.float(), k.float(), v.float(), scale),
-                lambda q=q, k=k, v=v: F.scaled_dot_product_attention(q, k,
-                                                                     v),
+                lambda q=q, k=k, v=v: _sdpa(q, k, v),
                 flops=flops, nbytes=io + (4 * G * Lq if with_lse else 0),
                 peak=PEAK_BF16, iters=5)
             r["shape"] = shape + (" (+ lse, training)" if with_lse
                                   else " (no lse, eval)")
-            fwd.append(r)
+            fwd.append(_mark_fwd(r, G, Lq, Lk))
         out, lse = fa.flash_attention_padded_fwd(q, k, v, scale, True)
         dout = _normal(gen, (G, Lq, d), 1.0, bf)
         r = _check_case(
@@ -832,7 +921,7 @@ def v1_kernel_checks():
                 lambda a, b, c: fa.flash_attention_plain(a, b, c, scale),
                 (q, k, v), (dout,)),
             lambda q=q, k=k, v=v, dout=dout: _library_grads(
-                F.scaled_dot_product_attention, (q, k, v), (dout,)),
+                _sdpa, (q, k, v), (dout,)),
             flops=10 * G * Lq * Lk * d,
             nbytes=2 * (4 * G * Lq * d + 4 * G * Lk * d) + 4 * G * Lq,
             peak=PEAK_BF16, iters=3)
@@ -869,23 +958,23 @@ def v1_kernel_checks():
             qn, kn, vn = (layer_norm_plain(t, p[2 * i], p[2 * i + 1], 1e-5)
                           for i, t in enumerate((qf, kf, vf)))
             o, lse = fa.flash_attention_lse_plain(qn, kn, vn, scale)
-            return o + qn, lse
+            return o + qn, lse, o
 
         def library(q=q, k=k, v=v, lnp=lnp):
             qn, kn, vn = (F.layer_norm(t, (d,), lnp[2 * i], lnp[2 * i + 1],
                                        1e-5) for i, t in enumerate((q, k, v)))
-            return F.scaled_dot_product_attention(qn, kn, vn) + qn
+            return _sdpa(qn, kn, vn) + qn
 
         if blk in ATTN_FWD_BLOCKS:
             r = _check_case(
                 "flash_attention_ln_lse",
-                lambda args=args: fa.flash_attention_ln_lse(*args)[:2],
+                lambda args=args: fa.flash_attention_ln_lse(*args),
                 plain_lse, library, flops=flops,
                 # out, lse and the attention output before the residual
                 nbytes=io + 4 * G * Lq + 2 * G * Lq * d,
                 peak=PEAK_BF16, iters=3)
             r["shape"] = shape
-            fwd.append(r)
+            fwd.append(_mark_fwd(r, G, Lq, Lk))
         out, lse, oa = fa.flash_attention_ln_lse(*args)
         dout = _normal(gen, (G, Lq, d), 1.0, bf)
         r = _check_case(
@@ -1470,7 +1559,12 @@ def main() -> int:
                   f"{c['plain_ms']:.4f} ms, library {c['library_ms']:.4f} "
                   f"ms (iqr {c['library_iqr'][0]:.4f}-"
                   f"{c['library_iqr'][1]:.4f}), bound {c['bound_ms']:.4f} "
-                  f"ms ({c['bound_by']})")
+                  f"ms ({c['bound_by']})"
+                  + (f"; before the residual err "
+                     f"{c['pre_residual']['max_abs_err']:.3e} (tol "
+                     f"{c['pre_residual']['tol']:.3e})"
+                     if "pre_residual" in c else "")
+                  + (_fwd_note(*c["_fwd"]) if "_fwd" in c else ""))
     # each path runs with the counts set to 0 just before it and read just
     # after; the default switch (auto) unless stated
     cfg = mvitv2_b_16x4_448_cfg()
@@ -1529,13 +1623,13 @@ def main() -> int:
             "launches_on": owner[name],
             "launches_by_path": {path: n[name]
                                  for path, n in launches.items()},
-            "other_shapes": checks[name][1:],
+            "other_shapes": [_public(c) for c in checks[name][1:]],
         })
     for extra in ("fused_ln_qkv odd tokens", "fused_ln_qkv_bwd odd tokens",
                   "fused_ln_mlp odd tokens", "fused_ln_mlp_bwd odd tokens"):
         base = extra.split()[0]
         next(k for k in kernels_line if k["name"] == base)[
-            "odd_token_shapes"] = checks[extra]
+            "odd_token_shapes"] = [_public(c) for c in checks[extra]]
     print(json.dumps({"model": model_stats, "train": train_stats,
                       "fused_train": fused_stats, "v1_model": v1_stats,
                       "v1_train": v1_train}))

@@ -567,6 +567,181 @@ def test_flash_backward_rounding_points_in_bf16(Lq, Lk):
         assert err <= 0.02 * r.abs().max().item(), (i, err)
 
 
+# the forward kernel's tiles (csrc/flash_fwd.cuh: FW_ROWS query rows a
+# block, K/V tiles of BW_T keys)
+FWD_ROWS, FWD_KEY_TILE = 128, 64
+
+
+def _flash_fwd_staged(q, k, v, scale, rows=FWD_ROWS, key_tile=FWD_KEY_TILE,
+                      qs=None):
+    """The attention forward kernel (``csrc/flash_fwd.cuh``) written out in
+    plain torch with its schedule and its rounding points to ``q.dtype``
+    (none in f32): query tiles of ``rows`` rows (rows past Lq as zeros,
+    never returned), K/V tiles of ``key_tile`` keys (keys past Lk as zeros,
+    their logits masked to -inf), the running max and row sum of online
+    softmax with exp as ``2^(S log2e - m log2e)``, the output rows rescaled
+    before each tile's ``P V``, P rounded for that product while l stays
+    f32, ``out = acc / l`` rounded, ``lse = m + log l``. ``qs``: the scaled
+    query rows where the caller made them (the fused-LN kernel's), else
+    ``bf16(q * s)``. Returns ``(out, lse)``."""
+    dt = q.dtype
+    G, Lq, d = q.shape
+    Lk = k.shape[1]
+    qs = ((q.float() * tfa._rounded_scale(scale, dt)).to(dt)
+          if qs is None else qs).float()
+    nq, nk = -(-Lq // rows) * rows, -(-Lk // key_tile) * key_tile
+    qp = torch.zeros(G, nq, d)
+    qp[:, :Lq] = qs
+    kp, vp = torch.zeros(G, nk, d), torch.zeros(G, nk, d)
+    kp[:, :Lk], vp[:, :Lk] = k.float(), v.float()
+    out, lse = torch.empty(G, nq, d), torch.empty(G, nq)
+    log2e = 1.4426950408889634
+    for q0 in range(0, nq, rows):
+        m = torch.full((G, rows), -torch.inf)
+        l, acc = torch.zeros(G, rows), torch.zeros(G, rows, d)
+        for k0 in range(0, nk, key_tile):
+            s = qp[:, q0:q0 + rows] @ kp[:, k0:k0 + key_tile].transpose(1, 2)
+            s[..., torch.arange(k0, k0 + key_tile) >= Lk] = -torch.inf
+            mn = torch.maximum(m, s.amax(-1))
+            al = torch.exp2((m - mn) * log2e)
+            p = torch.exp2(s * log2e - (mn * log2e)[..., None])
+            l = l * al + p.sum(-1)
+            acc = (acc * al[..., None]
+                   + p.to(dt).float() @ vp[:, k0:k0 + key_tile])
+            m = mn
+        out[:, q0:q0 + rows] = acc / l[..., None]
+        lse[:, q0:q0 + rows] = m + torch.log(l)
+    return out[:, :Lq].to(dt), lse[:, :Lq]
+
+
+def _flash_ln_fwd_staged(q, k, v, lnp, scale, eps, flags, add_qn, **tiles):
+    """The fused-LN forward (``csrc/flash_attention_ln.cu``) staged in plain
+    torch: LN(q), LN(k), LN(v) rows in f32 statistics rounded to
+    ``q.dtype`` where ``flags`` says, the query rows ``bf16(bf16(LN q) *
+    s)``, the forward core (:func:`_flash_fwd_staged`), then ``out =
+    bf16(out + LN q)`` under ``add_qn``. Returns ``(out, lse, o_attn)``."""
+    dt = q.dtype
+    qn, kn, vn = (tln.layer_norm_plain(x.float(), g.float(), b.float(),
+                                       eps).to(dt) if on else x
+                  for x, g, b, on in zip((q, k, v), lnp[0::2], lnp[1::2],
+                                         flags))
+    qs = (qn.float() * tfa._rounded_scale(scale, dt)).to(dt)
+    o_attn, lse = _flash_fwd_staged(qn, kn, vn, scale, qs=qs, **tiles)
+    out = (o_attn.float() + qn.float()).to(dt) if add_qn else o_attn
+    return out, lse, o_attn
+
+
+# the kernel's tiles, and small ones that give the shapes below several
+# query and key tiles (the running max moving, a ragged last tile of each)
+_FWD_TILES = [pytest.param({}, id="kernel-tiles"),
+              pytest.param({"rows": 32, "key_tile": 16}, id="small-tiles")]
+
+
+# (Lq, Lk): lengths no tile divides (even and odd), more keys than
+# queries, and a single query row
+_FWD_LENGTHS = [(130, 70), (129, 65), (64, 130), (1, 65)]
+
+
+@pytest.mark.parametrize("tiles", _FWD_TILES)
+@pytest.mark.parametrize("Lq,Lk", _FWD_LENGTHS)
+def test_flash_forward_staged_matches_pallas(Lq, Lk, tiles):
+    """The staged forward (``_flash_fwd_staged``) against the JAX padded
+    forward and its forward-with-lse (``_flash_fwd_with_lse`` on the
+    zero-padded tensors, the padded keys masked) through Pallas in interpret
+    mode, in f32, at lengths no tile divides (even and odd), with more keys
+    than queries and with one query row."""
+    G, d = 2, 16
+    rng = np.random.default_rng(32)
+    q, k, v = (_arr(rng, (G, n, d), 1.5, 0.3) for n in (Lq, Lk, Lk))
+    scale = d ** -0.5
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    ref = jfa.flash_attention_padded(jq, jk, jv, scale)
+    ref_lse_out, res = jfa._flash_padded_fwd(jq, jk, jv, scale)
+    ref_lse = np.asarray(res[4]).reshape(G, -1)[:, :Lq]
+    out, lse = _flash_fwd_staged(*(torch.from_numpy(a) for a in (q, k, v)),
+                                 scale, **tiles)
+    _close(out, ref)
+    _close(out, ref_lse_out)
+    _close(lse, ref_lse)
+
+
+@pytest.mark.parametrize("add_qn", [True, False])
+@pytest.mark.parametrize("tiles", _FWD_TILES)
+@pytest.mark.parametrize("flags", [(True, True, True), (False, True, False)])
+def test_flash_ln_forward_staged_matches_pallas(flags, tiles, add_qn):
+    """The staged fused-LN forward (``_flash_ln_fwd_staged``, with and
+    without the v2 residual) against the JAX ``flash_attention_ln`` and its
+    forward with lse through Pallas in interpret mode, in f32, at lengths
+    no 128-row or 128-key tile divides."""
+    G, Lq, Lk, d = 2, 136, 72, 96
+    eps = 1e-5
+    rng = np.random.default_rng(33)
+    q, k, v = (_arr(rng, (G, n, d), 1.5, 0.3) for n in (Lq, Lk, Lk))
+    lnp = [a for _ in range(3)
+           for a in (_arr(rng, (d,), 0.1, 1.0), _arr(rng, (d,), 0.1))]
+    scale = d ** -0.5
+    jargs = [jnp.asarray(a) for a in (q, k, v, *lnp)]
+    ref = jfa.flash_attention_ln(*jargs, scale, eps, flags, add_qn)
+    _, res = jfa._flash_ln_fwd(*jargs, scale, eps, flags, add_qn)
+    out, lse, _ = _flash_ln_fwd_staged(
+        *(torch.from_numpy(a) for a in (q, k, v)),
+        [torch.from_numpy(a) for a in lnp], scale, eps, flags, add_qn,
+        **tiles)
+    _close(out, ref)
+    _close(lse, np.asarray(res[-1]).reshape(G, Lq))
+
+
+def _within_2pct(got, want):
+    """Each output within 2% of its plain version's largest magnitude:
+    chip_smoke.py's tolerance for a kernel against its plain version."""
+    for i, (o, r) in enumerate(zip(got, want)):
+        assert o.shape == r.shape and torch.isfinite(o.float()).all()
+        err = (o.float() - r.float()).abs().max().item()
+        assert err <= 0.02 * r.float().abs().max().item(), (i, err)
+
+
+@pytest.mark.parametrize("Lq,Lk", _FWD_LENGTHS)
+def test_flash_forward_rounding_points_in_bf16(Lq, Lk):
+    """In bf16, the staged forward against the plain version in f32 at the
+    same bf16 inputs: out (bf16) and lse within 2%."""
+    G, d = 2, 96
+    rng = np.random.default_rng(34)
+    q, k, v = (torch.from_numpy(_arr(rng, (G, n, d))).bfloat16()
+               for n in (Lq, Lk, Lk))
+    scale = d ** -0.5
+    out, lse = _flash_fwd_staged(q, k, v, scale)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    _within_2pct((out, lse), tfa.flash_attention_lse_plain(
+        q.float(), k.float(), v.float(), scale))
+
+
+@pytest.mark.parametrize("flags", [(True, True, True), (False, True, False),
+                                   (True, False, True)])
+def test_flash_ln_forward_rounding_points_in_bf16(flags):
+    """In bf16, the staged fused-LN forward (with the residual) against the
+    plain version in f32 at the same bf16 inputs within 2%; the output
+    before the residual and lse against the plain forward with lse of the
+    rounded LN rows."""
+    G, Lq, Lk, d = 2, 136, 72, 96
+    eps = 1e-5
+    rng = np.random.default_rng(35)
+    q, k, v = (torch.from_numpy(_arr(rng, (G, n, d))).bfloat16()
+               for n in (Lq, Lk, Lk))
+    lnp = [torch.from_numpy(a).bfloat16() for _ in range(3)
+           for a in (_arr(rng, (d,), 0.1, 1.0), _arr(rng, (d,), 0.1))]
+    scale = d ** -0.5
+    out, lse, o_attn = _flash_ln_fwd_staged(q, k, v, lnp, scale, eps, flags,
+                                            True)
+    ref = tfa.flash_attention_ln_plain(
+        *(t.float() for t in (q, k, v, *lnp)), scale, eps, flags, True)
+    rows = [tln.layer_norm_plain(x.float(), g.float(), b.float(),
+                                 eps).bfloat16() if on else x
+            for x, g, b, on in zip((q, k, v), lnp[0::2], lnp[1::2], flags)]
+    ref_o, ref_lse = tfa.flash_attention_lse_plain(
+        *(t.float() for t in rows), scale)
+    _within_2pct((out, lse, o_attn), (ref, ref_lse, ref_o))
+
+
 def _flash_ln_bwd_staged(q, k, v, lnp, dout, scale, eps, flags, add_qn,
                          qps):
     """The fused-LN backward (``csrc/flash_attention_ln_bwd.cu``) staged in

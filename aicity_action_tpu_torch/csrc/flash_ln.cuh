@@ -1,5 +1,6 @@
-// The fused post-pool-LN attention's LayerNorm helpers, shared by its
-// forward (flash_attention_ln.cu) and backward (flash_attention_ln_bwd.cu):
+// The LayerNorm helpers of the fused post-pool-LN attention, shared by its
+// forward (flash_attention_ln.cu) and backward (flash_attention_ln_bwd.cu),
+// and of the channel-major pool norm's forward (layer_norm.cu):
 // the pool convolutions leave q, k, v d-major ([G][D][L]); these turn them
 // into LayerNormed token rows (eps over head_dim, f32 statistics).
 #pragma once
@@ -13,7 +14,8 @@ namespace aicity {
 // LANES threads a token, each holding D / LANES channels of its column in
 // registers: the forward's query tiles (flash_attention_ln.cu) and the
 // backward's recompute of them (flash_attention_ln_bwd.cu) sum alike, so
-// both get the same LN(q). Thread tid of nthreads (both multiples of 32,
+// both get the same LN(q); the channel-major pool norm takes four lanes a
+// token. Thread tid of nthreads (both multiples of 32,
 // like ntok * LANES: the lanes of a token meet by shuffle). With s_mean
 // given, each token's mean and rstd are kept there too.
 template <int D, int LANES = 2>

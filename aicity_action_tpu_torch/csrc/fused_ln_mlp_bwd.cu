@@ -99,28 +99,6 @@ typedef void (*PrepKernel)(const bf16*, const bf16*, const bf16*,
 
 // ------------------------------------------- launch 2: the dual GEMM
 
-// Stores four 8x8 bf16 matrices to shared memory: register i of every lane
-// holds its pair of matrix i in the mma fragment layout (row lane / 4,
-// columns 2 (lane % 4), + 1), and lanes 8i..8i+7 give the addresses of
-// matrix i's eight 16-byte rows; with TRANS each matrix is stored
-// transposed (row k holds column k).
-template <bool TRANS>
-__device__ __forceinline__ void stmatrix_x4(const void* row,
-                                            const uint32_t* r) {
-  if constexpr (TRANS)
-    asm volatile(
-        "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], "
-        "{%1, %2, %3, %4};\n" ::"r"(smem_u32(row)),
-        "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
-        : "memory");
-  else
-    asm volatile(
-        "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n"
-        ::"r"(smem_u32(row)),
-        "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
-        : "memory");
-}
-
 // A ring stage: xn and dOut [128][64], W1 and W2t [TN][64] (bf16, 128-byte
 // swizzle).
 __host__ __device__ inline int dual_stage_bytes(int tn) {

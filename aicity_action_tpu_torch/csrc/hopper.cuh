@@ -280,12 +280,26 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map,
       : "memory");
 }
 
+// Bulk copy of `bytes` (a multiple of 16) from shared to global memory,
+// committed with this thread's bulk groups like tma_store.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          (uint64_t)dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 
+// Waits until at most N of this thread's newest bulk groups still read
+// their shared-memory sources.
+template <int N = 0>
 __device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void bulk_wait_done() {
@@ -385,6 +399,49 @@ __device__ __forceinline__ void ldmatrix_sw128(uint32_t* a, const void* tile,
       : "r"(addr));
 }
 
+// Stores four 8x8 bf16 matrices to shared memory: register i of every lane
+// holds its pair of matrix i in the mma fragment layout (row lane / 4,
+// columns 2 (lane % 4), + 1), and lanes 8i..8i+7 give the addresses of
+// matrix i's eight 16-byte rows; with TRANS each matrix is stored
+// transposed (row k holds column k).
+template <bool TRANS>
+__device__ __forceinline__ void stmatrix_x4(const void* row,
+                                            const uint32_t* r) {
+  if constexpr (TRANS)
+    asm volatile(
+        "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], "
+        "{%1, %2, %3, %4};\n" ::"r"(smem_u32(row)),
+        "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+        : "memory");
+  else
+    asm volatile(
+        "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n"
+        ::"r"(smem_u32(row)),
+        "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+        : "memory");
+}
+
+// Loads four 8x8 bf16 matrices from shared memory, the layout stmatrix_x4
+// stores: lanes 8i..8i+7 give the addresses of matrix i's eight 16-byte
+// rows, and register i of every lane receives its pair of matrix i (row
+// lane / 4, columns 2 (lane % 4), + 1; with TRANS, rows 2 (lane % 4), + 1 of
+// column lane / 4).
+template <bool TRANS>
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* row) {
+  if constexpr (TRANS)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_u32(row))
+        : "memory");
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_u32(row))
+        : "memory");
+}
+
 // The 16 bytes (8 bf16) of row r, columns [8c, 8c + 8), of a [rows][64]
 // bf16 tile in the 128-byte swizzle (1024-byte aligned), as TMA writes it.
 __device__ __forceinline__ uint4* sw128_chunk(void* tile, int r, int c) {
@@ -417,6 +474,46 @@ __device__ __forceinline__ float sqdev8(uint4 v, float mean) {
     s += a * a + b * b;
   }
   return s;
+}
+
+// (mean, rstd) of a row of D channels held by LANES adjacent lanes of a
+// warp, lane q of them holding the 16-byte vectors q + LANES i (zeros past
+// the row's nv vectors): f32, two passes over the registers (the mean, then
+// the mean squared deviation), the lanes' sums joined by shuffles. The
+// statistics of every row LayerNorm of the port, so that they round alike.
+// Every lane of the warp takes part.
+template <int LANES, int VPL>
+__device__ __forceinline__ float2 row_stats(const uint4 (&v)[VPL], int q,
+                                            int nv, int D, float eps) {
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) s += sum8(v[i]);
+#pragma unroll
+  for (int o = 1; o < LANES; o <<= 1) s += __shfl_xor_sync(~0u, s, o);
+  const float mu = s / D;
+  float d2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < VPL; ++i)
+    if (q + LANES * i < nv) d2 += sqdev8(v[i], mu);
+#pragma unroll
+  for (int o = 1; o < LANES; o <<= 1) d2 += __shfl_xor_sync(~0u, d2, o);
+  return make_float2(mu, rsqrtf(d2 / D + eps));
+}
+
+// LayerNorm of 8 bf16 channels: (v - mean) * rstd * gamma + beta in f32,
+// rounded to bf16.
+__device__ __forceinline__ uint4 ln_vec8(uint4 v, float mu, float rs,
+                                         uint4 gv, uint4 bv) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  const uint32_t gw[4] = {gv.x, gv.y, gv.z, gv.w};
+  const uint32_t bw[4] = {bv.x, bv.y, bv.z, bv.w};
+  uint32_t o[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    o[e] = pack_bf16(
+        (bf16_lo(w[e]) - mu) * rs * bf16_lo(gw[e]) + bf16_lo(bw[e]),
+        (bf16_hi(w[e]) - mu) * rs * bf16_hi(gw[e]) + bf16_hi(bw[e]));
+  return make_uint4(o[0], o[1], o[2], o[3]);
 }
 
 // LayerNorm of a bf16 pair (columns k, k + 1 of one row): f32, rounded to
@@ -464,31 +561,14 @@ __device__ __forceinline__ void ln_rows_smem(Chunk chunk, int D, int r0,
     p[i] = sw128_chunk(chunk(c >> 3), r, c & 7);
     v[i] = c < nv ? *p[i] : make_uint4(0u, 0u, 0u, 0u);
   }
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < MAXV; ++i) s += sum8(v[i]);  // zeros past D
-  const float mu = (s + __shfl_xor_sync(~0u, s, 1)) / D;
-  float d2 = 0.f;
-#pragma unroll
-  for (int i = 0; i < MAXV; ++i)
-    if (q + 2 * i < nv) d2 += sqdev8(v[i], mu);
-  const float rs = rsqrtf((d2 + __shfl_xor_sync(~0u, d2, 1)) / D + eps);
+  const float2 st = row_stats<2, MAXV>(v, q, nv, D, eps);  // zeros past D
 #pragma unroll
   for (int i = 0; i < MAXV; ++i) {
     const int c = q + 2 * i;
     if (c >= nv) continue;
-    const uint4 gv = *reinterpret_cast<const uint4*>(gamma + 8 * c);
-    const uint4 bv = *reinterpret_cast<const uint4*>(beta + 8 * c);
-    const uint32_t w[4] = {v[i].x, v[i].y, v[i].z, v[i].w};
-    const uint32_t gw[4] = {gv.x, gv.y, gv.z, gv.w};
-    const uint32_t bw[4] = {bv.x, bv.y, bv.z, bv.w};
-    uint32_t o[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      o[e] = pack_bf16(
-          (bf16_lo(w[e]) - mu) * rs * bf16_lo(gw[e]) + bf16_lo(bw[e]),
-          (bf16_hi(w[e]) - mu) * rs * bf16_hi(gw[e]) + bf16_hi(bw[e]));
-    *p[i] = make_uint4(o[0], o[1], o[2], o[3]);
+    *p[i] = ln_vec8(v[i], st.x, st.y,
+                    *reinterpret_cast<const uint4*>(gamma + 8 * c),
+                    *reinterpret_cast<const uint4*>(beta + 8 * c));
   }
   __syncwarp();
 }
@@ -512,21 +592,8 @@ __device__ __forceinline__ void ln_stats_rows(const bf16* __restrict__ x,
                                  x + (size_t)r * D + 8 * c)
                            : make_uint4(0u, 0u, 0u, 0u);
   }
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < VPL; ++i) s += sum8(v[i]);
-  s += __shfl_xor_sync(~0u, s, 1);
-  s += __shfl_xor_sync(~0u, s, 2);
-  const float mu = s / D;
-  float d2 = 0.f;
-#pragma unroll
-  for (int i = 0; i < VPL; ++i)
-    if (q + 4 * i < nv) d2 += sqdev8(v[i], mu);
-  d2 += __shfl_xor_sync(~0u, d2, 1);
-  d2 += __shfl_xor_sync(~0u, d2, 2);
-  if (q == 0)
-    stats[r] = r < M ? make_float2(mu, rsqrtf(d2 / D + eps))
-                     : make_float2(0.f, 0.f);
+  const float2 st = row_stats<4, VPL>(v, q, nv, D, eps);
+  if (q == 0) stats[r] = r < M ? st : make_float2(0.f, 0.f);
 }
 
 typedef void (*StatsKernel)(const bf16*, float2*, int, int, float);

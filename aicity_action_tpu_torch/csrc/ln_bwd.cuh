@@ -48,37 +48,16 @@ __device__ __forceinline__ void ln_prep_rows(const bf16* __restrict__ x,
                                  x + (size_t)r * C + 8 * c)
                            : make_uint4(0u, 0u, 0u, 0u);
   }
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < VPL; ++i) s += sum8(v[i]);
-  s += __shfl_xor_sync(~0u, s, 1);
-  s += __shfl_xor_sync(~0u, s, 2);
-  const float mu = s / C;
-  float d2 = 0.f;
-#pragma unroll
-  for (int i = 0; i < VPL; ++i)
-    if (q + 4 * i < nv) d2 += sqdev8(v[i], mu);
-  d2 += __shfl_xor_sync(~0u, d2, 1);
-  d2 += __shfl_xor_sync(~0u, d2, 2);
-  const float rs = rsqrtf(d2 / C + eps);
-  if (q == 0)
-    stats[r] = r < M ? make_float2(mu, rs) : make_float2(0.f, 0.f);
+  const float2 st = row_stats<4, VPL>(v, q, nv, C, eps);
+  if (q == 0) stats[r] = r < M ? st : make_float2(0.f, 0.f);
 #pragma unroll
   for (int i = 0; i < VPL; ++i) {
     const int c = q + 4 * i;
     if (c >= nv) continue;
-    const uint4 gv = *reinterpret_cast<const uint4*>(gamma + 8 * c);
-    const uint4 bv = *reinterpret_cast<const uint4*>(beta + 8 * c);
-    const uint32_t w[4] = {v[i].x, v[i].y, v[i].z, v[i].w};
-    const uint32_t gw[4] = {gv.x, gv.y, gv.z, gv.w};
-    const uint32_t bw[4] = {bv.x, bv.y, bv.z, bv.w};
-    uint32_t o[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      o[e] = pack_bf16(
-          (bf16_lo(w[e]) - mu) * rs * bf16_lo(gw[e]) + bf16_lo(bw[e]),
-          (bf16_hi(w[e]) - mu) * rs * bf16_hi(gw[e]) + bf16_hi(bw[e]));
-    const uint4 ov = make_uint4(o[0], o[1], o[2], o[3]);
+    const uint4 ov =
+        ln_vec8(v[i], st.x, st.y,
+                *reinterpret_cast<const uint4*>(gamma + 8 * c),
+                *reinterpret_cast<const uint4*>(beta + 8 * c));
     *reinterpret_cast<uint4*>(tile + rl * ldt + 8 * c) = ov;
     if (xn != nullptr && r < M)
       *reinterpret_cast<uint4*>(xn + (size_t)r * C + 8 * c) = ov;

@@ -17,11 +17,13 @@ slowfast/models/attention.py).
   norm2 + MLP in :func:`fused_ln_mlp`, and the final norm in
   :func:`fused_layer_norm`.
 - Unfused (and for the max / avg pool modes): the pooled q, k, v become
-  head-major token rows, each conv-pooled one goes through its own
-  :func:`fused_layer_norm` (eps 1e-5), then :func:`flash_attention` (or,
-  with a cls token's odd lengths ``1 + T*H*W``,
-  :func:`flash_attention_padded`) and ``+ q`` outside the kernel. Every
-  kernel there has a backward kernel.
+  head-major token rows, each conv-pooled one through its own pool norm
+  (eps 1e-5; :func:`pool_norm_rows`, which reads the pool convolution's
+  layout, wherever the length is a multiple of 8 and there is no cls
+  token, else a copy and :func:`fused_layer_norm`), then
+  :func:`flash_attention` (or, with a cls token's odd lengths
+  ``1 + T*H*W``, :func:`flash_attention_padded`) and ``+ q`` outside the
+  kernel. Every kernel there has a backward kernel.
 - MViT-v1 (``CHANNEL_EXPAND_FRONT False``): attention runs at the block's
   input width, the MLP changes the channels, and the residual of such a
   block is ``proj(norm2(x))``; the cls token bypasses pooling, rejoins
@@ -49,7 +51,8 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.flash_attention import (flash_attention, flash_attention_ln,
                                    flash_attention_padded)
 from ..ops.fused_dense import exact_gelu, fused_ln_mlp, fused_ln_qkv
-from ..ops.layer_norm import fused_layer_norm
+from ..ops.layer_norm import (channel_major_applies, fused_layer_norm,
+                              pool_norm_rows)
 from ..ops.pooling import attention_pool, pool3d_ncdhw
 from .common import FusedLayerNorm, drop_path, drop_path_mask, round_width
 from .heads import TransformerBasicHead
@@ -331,6 +334,34 @@ def attention_call_shapes(cfg, batch: int) -> list:
     return calls
 
 
+def pool_norm_call_shapes(sp: MViTSpec, batch: int) -> list:
+    """The pool norms of one unfused forward of the model ``sp`` at
+    ``batch``, from the block schedule (no model is built): ``(block, name,
+    batch, heads, d, L)`` for each conv-pooled q, k, v, ``L`` its pooled
+    tokens (``+ 1`` with a cls token). The LayerNorm plan tests and
+    ``chip_smoke.py``'s launch counts take them from it."""
+    thw, cls = list(sp.patch_dims), int(sp.cls_embed)
+    calls = []
+    for i, b in enumerate(sp.blocks):
+        att = (b.dim_out if sp.channel_expand_front and b.dim != b.dim_out
+               else b.dim)
+        out_q = thw
+        for name, kernel, stride in (("q", b.kernel_q, b.stride_q),
+                                     ("k", b.kernel_kv, b.stride_kv),
+                                     ("v", b.kernel_kv, b.stride_kv)):
+            if not _pool_active(kernel, stride):
+                continue
+            out = [(n + 2 * (k // 2) - k) // s + 1
+                   for n, k, s in zip(thw, kernel, stride)]
+            if name == "q":
+                out_q = out
+            if sp.mode == "conv":
+                calls.append((i, name, batch, b.num_heads,
+                              att // b.num_heads, int(np.prod(out)) + cls))
+        thw = out_q
+    return calls
+
+
 def _cast(t: torch.Tensor | None, dtype: torch.dtype):
     return None if t is None else t.to(dtype)
 
@@ -450,22 +481,32 @@ class MultiScaleAttention(nn.Module):
 
     def _unfused(self, t3: dict, B: int) -> torch.Tensor:
         """The JAX package's path when the fused-LN kernel is off
-        (``mvit.py:643-682``): pooled q, k, v become contiguous head-major
-        token rows ``[B*h, L, d]`` (one transpose each; their gradients pay
-        one back), each conv-pooled one is normalized by its pool norm
+        (``mvit.py:643-682``): pooled q, k, v become head-major token rows
+        ``[B*h, L, d]``, each conv-pooled one normalized by its pool norm
         (grouped per head: one row of d per head and token), then
         :func:`flash_attention` (:func:`flash_attention_padded` at a cls
-        token's odd lengths) and the v2 residual ``+ q`` outside it."""
+        token's odd lengths) and the v2 residual ``+ q`` outside it. A pool
+        norm without a cls token over ``L % 8 == 0`` tokens reads the pool
+        convolution's ``[B, h*d, L]`` and writes the rows itself
+        (:func:`pool_norm_rows`); every other tensor is copied into
+        contiguous rows (one transpose each; their gradients pay one back),
+        and a conv-pooled one then takes :func:`fused_layer_norm`."""
         h, d = self.num_heads, self.head_dim
         rows = {}
         for name, t in t3.items():
             n = t.shape[-1]
+            normed = self.mode == "conv" and name in self.pooled
+            norm = getattr(self, f"norm_{name}") if normed else None
+            if normed and channel_major_applies(n, self.has_cls):
+                rows[name] = pool_norm_rows(
+                    t.contiguous(), norm.weight.to(t.dtype),
+                    norm.bias.to(t.dtype), norm.eps, h)
+                continue
             # a copy even where reshape could view (one head): the kernels
             # take contiguous rows
             r = (t.reshape(B, h, d, n).transpose(2, 3).reshape(B * h, n, d)
                  .contiguous())
-            if self.mode == "conv" and name in self.pooled:
-                norm = getattr(self, f"norm_{name}")
+            if normed:
                 r = fused_layer_norm(r, norm.weight.to(r.dtype),
                                      norm.bias.to(r.dtype), norm.eps)
             rows[name] = r

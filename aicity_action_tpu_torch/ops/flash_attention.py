@@ -55,9 +55,7 @@ BWD_TILE = 64
 # backward blocks an SM holds at once (__launch_bounds__(128, 2): registers
 # and shared memory leave room for two)
 BWD_BLOCKS_PER_SM = 2
-# shared memory an SM gives its blocks (228 KB, 1 KB of it reserved per
-# block)
-SM_SMEM_BYTES = 233_472
+SM_SMEM_BYTES = kernels.SM_SMEM_BYTES
 _BWD_TILE_BYTES = BWD_TILE * KERNEL_HEAD_DIM * 2
 # the ring depths of csrc/flash_bwd.cuh (DQ_STAGES, DQ_LN_STAGES,
 # DKV_STAGES)

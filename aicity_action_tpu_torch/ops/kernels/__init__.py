@@ -35,7 +35,7 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _vp, _i, _l, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 # C signatures of csrc/*.cu's extern "C" functions: (argtypes, restype)
 _SIGNATURES = {
-    "aicity_layer_norm": ([_vp] * 4 + [_l, _i, _i, _f, _vp], _i),
+    "aicity_layer_norm": ([_vp] * 4 + [_l] + [_i] * 4 + [_f, _vp], _i),
     "aicity_ln_qkv": ([_vp] * 9 + [_i, _i, _i, _f] + [_i] * 4 + [_vp], _i),
     "aicity_ln_qkv_smem_bytes": ([_i] * 3, _i),
     "aicity_ln_mlp": ([_vp] * 10 + [_i] * 4 + [_f] + [_i] * 7 + [_vp], _i),
@@ -44,8 +44,10 @@ _SIGNATURES = {
                                   + [_vp], _i),
     "aicity_flash_attention_ln_bwd": ([_vp] * 24 + [_i] * 4 + [_f, _f]
                                       + [_i] * 5 + [_vp], _i),
-    "aicity_layer_norm_bwd": ([_vp] * 6 + [_l, _i, _i, _f, _vp], _i),
-    "aicity_layer_norm_bwd_blocks": ([_l, _i], _i),
+    "aicity_layer_norm_bwd": ([_vp] * 7 + [_l] + [_i] * 4 + [_f, _vp], _i),
+    "aicity_pool_norm": ([_vp] * 4 + [_i] * 6 + [_f, _vp], _i),
+    "aicity_pool_norm_bwd": ([_vp] * 7 + [_i] * 6 + [_f, _vp], _i),
+    "aicity_layer_norm_smem_bytes": ([_i] * 4, _i),
     "aicity_flash_attention": ([_vp] * 5 + [_i] * 4 + [_f, _vp], _i),
     "aicity_flash_attention_bwd": ([_vp] * 13 + [_i] * 4 + [_f, _i, _vp],
                                    _i),
@@ -61,6 +63,9 @@ _SIGNATURES = {
 
 # Shared memory a Hopper block may use (232,448 bytes).
 MAX_SMEM_BYTES = 232_448
+# shared memory an SM gives its blocks (228 KB, 1 KB of it reserved per
+# block)
+SM_SMEM_BYTES = 233_472
 
 _lib = None
 _lock = threading.Lock()

@@ -30,9 +30,10 @@ synchronizing between them in extra profiled steps (generic kernels of the
 backward that share a name with one of the forward's, such as elementwise
 adds, count as recompute). It times the steps with activation
 checkpointing off too, with their peak memory. It also times the
-layout copies the training path pays per step (the pooled q, k, v to
-head-major token rows in the forward and its recompute, their gradients
-back, and the attention output to token-major), at each block's shapes
+layout copies the training path still pays per step (a q, k, v to
+head-major token rows in the forward and its recompute and its gradient
+back, wherever its pool norm does not read the pool convolution's layout
+itself, and the attention output to token-major), at each block's shapes
 with CUDA events.
 """
 
@@ -59,11 +60,13 @@ _GROUPS = (
     ("flash_bwd_sum", "attention bwd: dk/dv sums (port)"),
     ("qkv_bwd_", "fused_ln_qkv bwd (port)"),
     ("mlp_bwd_", "fused_ln_mlp bwd (port)"),
-    ("layer_norm_bwd_kernel", "fused_layer_norm bwd (port)"),
+    ("ln_cols_bwd_kernel", "pool norm bwd, channel-major (port)"),
+    ("ln_rows_bwd_kernel", "fused_layer_norm bwd, rows (port)"),
     ("reduce_splits_kernel", "bwd partial sums (port)"),
     ("ln_qkv_kernel", "fused_ln_qkv (port)"),
     ("ln_mlp_kernel", "fused_ln_mlp (port)"),
-    ("layer_norm_kernel", "fused_layer_norm (port)"),
+    ("ln_cols_kernel", "pool norm, channel-major (port)"),
+    ("ln_rows_kernel", "fused_layer_norm, rows (port)"),
     ("depthwise", "depthwise pool conv"),
     ("dgrad", "conv backward"),
     ("wgrad", "conv backward"),
@@ -254,12 +257,17 @@ def forward_profile(args) -> dict:
 
 
 def layout_copy_ms(model, batch: int, remat: int) -> dict:
-    """Device time per train step of the training path's layout copies, at
-    each block's shapes (CUDA events over repeated copies): per pooled q, k,
-    v the ``[B, h*d, L] -> [B*h, L, d]`` transpose, ``remat`` times in the
-    forward and once back for its gradient, and the attention output's
-    ``[B*h, Lq, d] -> [B, Lq, h*d]`` once forward and once back."""
+    """Device time per train step of the layout copies the unfused training
+    path still makes, at each block's shapes (CUDA events over repeated
+    copies): per q, k, v whose pool norm does not take the channel-major
+    instance (``ops/layer_norm.py:channel_major_applies``, which reads the
+    pool convolution's layout and writes the rows itself) the ``[B, h*d, L]
+    -> [B*h, L, d]`` transpose, ``remat`` times in the forward and once back
+    for its gradient, and the attention output's ``[B*h, Lq, d] -> [B, Lq,
+    h*d]`` once forward and once back."""
     import torch
+
+    from ..ops.layer_norm import channel_major_applies
 
     sp = model.spec
     T, H, W = sp.patch_dims
@@ -290,6 +298,9 @@ def layout_copy_ms(model, batch: int, remat: int) -> dict:
                           if name in a.pooled else (L, thw))
         for name, (n, _) in lens.items():
             n += cls
+            if (a.mode == "conv" and name in a.pooled
+                    and channel_major_applies(n, bool(cls))):
+                continue  # the pool norm reads its layout: no copy
             t = torch.empty((batch, h * d, n), dtype=torch.bfloat16,
                             device="cuda")
             r = torch.empty((batch * h, n, d), dtype=torch.bfloat16,

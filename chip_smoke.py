@@ -13,10 +13,18 @@ NVIDIA card.
    registers and spills, and fails if either count is 0, if a dense
    backward's GEMM kernel spills or has other than 168 registers, if an
    attention forward spills or has more than 168, or if an attention
-   backward kernel spills or has more than 255; then holds the
-   64-byte-swizzle wgmma descriptors that the attention kernels build on
-   against torch on one tile.
-2. Holds each inference kernel against its plain PyTorch version at
+   backward kernel spills or has more than 255; prints the registers and
+   spills of the LayerNorm kernels (rows 12-13, both instances) and fails
+   if one spills or if the channel-major pair has no UTMALDG; then holds
+   the 64-byte-swizzle wgmma descriptors that the attention kernels build
+   on against torch on one tile.
+2. Holds rows 12 and 13 against their plain versions and times them: the
+   channel-major instance at the v2 448 batch-4 pool norms of blocks 0 (q),
+   1 (k), 4-13 (k) and 15 (q) and block 0's q at batch 8 (library:
+   ``.contiguous()`` + ``F.layer_norm``), the rows instance at the final
+   norm (batch 8 and 1; the backward also at 4) and the v1 224's block-1 q
+   pool norm (cls token, batch 8; library ``F.layer_norm``). Then holds
+   each other inference kernel against its plain PyTorch version at
    main-path shapes of MViT-v2-B 16x4 @ 448 (batch 8, bf16: LN+qkv at
    every distinct shape of the forward, LN+MLP at every width, both also at
    batch 1, the fused-LN attention at blocks 0, 1, 4-13 and 15) and times
@@ -27,8 +35,8 @@ NVIDIA card.
    K/V bytes its blocks would read from L2 at one read of their group's K
    and V a block (a model, not a reading) and its waves of blocks.
 3. Does the same for the training kernels (the flash attention forward
-   with its logsumexp, and the backward kernels of attention, LayerNorm,
-   LN+qkv and LN+MLP) at the batch-4 training shapes of blocks 0, 1 and 15
+   with its logsumexp, and the backward kernels of attention, LN+qkv and
+   LN+MLP) at the batch-4 training shapes of blocks 0, 1 and 15
    (the attention forward and the LN+qkv backward also at blocks 4-13,
    their ten calls a step; the attention backward also at blocks 3, 4-13
    and 14).
@@ -44,7 +52,8 @@ NVIDIA card.
    the LN+MLP backward at the v1's block 1, batch 8 and batch 1.
 5. Builds the full MViT-v2 (16 blocks, bf16, weights from a seed), runs
    batch-8 forwards through ``make_eval_step``, holds the kernel launches
-   per forward to the counts the model implies, and compares a batch-1
+   per forward to the counts the model implies (the channel-major
+   LayerNorm's launches also on their own), and compares a batch-1
    forward with the same model in its plain reference mode; then the same
    forward with ``AICITY_TPU_FUSE_ATTN_LN=0`` (the unfused eval path).
 6. Drives the serving path, ``WindowScorer``, over a synthetic in-memory
@@ -218,6 +227,15 @@ NO_SPILL_KERNELS = {"fused_ln_qkv_bwd": (HOPPER_REGISTERS, True),
                     "flash_attention_ln_bwd": (255, False)}
 
 
+# the LayerNorm kernels (rows 12-13): no tensor-core work, so no HGMMA;
+# the channel-major pair reads its x tiles by TMA (UTMALDG), and none may
+# spill
+LN_KERNELS = {"fused_layer_norm": ("ln_rows_kernel", "ln_cols_kernel"),
+              "fused_layer_norm_bwd": ("ln_rows_bwd_kernel",
+                                       "ln_cols_bwd_kernel")}
+LN_TMA_KERNELS = ("ln_cols_kernel", "ln_cols_bwd_kernel")
+
+
 def hopper_sass_checks() -> dict:
     """Counts the HGMMA and UTMALDG instructions in the SASS of every
     instantiation of the kernels of HOPPER_KERNELS (``cuobjdump -sass`` on
@@ -239,7 +257,8 @@ def hopper_sass_checks() -> dict:
             fn = line.split("Function : ", 1)[1].strip()
             continue
         if fn and "stats" not in fn and any(
-                k in fn for keys in HOPPER_KERNELS.values() for k in keys):
+                k in fn for table in (HOPPER_KERNELS, LN_KERNELS)
+                for keys in table.values() for k in keys):
             c = counts.setdefault(fn, {"HGMMA": 0, "UTMALDG": 0})
             for op in c:
                 c[op] += op in line
@@ -279,6 +298,19 @@ def hopper_sass_checks() -> dict:
                                not in text):
                 _fail(f"{name}: {f} spills or breaks its budget of {regs} "
                       f"registers: {text}")
+    for name, keys in LN_KERNELS.items():
+        for key in keys:
+            fns = [f for f in counts if key in f]
+            if not fns:
+                _fail(f"{name}: no {key} function in the library's SASS")
+            for f in fns:
+                text = " / ".join(usage.get(f, []))
+                print(f"# SASS {name} {f}: UTMALDG {counts[f]['UTMALDG']}; "
+                      f"{text}")
+                if key in LN_TMA_KERNELS and not counts[f]["UTMALDG"]:
+                    _fail(f"{name}: {f} has no UTMALDG")
+                if " 0 bytes spill stores, 0 bytes spill loads" not in text:
+                    _fail(f"{name}: {f} spills: {text}")
     return counts
 
 
@@ -437,29 +469,10 @@ def kernel_checks():
 
     from aicity_action_tpu_torch.ops import flash_attention as fa
     from aicity_action_tpu_torch.ops import fused_dense as fd
-    from aicity_action_tpu_torch.ops import layer_norm as ln
 
     bf = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     results = {}
-
-    # fused_layer_norm: the final norm [B*1568, 768], groups 1, eps 1e-6
-    cases = []
-    for b in (BATCH, 1):
-        M, C = b * 1568, 768
-        x = _normal(gen, (M, C), 2.0, bf)
-        g = _normal(gen, (C,), 0.1, bf) + 1
-        bb = _normal(gen, (C,), 0.1, bf)
-        r = _check_case(
-            "fused_layer_norm",
-            lambda: ln.fused_layer_norm(x, g, bb, 1e-6, 1),
-            lambda: ln.layer_norm_plain(x, g, bb, 1e-6, 1),
-            lambda: F.layer_norm(x, (C,), g, bb, 1e-6),
-            flops=8 * M * C, nbytes=2 * (2 * M * C + 2 * C), peak=PEAK_F32,
-            iters=50)
-        r["shape"] = f"final norm x[{M},{C}] groups 1 (batch {b})"
-        cases.append(r)
-    results["fused_layer_norm"] = cases
 
     # fused_ln_qkv at every distinct shape of the batch-8 forward: blocks 0
     # (D 96 -> 3C 288 over 100352 tokens), 1 (96 -> 576), 2 (192 -> 576
@@ -758,11 +771,8 @@ def train_kernel_checks():
     inputs, differentiated by autograd; plain and library times are of
     forward + backward)."""
     import torch
-    import torch.nn.functional as F
 
     from aicity_action_tpu_torch.ops import flash_attention as fa
-    from aicity_action_tpu_torch.ops import fused_dense as fd
-    from aicity_action_tpu_torch.ops import layer_norm as ln
 
     bf = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
@@ -805,35 +815,6 @@ def train_kernel_checks():
         torch.cuda.empty_cache()
     results["flash_attention"] = fwd
     results["flash_attention_bwd"] = bwd
-    # LayerNorm backward: block 0's q norm (per head over d 96, 401408
-    # rows), block 1's k norm (50176 rows), block 15's q norm (50176 rows)
-    # and the final norm [B*1568, 768]
-    cases = []
-    for what, M, C, eps in (("block 0 q norm", B * 100352, 96, 1e-5),
-                            ("block 1 k norm", B * 2 * 6272, 96, 1e-5),
-                            ("block 15 q norm", B * 8 * 1568, 96, 1e-5),
-                            ("final norm", B * 1568, 768, 1e-6)):
-        x = _normal(gen, (M, C), 2.0, bf)
-        g = _normal(gen, (C,), 0.1, bf) + 1
-        bb = _normal(gen, (C,), 0.1, bf)
-        dy = _normal(gen, (M, C), 1.0, bf)
-        r = _check_case(
-            "fused_layer_norm_bwd",
-            lambda x=x, g=g, dy=dy, eps=eps: ln.fused_layer_norm_bwd(
-                x, g, dy, eps, 1),
-            lambda x=x, g=g, bb=bb, dy=dy, eps=eps: _plain_grads(
-                lambda a, b, c: ln.layer_norm_plain(a, b, c, eps, 1),
-                (x, g, bb), (dy,)),
-            lambda x=x, g=g, bb=bb, dy=dy, C=C, eps=eps: _library_grads(
-                lambda a, b, c: F.layer_norm(a, (C,), b, c, eps),
-                (x, g, bb), (dy,)),
-            flops=20 * M * C, nbytes=2 * (3 * M * C + 3 * C),
-            peak=PEAK_F32, iters=10)
-        r["shape"] = f"{what} x[{M},{C}]"
-        cases.append(r)
-        del x, dy
-    results["fused_layer_norm_bwd"] = cases
-
     # LN+qkv backward: block 0 (D 96, 3C 288, L 100352), block 1 (D 96,
     # 3C 576, L 100352), block 15 (D 768, 3C 2304, L 1568), and blocks 4-13
     # (D 384, 3C 1152, L 6272: ten calls a step); the gradients of q, k, v
@@ -856,6 +837,119 @@ def train_kernel_checks():
                                (15, B * 1568, 768))]
     results["fused_ln_mlp_bwd"] = cases
     return results
+
+
+# --------------------------------------------------------------- LayerNorm
+
+# the pool norms of the v2 448 step (what, batch, h*d, L, heads): the
+# channel-major instance; block 0 q also at batch 8 (the eval forward under
+# AICITY_TPU_FUSE_ATTN_LN=0)
+POOL_NORM_CASES = (("v2 block 0 q", TRAIN_BATCH, 96, 100352, 1),
+                   ("v2 block 1 k", TRAIN_BATCH, 192, 6272, 2),
+                   ("v2 blocks 4-13 k", TRAIN_BATCH, 384, 1568, 4),
+                   ("v2 block 15 q", TRAIN_BATCH, 768, 1568, 8),
+                   ("v2 block 0 q", BATCH, 96, 100352, 1))
+# the rows instance (what, rows, C, eps, forward too): the final norm at
+# batch 8 and 1 (eval) and 4 (the train step's backward), and the v1 224's
+# largest cls-token pool norm, block 1 q over 6273 tokens, 2 heads, batch 8
+ROWS_NORM_CASES = (("final norm (batch 8)", BATCH * 1568, 768, 1e-6, True),
+                   ("final norm (batch 1)", 1568, 768, 1e-6, True),
+                   ("final norm (batch 4)", TRAIN_BATCH * 1568, 768, 1e-6,
+                    False),
+                   ("v1 block 1 q pool norm (cls, batch 8)",
+                    BATCH * 2 * 6273, 96, 1e-5, True))
+
+
+def layer_norm_checks():
+    """Rows 12 and 13, each instance at the shapes of its path: the
+    channel-major pool norm (``pool_norm_rows`` and its backward, against
+    the plain copy + LN and, as the library yardstick, ``.contiguous()`` +
+    ``F.layer_norm``, since the kernel does both jobs) at POOL_NORM_CASES,
+    the rows instance (against ``F.layer_norm``) at ROWS_NORM_CASES.
+    Bounds: 4 bytes an element forward, 6 backward; backwards' plain and
+    library times are of forward + backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from aicity_action_tpu_torch.ops import layer_norm as ln
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    fwd, bwd = [], []
+    for what, B, C, L, h in POOL_NORM_CASES:
+        eps, N, d = 1e-5, B * C * L, C // h
+        t = _normal(gen, (B, C, L), 2.0, bf)
+        g = _normal(gen, (d,), 0.1, bf) + 1
+        bb = _normal(gen, (d,), 0.1, bf)
+        dy = _normal(gen, (B * h, L, d), 1.0, bf)
+
+        def rows(a, B=B, h=h, d=d, L=L):
+            return (a.reshape(B, h, d, L).transpose(2, 3)
+                    .reshape(B * h, L, d).contiguous())
+
+        shape = (f"{what} norm t[{B},{C},{L}] -> rows[{B * h},{L},{d}] "
+                 f"(channel-major)")
+        r = _check_case(
+            "fused_layer_norm",
+            lambda t=t, g=g, bb=bb, h=h: ln.pool_norm_rows(t, g, bb, eps, h),
+            lambda t=t, g=g, bb=bb, h=h: ln.pool_norm_rows_plain(
+                t, g, bb, eps, h),
+            lambda t=t, g=g, bb=bb, rows=rows: F.layer_norm(
+                rows(t), (d,), g, bb, eps),
+            flops=8 * N, nbytes=2 * (2 * N + 2 * d), peak=PEAK_F32, iters=10)
+        r["shape"] = shape
+        fwd.append(r)
+        r = _check_case(
+            "fused_layer_norm_bwd",
+            lambda t=t, g=g, dy=dy, h=h: ln.pool_norm_rows_bwd(
+                t, g, dy, eps, h),
+            lambda t=t, g=g, bb=bb, dy=dy, h=h: _plain_grads(
+                lambda a, b, c: ln.pool_norm_rows_plain(a, b, c, eps, h),
+                (t, g, bb), (dy,)),
+            lambda t=t, g=g, bb=bb, dy=dy, rows=rows: _library_grads(
+                lambda a, b, c: F.layer_norm(rows(a), (d,), b, c, eps),
+                (t, g, bb), (dy,)),
+            flops=20 * N, nbytes=2 * (3 * N + 3 * d), peak=PEAK_F32,
+            iters=5)
+        r["shape"] = shape
+        bwd.append(r)
+        del t, dy
+        torch.cuda.empty_cache()
+    for what, M, C, eps, forward in ROWS_NORM_CASES:
+        x = _normal(gen, (M, C), 2.0, bf)
+        g = _normal(gen, (C,), 0.1, bf) + 1
+        bb = _normal(gen, (C,), 0.1, bf)
+        dy = _normal(gen, (M, C), 1.0, bf)
+        shape = f"{what} x[{M},{C}] (rows)"
+        if forward:
+            r = _check_case(
+                "fused_layer_norm",
+                lambda x=x, g=g, bb=bb, eps=eps: ln.fused_layer_norm(
+                    x, g, bb, eps, 1),
+                lambda x=x, g=g, bb=bb, eps=eps: ln.layer_norm_plain(
+                    x, g, bb, eps, 1),
+                lambda x=x, g=g, bb=bb, C=C, eps=eps: F.layer_norm(
+                    x, (C,), g, bb, eps),
+                flops=8 * M * C, nbytes=2 * (2 * M * C + 2 * C),
+                peak=PEAK_F32, iters=50)
+            r["shape"] = shape
+            fwd.append(r)
+        r = _check_case(
+            "fused_layer_norm_bwd",
+            lambda x=x, g=g, dy=dy, eps=eps: ln.fused_layer_norm_bwd(
+                x, g, dy, eps, 1),
+            lambda x=x, g=g, bb=bb, dy=dy, eps=eps: _plain_grads(
+                lambda a, b, c: ln.layer_norm_plain(a, b, c, eps, 1),
+                (x, g, bb), (dy,)),
+            lambda x=x, g=g, bb=bb, dy=dy, C=C, eps=eps: _library_grads(
+                lambda a, b, c: F.layer_norm(a, (C,), b, c, eps),
+                (x, g, bb), (dy,)),
+            flops=20 * M * C, nbytes=2 * (3 * M * C + 3 * C),
+            peak=PEAK_F32, iters=10)
+        r["shape"] = shape
+        bwd.append(r)
+        del x, dy
+    return {"fused_layer_norm": fwd, "fused_layer_norm_bwd": bwd}
 
 
 # ------------------------------------------- cls-token and fused-LN kernels
@@ -1134,21 +1228,29 @@ def derived_counts(model, train: bool) -> dict:
     that the model's blocks and the fused-LN switch imply. Per block: one
     LN+qkv; the fused-LN attention where the block fuses (conv pools, no
     cls token, the switch on), else one attention (the padded one with a
-    cls token) and one LN per conv-pooled q / k / v; one LN+MLP, or, where
-    the MLP changes the channels, a separate norm2. The final norm once.
-    Training adds each backward once and, under activation checkpointing,
-    runs every block's forward kernels twice (the recompute)."""
-    from aicity_action_tpu_torch.models.mvit import _fuse_attn_ln_enabled
+    cls token) and one LN per conv-pooled q / k / v, the channel-major
+    instance (``pool_norm_rows``, also counted on its own) where its length
+    is a multiple of 8 and there is no cls token, else the rows instance;
+    one LN+MLP, or, where the MLP changes the channels, a separate norm2.
+    The final norm once. Training adds each backward once and, under
+    activation checkpointing, runs every block's forward kernels twice
+    (the recompute)."""
+    from aicity_action_tpu_torch.models.mvit import (_fuse_attn_ln_enabled,
+                                                    pool_norm_call_shapes)
+    from aicity_action_tpu_torch.ops.layer_norm import channel_major_applies
 
-    n = dict.fromkeys(ALL_FNS, 0)
+    n = dict.fromkeys(ALL_FNS + tuple(_instance_counters()), 0)
     remat = 2 if train and model.spec.act_checkpoint else 1
+    pool_norms = {}  # block -> the lengths of its pool norms
+    for i, _, _, _, _, L in pool_norm_call_shapes(model.spec, 1):
+        pool_norms.setdefault(i, []).append(L)
 
     def add(fwd, bwd, times=1):
         n[fwd] += remat * times
         if train:
             n[bwd] += times
 
-    for blk in model.blocks:
+    for i, blk in enumerate(model.blocks):
         attn = blk.attn
         add("fused_ln_qkv", "fused_ln_qkv_bwd")
         if (attn.mode == "conv" and not attn.has_cls and attn.pooled
@@ -1159,8 +1261,10 @@ def derived_counts(model, train: bool) -> dict:
             attend = ("flash_attention_padded" if attn.has_cls
                       else "flash_attention")
             add(attend, attend + "_bwd")
-            add("fused_layer_norm", "fused_layer_norm_bwd",
-                len(attn.pooled) if attn.mode == "conv" else 0)
+            for L in pool_norms.get(i, []):
+                add("fused_layer_norm", "fused_layer_norm_bwd")
+                if channel_major_applies(L, attn.has_cls):
+                    add("pool_norm_rows", "pool_norm_rows_bwd")
         if blk.proj is None:
             add("fused_ln_mlp", "fused_ln_mlp_bwd")
         else:
@@ -1171,13 +1275,23 @@ def derived_counts(model, train: bool) -> dict:
     return n
 
 
+def _instance_counters():
+    """The channel-major LayerNorm instance's own counts, beside rows 12
+    and 13's (which count both instances)."""
+    from aicity_action_tpu_torch.ops import layer_norm as ln
+
+    return {"pool_norm_rows": ln.pool_norm_rows,
+            "pool_norm_rows_bwd": ln.pool_norm_rows_bwd}
+
+
 def reset_counts() -> None:
-    for fn in _wrappers().values():
+    for fn in (*_wrappers().values(), *_instance_counters().values()):
         fn.launches = 0
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    return {name: fn.launches for name, fn in
+            {**_wrappers(), **_instance_counters()}.items()}
 
 
 @contextlib.contextmanager
@@ -1548,7 +1662,8 @@ def main() -> int:
     build_kernels()
     hopper_sass_checks()
     descriptor_checks()
-    checks = kernel_checks()
+    checks = layer_norm_checks()
+    checks.update(kernel_checks())
     checks.update(train_kernel_checks())
     checks.update(v1_kernel_checks())
     for name, cases in checks.items():
@@ -1625,6 +1740,12 @@ def main() -> int:
                                  for path, n in launches.items()},
             "other_shapes": [_public(c) for c in checks[name][1:]],
         })
+        if name in ("fused_layer_norm", "fused_layer_norm_bwd"):
+            cm = ("pool_norm_rows" if name == "fused_layer_norm"
+                  else "pool_norm_rows_bwd")
+            kernels_line[-1]["instances_by_path"] = {
+                path: {"channel_major": n[cm], "rows": n[name] - n[cm]}
+                for path, n in launches.items()}
     for extra in ("fused_ln_qkv odd tokens", "fused_ln_qkv_bwd odd tokens",
                   "fused_ln_mlp odd tokens", "fused_ln_mlp_bwd odd tokens"):
         base = extra.split()[0]

@@ -467,9 +467,10 @@ def test_drop_path_scales_kept_samples_by_one_over_keep():
 
 
 def test_training_path_feeds_the_kernels_contiguous_rows(monkeypatch):
-    """The kernels take contiguous token rows; the training path makes the
+    """The kernels take contiguous inputs; the training path makes the
     pooled q, k, v contiguous head-major rows even for one head, where a
-    reshape alone would return a strided view."""
+    reshape alone would return a strided view, and hands a channel-major
+    pool norm the pool convolution's contiguous output."""
     from aicity_action_tpu_torch.models import mvit as tmvit
 
     seen = []
@@ -481,7 +482,7 @@ def test_training_path_feeds_the_kernels_contiguous_rows(monkeypatch):
             return fn(*args, **kw)
         return wrapped
 
-    for name in ("flash_attention", "fused_layer_norm"):
+    for name in ("flash_attention", "fused_layer_norm", "pool_norm_rows"):
         monkeypatch.setattr(tmvit, name, checking(getattr(tmvit, name)))
     cfg = _train_cfg(get_cfg, act_checkpoint=False)
     model = build_model(cfg, device="cpu").train()

@@ -1,15 +1,23 @@
-"""Sliding-window temporal inference on the card (port of the device-gather
-path of ``aicity_action_tpu/pipeline/window_inference.py``).
+"""Sliding-window temporal inference on the card (port of
+``aicity_action_tpu/pipeline/window_inference.py``).
 
 - :class:`WindowDataset` enumerates windows of ``frame_length x
   frame_stride`` source frames every ``proposal_stride`` frames, with the
   fps renormalization of the reference (module_wrapper.py:213-232), and
-  decodes the video ONCE with cv2 into planar I420 u8 chunks.
-- :class:`WindowScorer` uploads each chunk once, keeps the previous chunk's
-  tail on the card, gathers every window's frames there by index, converts
-  I420 to RGB, normalizes, and scores batches of windows with the model.
-  :meth:`WindowScorer.score_chunks` takes any iterator of chunks plus the
-  window plans, so a caller can drive it without a video file.
+  decodes the video: ONCE into u8 chunks (planar I420, or BGR for the
+  exact-RGB path), by one generator or by seeking decoder threads that give
+  the same bytes; or window by window. I420 chunks come from the port's
+  FFmpeg library (:class:`~aicity_action_tpu_torch.native.
+  VideoDecoderI420`) where it applies: FFmpeg's development files found by
+  ``pkg-config``, a yuv420p source, an even pixel ROI, ``AICITY_VDEC`` not
+  0. Everything else decodes with cv2, imported only there.
+- :class:`WindowScorer` scores the windows with the model on the card that
+  holds it. The default path uploads each chunk once, keeps the previous
+  chunk's tail on the card, gathers every window's frames there by index,
+  converts to normalized RGB and scores batches of windows, while a decoder
+  thread keeps two chunks ahead. :meth:`WindowScorer.score_chunks` takes
+  any iterator of chunks plus the window plans, so a caller can drive it
+  without a video file.
 
 Output per video: the sorted list of ``(t0, t1, scores[num_class])`` that
 the JAX package and the reference pickle (run_action_...py:110-130).
@@ -19,12 +27,17 @@ from __future__ import annotations
 
 import os
 import pickle
+import queue
+import threading
+import time
 from typing import Iterator, Optional, Sequence
 
 import numpy as np
 import torch
 
-from ..data.decoder import cv2_video_meta, sample_indices
+from ..data.decoder import cv2_video_meta, probe, sample_indices
+
+_ITEM_8 = "ROADMAP Queue 1 item 8"
 
 
 def window_spans(num_frames: int, fps: float, frame_length: int,
@@ -49,7 +62,12 @@ def window_plans(spans: Sequence[tuple[int, int]], frame_length: int,
 
 
 class WindowDataset:
-    """One video's sliding windows and its sequential I420 chunk decode."""
+    """One video's sliding windows and its decoders.
+
+    ``backend`` (``DATA.DECODING_BACKEND``) must be ``cv2``, the JAX
+    package's default; decord and PyAV are not ported. Items
+    (``dataset[i]``) are ``([clip f32 [T, s, s, 3]], t0, t1)``.
+    """
 
     def __init__(
         self,
@@ -63,15 +81,35 @@ class WindowDataset:
         roi: tuple[float, float, float, float] = (0.0, 0.0, 1.0, 1.0),
         mean: Sequence[float] = (0.45, 0.45, 0.45),
         std: Sequence[float] = (0.225, 0.225, 0.225),
+        arch_pathways: int = 1,
+        backend: str = "cv2",
     ):
+        if backend != "cv2":
+            raise NotImplementedError(
+                f"DATA.DECODING_BACKEND {backend!r} is not ported; the port "
+                f"decodes with cv2 or its FFmpeg library (ROADMAP Queue 1 "
+                f"item 6)")
+        if arch_pathways != 1:
+            raise NotImplementedError(
+                f"{arch_pathways}-pathway (SlowFast) window inputs are not "
+                f"ported ({_ITEM_8})")
         self.video_path = video_path
         self.frame_length = frame_length
         self.frame_size = frame_size
         self.mean = np.asarray(mean, np.float32)
         self.std = np.asarray(std, np.float32)
-        self.num_frames, self.fps = cv2_video_meta(video_path)
+        self.last_decode_backend: Optional[str] = None  # set per decode run
+        # the FFmpeg library's reading where its decoder applies, else None
+        # and cv2's
+        self._meta = probe(video_path)
+        if self._meta is not None:
+            self.num_frames = self._meta.frames
+            self.fps = self._meta.fps or 30.0
+        else:
+            self.num_frames, self.fps = cv2_video_meta(video_path)
         self.windows = window_spans(self.num_frames, self.fps, frame_length,
                                     frame_stride, proposal_stride, target_fps)
+        # relative ROI -> source pixels, resolved once
         self.roi = roi
         self._roi_px: Optional[tuple[int, int, int, int]] = None
 
@@ -81,43 +119,283 @@ class WindowDataset:
     def plans(self) -> list[tuple[int, int, np.ndarray]]:
         return window_plans(self.windows, self.frame_length, self.num_frames)
 
-    def _resolve_roi_px(self, frame) -> tuple[int, int, int, int]:
-        """The relative ROI in source pixels, fixed by the first frame."""
+    def _resolve_roi_px(self, frame=None) -> Optional[tuple]:
+        """The relative ROI in source pixels, fixed once: from ``frame``'s
+        size when given, else from the FFmpeg library's frame size where it
+        serves (so that its path never opens cv2), else from one frame
+        decoded with cv2 (None if none decodes)."""
         if self._roi_px is None:
-            h, w = frame.shape[:2]
+            if frame is not None:
+                h, w = frame.shape[:2]
+            elif self._meta is not None:
+                w, h = self._meta.width, self._meta.height
+            else:
+                import cv2
+
+                cap = cv2.VideoCapture(self.video_path)
+                ok, frame = cap.read()
+                cap.release()
+                if not ok:
+                    return None
+                h, w = frame.shape[:2]
             x1, y1, x2, y2 = self.roi
             self._roi_px = (int(w * x1), int(h * y1),
                             int(w * x2), int(h * y2))
         return self._roi_px
 
-    def stream_chunks(self, chunk_frames: int) -> Iterator[np.ndarray]:
-        """Sequential cv2 decode -> ROI crop -> resize -> planar I420, into
-        ``[chunk_frames, s*3//2, s]`` u8 slabs; each source frame is decoded
-        and resized once. Infinite: the EOF partial chunk is padded with its
-        own last frame, then repeat-last chunks follow forever."""
+    def _read(self, idxs: np.ndarray) -> np.ndarray:
+        """RGB u8 frames ``[T, H, W, 3]`` at ``idxs`` (cv2: a seek near the
+        first, then sequential grabs; an index past EOF takes the nearest
+        decoded frame)."""
         import cv2
 
-        s = self.frame_size
-        if s % 2:
-            raise ValueError("I420 packing needs an even frame size")
-        slab = np.empty((chunk_frames, s * 3 // 2, s), np.uint8)
-        tmp = np.empty((s, s, 3), np.uint8)
         cap = cv2.VideoCapture(self.video_path)
+        out = {}
+        need = sorted(set(int(i) for i in idxs))
+        # windows sit deep inside long videos: scanning from frame 0 would
+        # make the whole pass O(frames^2)
+        cap.set(cv2.CAP_PROP_POS_FRAMES, need[0])
+        i = need[0]
+        while need:
+            if not cap.grab():
+                break
+            if i == need[0]:
+                ok, frame = cap.retrieve()
+                if not ok:
+                    break
+                out[i] = cv2.cvtColor(frame, cv2.COLOR_BGR2RGB)
+                need.pop(0)
+            i += 1
+        cap.release()
+        got = sorted(out)
+        if not got:
+            raise RuntimeError(f"decoded 0 frames from {self.video_path}")
+        return np.stack([
+            out[int(j)] if int(j) in out
+            else out[min(got, key=lambda k: abs(k - int(j)))]
+            for j in idxs
+        ])
+
+    def __getitem__(self, idx: int):
+        import cv2
+
+        t0, t1 = self.windows[int(idx)]
+        frames = self._read(sample_indices(t0, t1, self.frame_length,
+                                           self.num_frames))
+        self._resolve_roi_px(frames[0])
+        s = self.frame_size
+        # the per-frame crop -> cv2.resize of the chunk paths
+        x1, y1, x2, y2 = self._roi_px
+        cropped = frames[:, y1:y2, x1:x2]
+        resized = np.empty((frames.shape[0], s, s, 3), np.uint8)
+        for i in range(frames.shape[0]):
+            cv2.resize(cropped[i], (s, s), dst=resized[i],
+                       interpolation=cv2.INTER_LINEAR)
+        x = (resized.astype(np.float32) / 255.0 - self.mean) / self.std
+        return [x], t0, t1
+
+    def stream_chunks(self, chunk_frames: int, rgb: bool = True,
+                      yuv420: bool = True) -> Iterator[np.ndarray]:
+        """Sequential decode -> ROI crop -> resize into u8 chunks, each
+        source frame decoded and resized once: planar I420 ``[chunk_frames,
+        s*3//2, s]`` when ``yuv420`` (the FFmpeg library's planes where it
+        applies, else cv2's BGR packed to I420; ``rgb`` is ignored), else
+        ``[chunk_frames, s, s, 3]`` RGB, or BGR under ``rgb=False``.
+        Infinite: the EOF partial chunk is padded with its own last frame,
+        then repeat-last chunks follow forever."""
+        s = self.frame_size
+        if yuv420 and s % 2:
+            raise ValueError("I420 packing needs an even frame size")
+        slab = np.empty(self._chunk_shape(chunk_frames, yuv420), np.uint8)
+        dec = self._open_vdec(s) if yuv420 else None
+        if dec is not None:
+            try:
+                yield from _emit_chunks(slab, dec.read)
+            finally:
+                dec.close()
+            return
+
+        import cv2
+
+        cap = cv2.VideoCapture(self.video_path)
+        write = self._frame_writer(s, yuv420, rgb)
 
         def read_row(row) -> bool:
             ok, frame = cap.read()
             if not ok:
                 return False
-            x1, y1, x2, y2 = self._resolve_roi_px(frame)
-            cv2.resize(frame[y1:y2, x1:x2], (s, s), dst=tmp,
-                       interpolation=cv2.INTER_LINEAR)
-            cv2.cvtColor(tmp, cv2.COLOR_BGR2YUV_I420, dst=row)
+            self._resolve_roi_px(frame)
+            write(frame, row)
             return True
 
         try:
             yield from _emit_chunks(slab, read_row)
         finally:
             cap.release()
+
+    def _chunk_shape(self, F: int, yuv420: bool) -> tuple[int, ...]:
+        s = self.frame_size
+        return (F, s * 3 // 2, s) if yuv420 else (F, s, s, 3)
+
+    def _open_vdec(self, s: int):
+        """The FFmpeg I420 decoder where it applies to this video (FFmpeg's
+        development files found, a yuv420p source and ``AICITY_VDEC`` not 0
+        when the dataset was made; an even pixel ROI), else None: the caller
+        decodes with cv2. The two resamplers differ by ~1 u8 LSB, and an odd
+        ROI would shift the I420 crop by a pixel, so the rules keep the
+        backends interchangeable. Where the decoder applies, a failure to
+        open raises."""
+        self.last_decode_backend = "cv2"
+        if self._meta is None:
+            return None
+        from .. import native
+
+        roi = None
+        if tuple(self.roi) != (0.0, 0.0, 1.0, 1.0):
+            roi = self._resolve_roi_px()
+            if any(v % 2 for v in roi):
+                return None
+        dec = native.VideoDecoderI420(self.video_path, s, roi)
+        self.last_decode_backend = "vdec"
+        return dec
+
+    def _frame_writer(self, s: int, yuv420: bool, rgb: bool):
+        """``write(frame, out_row)``: ROI crop + resize ONE decoded BGR
+        frame straight into a slab row (u8 ``[s, s, 3]``, or I420 ``[s*3//2,
+        s]`` when ``yuv420``); the colour conversion runs after the resize
+        on the s x s crop. Each writer owns one scratch buffer: decoder
+        threads each take their own."""
+        import cv2
+
+        tmp = np.empty((s, s, 3), np.uint8) if (yuv420 or rgb) else None
+        interp = cv2.INTER_LINEAR
+
+        def write(frame, out):
+            x1, y1, x2, y2 = self._roi_px
+            crop = frame[y1:y2, x1:x2]
+            if yuv420:
+                cv2.resize(crop, (s, s), dst=tmp, interpolation=interp)
+                cv2.cvtColor(tmp, cv2.COLOR_BGR2YUV_I420, dst=out)
+            elif rgb:
+                cv2.resize(crop, (s, s), dst=tmp, interpolation=interp)
+                cv2.cvtColor(tmp, cv2.COLOR_BGR2RGB, dst=out)
+            else:
+                cv2.resize(crop, (s, s), dst=out, interpolation=interp)
+
+        return write
+
+    def _decode_chunk(self, c: int, F: int, rgb: bool, yuv420: bool):
+        """Chunk ``c`` (source frames ``[c*F, (c+1)*F)``) from a decoder of
+        its own: ``(slab, n_real)``, the slab's tail padded with the chunk's
+        own last frame where ``0 < n_real < F`` (the sequential generator's
+        partial chunk); ``(None, 0)`` past EOF. The same backend as
+        :meth:`stream_chunks`, so the bytes are the same."""
+        s = self.frame_size
+        slab = np.empty(self._chunk_shape(F, yuv420), np.uint8)
+        done = 0
+        dec = self._open_vdec(s) if yuv420 else None
+        if dec is not None:
+            with dec:
+                # a container that refuses timestamp seeks: an exact
+                # decode-and-discard skip (no crop or scale work)
+                if c and not dec.seek(c * F):
+                    dec.skip(c * F)
+                while done < F and dec.read(slab[done]):
+                    done += 1
+        else:
+            import cv2
+
+            cap = cv2.VideoCapture(self.video_path)
+            write = self._frame_writer(s, yuv420, rgb)
+            try:
+                if c:
+                    cap.set(cv2.CAP_PROP_POS_FRAMES, c * F)
+                    # the seek is estimated from the average fps and can
+                    # land off target on VFR / odd-GOP sources: then an
+                    # exact sequential skip from frame 0
+                    if int(round(cap.get(cv2.CAP_PROP_POS_FRAMES))) != c * F:
+                        cap.release()
+                        cap = cv2.VideoCapture(self.video_path)
+                        for _ in range(c * F):
+                            if not cap.grab():
+                                break
+                while done < F:
+                    ok, frame = cap.read()
+                    if not ok:
+                        break
+                    write(frame, slab[done])
+                    done += 1
+            finally:
+                cap.release()
+        if not done:
+            return None, 0
+        slab[done:] = slab[done - 1]
+        return slab, done
+
+    def stream_chunks_parallel(self, chunk_frames: int, n_threads: int,
+                               rgb: bool = True, yuv420: bool = True,
+                               max_chunks: Optional[int] = None
+                               ) -> Iterator[np.ndarray]:
+        """Ordered ``n_threads`` variant of :meth:`stream_chunks`, equal to it
+        bit for bit (EOF padding included) and infinite like it. Chunk ``c``
+        covers the disjoint source range ``[c*F, (c+1)*F)``, so each worker
+        seeks its own decoder there and fills one slab; decoding runs in
+        native code without the GIL, so it scales with host cores. About
+        ``n_threads + 1`` slabs are in flight. No chunk at or past
+        ``max_chunks`` is submitted (a consumer that stops there leaves no
+        decode behind; chunks asked for past it are repeat-last pads, as
+        past EOF)."""
+        if n_threads <= 1:
+            yield from self.stream_chunks(chunk_frames, rgb=rgb,
+                                          yuv420=yuv420)
+            return
+        from concurrent.futures import ThreadPoolExecutor
+
+        F = chunk_frames
+        if yuv420 and self.frame_size % 2:
+            raise ValueError("I420 packing needs an even frame size")
+        self._resolve_roi_px()  # once, before the workers race on it
+        shape = self._chunk_shape(F, yuv420)
+        limit = max_chunks if max_chunks is not None else float("inf")
+        n0 = int(min(n_threads + 1, limit))
+        last = None  # the last real frame seen so far
+
+        def pad():
+            out = np.empty(shape, np.uint8)
+            out[:] = last if last is not None else 0
+            return out
+
+        with ThreadPoolExecutor(max_workers=n_threads) as pool:
+            futs = {c: pool.submit(self._decode_chunk, c, F, rgb, yuv420)
+                    for c in range(n0)}
+            nxt, c, eof = n0, 0, False
+            try:
+                while True:
+                    if eof or c not in futs:
+                        yield pad()
+                        continue
+                    slab, n_real = futs.pop(c).result()
+                    if n_real == F:
+                        if nxt < limit:
+                            futs[nxt] = pool.submit(self._decode_chunk, nxt,
+                                                    F, rgb, yuv420)
+                            nxt += 1
+                        last = slab[-1].copy()  # the consumer owns the slab
+                        yield slab
+                    else:
+                        eof = True
+                        for f in futs.values():  # past-EOF lookahead
+                            f.cancel()
+                        futs.clear()
+                        if n_real:
+                            last = slab[n_real - 1].copy()
+                            yield slab
+                        else:
+                            yield pad()
+                    c += 1
+            finally:
+                for f in futs.values():  # the consumer stopped early
+                    f.cancel()
 
 
 def _emit_chunks(slab: np.ndarray, read_row) -> Iterator[np.ndarray]:
@@ -167,33 +445,120 @@ def i420_to_rgb(yuv: torch.Tensor, s: int) -> torch.Tensor:
 class WindowScorer:
     """Scores sliding windows with ``model`` on the card that holds it.
 
-    Each I420 chunk crosses to the card once; a window is gathered there
-    from the previous chunk's tail and the current chunk, and windows are
-    scored ``batch_size`` at a time. Results stay on the card until the
-    video ends, so host decode overlaps device compute.
+    ``score_video`` takes the device-gather path by default: each chunk
+    crosses to the card once, as planar I420, or under ``chroma420=False``
+    as exact BGR frames (the channel swap folded into a copy of the
+    patch-embed weight); a window is gathered there from the previous
+    chunk's tail and the current chunk, and windows are scored
+    ``batch_size`` at a time. ``num_workers`` bounds the parallel decoders
+    (one fewer than the host's cores at most) and the loader path's worker
+    processes. Results stay on the card until the video ends, so host
+    decode overlaps device compute. ``last_timers`` holds the device-gather
+    run's phase split (seconds of decode / upload / dispatch / drain, and
+    the calls, chunks and decoder) and is None after any other path.
+    Detection (an RoI head on whole-frame boxes) is not ported.
     """
 
     def __init__(self, model: torch.nn.Module, batch_size: int = 8,
-                 chunk_frames: int = 512):
+                 num_workers: int = 8, chunk_frames: int = 512,
+                 detection: bool = False, chroma420: bool = True):
+        if detection:
+            raise NotImplementedError(
+                f"detection scoring (an RoI head on whole-frame boxes) is not "
+                f"ported ({_ITEM_8})")
         self.model = model
         self.device = next(model.parameters()).device
         self.batch_size = batch_size
+        self.num_workers = num_workers
         self.chunk_frames = chunk_frames
+        self.chroma420 = chroma420
+        self.last_timers: Optional[dict] = None
 
-    def score_video(self, dataset: WindowDataset) -> list:
-        """Sorted ``[(t0, t1, scores)]`` for every window of ``dataset``."""
-        return self.score_chunks(
-            dataset.stream_chunks(self.chunk_frames), dataset.plans(),
-            dataset.frame_size, dataset.mean, dataset.std)
+    def score_video(self, dataset: WindowDataset, *,
+                    streaming: bool = True) -> list:
+        """Sorted ``[(t0, t1, scores)]`` for every window of ``dataset``:
+        the device-gather path, or under ``streaming=False`` the loader
+        path. (The JAX package routes two-pathway and detection models to a
+        third, window-streaming path; the port refuses both earlier.)"""
+        self.last_timers = None
+        if streaming:
+            return self._score_device_gather(dataset)
+        return self._score_loader(dataset)
+
+    def _score_device_gather(self, dataset: WindowDataset) -> list:
+        plans = dataset.plans()
+        if not plans:
+            return []
+        s = dataset.frame_size
+        F = self.chunk_frames
+        chroma = self.chroma420 and s % 2 == 0
+        n_chunks = max(int(p[2][-1]) for p in plans) // F + 1
+        # decoders fill disjoint chunks in parallel, one core left for this
+        # thread; max_chunks: no decode past the last scored chunk
+        n_dec = max(1, min(self.num_workers, (os.cpu_count() or 1) - 1))
+        gen = dataset.stream_chunks_parallel(F, n_dec, rgb=False,
+                                             yuv420=chroma,
+                                             max_chunks=n_chunks)
+        q: queue.Queue = queue.Queue(maxsize=2)
+        stop = threading.Event()
+        decode = [0.0]
+
+        def put(item) -> bool:
+            """False once the scoring loop has stopped."""
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    pass
+            return False
+
+        def decoder() -> None:
+            # a decode error must reach the scoring loop, not strand it on
+            # q.get(): it travels through the queue and is raised there; a
+            # scoring error stops the decoding at the next chunk
+            try:
+                for _ in range(n_chunks):
+                    t = time.perf_counter()
+                    chunk = next(gen)
+                    decode[0] += time.perf_counter() - t
+                    if not put(chunk):
+                        return
+            except BaseException as e:  # noqa: BLE001 (raised in chunks())
+                put(e)
+
+        def chunks() -> Iterator[np.ndarray]:
+            while True:
+                item = q.get()
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+
+        th = threading.Thread(target=decoder, name="window-decoder",
+                              daemon=True)
+        th.start()
+        try:
+            preds = self.score_chunks(chunks(), plans, s, dataset.mean,
+                                      dataset.std)
+        finally:
+            stop.set()
+            th.join()
+            gen.close()  # the parallel decoders' pool and handles
+        self.last_timers.update(decode=decode[0],
+                                decoder=dataset.last_decode_backend or "cv2")
+        return preds
 
     @torch.no_grad()
     def score_chunks(self, chunks: Iterator[np.ndarray],
                      plans: Sequence[tuple[int, int, np.ndarray]], s: int,
                      mean: Sequence[float], std: Sequence[float]) -> list:
         """Score ``plans`` (``(t0, t1, frame indices)``, indices ascending
-        within a window) over ``chunks``, an iterator of consecutive
-        ``[chunk_frames, s*3//2, s]`` u8 I420 slabs that covers every
-        indexed frame. Returns the sorted ``[(t0, t1, scores f32)]``."""
+        within a window) over ``chunks``, an iterator of consecutive u8
+        chunks of ``chunk_frames`` frames that covers every indexed frame:
+        planar I420 ``[F, s*3//2, s]`` (``chroma420`` and an even ``s``),
+        else BGR ``[F, s, s, 3]``. ``mean`` / ``std`` are in RGB order.
+        Returns the sorted ``[(t0, t1, scores f32)]``; sets ``last_timers``
+        (upload / dispatch / drain seconds, calls, chunks)."""
         if not plans:
             return []
         F = self.chunk_frames
@@ -201,36 +566,85 @@ class WindowScorer:
         if span > F:
             raise ValueError(f"a window spans {span} frames, more than a "
                              f"chunk of {F}")
+        chroma = self.chroma420 and s % 2 == 0
         # a window is scored with the chunk that holds its last frame; its
         # first frame then lies in that chunk or the previous one's tail
         by_chunk: dict[int, list[int]] = {}
         for w, (_, _, idxs) in enumerate(plans):
             by_chunk.setdefault(int(idxs[-1]) // F, []).append(w)
+        n_chunks = max(by_chunk) + 1
         dev = self.device
+        params = {}
+        if chroma:
+            row = (s * 3 // 2, s)
+        else:
+            # BGR frames: reversing the patch embed's input channels (dim 1
+            # of the Conv3d weight [out, in, t, h, w]) and the mean / std
+            # gives the RGB model's output bit for bit
+            row = (s, s, 3)
+            w = self.model.patch_embed.proj.weight
+            params["patch_embed.proj.weight"] = w.flip(1)
+            mean, std = np.flip(mean).copy(), np.flip(std).copy()
         mean_t = torch.as_tensor(np.asarray(mean, np.float32), device=dev)
         std_t = torch.as_tensor(np.asarray(std, np.float32), device=dev)
-        prev = torch.zeros((F, s * 3 // 2, s), dtype=torch.uint8, device=dev)
+        timers = {"upload": 0.0, "dispatch": 0.0, "drain": 0.0}
+        prev = torch.zeros((F, *row), dtype=torch.uint8, device=dev)
         pending = []  # (scores on the card, [(t0, t1)])
-        for c in range(max(by_chunk) + 1):
-            host = torch.from_numpy(next(chunks))
+        for c in range(n_chunks):
+            chunk = next(chunks)
+            t = time.perf_counter()
+            host = torch.from_numpy(chunk)
             if dev.type == "cuda":
                 host = host.pin_memory()
             cur = host.to(dev, non_blocking=True)
             buf = torch.cat([prev[F - span:], cur])  # rows c*F - span ...
+            timers["upload"] += time.perf_counter() - t
+            t = time.perf_counter()
             ws = by_chunk.get(c, [])
             for i in range(0, len(ws), self.batch_size):
                 grp = ws[i:i + self.batch_size]
                 idx = np.stack([plans[w][2] for w in grp]) - c * F + span
-                yuv = buf[torch.as_tensor(idx, device=dev)]
-                x = (i420_to_rgb(yuv, s) / 255.0 - mean_t) / std_t
-                pending.append((self.model(x).float(),
+                x = buf[torch.as_tensor(idx, device=dev)]
+                x = i420_to_rgb(x, s) if chroma else x.float()
+                x = (x / 255.0 - mean_t) / std_t
+                out = torch.func.functional_call(self.model, params, (x,))
+                pending.append((out.float(),
                                 [(plans[w][0], plans[w][1]) for w in grp]))
+            timers["dispatch"] += time.perf_counter() - t
             prev = cur
-        scores = torch.cat([o for o, _ in pending]).cpu().numpy()
-        spans = [sp for _, grp in pending for sp in grp]
-        preds = [(t0, t1, scores[i]) for i, (t0, t1) in enumerate(spans)]
-        preds.sort(key=lambda p: p[0])
+        t = time.perf_counter()
+        preds = _sorted_preds(pending)
+        timers["drain"] += time.perf_counter() - t
+        self.last_timers = {**timers, "calls": len(pending),
+                            "chunks": n_chunks}
         return preds
+
+    @torch.no_grad()
+    def _score_loader(self, dataset: WindowDataset) -> list:
+        """Windows decoded one by one (``dataset[i]``, a seek each) by a
+        ``torch.utils.data.DataLoader`` with ``num_workers`` spawned worker
+        processes, ``batch_size`` at a time."""
+        loader = torch.utils.data.DataLoader(
+            dataset, batch_size=self.batch_size, shuffle=False,
+            drop_last=False, num_workers=self.num_workers,
+            multiprocessing_context="spawn" if self.num_workers else None)
+        pending = []
+        for inputs, t0, t1 in loader:
+            out = self.model(inputs[0].to(self.device)).float()
+            pending.append((out, list(zip(t0.tolist(), t1.tolist()))))
+        return _sorted_preds(pending)
+
+
+def _sorted_preds(pending: list) -> list:
+    """``[(scores on the card [n, classes], [(t0, t1)] * n)]`` -> sorted
+    ``[(t0, t1, scores f32)]``, fetched from the card in one copy."""
+    if not pending:
+        return []
+    scores = torch.cat([o for o, _ in pending]).cpu().numpy()
+    spans = [sp for _, grp in pending for sp in grp]
+    preds = [(t0, t1, scores[i]) for i, (t0, t1) in enumerate(spans)]
+    preds.sort(key=lambda p: p[0])
+    return preds
 
 
 def save_window_predictions(preds: list, path: str) -> None:

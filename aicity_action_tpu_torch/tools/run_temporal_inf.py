@@ -3,8 +3,12 @@ the card (port of ``tools/run_temporal_inf.py``).
 
 Windows of ``frame_length x frame_stride`` source frames every
 ``proposal_stride`` frames are scored by the classifier; the pickle per
-video is the sorted list of ``(t0, t1, scores[num_class])`` that the JAX
-package's ``tools/aicity_inf.py`` reads.
+video is the sorted list of ``(t0, t1, scores[num_class])`` that
+``aicity_inf`` and ``aicity_inf_graph`` read. Videos decode to I420 chunks
+with the port's FFmpeg library where it applies (FFmpeg's development
+files found by ``pkg-config``, ``AICITY_VDEC`` not 0), else with cv2, in
+``--num_workers`` parallel decoders; ``--exact_rgb`` ships BGR chunks
+decoded by cv2 instead.
 
 Usage:
     python -m aicity_action_tpu_torch.tools.run_temporal_inf --cfg CFG \
@@ -12,12 +16,14 @@ Usage:
         [--checkpoint CKPT] [--device cuda] [opts...]
 
 Without ``--checkpoint`` (or ``TEST.CHECKPOINT_FILE_PATH``) the model keeps
-the weights drawn from ``RNG_SEED``.
+the weights drawn from ``RNG_SEED``; a torch checkpoint loads by shape
+(``utils/checkpoint.py``).
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import logging
 import os
 import time
@@ -38,29 +44,32 @@ def parse_args(argv=None):
     p.add_argument("--frame_size", type=int, default=448)
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--num_workers", type=int, default=8,
-                   help="accepted for CLI parity; decode is sequential")
+                   help="parallel decoders (at most one fewer than the "
+                        "host's cores)")
     p.add_argument("--roi", type=float, nargs=4, default=[0.0, 0.0, 1.0, 1.0])
     p.add_argument("--exact_rgb", action="store_true",
-                   help="ship RGB chunks instead of I420; not ported yet, "
-                        "so it is refused")
+                   help="ship exact BGR chunks decoded by cv2 instead of "
+                        "I420 (twice the bytes to the card)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain PyTorch path")
     p.add_argument("opts", nargs=argparse.REMAINDER, default=None)
     return p.parse_args(argv)
 
 
-def main(argv=None):
+def main(argv=None) -> dict:
+    """Scores every listed video that has no pickle yet; returns ``{video:
+    {"windows", "seconds", "timers"}}`` for the videos it scored."""
     args = parse_args(argv)
-    if args.exact_rgb:
-        raise SystemExit("--exact_rgb: the RGB-chunk scorer is not ported "
-                         "yet; the port scores I420 chunks")
+    if args.exact_rgb and importlib.util.find_spec("cv2") is None:
+        raise SystemExit("--exact_rgb: the RGB chunk path decodes with cv2, "
+                         "which is not installed")
 
     from ..config import assert_and_infer_cfg, get_cfg
     from ..models.build import build_model
     from ..pipeline.window_inference import (
         WindowDataset, WindowScorer, save_window_predictions,
     )
-    from ..utils.convert import load_pyth
+    from ..utils.checkpoint import load_test_checkpoint
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
@@ -77,14 +86,17 @@ def main(argv=None):
     cfg = assert_and_infer_cfg(cfg)
 
     model = build_model(cfg, device=args.device)
-    if cfg.TEST.CHECKPOINT_FILE_PATH:
-        model.load_state_dict(load_pyth(cfg.TEST.CHECKPOINT_FILE_PATH))
-        logger.info("loaded %s", cfg.TEST.CHECKPOINT_FILE_PATH)
-    scorer = WindowScorer(model, batch_size=args.batch_size)
+    load_test_checkpoint(cfg, model)
+    scorer = WindowScorer(model, batch_size=args.batch_size,
+                          num_workers=args.num_workers,
+                          detection=cfg.DETECTION.ENABLE,
+                          chroma420=not args.exact_rgb)
     os.makedirs(args.out_dir, exist_ok=True)
+    n_path = 2 if cfg.MODEL.ARCH in cfg.MODEL.MULTI_PATHWAY_ARCH else 1
 
     with open(args.video_lst) as f:
         videos = [ln.strip() for ln in f if ln.strip()]
+    stats = {}
     for name in videos:
         stem = os.path.splitext(name)[0]
         out_pkl = os.path.join(args.out_dir, f"{stem}.pkl")
@@ -102,12 +114,18 @@ def main(argv=None):
             roi=tuple(args.roi),
             mean=cfg.DATA.MEAN,
             std=cfg.DATA.STD,
+            arch_pathways=n_path,
+            backend=cfg.DATA.DECODING_BACKEND,
         )
         preds = scorer.score_video(ds)
         save_window_predictions(preds, out_pkl)
         dt = time.time() - t0
-        logger.info("%s: %d windows in %.1fs (%.2f win/s)",
-                    name, len(preds), dt, len(preds) / max(dt, 1e-9))
+        stats[name] = {"windows": len(preds), "seconds": dt,
+                       "timers": scorer.last_timers}
+        logger.info("%s: %d windows in %.1fs (%.2f win/s); timers %s",
+                    name, len(preds), dt, len(preds) / max(dt, 1e-9),
+                    scorer.last_timers)
+    return stats
 
 
 if __name__ == "__main__":

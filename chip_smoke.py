@@ -60,18 +60,30 @@ NVIDIA card.
    I420 video, with the launch counts set to 0 just before and read just
    after; checks the windows against a direct forward and round-trips the
    pickle.
-7. Drives the training path, ``make_train_step``, at batch 4 with mixup,
+7. Runs README's AI City chain through the port's CLIs, in process: writes
+   three 960x540 YUV4MPEG2 views (one longer than the CLI's 512-frame
+   chunk), decodes each sequentially and with 4 parallel decoders (equal
+   bit for bit), runs ``run_temporal_inf`` (its launches held to
+   ``derived_counts`` times its forwards), ``aicity_inf_graph`` and
+   ``aicity_inf``, and holds the pickles to ``WindowScorer.score_video``,
+   three windows to a direct forward, the exact-RGB path to the loader
+   path (cv2, a short view), and the thresholds, F1 and submission to
+   ``postprocess``. Decodes as a user's run does: with the port's FFmpeg
+   library where ``pkg-config`` finds FFmpeg's development files, else
+   with cv2 (and then checks that asking for the library raises, naming
+   the missing package).
+8. Drives the training path, ``make_train_step``, at batch 4 with mixup,
    activation checkpointing and AdamW (two warm-up steps, then timed
    steps; the counts set to 0 just before the timed steps and read just
    after, and held to the counts the config implies), then the same with
    ``AICITY_TPU_FUSE_ATTN_LN=1`` (the fused-LN attention in training), and
    compares one batch-1 step's gradients with the model's plain reference
    mode, for both.
-8. Drives MViT-B 16x4 @ 224 with a cls token (PySlowFast's Kinetics-400
+9. Drives MViT-B 16x4 @ 224 with a cls token (PySlowFast's Kinetics-400
    MViT-v1) the same way: the batch-8 eval forward and the batch-8 train
    step (mixup, AdamW), with their launch counts and batch-1 checks.
-9. Prints ``{"kernels": [...]}``, the card line, and last
-   ``{"ok": true, "device": {...}}``.
+10. Prints ``{"kernels": [...]}``, the card line, and last
+    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no result.
 With no CUDA card, or without the package beside this file, it exits 2.
@@ -1488,6 +1500,277 @@ def scorer_checks(model, cfg):
     return launches
 
 
+# ------------------------------------------------------------ AI City chain
+
+# the chain's views: AI City file names (aicity_inf_graph parses the user
+# and the performance from them), 960x540 at 30 fps; the first longer than
+# run_temporal_inf's 512-frame chunk, so that windows straddle a chunk
+# boundary on the decoded path
+CHAIN_USER = "24026"
+CHAIN_VIEWS = (("Dashboard", 576), ("Rear_view", 100),
+               ("Right_side_window", 90))
+CHAIN_SIZE = (960, 540)
+CHAIN_DECODE_CHUNK, CHAIN_DECODE_THREADS = 48, 4
+
+
+def _view_frames(num_frames: int, seed: int):
+    """I420 u8 frames ``[h*3//2, w]`` of ``CHAIN_SIZE``: moving gradients
+    plus noise, made with numpy from ``seed``, one at a time."""
+    w, h = CHAIN_SIZE
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.int32)
+    cy, cx = yy[: h // 2, : w // 2], xx[: h // 2, : w // 2]
+    frame = np.empty((h * 3 // 2, w), np.uint8)
+    for i in range(num_frames):
+        frame[:h] = (xx + 2 * yy + 7 * i) % 219 + 16 + rng.integers(
+            0, 4, (h, w))
+        u = (cx * 3 + 5 * i) % 128 + 64
+        v = (cy * 3 + 11 * i) % 128 + 64
+        frame[h:].reshape(2, h // 2, w // 2)[:] = np.stack([u, v])
+        yield frame
+
+
+def _decode_checks(path: str, num_frames: int, kw: dict) -> np.ndarray:
+    """The view decoded by ``stream_chunks`` and by
+    ``stream_chunks_parallel``, equal bit for bit through the EOF padding;
+    returns the decoded frames ``[num_frames, s*3//2, s]``."""
+    from aicity_action_tpu_torch.pipeline.window_inference import (
+        WindowDataset)
+
+    F = CHAIN_DECODE_CHUNK
+    n = -(-num_frames // F) + 1  # every chunk and one past EOF
+    seq_gen = WindowDataset(path, **kw).stream_chunks(F)
+    par_gen = WindowDataset(path, **kw).stream_chunks_parallel(
+        F, CHAIN_DECODE_THREADS)
+    seq = [next(seq_gen) for _ in range(n)]
+    par = [next(par_gen) for _ in range(n)]
+    seq_gen.close()
+    par_gen.close()
+    for c, (a, b) in enumerate(zip(seq, par)):
+        if not np.array_equal(a, b):
+            _fail(f"{os.path.basename(path)}: parallel decode differs from "
+                  f"the sequential one in chunk {c}")
+    frames = np.concatenate(seq)
+    if not (frames[num_frames:] == frames[num_frames - 1]).all():
+        _fail(f"{os.path.basename(path)}: EOF padding is not the last frame")
+    return frames[:num_frames]
+
+
+def aicity_chain_checks(card: str, cfg, model):
+    """README's AI City chain through the port's CLIs, in process, with the
+    448 model from seed 0: three views written as YUV4MPEG2 files; each
+    decoded sequentially and by parallel decoders (equal bit for bit);
+    ``run_temporal_inf`` (4 decoders) with the kernel launches set to 0
+    just before and held to ``derived_counts`` times its forwards just
+    after; its pickles against ``WindowScorer.score_video`` and three
+    windows of the long view against a direct forward of their decoded
+    frames; the exact-RGB path against the loader path on a short view;
+    ``aicity_inf_graph`` (thresholds, F1) and ``aicity_inf`` (the
+    submission) against ``postprocess`` called directly. The decoder is
+    the one a user's run gets: the port's FFmpeg library where
+    ``pkg-config`` finds FFmpeg's development files, else cv2."""
+    from aicity_action_tpu_torch import native
+    from aicity_action_tpu_torch.data.decoder import write_y4m
+
+    if native.ffmpeg_available():
+        decoder, pkg = "vdec", " ".join(native.ffmpeg_flags())
+    else:
+        # asking for the library itself raises with pkg-config's words
+        decoder = "cv2"
+        try:
+            native.load()
+        except RuntimeError as e:
+            if "libavcodec" not in str(e):
+                raise
+            pkg = str(e).splitlines()[-1]
+        else:
+            _fail("the FFmpeg library loaded although pkg-config finds no "
+                  "FFmpeg")
+    print(f"# AI City chain: pkg-config of FFmpeg: {pkg!r}; decoder "
+          f"{decoder}")
+    s = cfg.DATA.TEST_CROP_SIZE
+    kw = dict(frame_length=cfg.DATA.NUM_FRAMES, frame_stride=4,
+              proposal_stride=16, frame_size=s,
+              target_fps=cfg.DATA.TARGET_FPS, mean=cfg.DATA.MEAN,
+              std=cfg.DATA.STD)
+    stems = [f"{view}_user_id_{CHAIN_USER}_NoAudio_0"
+             for view, _ in CHAIN_VIEWS]
+    with tempfile.TemporaryDirectory() as d:
+        t = time.time()
+        for i, ((_, n), stem) in enumerate(zip(CHAIN_VIEWS, stems)):
+            write_y4m(os.path.join(d, f"{stem}.y4m"),
+                      _view_frames(n, SEED + 10 + i))
+        write_s = time.time() - t
+        stats = _chain(d, stems, kw, cfg, model, decoder, s)
+    stats["write_s"] = write_s
+    run = stats["run_temporal_inf"]
+    parts = "; ".join(
+        f"{v}: {r['windows']} windows in {r['seconds']:.2f} s = "
+        f"{r['windows'] / r['seconds']:.2f} windows/s (decode "
+        f"{r['timers']['decode']:.2f}, upload {r['timers']['upload']:.2f}, "
+        f"dispatch {r['timers']['dispatch']:.2f}, drain "
+        f"{r['timers']['drain']:.2f} s; {r['timers']['calls']} calls, "
+        f"{r['timers']['chunks']} chunks)" for v, r in run.items())
+    print(f"# AI City chain ({card}; decoder {decoder}, "
+          f"{CHAIN_DECODE_THREADS} decoders): {parts}; F1 "
+          f"{stats['f1']:.6f}, {stats['submission_rows']} submission rows; "
+          f"pickles vs score_video max error "
+          f"{stats['pickle_vs_score_video_err']:.2e} (tol 1e-6), direct "
+          f"{stats['direct_err']:.2e} (tol 1e-2), exact-RGB vs loader "
+          f"{stats['cv2_paths_err']:.2e} (tol 1e-2); views "
+          f"written in {stats['write_s']:.2f} s, decode checks "
+          f"{stats['decode_check_s']:.2f} s; launches {stats['launches']}")
+    return stats
+
+
+def _chain(d, stems, kw, cfg, model, decoder, s):
+    import torch
+
+    from aicity_action_tpu_torch.data.decoder import sample_indices
+    from aicity_action_tpu_torch.pipeline import postprocess as pp
+    from aicity_action_tpu_torch.pipeline.window_inference import (
+        WindowDataset, WindowScorer, i420_to_rgb, load_window_predictions)
+    from aicity_action_tpu_torch.tools import (aicity_inf, aicity_inf_graph,
+                                               run_temporal_inf)
+
+    dev = next(model.parameters()).device
+    frames = {}
+    t = time.time()
+    for (_, n), stem in zip(CHAIN_VIEWS, stems):
+        frames[stem] = _decode_checks(os.path.join(d, f"{stem}.y4m"), n, kw)
+    decode_s = time.time() - t
+
+    lst = os.path.join(d, "videos.txt")
+    with open(lst, "w") as f:
+        f.write("".join(f"{stem}.y4m\n" for stem in stems))
+    pkl = os.path.join(d, "pkl")
+    reset_counts()
+    torch.cuda.synchronize()
+    run = run_temporal_inf.main([
+        "--cfg", os.path.join(_REPO, "configs",
+                              "AICITY_MVITV2_B_16x4_448.yaml"),
+        "--video_lst", lst, "--video_path", d, "--out_dir", pkl,
+        "--frame_length", str(kw["frame_length"]), "--frame_size", str(s),
+        "--batch_size", str(BATCH), "--num_workers",
+        str(CHAIN_DECODE_THREADS), "--device", dev.type, "RNG_SEED",
+        str(SEED)])
+    torch.cuda.synchronize()
+    launches = read_counts()
+    forwards = sum(r["timers"]["calls"] for r in run.values())
+    want = {k: v * forwards
+            for k, v in derived_counts(model, train=False).items()}
+    if launches != want:
+        _fail(f"AI City chain: launches {launches} != derived_counts x "
+              f"{forwards} forwards {want}")
+    for name, r in run.items():
+        if r["timers"]["decoder"] != decoder:
+            _fail(f"{name} decoded with {r['timers']['decoder']}, not "
+                  f"{decoder}")
+
+    # the pickles against the scorer on the same datasets
+    scorer = WindowScorer(model, batch_size=BATCH,
+                          num_workers=CHAIN_DECODE_THREADS)
+    preds = {}
+    pickle_err = 0.0
+    for stem in stems:
+        preds[stem] = load_window_predictions(
+            os.path.join(pkl, f"{stem}.pkl"))
+        ds = WindowDataset(os.path.join(d, f"{stem}.y4m"), **kw)
+        ref = scorer.score_video(ds)
+        if [p[:2] for p in preds[stem]] != [p[:2] for p in ref] or \
+                [p[:2] for p in ref] != ds.windows:
+            _fail(f"{stem}: the CLI's windows differ from score_video's")
+        scores = np.stack([p[2] for p in preds[stem]])
+        if not np.isfinite(scores).all() or scores.shape[1] != \
+                cfg.MODEL.NUM_CLASSES:
+            _fail(f"{stem}: non-finite or mis-shaped window scores")
+        pickle_err = max(pickle_err, float(np.abs(
+            scores - np.stack([p[2] for p in ref])).max()))
+    if not pickle_err <= 1e-6:
+        _fail(f"the CLI's pickles differ from score_video: {pickle_err}")
+
+    # the cv2 paths on the shortest view: exact-RGB chunks (BGR, the swap
+    # in the patch-embed weight) and the loader's spawned workers see the
+    # same full-chroma frames, so their scores agree to bf16 noise
+    ds = WindowDataset(os.path.join(d, f"{stems[-1]}.y4m"), **kw)
+    rgb = WindowScorer(model, batch_size=BATCH, num_workers=2,
+                       chroma420=False).score_video(ds)
+    loader = WindowScorer(model, batch_size=BATCH, num_workers=2)
+    by_loader = loader.score_video(ds, streaming=False)
+    if [p[:2] for p in rgb] != ds.windows or \
+            [p[:2] for p in by_loader] != ds.windows:
+        _fail("the cv2 paths' windows differ from the dataset's")
+    cv2_err = float(np.abs(np.stack([p[2] for p in rgb])
+                           - np.stack([p[2] for p in by_loader])).max())
+    if not cv2_err <= 1e-2 or loader.last_timers is not None:
+        _fail(f"the exact-RGB path differs from the loader path: {cv2_err}")
+
+    # the long view's first window, one across the 512-frame chunk
+    # boundary, and its last, against a direct forward of their frames
+    long_stem, n = stems[0], CHAIN_VIEWS[0][1]
+    plans = WindowDataset(os.path.join(d, f"{long_stem}.y4m"), **kw).plans()
+    F = scorer.chunk_frames
+    check = [0, next(i for i, (_, _, idx) in enumerate(plans)
+                     if idx[0] // F != idx[-1] // F), len(plans) - 1]
+    idx = np.stack([sample_indices(plans[i][0], plans[i][1],
+                                   kw["frame_length"], n) for i in check])
+    mean = torch.tensor(cfg.DATA.MEAN, device=dev)
+    std = torch.tensor(cfg.DATA.STD, device=dev)
+    yuv = torch.from_numpy(frames[long_stem][idx]).to(dev)
+    with torch.no_grad():
+        direct = model((i420_to_rgb(yuv, s) / 255.0 - mean) / std)
+    direct_err = float(np.abs(direct.float().cpu().numpy() - np.stack(
+        [preds[long_stem][i][2] for i in check])).max())
+    if not direct_err <= 1e-2:
+        _fail(f"windows {check} differ from a direct forward: {direct_err}")
+
+    # thresholds and F1 on a labeled split of the three views: classes 1-3,
+    # each in every view (seconds)
+    segments = [(stem, CHAIN_USER, t0, t1, c)
+                for c, (t0, t1) in ((1, (0, 1)), (2, (1, 2)), (3, (1, 3)))
+                for stem in stems]
+    anno = os.path.join(d, "val.csv")
+    with open(anno, "w") as f:
+        f.write("".join(f"{stem}.{user}.{t0}.{t1}.MP4 {c}\n"
+                        for stem, user, t0, t1, c in segments))
+    thr_file = os.path.join(d, "thresholds.txt")
+    graph = aicity_inf_graph.main([anno, pkl, "--thres_file", thr_file])
+    classes = list(range(1, cfg.MODEL.NUM_CLASSES))
+    per_frame = {stem: pp.aggregate_predictions(
+        preds[stem], np.mean, cfg.MODEL.NUM_CLASSES) for stem in stems}
+    anno_data = {f"{CHAIN_USER}_0": segments}
+    thr = pp.derive_thresholds(anno_data, per_frame, classes)
+    with open(thr_file) as f:
+        written = dict(line.split() for line in f if line.strip())
+    if written != {str(c): f"{thr[c]:.5f}" for c in classes}:
+        _fail("aicity_inf_graph's thresholds differ from postprocess's")
+    f1 = pp.compute_f1(anno_data, classes,
+                       {k: pp.chunks_for_video(v, thr)
+                        for k, v in per_frame.items()}, return_pr=True)
+    if (graph["f1"], graph["precision"], graph["recall"]) != f1:
+        _fail(f"aicity_inf_graph's F1 {graph} differs from postprocess's {f1}")
+
+    # the submission of the video that joins the three views
+    vid_csv = os.path.join(d, "vid.csv")
+    with open(vid_csv, "w") as f:
+        f.write("video_id,view1,view2,view3\n1," + ",".join(stems) + "\n")
+    sub = os.path.join(d, "submission.txt")
+    rows = aicity_inf.main([pkl, thr_file, vid_csv, sub])
+    with open(sub) as f:
+        lines = [line.split() for line in f]
+    if len(lines) != len(rows) or not all(
+            len(p) == 4 and p[0] == "1" and int(p[1]) in classes
+            and np.isfinite([float(p[2]), float(p[3])]).all()
+            for p in lines):
+        _fail(f"malformed submission rows: {lines}")
+    return {"run_temporal_inf": run, "decode_check_s": decode_s,
+            "launches": launches, "forwards": forwards,
+            "pickle_vs_score_video_err": pickle_err,
+            "direct_err": direct_err, "cv2_paths_err": cv2_err,
+            "f1": graph["f1"],
+            "submission_rows": len(rows)}
+
+
 # ------------------------------------------------------------------ train
 
 def train_checks(card: str, cfg, label: str, batch_size: int):
@@ -1685,6 +1968,8 @@ def main() -> int:
     cfg = mvitv2_b_16x4_448_cfg()
     model, model_stats = model_checks(card, cfg, "MViT-v2-B 16x4 @448")
     launches = {"v2 scorer": scorer_checks(model, cfg)}
+    model_stats["aicity_chain"] = aicity_chain_checks(card, cfg, model)
+    launches["v2 AI City chain"] = model_stats["aicity_chain"]["launches"]
     model_stats["unfused"] = unfused_eval_checks(card, model, cfg,
                                                  "MViT-v2-B 16x4 @448")
     launches["v2 unfused eval"] = model_stats["unfused"][
@@ -1718,9 +2003,10 @@ def main() -> int:
     v1_train["grad_check"] = train_grad_check(v1_cfg, "MViT-B 16x4 @224")
     launches["v1 train"] = v1_train["launches"]
 
-    # launches of each kernel in the run of the path it serves: the scorer
-    # run for the inference kernels, the timed train steps for the others
-    owner = {**dict.fromkeys(KERNEL_FNS, "v2 scorer"),
+    # launches of each kernel in the run of the path it serves: the AI City
+    # chain's run_temporal_inf for the inference kernels, the timed train
+    # steps for the others
+    owner = {**dict.fromkeys(KERNEL_FNS, "v2 AI City chain"),
              **dict.fromkeys(TRAIN_KERNEL_FNS, "v2 train"),
              **dict.fromkeys(V1_KERNEL_FNS, "v1 train"),
              **dict.fromkeys(FUSED_KERNEL_FNS, "v2 fused train")}

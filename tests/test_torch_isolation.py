@@ -3,6 +3,7 @@ package, chooses its device only as asked, and builds its 448 config
 without YAML."""
 
 import ast
+import json
 import os
 import pkgutil
 import subprocess
@@ -34,19 +35,46 @@ def _port_modules():
             [PKG_DIR], prefix="aicity_action_tpu_torch.")]
 
 
-def test_importing_every_port_module_loads_no_jax():
+@pytest.fixture(scope="module")
+def imported_roots():
+    """The top-level names in ``sys.modules`` of a fresh interpreter that
+    imported every module of the port and ``chip_smoke``."""
     code = (
-        "import importlib, sys\n"
+        "import importlib, json, sys\n"
         f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
         "import chip_smoke\n"
-        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        f"{FORBIDDEN!r})\n"
-        "print(len(sys.modules), bad)\n"
-        "sys.exit(1 if bad else 0)\n")
+        "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules})))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+    return set(json.loads(res.stdout.splitlines()[-1]))
+
+
+def test_importing_every_port_module_loads_no_jax(imported_roots):
+    assert "torch" in imported_roots
+    assert sorted(imported_roots & set(FORBIDDEN)) == []
+
+
+def test_importing_the_port_loads_no_cv2(imported_roots):
+    """cv2 is imported only inside the functions that decode with it: the
+    FFmpeg library's path runs without it."""
+    assert "cv2" not in imported_roots
+
+
+def test_the_walk_covers_the_host_pipeline_and_its_tools():
+    mods = set(_port_modules())
+    assert {"aicity_action_tpu_torch.native",
+            "aicity_action_tpu_torch.data.decoder",
+            "aicity_action_tpu_torch.pipeline.window_inference",
+            "aicity_action_tpu_torch.pipeline.postprocess",
+            "aicity_action_tpu_torch.pipeline.anno",
+            "aicity_action_tpu_torch.utils.checkpoint",
+            "aicity_action_tpu_torch.tools.run_temporal_inf",
+            "aicity_action_tpu_torch.tools.aicity_inf",
+            "aicity_action_tpu_torch.tools.aicity_inf_graph",
+            "aicity_action_tpu_torch.tools.aicity_convert_anno",
+            "aicity_action_tpu_torch.tools.aicity_split_anno"} <= mods
 
 
 def _imported_names(path):

@@ -131,3 +131,52 @@ def tiny_v1_cfg(get):
     cfg.MVIT.DROPPATH_RATE = 0.0
     cfg.TPU.COMPUTE_DTYPE = "float32"
     return cfg
+
+
+def scorer_models(seed):
+    """``(module, params, mesh, model)``: the JAX package's tiny MViT-v2
+    (no activation checkpointing; its initializers never run) on a
+    one-device mesh, and the port's tiny model with the same weights: the
+    port's draw from ``seed`` plus numpy noise (so that LN scales and
+    biases matter), carried to the JAX package by its own converter."""
+    from aicity_action_tpu.config import get_cfg as jax_get_cfg
+    from aicity_action_tpu.models.build import build_module
+    from aicity_action_tpu.parallel.mesh import make_mesh
+    from aicity_action_tpu_torch.config import get_cfg
+    from aicity_action_tpu_torch.models.build import build_model
+    from aicity_action_tpu_torch.utils.convert import jax_params_to_state_dict
+
+    cfg = tiny_cfg(jax_get_cfg)
+    cfg.MODEL.ACT_CHECKPOINT = False
+    module, _ = build_module(cfg)
+    params = perturb(jax_tiny_params_from_port(seed), seed + 1)
+    model = build_model(tiny_cfg(get_cfg), device="cpu")
+    model.load_state_dict(jax_params_to_state_dict(params), strict=True)
+    return module, params, make_mesh(cfg, devices=jax.devices()[:1]), model
+
+
+def synthetic_i420(num_frames, w=64, h=48, seed=0):
+    """Moving gradients with noisy chroma as planar I420 u8 ``[N, h*3//2,
+    w]``, made with numpy from ``seed``."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    out = np.empty((num_frames, h * 3 // 2, w), np.uint8)
+    for i in range(num_frames):
+        out[i, :h] = (xx * 3 + yy * 2 + 5 * i) % 220 + 16
+        out[i, h:] = rng.integers(64, 192, (h // 2, w))
+    return out
+
+
+def write_mp4(path, num_frames=90, fps=30, size=(64, 48), seed=1):
+    """A ``size`` mp4v video of moving gradients and a noise channel,
+    written by cv2."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    w = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps, size)
+    yy, xx = np.mgrid[0:size[1], 0:size[0]]
+    for i in range(num_frames):
+        w.write(np.stack([(xx * 4 + i * 5) % 256, (yy * 5 + i * 3) % 256,
+                          rng.integers(0, 256, xx.shape)], -1)
+                .astype(np.uint8))
+    w.release()

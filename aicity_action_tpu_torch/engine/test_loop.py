@@ -1,0 +1,84 @@
+"""Multi-view test engine (port of ``aicity_action_tpu/engine/test_loop.py``;
+reference: tools/test_net.py).
+
+Each video is scored ``NUM_ENSEMBLE_VIEWS x NUM_SPATIAL_CROPS`` times; the
+``TestMeter`` ensembles the views of a video (sum or max). Detection (ROADMAP
+Queue 1 item 8), the multi-head models (item 9) and several hosts (item 7)
+raise.
+"""
+
+from __future__ import annotations
+
+import pickle
+import pprint
+import time
+
+import numpy as np
+import torch
+
+from ..data.loader import construct_loader
+from ..device import resolve_device
+from ..models.build import build_model
+from ..parallel.prefetch import DeviceFeed, host_transfer_dtype
+from ..utils import checkpoint as cu
+from ..utils.logging import get_logger, setup_logging
+from ..utils.meters import TestMeter
+from .steps import make_eval_step
+from .train_loop import _device_batch, _pad_batch, check_supported
+
+logger = get_logger(__name__)
+
+
+def test(cfg, device: str | torch.device = "cuda") -> dict:
+    """Test entry (reference: test_net.py:173-248) on ``device`` (a machine
+    without a card raises unless the caller asks for the CPU). Returns the
+    ``TestMeter``'s final stats plus the run's ``forwards``, ``clips`` and
+    ``seconds`` (data loading included)."""
+    dev = resolve_device(device)
+    check_supported(cfg)
+    setup_logging(cfg.OUTPUT_DIR)
+    np.random.seed(cfg.RNG_SEED)
+    if cfg.LOG_CFG and not cfg.TEST.NO_LOG_CONFIG:
+        logger.info("Test with config:")
+        logger.info(pprint.pformat(cfg.to_dict()))
+
+    model = build_model(cfg, device=dev)
+    cu.load_test_checkpoint(cfg, model)
+    loader = construct_loader(cfg, "test")
+    dataset = loader.dataset
+
+    num_clips = cfg.TEST.NUM_ENSEMBLE_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
+    if len(dataset) % num_clips:
+        raise ValueError(f"{len(dataset)} test clips are not a multiple of "
+                         f"{num_clips} views a video")
+    meter = TestMeter(
+        num_videos=dataset.num_videos,
+        num_clips=num_clips,
+        num_cls=cfg.MODEL.NUM_CLASSES,
+        multi_label=cfg.DATA.MULTI_LABEL,
+        ensemble_method=cfg.DATA.ENSEMBLE_METHOD,
+    )
+    eval_step = make_eval_step(model)
+    feed = DeviceFeed(dev, host_transfer_dtype(cfg))
+
+    t = time.perf_counter()
+    preds_all, labels_all, index_all = [], [], []
+    for batch in loader:
+        batch, n_valid = _pad_batch(batch, loader.batch_size)
+        preds = eval_step(_device_batch(feed, feed.put(
+            {"inputs": batch["inputs"], "labels": batch["labels"]})))
+        preds_all.append(preds.float().cpu().numpy()[:n_valid])
+        labels_all.append(batch["labels"][:n_valid])
+        index_all.append(batch["index"][:n_valid])
+    seconds = time.perf_counter() - t
+    meter.update_stats(np.concatenate(preds_all), np.concatenate(labels_all),
+                       np.concatenate(index_all))
+
+    stats = dict(meter.finalize_metrics())
+    if cfg.TEST.SAVE_RESULTS_PATH:
+        with open(cfg.TEST.SAVE_RESULTS_PATH, "wb") as f:
+            pickle.dump([meter.video_preds, meter.video_labels], f)
+        logger.info("Saved predictions to %s", cfg.TEST.SAVE_RESULTS_PATH)
+    stats.update(forwards=len(preds_all), clips=len(dataset),
+                 seconds=seconds)
+    return stats

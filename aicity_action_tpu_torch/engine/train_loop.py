@@ -1,0 +1,313 @@
+"""Training engine (port of ``aicity_action_tpu/engine/train_loop.py``;
+reference: tools/train_net.py).
+
+One process drives one card. Each epoch: the epoch-seeded loader, batches
+padded to the loader's batch size (the train step masks the loss to the
+real samples, and mixup pairs sample i with sample B-1-i of the padded
+batch, as in the JAX package), the host-to-card feed staging
+``TPU.PREFETCH_DEPTH`` batches ahead, and the train step.
+
+Deferred metric fetch (the JAX package's): the loss and logits of a step
+stay device tensors and are read ``TPU.PREFETCH_DEPTH`` steps after the
+step was dispatched, so the host never waits for the step it just queued.
+The NaN gate reads every step's loss and drains before any checkpoint or
+eval. Then the cadence of checkpoints and evals of the JAX loop.
+
+Not ported, each raising with the ROADMAP Queue 1 item that brings it:
+multigrid (item 10), detection and precise BatchNorm statistics (item 8;
+MViT has no BatchNorm, so the JAX package skips precise BN for it too),
+the multi-head models (item 9), TensorBoard (item 11), several hosts
+(item 7).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+import pprint
+import time
+
+import numpy as np
+import torch
+
+from ..data.loader import construct_loader, shuffle_dataset
+from ..data.mixup import build_mixup_from_cfg
+from ..device import resolve_device
+from ..models.build import build_model
+from ..parallel.prefetch import (DeviceFeed, host_transfer_dtype,
+                                 prefetch_to_device)
+from ..solver.optimizer import TrainOptimizer, construct_optimizer
+from ..utils import checkpoint as cu
+from ..utils.logging import get_logger, setup_logging
+from ..utils.meters import EpochTimer, TrainMeter, ValMeter
+from .steps import make_eval_step, make_train_step
+
+logger = get_logger(__name__)
+
+
+def _pad_batch(batch: dict, size: int) -> tuple[dict, int]:
+    """Pad a short batch to ``size`` by repeating its last sample."""
+    n = batch["labels"].shape[0]
+    if n == size:
+        return batch, n
+    pad = size - n
+
+    def pad_arr(x):
+        return np.concatenate([x, np.repeat(x[-1:], pad, axis=0)])
+
+    out = {
+        k: ([pad_arr(p) for p in v] if isinstance(v, list) else pad_arr(v))
+        for k, v in batch.items()
+    }
+    return out, n
+
+
+def _errors_mixed(preds: np.ndarray, labels_a: np.ndarray,
+                  labels_b: np.ndarray, ks=(1, 5)):
+    """Top-k errors under mixup: correct if top-k hits either source label."""
+    max_k = min(max(ks), preds.shape[1])
+    top = np.argsort(-preds, axis=1)[:, :max_k]
+    out = []
+    for k in ks:
+        k = min(k, preds.shape[1])
+        hit = ((top[:, :k] == labels_a[:, None])
+               | (top[:, :k] == labels_b[:, None])).any(axis=1)
+        out.append((1.0 - hit.mean()) * 100.0)
+    return out
+
+
+def _errors(preds: np.ndarray, labels: np.ndarray, ks=(1, 5)):
+    max_k = min(max(ks), preds.shape[1])
+    top = np.argsort(-preds, axis=1)[:, :max_k]
+    out = []
+    for k in ks:
+        k = min(k, preds.shape[1])
+        correct = (top[:, :k] == labels[:, None]).any(axis=1)
+        out.append((1.0 - correct.mean()) * 100.0)
+    return out
+
+
+def check_supported(cfg) -> None:
+    """Raise for the branches of the JAX loops that the port lacks."""
+    unported = (
+        (cfg.MULTIGRID.LONG_CYCLE or cfg.MULTIGRID.SHORT_CYCLE,
+         "multigrid training", 10),
+        (cfg.DETECTION.ENABLE, "detection", 8),
+        (cfg.MODEL.USE_MULTI_HEAD, "multi-head models", 9),
+        (cfg.TENSORBOARD.ENABLE, "TensorBoard", 11),
+        (cfg.NUM_SHARDS > 1, "training over several hosts or cards", 7),
+    )
+    for on, what, item in unported:
+        if on:
+            raise NotImplementedError(
+                f"{what} is not ported (ROADMAP Queue 1 item {item})")
+
+
+def _device_batch(feed: DeviceFeed, staged) -> dict:
+    dev = feed.take(staged)
+    return {"inputs": dev["inputs"][0], "labels": dev["labels"]}
+
+
+@dataclasses.dataclass
+class TrainRun:
+    """What :func:`train` leaves: the trained model and optimizer, the
+    epoch it started at, and a record per epoch it trained (``losses`` of
+    each step, ``iter_s`` / ``data_s`` each step's wall and data wait,
+    ``wall_s``, ``ckpt_s`` the checkpoint save's seconds on the training
+    thread or None, ``val`` the eval's stats or None)."""
+
+    model: torch.nn.Module
+    optimizer: TrainOptimizer
+    start_epoch: int
+    epochs: list
+
+
+def train(cfg, device: str | torch.device = "cuda") -> TrainRun:
+    """Train entry (reference: train_net.py:621-823) on ``device``: a
+    machine without a card raises unless the caller asks for the CPU."""
+    dev = resolve_device(device)
+    check_supported(cfg)
+    setup_logging(cfg.OUTPUT_DIR)
+    np.random.seed(cfg.RNG_SEED)
+    if cfg.LOG_CFG:
+        logger.info("Train with config:")
+        logger.info(pprint.pformat(cfg.to_dict()))
+
+    model = build_model(cfg, device=dev)
+    if cfg.BN.USE_PRECISE_STATS and any(
+            isinstance(m, torch.nn.modules.batchnorm._BatchNorm)
+            for m in model.modules()):
+        raise NotImplementedError(
+            "precise BatchNorm statistics are not ported (ROADMAP Queue 1 "
+            "item 8)")
+    train_loader = construct_loader(cfg, "train")
+    val_loader = construct_loader(cfg, "val")
+    steps_per_epoch = max(len(train_loader), 1)
+
+    optimizer = construct_optimizer(cfg, model, steps_per_epoch)
+    start_epoch = cu.load_train_checkpoint(cfg, model, optimizer)
+
+    mixup_fn = build_mixup_from_cfg(cfg)
+    train_step = make_train_step(
+        model, optimizer, cfg.MODEL.LOSS_FUNC, mixup_fn=mixup_fn,
+        num_classes=cfg.MODEL.NUM_CLASSES, seed=cfg.RNG_SEED)
+    eval_step = make_eval_step(model)
+    feed = DeviceFeed(dev, host_transfer_dtype(cfg))
+
+    train_meter = TrainMeter(steps_per_epoch, cfg)
+    val_meter = ValMeter(len(val_loader), cfg)
+    epoch_timer = EpochTimer()
+    per_host_batch = train_loader.batch_size
+    run = TrainRun(model, optimizer, start_epoch, [])
+
+    if cfg.TRAIN.EVAL_FIRST:
+        eval_epoch(eval_step, feed, val_loader, val_meter, start_epoch - 1)
+
+    profiler = None
+    for cur_epoch in range(start_epoch, cfg.SOLVER.MAX_EPOCH):
+        shuffle_dataset(train_loader, cur_epoch)
+        epoch_timer.epoch_tic()
+        train_meter.iter_tic()
+
+        def pad_and_put(batch):
+            padded, n_valid = _pad_batch(batch, per_host_batch)
+            staged = feed.put({"inputs": padded["inputs"],
+                               "labels": padded["labels"]})
+            return staged, padded["labels"], n_valid
+
+        runahead = max(int(cfg.TPU.PREFETCH_DEPTH), 0)
+        host_step = optimizer.count
+        losses = []
+
+        def process(entry):
+            cur_it, metrics, preds, labels_np, n_valid, step_at = entry
+            loss = float(metrics["loss"])
+            if not math.isfinite(loss):
+                raise RuntimeError(
+                    f"ERROR: Got NaN/Inf loss at epoch {cur_epoch} "
+                    f"iter {cur_it}")
+            losses.append(loss)
+            if labels_np.ndim == 1:
+                preds_np = preds.float().cpu().numpy()[:n_valid]
+                if mixup_fn is not None:
+                    # a prediction counts as correct if it hits either of
+                    # the two mixed labels (train_net.py:248-258); sample i
+                    # was mixed with sample B-1-i of the padded batch
+                    partners = labels_np[::-1][:n_valid]
+                    top1, top5 = _errors_mixed(
+                        preds_np, labels_np[:n_valid], partners)
+                else:
+                    top1, top5 = _errors(preds_np, labels_np[:n_valid])
+            else:
+                top1 = top5 = None
+            lr = float(optimizer.schedule(step_at))
+            train_meter.update_stats(top1, top5, loss, lr, n_valid)
+            train_meter.log_iter_stats(cur_epoch, cur_it)
+
+        prefetched = prefetch_to_device(train_loader, pad_and_put,
+                                        lookahead=cfg.TPU.PREFETCH_DEPTH)
+        pending: list = []
+        for cur_iter, (_, (staged, labels_np, n_valid)) in enumerate(
+                prefetched):
+            train_meter.data_toc()
+            if cfg.TPU.PROFILE_DIR and \
+                    host_step == cfg.TPU.PROFILE_START_STEP:
+                profiler = _start_profile(dev)
+            batch = _device_batch(feed, staged)
+            batch["n_valid"] = n_valid
+            metrics, preds = train_step(batch)
+            if profiler is not None and host_step == \
+                    cfg.TPU.PROFILE_START_STEP + cfg.TPU.PROFILE_NUM_STEPS:
+                profiler = _stop_profile(profiler, dev, cfg, host_step)
+            pending.append((cur_iter, metrics, preds, labels_np, n_valid,
+                            host_step))
+            host_step += 1
+            if len(pending) > runahead:
+                process(pending.pop(0))
+            train_meter.iter_toc()
+            train_meter.iter_tic()
+        for entry in pending:  # drain: NaN gate before checkpoint/eval
+            process(entry)
+
+        epoch_timer.epoch_toc()
+        logger.info(
+            "Epoch %d took %.2fs (avg %.2fs, median %.2fs)",
+            cur_epoch, epoch_timer.last_epoch_time(),
+            epoch_timer.avg_epoch_time(), epoch_timer.median_epoch_time())
+        record = {"epoch": cur_epoch + 1, "losses": losses,
+                  "iter_s": list(train_meter.iter_times),
+                  "data_s": list(train_meter.data_times),
+                  "wall_s": epoch_timer.last_epoch_time(),
+                  "ckpt_s": None, "val": None}
+        train_meter.log_epoch_stats(cur_epoch)
+        train_meter.reset()
+
+        if cu.is_checkpoint_epoch(cfg, cur_epoch):
+            t = time.perf_counter()
+            cu.save_checkpoint(cfg.OUTPUT_DIR, model, optimizer, cur_epoch,
+                               cfg, async_write=cfg.TPU.ASYNC_CHECKPOINT)
+            record["ckpt_s"] = time.perf_counter() - t
+        if (cur_epoch + 1) % cfg.TRAIN.EVAL_PERIOD == 0 or (
+                cur_epoch + 1 == cfg.SOLVER.MAX_EPOCH):
+            record["val"] = eval_epoch(eval_step, feed, val_loader,
+                                       val_meter, cur_epoch)
+        run.epochs.append(record)
+
+    if profiler is not None:  # the run ended inside the traced steps
+        _stop_profile(profiler, dev, cfg, optimizer.count - 1)
+    cu.wait_for_pending_saves()
+    logger.info("Training done.")
+    return run
+
+
+def _start_profile(dev: torch.device):
+    """``torch.profiler`` over the next steps (the JAX package's
+    ``TPU.PROFILE_DIR`` trace of steady-state steps)."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.__enter__()
+    return prof
+
+
+def _stop_profile(prof, dev: torch.device, cfg, last_step: int) -> None:
+    """Waits for the traced steps (to ``last_step``) to finish on the card,
+    then writes the trace to ``TPU.PROFILE_DIR``; returns None."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    prof.__exit__(None, None, None)
+    os.makedirs(cfg.TPU.PROFILE_DIR, exist_ok=True)
+    path = os.path.join(cfg.TPU.PROFILE_DIR,
+                        f"train_steps_{cfg.TPU.PROFILE_START_STEP}_"
+                        f"{last_step}.json")
+    prof.export_chrome_trace(path)
+    logger.info("wrote the profile of the train steps to %s", path)
+    return None
+
+
+def eval_epoch(eval_step, feed: DeviceFeed, val_loader, val_meter,
+               cur_epoch: int) -> dict:
+    """Validation pass (reference: train_net.py:339-540). Returns the
+    meter's epoch stats plus the eval's ``forwards``, ``clips`` and
+    ``seconds`` (data loading included)."""
+    val_meter.reset()
+    t = time.perf_counter()
+    forwards = clips = 0
+    for batch in val_loader:
+        batch, n_valid = _pad_batch(batch, val_loader.batch_size)
+        preds = eval_step(_device_batch(feed, feed.put(
+            {"inputs": batch["inputs"], "labels": batch["labels"]})))
+        preds_np = preds.float().cpu().numpy()[:n_valid]
+        labels = batch["labels"][:n_valid]
+        if labels.ndim == 1:
+            top1, top5 = _errors(preds_np, labels)
+            val_meter.update_stats(top1, top5, n_valid)
+        val_meter.update_predictions(preds_np, labels)
+        forwards += 1
+        clips += n_valid
+    stats = val_meter.log_epoch_stats(cur_epoch)
+    stats.update(forwards=forwards, clips=clips,
+                 seconds=time.perf_counter() - t)
+    return stats

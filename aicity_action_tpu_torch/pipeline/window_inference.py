@@ -86,9 +86,9 @@ class WindowDataset:
     ):
         if backend != "cv2":
             raise NotImplementedError(
-                f"DATA.DECODING_BACKEND {backend!r} is not ported; the port "
-                f"decodes with cv2 or its FFmpeg library (ROADMAP Queue 1 "
-                f"item 6)")
+                f"DATA.DECODING_BACKEND {backend!r} is not ported for "
+                f"window scoring; the scorer decodes with cv2 or the port's "
+                f"FFmpeg library")
         if arch_pathways != 1:
             raise NotImplementedError(
                 f"{arch_pathways}-pathway (SlowFast) window inputs are not "

@@ -14,6 +14,12 @@ slowfast/models/optimizer.py:26-236).
   scale_by_learning_rate``. ``sgd`` is ``torch.optim.SGD`` with the decay
   folded into the gradient before momentum, optax's ``add_decayed_weights
   -> trace -> scale_by_learning_rate``.
+- ``adam`` is ``torch.optim.Adam`` with no weight decay at all: the JAX
+  package's ``adam`` chain (``scale_by_adam -> scale_by_learning_rate``)
+  applies none, unlike upstream PySlowFast's. ``sgd_8bit`` and
+  ``adam_8bit`` are the JAX package's aliases of ``sgd`` and ``adam`` (no
+  8-bit state there either). ``zero_sgd`` / ``zero_adamw`` (the optimizer
+  state sharded over data-parallel ranks) wait for ROADMAP Queue 1 item 7.
 """
 
 from __future__ import annotations
@@ -114,9 +120,17 @@ def construct_optimizer(cfg, model: nn.Module,
     lr0 = schedule(0)
     if method == "adamw":
         opt = torch.optim.AdamW(groups, lr=lr0, betas=(0.9, 0.999), eps=1e-8)
-    elif method == "sgd":
+    elif method in ("adam", "adam_8bit"):
+        for g in groups:
+            g["weight_decay"] = 0.0
+        opt = torch.optim.Adam(groups, lr=lr0, betas=(0.9, 0.999), eps=1e-8)
+    elif method in ("sgd", "sgd_8bit"):
         opt = torch.optim.SGD(groups, lr=lr0, momentum=solver.MOMENTUM,
                               nesterov=solver.NESTEROV)
+    elif method in ("zero_sgd", "zero_adamw"):
+        raise NotImplementedError(
+            f"{method} shards the optimizer state over data-parallel ranks, "
+            f"which is not ported (ROADMAP Queue 1 item 7)")
     else:
         raise NotImplementedError(f"Does not support {method} optimizer")
     return TrainOptimizer(opt, schedule, solver.CLIP_GRAD_VAL,

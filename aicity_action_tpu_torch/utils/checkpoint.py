@@ -1,21 +1,45 @@
-"""Test-time weights from torch checkpoints (the torch branch of
-``aicity_action_tpu/utils/checkpoint.py:load_checkpoint`` and its
-``load_test_checkpoint``).
+"""Checkpoints: training save / resume and test-time weights (port of
+``aicity_action_tpu/utils/checkpoint.py``; reference:
+slowfast/utils/checkpoint.py).
 
-A reference ``.pyth`` / ``.pth`` / ``.pt`` checkpoint's ``model_state``
-(or a bare state dict) is merged into the model by shape: a key whose
-shape matches the model's parameter is loaded, a key whose shape differs or
-that the model lacks is skipped, and a parameter the checkpoint lacks keeps
-the model's own value (the reference's fine-tuning load,
-``checkpoint.py:322-347``). The port keeps the reference's parameter names,
-so the only rename is DDP's ``module.`` prefix. Caffe2 ``.pkl`` checkpoints
-and the port's own training checkpoints are not ported (ROADMAP Queue 1
-item 6).
+- Saves every ``TRAIN.CHECKPOINT_PERIOD`` epochs (and after the last) to
+  ``OUTPUT_DIR/checkpoints/checkpoint_epoch_{N:05d}``, the JAX package's
+  names, so that "the last checkpoint" (the largest epoch by name) is the
+  same epoch in both. Where the JAX package writes an orbax directory, the
+  port writes one ``torch.save`` file in the reference ``.pyth`` format:
+  ``epoch``, ``model_state`` (the reference parameter names),
+  ``optimizer_state`` and ``cfg``, plus ``step``, the optimizer's step
+  count, on which the LR schedule and the step's random draws key. The
+  run's ``config.yaml`` goes beside them.
+- ``TPU.ASYNC_CHECKPOINT``: the copy to the host stays on the training
+  thread; only the file write moves to a writer thread, one in flight at a
+  time. Every checkpoint scan or load drains it first
+  (:func:`wait_for_pending_saves`), and a failed write raises there.
+- :func:`load_train_checkpoint`: the last checkpoint of ``OUTPUT_DIR``
+  (``TRAIN.AUTO_RESUME``), else ``TRAIN.CHECKPOINT_FILE_PATH`` (a partial
+  load by shape, ``CHECKPOINT_CLEAR_NAME_PATTERN`` stripped from the names,
+  the epoch kept unless ``CHECKPOINT_EPOCH_RESET``), else epoch 0.
+- :func:`load_test_checkpoint`: ``TEST.CHECKPOINT_FILE_PATH``, else the
+  last checkpoint, else ``TRAIN.CHECKPOINT_FILE_PATH``.
+
+A torch checkpoint's ``model_state`` (or a bare state dict) is merged into
+the model by shape: a key whose shape matches the model's parameter is
+loaded, a key whose shape differs or that the model lacks is skipped, and a
+parameter the checkpoint lacks keeps the model's own value (the reference's
+fine-tuning load, ``checkpoint.py:322-347``). The port keeps the
+reference's parameter names, so the only rename is DDP's ``module.``
+prefix. Caffe2 ``.pkl`` checkpoints wait for the convnets (ROADMAP Queue 1
+item 8).
 """
 
 from __future__ import annotations
 
 import logging
+import os
+import re
+import threading
+import time
+from typing import Optional
 
 import torch
 
@@ -23,7 +47,114 @@ from .convert import load_pyth
 
 logger = logging.getLogger(__name__)
 
-TORCH_SUFFIXES = (".pyth", ".pth", ".pt")
+_NAME_RE = re.compile(r"checkpoint_epoch_(\d+)")
+
+
+def checkpoint_dir(output_dir: str) -> str:
+    return os.path.join(output_dir, "checkpoints")
+
+
+def checkpoint_path(output_dir: str, epoch: int) -> str:
+    return os.path.join(
+        checkpoint_dir(output_dir), f"checkpoint_epoch_{epoch:05d}")
+
+
+class _Writer:
+    """The one checkpoint write in flight and the error it left."""
+
+    def __init__(self):
+        self.thread: Optional[threading.Thread] = None
+        self.error: Optional[BaseException] = None
+
+
+_writer = _Writer()
+
+
+def wait_for_pending_saves() -> None:
+    """Join the in-flight checkpoint write, re-raising its error."""
+    t = _writer.thread
+    if t is not None:
+        t.join()
+        _writer.thread = None
+    if _writer.error is not None:
+        err, _writer.error = _writer.error, None
+        raise err
+
+
+def get_last_checkpoint(output_dir: str) -> Optional[str]:
+    wait_for_pending_saves()
+    d = checkpoint_dir(output_dir)
+    if not os.path.isdir(d):
+        return None
+    names = [n for n in os.listdir(d) if _NAME_RE.fullmatch(n)]
+    if not names:
+        return None
+    return os.path.join(d, max(names))
+
+
+def has_checkpoint(output_dir: str) -> bool:
+    return get_last_checkpoint(output_dir) is not None
+
+
+def is_checkpoint_epoch(cfg, cur_epoch: int) -> bool:
+    return (cur_epoch + 1) % cfg.TRAIN.CHECKPOINT_PERIOD == 0 or (
+        cur_epoch + 1 == cfg.SOLVER.MAX_EPOCH)
+
+
+def _to_host(obj):
+    """A copy of ``obj`` with every tensor on the CPU."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _to_host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_host(v) for v in obj)
+    return obj
+
+
+def _write(payload: dict, path: str) -> None:
+    t = time.perf_counter()
+    tmp = path + ".tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    logger.info("Saved checkpoint to %s (%.2f s)", path,
+                time.perf_counter() - t)
+
+
+def save_checkpoint(output_dir: str, model: torch.nn.Module, optimizer,
+                    epoch: int, cfg=None, *,
+                    async_write: bool = False) -> str:
+    """Save epoch ``epoch + 1``: the model's ``state_dict``, the torch
+    optimizer's and ``optimizer.count`` (a :class:`~aicity_action_tpu_torch.
+    solver.optimizer.TrainOptimizer`), copied to the host here; the file is
+    written here or, with ``async_write``, on the writer thread."""
+    path = checkpoint_path(output_dir, epoch + 1)
+    wait_for_pending_saves()
+    os.makedirs(checkpoint_dir(output_dir), exist_ok=True)
+    payload = {
+        "epoch": epoch + 1,
+        "step": int(optimizer.count),
+        "model_state": _to_host(model.state_dict()),
+        "optimizer_state": _to_host(optimizer.opt.state_dict()),
+        "cfg": cfg.dump() if cfg is not None else "",
+    }
+    if cfg is not None:
+        with open(os.path.join(checkpoint_dir(output_dir),
+                               "config.yaml"), "w") as f:
+            f.write(cfg.dump())
+    if not async_write:
+        _write(payload, path)
+        return path
+
+    def write():
+        try:
+            _write(payload, path)
+        except Exception as e:  # raised at the next drain
+            _writer.error = e
+
+    _writer.thread = threading.Thread(target=write, name="ckpt-writer")
+    _writer.thread.start()
+    return path
 
 
 def merge_state_dict(model: torch.nn.Module, state: dict):
@@ -50,18 +181,30 @@ def merge_state_dict(model: torch.nn.Module, state: dict):
     return loaded, mismatched, missing
 
 
-def load_torch_checkpoint(path: str, model: torch.nn.Module):
+def _check_torch_path(path: str) -> None:
+    if path.endswith(".pkl"):
+        raise NotImplementedError(
+            f"{path}: Caffe2 .pkl checkpoints are not ported (ROADMAP Queue "
+            f"1 item 8)")
+    if os.path.isdir(path):
+        raise NotImplementedError(
+            f"{path}: a directory (the JAX package's orbax layout); the port "
+            f"reads torch checkpoint files")
+
+
+def load_torch_checkpoint(path: str, model: torch.nn.Module,
+                          clear_name_pattern=()):
     """Merge a torch checkpoint's weights (:func:`~aicity_action_tpu_torch.
     utils.convert.load_pyth`) into ``model`` by shape
-    (:func:`merge_state_dict`); logs ``torch load: N loaded, N
-    shape-mismatched, N missing`` and up to 10 mismatches. Returns what
+    (:func:`merge_state_dict`), each of ``clear_name_pattern`` removed from
+    the names first; logs ``torch load: N loaded, N shape-mismatched, N
+    missing`` and up to 10 mismatches. Returns what
     :func:`merge_state_dict` returns."""
-    if not path.endswith(TORCH_SUFFIXES):
-        raise NotImplementedError(
-            f"{path}: only torch checkpoints ({', '.join(TORCH_SUFFIXES)}) "
-            f"are ported; Caffe2 .pkl and training checkpoints wait for "
-            f"ROADMAP Queue 1 item 6")
-    loaded, mismatched, missing = merge_state_dict(model, load_pyth(path))
+    _check_torch_path(path)
+    state = load_pyth(path)
+    for p in clear_name_pattern:
+        state = {k.replace(p, ""): v for k, v in state.items()}
+    loaded, mismatched, missing = merge_state_dict(model, state)
     logger.info("torch load: %d loaded, %d shape-mismatched, %d missing",
                 len(loaded), len(mismatched), len(missing))
     for k, got, want in mismatched[:10]:
@@ -69,14 +212,49 @@ def load_torch_checkpoint(path: str, model: torch.nn.Module):
     return loaded, mismatched, missing
 
 
-def load_test_checkpoint(cfg, model: torch.nn.Module) -> None:
-    """``TEST.CHECKPOINT_FILE_PATH``, else ``TRAIN.CHECKPOINT_FILE_PATH``,
-    into ``model`` (the JAX package's order, without its training-run
-    directory, whose checkpoints the port cannot read yet); else the
-    model keeps its initialization."""
-    path = cfg.TEST.CHECKPOINT_FILE_PATH or cfg.TRAIN.CHECKPOINT_FILE_PATH
+def _load_epoch(path: str) -> int:
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    return int(ckpt.get("epoch", 0)) if isinstance(ckpt, dict) else 0
+
+
+def resume_checkpoint(path: str, model: torch.nn.Module, optimizer) -> int:
+    """Restore a training checkpoint of :func:`save_checkpoint` whole: the
+    model (strictly), the torch optimizer's state and its step count.
+    Returns the checkpoint's epoch."""
+    _check_torch_path(path)
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    model.load_state_dict(ckpt["model_state"])
+    optimizer.opt.load_state_dict(ckpt["optimizer_state"])
+    optimizer.count = int(ckpt["step"])
+    return int(ckpt["epoch"])
+
+
+def load_train_checkpoint(cfg, model: torch.nn.Module, optimizer) -> int:
+    """Auto-resume from the last checkpoint > ``TRAIN.CHECKPOINT_FILE_PATH``
+    (weights only) > fresh. Returns the epoch to start from."""
+    if cfg.TRAIN.AUTO_RESUME and has_checkpoint(cfg.OUTPUT_DIR):
+        last = get_last_checkpoint(cfg.OUTPUT_DIR)
+        logger.info("Auto-resuming from %s", last)
+        return resume_checkpoint(last, model, optimizer)
+    path = cfg.TRAIN.CHECKPOINT_FILE_PATH
     if path:
-        load_torch_checkpoint(path, model)
+        load_torch_checkpoint(path, model,
+                              cfg.TRAIN.CHECKPOINT_CLEAR_NAME_PATTERN)
+        return 0 if cfg.TRAIN.CHECKPOINT_EPOCH_RESET else _load_epoch(path)
+    return 0
+
+
+def load_test_checkpoint(cfg, model: torch.nn.Module) -> None:
+    """``TEST.CHECKPOINT_FILE_PATH`` > the last checkpoint of
+    ``OUTPUT_DIR`` > ``TRAIN.CHECKPOINT_FILE_PATH`` into ``model``, by
+    shape (``checkpoint.py:466-501``); else the model keeps its
+    initialization."""
+    if cfg.TEST.CHECKPOINT_FILE_PATH:
+        load_torch_checkpoint(cfg.TEST.CHECKPOINT_FILE_PATH, model)
+    elif has_checkpoint(cfg.OUTPUT_DIR):
+        load_torch_checkpoint(get_last_checkpoint(cfg.OUTPUT_DIR), model)
+    elif cfg.TRAIN.CHECKPOINT_FILE_PATH:
+        load_torch_checkpoint(cfg.TRAIN.CHECKPOINT_FILE_PATH, model)
     else:
         logger.info("Testing with random initialization (no checkpoint "
                     "found)")

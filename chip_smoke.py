@@ -82,7 +82,16 @@ NVIDIA card.
 9. Drives MViT-B 16x4 @ 224 with a cls token (PySlowFast's Kinetics-400
    MViT-v1) the same way: the batch-8 eval forward and the batch-8 train
    step (mixup, AdamW), with their launch counts and batch-1 checks.
-10. Prints ``{"kernels": [...]}``, the card line, and last
+10. Runs the training loop of the main path through ``tools/run_net.py``
+    in process (``train_loop_checks``): MViT-v2-B 16x4 @448 from seed 0 at
+    batch 4 on 8 written 960x540 YUV4MPEG2 views, one epoch (2 steps, an
+    eval, a checkpoint, the two-view test), then a second call that
+    auto-resumes at epoch 1 and trains epoch 2; each call's launches held
+    to ``derived_counts`` times its steps and forwards, its losses finite,
+    its checkpoints and step count, the model's inputs bf16 on the card,
+    the test's stats and results pickle; prints ms/step with data, the
+    data-wait share, eval clips/s, peak memory and checkpoint seconds.
+11. Prints ``{"kernels": [...]}``, the card line, and last
     ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no result.
@@ -1915,6 +1924,203 @@ def train_grad_check(cfg, label: str):
             "zero_grad_leaves_max_norm": zero_max}
 
 
+# -------------------------------------------------------------- train loop
+
+# the train loop's run: the AI City recipe's YAML (equal to
+# config.mvitv2_b_16x4_448_cfg(), tests/test_torch_isolation.py) through
+# tools/run_net.py on 8 views of CHAIN_SIZE at 30 fps, 72-100 frames long
+LOOP_CFG = os.path.join(_REPO, "configs", "AICITY_MVITV2_B_16x4_448.yaml")
+LOOP_DEVICE = "cuda"
+LOOP_VIEWS = 8
+LOOP_INPUT = ("torch.bfloat16", "cuda")  # what reaches the model
+
+
+def _loop_opts(d: str, max_epoch: int) -> list:
+    return ["NUM_GPUS", "1", "TRAIN.BATCH_SIZE", "4", "TEST.BATCH_SIZE", "8",
+            "TRAIN.EVAL_PERIOD", "1", "TRAIN.CHECKPOINT_PERIOD", "1",
+            "TEST.NUM_ENSEMBLE_VIEWS", "2", "DATA_LOADER.NUM_WORKERS", "4",
+            "DATA.PATH_TO_DATA_DIR", d, "DATA.PATH_PREFIX", d,
+            "OUTPUT_DIR", os.path.join(d, "out"), "RNG_SEED", str(SEED),
+            "TEST.SAVE_RESULTS_PATH", os.path.join(d, "test_results.pkl"),
+            "LOG_CFG", "False", "SOLVER.MAX_EPOCH", str(max_epoch)]
+
+
+def feed_check() -> None:
+    """The host-to-card feed's batches, copied on its own stream from
+    pinned bf16 buffers behind a spin on that stream, equal a plain copy
+    when the compute stream takes them: the compute stream waited for the
+    copies. A first round fills the pinned and device caches, whose
+    allocations (``cudaHostAlloc``) would synchronize the card and hide a
+    missing wait."""
+    import torch
+
+    from aicity_action_tpu_torch.parallel.prefetch import DeviceFeed
+
+    feed = DeviceFeed(torch.device("cuda"), torch.bfloat16)
+    rng = np.random.default_rng(SEED + 5)
+    xs = [rng.standard_normal((4, 16, 96, 96, 3), dtype=np.float32)
+          for _ in range(3)]
+    for spin in (False, True):
+        torch.cuda.synchronize()
+        if spin:
+            with torch.cuda.stream(feed.stream):
+                # NaN in the block the first copy will reuse, then ~0.2 s
+                # that holds the copies back: a take that did not wait
+                # reads NaN
+                torch.full(xs[0].shape, float("nan"), dtype=torch.bfloat16,
+                           device="cuda")
+                torch.cuda._sleep(100 * SPIN_CYCLES)
+        staged = [feed.put({"inputs": [x], "labels": np.arange(4)})
+                  for x in xs]
+        for i, (x, st) in enumerate(zip(xs, staged)):
+            dev = feed.take(st)
+            want = torch.from_numpy(x).to(torch.bfloat16).cuda()
+            if not (torch.equal(dev["inputs"][0], want)
+                    and dev["labels"].tolist() == [0, 1, 2, 3]):
+                _fail(f"the feed's batch {i} differs from a plain copy")
+        del staged, dev
+
+
+def train_loop_checks(card: str):
+    """The training loop of the main path through ``tools/run_net.py``'s
+    ``main``, in process: MViT-v2-B 16x4 @448 (seed-0 weights, batch 4,
+    bf16) on 8 written YUV4MPEG2 views (train, val and test csvs over
+    them). ``SOLVER.MAX_EPOCH 1`` (2 steps, an eval, a checkpoint, the
+    two-view test), then ``MAX_EPOCH 2``, which must auto-resume at epoch 1
+    and train only epoch 2, after :func:`feed_check`. Each run's kernel
+    launches (set to 0 just before, read just after) are held to
+    ``derived_counts`` times the steps and forwards that its loaders gave;
+    every loss finite; both checkpoints on disk with the step count carried
+    over; every input to the model bf16 on the card; the test's stats and
+    results pickle."""
+    import pickle
+
+    import torch
+
+    from aicity_action_tpu_torch.data.decoder import write_y4m
+    from aicity_action_tpu_torch.models.mvit import MViT
+    from aicity_action_tpu_torch.tools import run_net
+
+    feed_check()
+    seen = []  # (dtype, device type) of each MViT forward's input
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(
+        lambda m, args: seen.append((str(args[0].dtype), args[0].device.type))
+        if isinstance(m, MViT) else None)
+    runs = []
+    with tempfile.TemporaryDirectory() as d:
+        t = time.time()
+        for i in range(LOOP_VIEWS):
+            write_y4m(os.path.join(d, f"v{i}.y4m"),
+                      _view_frames(72 + 4 * i, SEED + 30 + i))
+        write_s = time.time() - t
+        for split in ("train", "val", "test"):
+            with open(os.path.join(d, f"{split}.csv"), "w") as f:
+                f.writelines(f"v{i}.y4m {i % 18}\n"
+                             for i in range(LOOP_VIEWS))
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            for max_epoch in (1, 2):
+                seen.clear()
+                reset_counts()
+                t = time.perf_counter()
+                out = run_net.main(["--cfg", LOOP_CFG, "--device",
+                                    LOOP_DEVICE, *_loop_opts(d, max_epoch)])
+                torch.cuda.synchronize()
+                runs.append(_check_loop_run(out, read_counts(), list(seen),
+                                            max_epoch, d))
+                runs[-1]["seconds"] = time.perf_counter() - t
+                del out
+            peak = torch.cuda.max_memory_allocated()
+            with open(os.path.join(d, "test_results.pkl"), "rb") as f:
+                video_preds, video_labels = pickle.load(f)
+        finally:
+            hook.remove()
+    if video_preds.shape != (LOOP_VIEWS, 18) or \
+            not np.isfinite(video_preds).all() or \
+            list(video_labels) != [i % 18 for i in range(LOOP_VIEWS)]:
+        _fail("train loop: the test's results pickle is wrong")
+    torch.cuda.empty_cache()
+    resumed = runs[1]["epochs"][0]
+    steps = len(resumed["iter_s"])
+    data_share = sum(resumed["data_s"]) / resumed["wall_s"]
+    ms = resumed["wall_s"] * 1e3 / steps
+    test = runs[1]["test"]
+    val = resumed["val"]
+    print(f"# v2 train loop ({card}): the feed's staged batches equal a "
+          f"plain copy; run_net MAX_EPOCH 1 then 2 "
+          f"(auto-resumed at epoch 1), batch 4, 8 views of 960x540; "
+          f"epoch 2: {ms:.2f} ms/step over its {steps} steps with data "
+          f"(epoch wall {resumed['wall_s']:.3f} s incl. the loader's start "
+          f"and the drain), step walls {resumed['iter_s']}, data waits "
+          f"{resumed['data_s']}, data-wait share {data_share:.3f}; eval "
+          f"(val) {val['clips'] / val['seconds']:.2f} clips/s, test "
+          f"{test['clips'] / test['seconds']:.2f} clips/s (2 views a video, "
+          f"batch 8, data included); peak memory {peak / 2 ** 30:.2f} GiB; "
+          f"checkpoint save {runs[0]['epochs'][0]['ckpt_s']:.2f} / "
+          f"{resumed['ckpt_s']:.2f} s; losses "
+          f"{[e['losses'] for r in runs for e in r['epochs']]}; views "
+          f"written in {write_s:.2f} s; runs {runs[0]['seconds']:.1f} / "
+          f"{runs[1]['seconds']:.1f} s; launches {runs[0]['launches']} / "
+          f"{runs[1]['launches']}")
+    return {"ms_per_step": ms, "data_wait_share": data_share,
+            "val_clips_per_s": val["clips"] / val["seconds"],
+            "test_clips_per_s": test["clips"] / test["seconds"],
+            "peak_mem_bytes": peak,
+            "ckpt_s": [r["epochs"][0]["ckpt_s"] for r in runs],
+            "runs": runs,
+            "launches": {k: runs[0]["launches"][k] + runs[1]["launches"][k]
+                         for k in runs[0]["launches"]}}
+
+
+def _check_loop_run(out: dict, launches: dict, seen: list, max_epoch: int,
+                    d: str) -> dict:
+    """One run_net call of :func:`train_loop_checks`, held to what it must
+    have done; returns its record."""
+    import torch
+
+    run, test = out["train"], out["test"]
+    start = max_epoch - 1
+    if run is None or test is None or run.start_epoch != start or \
+            [e["epoch"] for e in run.epochs] != [max_epoch]:
+        _fail(f"train loop MAX_EPOCH {max_epoch}: expected to start at "
+              f"epoch {start} and train epoch {max_epoch}")
+    # the loaders' arithmetic: 8 views, train batch 4 (drop_last), val
+    # batch 4, test 2 views a video at batch 8
+    steps, val_fwd, test_fwd = LOOP_VIEWS // 4, -(-LOOP_VIEWS // 4), \
+        -(-2 * LOOP_VIEWS // 8)
+    epoch = run.epochs[0]
+    losses = epoch["losses"]
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        _fail(f"train loop MAX_EPOCH {max_epoch}: losses {losses}")
+    if epoch["val"]["forwards"] != val_fwd or test["forwards"] != test_fwd:
+        _fail(f"train loop MAX_EPOCH {max_epoch}: eval forwards "
+              f"{epoch['val']['forwards']} / {test['forwards']}")
+    if run.optimizer.count != steps * max_epoch:
+        _fail(f"train loop: the step count {run.optimizer.count} did not "
+              f"carry over ({steps * max_epoch} expected)")
+    for e in range(1, max_epoch + 1):
+        path = os.path.join(d, "out", "checkpoints",
+                            f"checkpoint_epoch_{e:05d}")
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        if ckpt["epoch"] != e or ckpt["step"] != steps * e:
+            _fail(f"train loop: {path} holds epoch {ckpt['epoch']}, step "
+                  f"{ckpt['step']}")
+    want = {k: steps * v for k, v in
+            derived_counts(run.model, train=True).items()}
+    for k, v in derived_counts(run.model, train=False).items():
+        want[k] += (val_fwd + test_fwd) * v
+    if launches != want:
+        _fail(f"train loop MAX_EPOCH {max_epoch}: launches {launches} != "
+              f"{want}")
+    if seen != [LOOP_INPUT] * (steps + val_fwd + test_fwd):
+        _fail(f"train loop MAX_EPOCH {max_epoch}: the model's inputs were "
+              f"{sorted(set(seen))} in {len(seen)} forwards, not "
+              f"{LOOP_INPUT}")
+    if "top1_acc" not in test or "top5_acc" not in test:
+        _fail(f"train loop: test stats {test}")
+    return {"epochs": run.epochs, "test": test, "launches": launches}
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -2003,6 +2209,9 @@ def main() -> int:
     v1_train["grad_check"] = train_grad_check(v1_cfg, "MViT-B 16x4 @224")
     launches["v1 train"] = v1_train["launches"]
 
+    loop_stats = train_loop_checks(card)
+    launches["v2 train loop"] = loop_stats["launches"]
+
     # launches of each kernel in the run of the path it serves: the AI City
     # chain's run_temporal_inf for the inference kernels, the timed train
     # steps for the others
@@ -2039,7 +2248,9 @@ def main() -> int:
             "odd_token_shapes"] = [_public(c) for c in checks[extra]]
     print(json.dumps({"model": model_stats, "train": train_stats,
                       "fused_train": fused_stats, "v1_model": v1_stats,
-                      "v1_train": v1_train}))
+                      "v1_train": v1_train,
+                      "train_loop": {k: v for k, v in loop_stats.items()
+                                     if k != "runs"}}))
     print(json.dumps({"kernels": kernels_line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

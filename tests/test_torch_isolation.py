@@ -74,7 +74,17 @@ def test_the_walk_covers_the_host_pipeline_and_its_tools():
             "aicity_action_tpu_torch.tools.aicity_inf",
             "aicity_action_tpu_torch.tools.aicity_inf_graph",
             "aicity_action_tpu_torch.tools.aicity_convert_anno",
-            "aicity_action_tpu_torch.tools.aicity_split_anno"} <= mods
+            "aicity_action_tpu_torch.tools.aicity_split_anno",
+            "aicity_action_tpu_torch.data.datasets",
+            "aicity_action_tpu_torch.data.loader",
+            "aicity_action_tpu_torch.data.transform",
+            "aicity_action_tpu_torch.data.rand_augment",
+            "aicity_action_tpu_torch.parallel.prefetch",
+            "aicity_action_tpu_torch.utils.meters",
+            "aicity_action_tpu_torch.utils.misc",
+            "aicity_action_tpu_torch.engine.train_loop",
+            "aicity_action_tpu_torch.engine.test_loop",
+            "aicity_action_tpu_torch.tools.run_net"} <= mods
 
 
 def _imported_names(path):

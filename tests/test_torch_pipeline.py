@@ -160,9 +160,9 @@ def test_loader_path_with_a_worker_process(videos, model, monkeypatch):
 
 
 def test_unported_branches_raise(videos, model):
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="window scoring"):
         twi.WindowDataset(videos["mp4"], backend="decord", **DS_ARGS)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="window scoring"):
         twi.WindowDataset(videos["mp4"], backend="pyav", **DS_ARGS)
     with pytest.raises(NotImplementedError, match="item 8"):
         twi.WindowDataset(videos["mp4"], arch_pathways=2, **DS_ARGS)

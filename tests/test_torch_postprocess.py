@@ -317,5 +317,5 @@ def test_load_test_checkpoint_merges_by_shape_like_jax(tmp_path, caplog):
         assert torch.equal(after[k], before[k] if keep else src[k]), k
 
     cfg.TEST.CHECKPOINT_FILE_PATH = str(tmp_path / "ckpt.pkl")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         tckpt.load_test_checkpoint(cfg, model)

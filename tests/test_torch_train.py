@@ -332,7 +332,7 @@ def test_losses_match_jax():
             rtol=1e-6, atol=1e-6)
     assert tlosses._SOFT_TARGET_LOSSES == jlosses._SOFT_TARGET_LOSSES
     with pytest.raises(NotImplementedError):
-        tlosses.get_loss_func("lsep")
+        tlosses.get_loss_func("no_such_loss")
 
 
 @pytest.mark.parametrize("policy", ["cosine", "steps_with_relative_lrs"])

@@ -3,11 +3,13 @@
 Key-compatible with the reference framework's config surface
 (`slowfast/config/defaults.py`) so that its YAML files —
 e.g. `configs/Aicity/MVITV2_FULL_B_16x4_CONV_448.yaml` — load unchanged.
-The semantics of device-count keys are reinterpreted for TPU:
+The device-count keys keep PyTorch's meaning in the port: one process a
+card.
 
-- ``NUM_GPUS``  → number of local accelerator chips used (per host)
-- ``NUM_SHARDS``→ number of hosts (processes) in the job
-- ``DIST_BACKEND`` is accepted but ignored (XLA owns collectives)
+- ``NUM_GPUS``  → cards a host, one rank each
+- ``NUM_SHARDS``→ hosts in the job (``SHARD_ID`` this one)
+- ``DIST_BACKEND`` → the process group's backend: ``nccl`` on the card,
+  ``gloo`` on the CPU or where named; ``INIT_METHOD`` its rendezvous
 
 TPU-specific knobs live in the new ``TPU`` section; the PyTorch port keeps
 the section so the same YAML files load, and reads ``TPU.COMPUTE_DTYPE``
@@ -299,7 +301,8 @@ def get_cfg() -> CfgNode:
     _C.USE_TQDM = True
     _C.LOG_MODEL_INFO = True
     _C.LOG_CFG = True
-    _C.DIST_BACKEND = "nccl"  # accepted, ignored: XLA owns collectives
+    _C.DIST_BACKEND = "nccl"  # nccl (the card) | gloo (CPU, or named)
+    _C.INIT_METHOD = "tcp://localhost:9999"  # the group's rendezvous
 
     # --------------------------------------------------------------- TPU
     # TPU-native knobs (new in this framework).
@@ -432,6 +435,14 @@ def assert_and_infer_cfg(cfg: CfgNode) -> CfgNode:
         f"TEST.BATCH_SIZE={cfg.TEST.BATCH_SIZE} not divisible by "
         f"NUM_GPUS={cfg.NUM_GPUS}"
     )
+    # one rank a card: each rank takes global / (NUM_SHARDS * NUM_GPUS)
+    world = max(cfg.NUM_SHARDS, 1) * max(cfg.NUM_GPUS, 1)
+    for key in ("TRAIN", "TEST"):
+        if cfg[key].BATCH_SIZE % world:
+            raise ValueError(
+                f"{key}.BATCH_SIZE={cfg[key].BATCH_SIZE} is not divisible by "
+                f"the {world} ranks of NUM_SHARDS={cfg.NUM_SHARDS} x "
+                f"NUM_GPUS={cfg.NUM_GPUS}")
 
     assert cfg.RESNET.NUM_GROUPS > 0
     assert cfg.RESNET.WIDTH_PER_GROUP > 0
@@ -568,4 +579,62 @@ def mvit_b_16x4_224_cfg() -> CfgNode:
     checkpointing."""
     cfg = get_cfg()
     cfg.merge_from_other_cfg(CfgNode(_MVIT_B_16x4_224))
+    return cfg
+
+
+# PySlowFast's published Kinetics-400 SlowFast R50 8x8 (facebookresearch/
+# SlowFast configs/Kinetics/SLOWFAST_8x8_R50.yaml); see the factory.
+_SLOWFAST_8x8_R50 = {
+    "TRAIN": {"ENABLE": True, "DATASET": "kinetics", "BATCH_SIZE": 64,
+              "EVAL_PERIOD": 10, "CHECKPOINT_PERIOD": 1,
+              "AUTO_RESUME": True},
+    "DATA": {"NUM_FRAMES": 32, "SAMPLING_RATE": 2,
+             "TRAIN_JITTER_SCALES": [256, 320], "TRAIN_CROP_SIZE": 224,
+             "TEST_CROP_SIZE": 256, "INPUT_CHANNEL_NUM": [3, 3]},
+    "SLOWFAST": {"ALPHA": 4, "BETA_INV": 8, "FUSION_CONV_CHANNEL_RATIO": 2,
+                 "FUSION_KERNEL_SZ": 7},
+    "RESNET": {
+        "ZERO_INIT_FINAL_BN": True, "WIDTH_PER_GROUP": 64, "NUM_GROUPS": 1,
+        "DEPTH": 50, "TRANS_FUNC": "bottleneck_transform",
+        "STRIDE_1X1": False,
+        "NUM_BLOCK_TEMP_KERNEL": [[3, 3], [4, 4], [6, 6], [3, 3]],
+        "SPATIAL_STRIDES": [[1, 1], [2, 2], [2, 2], [2, 2]],
+        "SPATIAL_DILATIONS": [[1, 1], [1, 1], [1, 1], [1, 1]],
+    },
+    "NONLOCAL": {"LOCATION": [[[], []], [[], []], [[], []], [[], []]],
+                 "GROUP": [[1, 1], [1, 1], [1, 1], [1, 1]],
+                 "INSTANTIATION": "dot_product"},
+    "BN": {"USE_PRECISE_STATS": True, "NUM_BATCHES_PRECISE": 200},
+    "SOLVER": {"BASE_LR": 0.1, "LR_POLICY": "cosine", "MAX_EPOCH": 196,
+               "MOMENTUM": 0.9, "WEIGHT_DECAY": 1e-4, "WARMUP_EPOCHS": 34.0,
+               "WARMUP_START_LR": 0.01, "OPTIMIZING_METHOD": "sgd"},
+    "MODEL": {"NUM_CLASSES": 400, "ARCH": "slowfast",
+              "MODEL_NAME": "SlowFast", "LOSS_FUNC": "cross_entropy",
+              "DROPOUT_RATE": 0.5},
+    "TEST": {"ENABLE": True, "DATASET": "kinetics", "BATCH_SIZE": 64},
+    "DATA_LOADER": {"NUM_WORKERS": 8},
+    "TPU": {"COMPUTE_DTYPE": "bfloat16"},
+    "NUM_GPUS": 8,
+    "NUM_SHARDS": 1,
+    "RNG_SEED": 0,
+}
+
+
+def slowfast_8x8_r50_cfg() -> CfgNode:
+    """SlowFast R50 8x8 (PySlowFast's Kinetics-400
+    ``SLOWFAST_8x8_R50.yaml``; Feichtenhofer et al., SlowFast Networks for
+    Video Recognition, ICCV 2019), built in code; bf16 activations as the
+    port's other configs. The global batch of 64 is eight cards'.
+
+    Against the JAX package's defaults it sets NUM_FRAMES 32 (default 8),
+    SAMPLING_RATE 2 (8), SLOWFAST.ALPHA 4 (8), FUSION_KERNEL_SZ 7 (5),
+    ZERO_INIT_FINAL_BN True (False), the two-pathway NUM_BLOCK_TEMP_KERNEL
+    / SPATIAL_STRIDES / SPATIAL_DILATIONS / NONLOCAL lists, precise BN on
+    (200 batches), the SGD solver (BASE_LR 0.1, cosine over 196 epochs, 34
+    warm-up epochs from 0.01) and bf16; BETA_INV 8,
+    FUSION_CONV_CHANNEL_RATIO 2, DEPTH 50, WIDTH_PER_GROUP 64, crop 224
+    (test crop 256), 400 classes and the dot-product non-local setting
+    equal the defaults."""
+    cfg = get_cfg()
+    cfg.merge_from_other_cfg(CfgNode(_SLOWFAST_8x8_R50))
     return cfg

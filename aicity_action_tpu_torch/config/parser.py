@@ -2,8 +2,8 @@
 
 Parity with the reference parser (`slowfast/utils/parser.py:28-98`):
 ``--cfg FILE`` plus a trailing ``KEY VALUE ...`` override list, and the
-multi-host flags. ``--init_method`` is accepted for CLI compatibility but
-unused by the single-card serving path.
+multi-host flags. ``--init_method`` sets ``INIT_METHOD``, the process
+group's rendezvous (``tcp://host:port``).
 """
 
 import argparse
@@ -26,7 +26,7 @@ def parse_args(argv=None):
     )
     parser.add_argument(
         "--init_method", type=str, default="tcp://localhost:9999",
-        help="Coordinator address for multi-host init",
+        help="Rendezvous of the process group (tcp://host:port)",
     )
     parser.add_argument(
         "--cfg", dest="cfg_file", type=str, default=None,
@@ -54,4 +54,6 @@ def load_config(args):
     if hasattr(args, "num_shards") and hasattr(args, "shard_id"):
         cfg.NUM_SHARDS = args.num_shards
         cfg.SHARD_ID = args.shard_id
+    if getattr(args, "init_method", None):
+        cfg.INIT_METHOD = args.init_method
     return cfg

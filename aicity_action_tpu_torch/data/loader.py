@@ -5,6 +5,12 @@
   epoch-seeded shuffling (``np.random.RandomState(seed + epoch)``, the
   JAX package's order; ``shuffle_dataset`` / ``set_epoch`` parity,
   loader.py:243-272).
+- One process a card: the rank that drives card ``local_rank`` of a host's
+  ``NUM_GPUS`` loads, and decodes, only its ``local_rank`` slice of each of
+  the host's batches, the rows the JAX package's ``batch_sharding`` puts on
+  that chip. A short batch (eval) is padded to the host's batch size with
+  its last sample first, as the JAX loop pads it, and each rank's batch
+  carries ``n_valid``, its real rows.
 - A thread pool decodes the items of a batch (cv2 releases the
   interpreter lock while it decodes), and a bounded queue holds the
   collated batches ahead of the consumer.
@@ -21,6 +27,7 @@ from typing import Iterator
 
 import numpy as np
 
+from ..parallel import mesh
 from .datasets import build_dataset
 
 
@@ -53,10 +60,18 @@ class Loader:
         seed: int = 0,
         shard_id: int = 0,
         num_shards: int = 1,
+        local_rank: int = 0,
+        local_world: int = 1,
         loop: bool = False,
     ):
+        if batch_size % local_world:
+            raise ValueError(f"a host batch of {batch_size} over "
+                             f"{local_world} cards")
         self.dataset = dataset
-        self.batch_size = batch_size
+        self.host_batch_size = batch_size
+        self.batch_size = batch_size // local_world  # what a rank gets
+        self.local_rank = local_rank
+        self.local_world = local_world
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.num_workers = max(num_workers, 1)
@@ -86,16 +101,27 @@ class Loader:
     def __len__(self) -> int:
         n = len(self._indices())
         if self.drop_last:
-            return n // self.batch_size
-        return int(np.ceil(n / self.batch_size))
+            return n // self.host_batch_size
+        return int(np.ceil(n / self.host_batch_size))
+
+    def rank_rows(self, host_idx: np.ndarray) -> tuple[np.ndarray, int]:
+        """This rank's indices of one host batch and how many are real:
+        the slice ``[local_rank * b, (local_rank + 1) * b)`` of the batch
+        padded to the host's size with its last index."""
+        if self.local_world == 1:
+            return host_idx, len(host_idx)
+        n, b = len(host_idx), self.batch_size
+        pad = self.host_batch_size - n
+        padded = np.concatenate([host_idx, np.repeat(host_idx[-1:], pad)])
+        lo = self.local_rank * b
+        return padded[lo:lo + b], int(np.clip(n - lo, 0, b))
 
     def __iter__(self) -> Iterator[dict]:
         indices = self._indices()
         nb = len(self)
-        batches = [
-            indices[i * self.batch_size:(i + 1) * self.batch_size]
-            for i in range(nb)
-        ]
+        hb = self.host_batch_size
+        batches = [self.rank_rows(indices[i * hb:(i + 1) * hb])
+                   for i in range(nb)]
 
         out_q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
@@ -103,13 +129,16 @@ class Loader:
         def produce():
             try:
                 with ThreadPoolExecutor(self.num_workers) as pool:
-                    for batch_idx in batches:
+                    for batch_idx, n_valid in batches:
                         if stop.is_set():
                             return
                         items = list(
                             pool.map(self.dataset.__getitem__, batch_idx)
                         )
-                        out_q.put(_collate(items))
+                        batch = _collate(items)
+                        if self.local_world > 1:
+                            batch["n_valid"] = n_valid
+                        out_q.put(batch)
                 out_q.put(None)
             except BaseException as e:  # propagate to the consumer
                 out_q.put(e)
@@ -147,10 +176,11 @@ def construct_loader(cfg, split: str):
         global_batch = cfg.TEST.BATCH_SIZE
         shuffle, drop_last = False, False
 
-    # per-host batch (the reference divides by GPUs*shards per process;
-    # here one process drives all local chips)
+    # per-host batch; each of the host's NUM_GPUS ranks takes its slice
+    # (the reference divides by GPUs*shards per process)
     batch_size = global_batch // max(cfg.NUM_SHARDS, 1)
     dataset = build_dataset(dataset_name, cfg, split)
+    local_world = max(cfg.NUM_GPUS, 1) if mesh.is_initialized() else 1
     return Loader(
         dataset,
         batch_size,
@@ -160,6 +190,8 @@ def construct_loader(cfg, split: str):
         seed=cfg.RNG_SEED,
         shard_id=cfg.SHARD_ID,
         num_shards=cfg.NUM_SHARDS,
+        local_rank=mesh.get_rank() % local_world,
+        local_world=local_world,
     )
 
 

@@ -8,6 +8,15 @@ the optimizer update at the scheduled LR (:class:`TrainOptimizer`). On the
 card every Pallas kernel the JAX step reaches runs as a CUDA kernel, its
 backward included.
 
+Data parallelism (the model inside ``DistributedDataParallel``, each rank
+holding its slice of the global batch): DDP averages the gradients, which
+equals the JAX step's gradient of the global batch's mean loss because
+every training rank holds the same number of rows (the train loader drops
+the last short batch). The step's ``loss`` metric is the global batch's;
+mixup mixes the global batch (sample i with sample B-1-i, wherever they
+lie) and each rank keeps its rows; dropout masks are drawn for the global
+batch (``parallel/mesh.py:dp_rand``).
+
 Randomness: where the JAX step folds the step count into its key, the port
 seeds a ``torch.Generator`` (DropPath and head-dropout masks, on the
 model's device) and a ``numpy.random.Generator`` (the mixup draw) from
@@ -24,6 +33,7 @@ import numpy as np
 import torch
 
 from ..models import losses as loss_lib
+from ..parallel import mesh
 from ..solver.optimizer import TrainOptimizer
 
 
@@ -56,7 +66,13 @@ def make_train_step(model: torch.nn.Module, optimizer: TrainOptimizer,
         gen, rng = step_generators(seed, step, device)
         inputs, labels = batch["inputs"], batch["labels"]
         if mixup_fn is not None:
-            inputs, labels = mixup_fn(inputs, labels, rng, mixup_draw)
+            if isinstance(inputs, (list, tuple)):
+                raise NotImplementedError(
+                    "mixup of multi-pathway inputs is not ported")
+            inputs, labels = mixup_fn(mesh.gather_rows(inputs),
+                                      mesh.gather_rows(labels), rng,
+                                      mixup_draw)
+            inputs, labels = mesh.local_rows(inputs), mesh.local_rows(labels)
         elif (loss_name in loss_lib._SOFT_TARGET_LOSSES
               and labels.dim() == 1 and num_classes is not None):
             labels = torch.nn.functional.one_hot(labels.long(),
@@ -76,6 +92,11 @@ def make_train_step(model: torch.nn.Module, optimizer: TrainOptimizer,
         lr = optimizer.schedule(step)
         grad_norm = optimizer.step()
         loss = loss.detach()
+        if mesh.get_world_size() > 1:  # the global batch's mean loss
+            n = float(preds.shape[0] if n_valid is None else n_valid)
+            tot = mesh.all_reduce_sum(torch.stack([
+                loss.float() * n, torch.tensor(n, device=loss.device)]))
+            loss = tot[0] / tot[1]
         metrics = {"loss": loss, "loss_is_nan": ~torch.isfinite(loss),
                    "grad_norm": grad_norm, "lr": lr}
         return metrics, preds.detach()

@@ -2,9 +2,12 @@
 reference: tools/test_net.py).
 
 Each video is scored ``NUM_ENSEMBLE_VIEWS x NUM_SPATIAL_CROPS`` times; the
-``TestMeter`` ensembles the views of a video (sum or max). Detection (ROADMAP
-Queue 1 item 8), the multi-head models (item 9) and several hosts (item 7)
-raise.
+``TestMeter`` ensembles the views of a video (sum or max). Under data
+parallelism each rank scores its slice of every batch, and one host-side
+gather of predictions, labels and clip indices an epoch
+(``parallel/mesh.py:process_allgather``) gives every rank the whole set
+before the meter. Detection (ROADMAP Queue 1 item 8) and the multi-head
+models (item 9) raise.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 from ..data.loader import construct_loader
 from ..device import resolve_device
 from ..models.build import build_model
+from ..parallel import mesh
 from ..parallel.prefetch import DeviceFeed, host_transfer_dtype
 from ..utils import checkpoint as cu
 from ..utils.logging import get_logger, setup_logging
@@ -70,12 +74,19 @@ def test(cfg, device: str | torch.device = "cuda") -> dict:
         preds_all.append(preds.float().cpu().numpy()[:n_valid])
         labels_all.append(batch["labels"][:n_valid])
         index_all.append(batch["index"][:n_valid])
+    preds_np = np.concatenate(preds_all)
+    labels = np.concatenate(labels_all)
+    index = np.concatenate(index_all)
+    if mesh.get_world_size() > 1:
+        # one gather an epoch, not a batch (test_net.py:119-122)
+        preds_np = np.concatenate(mesh.process_allgather(preds_np))
+        labels = np.concatenate(mesh.process_allgather(labels))
+        index = np.concatenate(mesh.process_allgather(index))
     seconds = time.perf_counter() - t
-    meter.update_stats(np.concatenate(preds_all), np.concatenate(labels_all),
-                       np.concatenate(index_all))
+    meter.update_stats(preds_np, labels, index)
 
     stats = dict(meter.finalize_metrics())
-    if cfg.TEST.SAVE_RESULTS_PATH:
+    if cfg.TEST.SAVE_RESULTS_PATH and mesh.is_main_process():
         with open(cfg.TEST.SAVE_RESULTS_PATH, "wb") as f:
             pickle.dump([meter.video_preds, meter.video_labels], f)
         logger.info("Saved predictions to %s", cfg.TEST.SAVE_RESULTS_PATH)

@@ -7,17 +7,27 @@ real samples, and mixup pairs sample i with sample B-1-i of the padded
 batch, as in the JAX package), the host-to-card feed staging
 ``TPU.PREFETCH_DEPTH`` batches ahead, and the train step.
 
+Data parallelism (``NUM_SHARDS * NUM_GPUS`` ranks, one a card, joined by
+``parallel/mesh.py:init_distributed``, which ``tools/run_net.py`` calls):
+each rank loads its slice of the global batch, the model runs inside
+``DistributedDataParallel`` (also in a one-rank group), BatchNorm
+statistics are the global batch's, and the logged loss and top-k errors are
+the global batch's, as the JAX step's over its sharded batch. Only rank 0
+logs and writes checkpoints; every rank reads them back after a barrier.
+
 Deferred metric fetch (the JAX package's): the loss and logits of a step
 stay device tensors and are read ``TPU.PREFETCH_DEPTH`` steps after the
 step was dispatched, so the host never waits for the step it just queued.
 The NaN gate reads every step's loss and drains before any checkpoint or
 eval. Then the cadence of checkpoints and evals of the JAX loop.
 
+``BN.USE_PRECISE_STATS`` recomputes the BatchNorm statistics before each
+checkpoint and eval (``engine/precise_bn.py``; MViT has none, so nothing
+runs for it, as in the JAX package).
+
 Not ported, each raising with the ROADMAP Queue 1 item that brings it:
-multigrid (item 10), detection and precise BatchNorm statistics (item 8;
-MViT has no BatchNorm, so the JAX package skips precise BN for it too),
-the multi-head models (item 9), TensorBoard (item 11), several hosts
-(item 7).
+multigrid (item 10), detection (item 8), the multi-head models (item 9),
+TensorBoard (item 11).
 """
 
 from __future__ import annotations
@@ -35,19 +45,27 @@ from ..data.loader import construct_loader, shuffle_dataset
 from ..data.mixup import build_mixup_from_cfg
 from ..device import resolve_device
 from ..models.build import build_model
+from ..models.convnets import is_bn
+from ..parallel import mesh
 from ..parallel.prefetch import (DeviceFeed, host_transfer_dtype,
                                  prefetch_to_device)
 from ..solver.optimizer import TrainOptimizer, construct_optimizer
 from ..utils import checkpoint as cu
 from ..utils.logging import get_logger, setup_logging
 from ..utils.meters import EpochTimer, TrainMeter, ValMeter
+from .precise_bn import calculate_and_update_precise_bn
 from .steps import make_eval_step, make_train_step
 
 logger = get_logger(__name__)
 
 
 def _pad_batch(batch: dict, size: int) -> tuple[dict, int]:
-    """Pad a short batch to ``size`` by repeating its last sample."""
+    """Pad a short batch to ``size`` by repeating its last sample. A rank's
+    batch of a data-parallel loader comes padded, with its real rows in
+    ``n_valid``."""
+    if "n_valid" in batch:
+        batch = dict(batch)
+        return batch, int(batch.pop("n_valid"))
     n = batch["labels"].shape[0]
     if n == size:
         return batch, n
@@ -96,17 +114,53 @@ def check_supported(cfg) -> None:
         (cfg.DETECTION.ENABLE, "detection", 8),
         (cfg.MODEL.USE_MULTI_HEAD, "multi-head models", 9),
         (cfg.TENSORBOARD.ENABLE, "TensorBoard", 11),
-        (cfg.NUM_SHARDS > 1, "training over several hosts or cards", 7),
     )
     for on, what, item in unported:
         if on:
             raise NotImplementedError(
                 f"{what} is not ported (ROADMAP Queue 1 item {item})")
+    world = mesh.world_size(cfg)
+    if world > 1 and mesh.get_world_size() != world:
+        raise RuntimeError(
+            f"NUM_SHARDS={cfg.NUM_SHARDS} x NUM_GPUS={cfg.NUM_GPUS} asks for "
+            f"{world} ranks, but this process is in a group of "
+            f"{mesh.get_world_size()}: launch through tools/run_net (one "
+            f"process a card) or call parallel.mesh.init_distributed first")
 
 
 def _device_batch(feed: DeviceFeed, staged) -> dict:
+    """The model's input (one clip, or the list of a multi-pathway model's)
+    and the labels, on the card."""
     dev = feed.take(staged)
-    return {"inputs": dev["inputs"][0], "labels": dev["labels"]}
+    xs = dev["inputs"]
+    return {"inputs": xs[0] if len(xs) == 1 else xs, "labels": dev["labels"]}
+
+
+def wrap_ddp(model: torch.nn.Module, dev: torch.device) -> torch.nn.Module:
+    """``model`` inside ``DistributedDataParallel`` where a process group is
+    up (one rank included), else ``model``. Buffers are not broadcast: the
+    BatchNorm statistics are the global batch's on every rank already."""
+    if not mesh.is_initialized():
+        return model
+    return torch.nn.parallel.DistributedDataParallel(
+        model, device_ids=[dev.index] if dev.type == "cuda" else None,
+        broadcast_buffers=False)
+
+
+def _gathered_rows(preds: torch.Tensor, labels: torch.Tensor,
+                   n_valid: int) -> tuple:
+    """The global batch's real rows of ``preds`` and ``labels`` from every
+    rank's (rank-major; a rank's real rows come first), and their count.
+    A collective: every rank calls it."""
+    if mesh.get_world_size() == 1:
+        return preds[:n_valid], labels[:n_valid], n_valid
+    b = preds.shape[0]
+    counts = mesh.gather_rows(torch.tensor([n_valid], device=preds.device))
+    keep = torch.cat([torch.arange(r * b, r * b + int(c))
+                      for r, c in enumerate(counts.tolist())])
+    keep = keep.to(preds.device)
+    return (mesh.gather_rows(preds)[keep], mesh.gather_rows(labels)[keep],
+            int(keep.numel()))
 
 
 @dataclasses.dataclass
@@ -135,22 +189,19 @@ def train(cfg, device: str | torch.device = "cuda") -> TrainRun:
         logger.info(pprint.pformat(cfg.to_dict()))
 
     model = build_model(cfg, device=dev)
-    if cfg.BN.USE_PRECISE_STATS and any(
-            isinstance(m, torch.nn.modules.batchnorm._BatchNorm)
-            for m in model.modules()):
-        raise NotImplementedError(
-            "precise BatchNorm statistics are not ported (ROADMAP Queue 1 "
-            "item 8)")
     train_loader = construct_loader(cfg, "train")
     val_loader = construct_loader(cfg, "val")
     steps_per_epoch = max(len(train_loader), 1)
 
     optimizer = construct_optimizer(cfg, model, steps_per_epoch)
     start_epoch = cu.load_train_checkpoint(cfg, model, optimizer)
+    ddp_model = wrap_ddp(model, dev)
+    precise_bn = cfg.BN.USE_PRECISE_STATS and any(
+        is_bn(m) for m in model.modules())
 
     mixup_fn = build_mixup_from_cfg(cfg)
     train_step = make_train_step(
-        model, optimizer, cfg.MODEL.LOSS_FUNC, mixup_fn=mixup_fn,
+        ddp_model, optimizer, cfg.MODEL.LOSS_FUNC, mixup_fn=mixup_fn,
         num_classes=cfg.MODEL.NUM_CLASSES, seed=cfg.RNG_SEED)
     eval_step = make_eval_step(model)
     feed = DeviceFeed(dev, host_transfer_dtype(cfg))
@@ -181,7 +232,8 @@ def train(cfg, device: str | torch.device = "cuda") -> TrainRun:
         losses = []
 
         def process(entry):
-            cur_it, metrics, preds, labels_np, n_valid, step_at = entry
+            cur_it, metrics, preds, labels, n_valid, step_at = entry
+            labels_np = labels.cpu().numpy()
             loss = float(metrics["loss"])
             if not math.isfinite(loss):
                 raise RuntimeError(
@@ -208,10 +260,10 @@ def train(cfg, device: str | torch.device = "cuda") -> TrainRun:
         prefetched = prefetch_to_device(train_loader, pad_and_put,
                                         lookahead=cfg.TPU.PREFETCH_DEPTH)
         pending: list = []
-        for cur_iter, (_, (staged, labels_np, n_valid)) in enumerate(
+        for cur_iter, (_, (staged, _labels, n_valid)) in enumerate(
                 prefetched):
             train_meter.data_toc()
-            if cfg.TPU.PROFILE_DIR and \
+            if cfg.TPU.PROFILE_DIR and mesh.is_main_process() and \
                     host_step == cfg.TPU.PROFILE_START_STEP:
                 profiler = _start_profile(dev)
             batch = _device_batch(feed, staged)
@@ -220,7 +272,10 @@ def train(cfg, device: str | torch.device = "cuda") -> TrainRun:
             if profiler is not None and host_step == \
                     cfg.TPU.PROFILE_START_STEP + cfg.TPU.PROFILE_NUM_STEPS:
                 profiler = _stop_profile(profiler, dev, cfg, host_step)
-            pending.append((cur_iter, metrics, preds, labels_np, n_valid,
+            # the global batch's rows, for its top-k errors
+            preds, labels, n_all = _gathered_rows(preds, batch["labels"],
+                                                  n_valid)
+            pending.append((cur_iter, metrics, preds, labels, n_all,
                             host_step))
             host_step += 1
             if len(pending) > runahead:
@@ -243,13 +298,20 @@ def train(cfg, device: str | torch.device = "cuda") -> TrainRun:
         train_meter.log_epoch_stats(cur_epoch)
         train_meter.reset()
 
-        if cu.is_checkpoint_epoch(cfg, cur_epoch):
+        is_ckpt = cu.is_checkpoint_epoch(cfg, cur_epoch)
+        is_eval = (cur_epoch + 1) % cfg.TRAIN.EVAL_PERIOD == 0 or (
+            cur_epoch + 1 == cfg.SOLVER.MAX_EPOCH)
+        if precise_bn and (is_ckpt or is_eval):
+            # recompute BN stats as a true average (train_net.py:784-795)
+            record["precise_bn_batches"] = calculate_and_update_precise_bn(
+                model, _model_inputs(train_loader, feed),
+                num_batches=min(cfg.BN.NUM_BATCHES_PRECISE, steps_per_epoch))
+        if is_ckpt:
             t = time.perf_counter()
             cu.save_checkpoint(cfg.OUTPUT_DIR, model, optimizer, cur_epoch,
                                cfg, async_write=cfg.TPU.ASYNC_CHECKPOINT)
             record["ckpt_s"] = time.perf_counter() - t
-        if (cur_epoch + 1) % cfg.TRAIN.EVAL_PERIOD == 0 or (
-                cur_epoch + 1 == cfg.SOLVER.MAX_EPOCH):
+        if is_eval:
             record["val"] = eval_epoch(eval_step, feed, val_loader,
                                        val_meter, cur_epoch)
         run.epochs.append(record)
@@ -257,8 +319,17 @@ def train(cfg, device: str | torch.device = "cuda") -> TrainRun:
     if profiler is not None:  # the run ended inside the traced steps
         _stop_profile(profiler, dev, cfg, optimizer.count - 1)
     cu.wait_for_pending_saves()
+    mesh.barrier()  # rank 0's checkpoints are on disk for every rank
     logger.info("Training done.")
     return run
+
+
+def _model_inputs(loader, feed: DeviceFeed):
+    """The model inputs of ``loader``'s batches, padded and on the card."""
+    for b in loader:
+        b, _ = _pad_batch(b, loader.batch_size)
+        yield _device_batch(feed, feed.put({"inputs": b["inputs"],
+                                            "labels": b["labels"]}))["inputs"]
 
 
 def _start_profile(dev: torch.device):
@@ -297,10 +368,12 @@ def eval_epoch(eval_step, feed: DeviceFeed, val_loader, val_meter,
     forwards = clips = 0
     for batch in val_loader:
         batch, n_valid = _pad_batch(batch, val_loader.batch_size)
-        preds = eval_step(_device_batch(feed, feed.put(
-            {"inputs": batch["inputs"], "labels": batch["labels"]})))
-        preds_np = preds.float().cpu().numpy()[:n_valid]
-        labels = batch["labels"][:n_valid]
+        dev_batch = _device_batch(feed, feed.put(
+            {"inputs": batch["inputs"], "labels": batch["labels"]}))
+        preds, labels, n_valid = _gathered_rows(
+            eval_step(dev_batch), dev_batch["labels"], n_valid)
+        preds_np = preds.float().cpu().numpy()
+        labels = labels.cpu().numpy()
         if labels.ndim == 1:
             top1, top5 = _errors(preds_np, labels)
             val_meter.update_stats(top1, top5, n_valid)

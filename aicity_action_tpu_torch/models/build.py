@@ -1,5 +1,6 @@
-"""Model builder (port of ``aicity_action_tpu/models/build.py`` for the one
-model this port serves, ``MODEL_NAME == "MViT"``)."""
+"""Model builder (port of ``aicity_action_tpu/models/{build,zoo}.py``):
+``MODEL.MODEL_NAME`` ``MViT``, and the BatchNorm conv nets ``ResNet``,
+``SlowFast`` and ``X3D``."""
 
 from __future__ import annotations
 
@@ -7,13 +8,18 @@ import torch
 from torch import nn
 
 from ..device import compute_dtype, resolve_device
+from .convnets import is_bn
 from .mvit import MViT, build_mvit_spec
+from .resnet_models import X3D, ResNet, SlowFast
+
+_CONV_NETS = {"ResNet": ResNet, "SlowFast": SlowFast, "X3D": X3D}
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """The reference's initialization, drawn from ``generator``: linear
     weights and position embeddings from a normal of std 0.02 truncated at
-    two deviations, conv weights LeCun-normal, biases 0, LN scales 1."""
+    two deviations, conv weights LeCun-normal, biases 0, LN and BN scales 1
+    (0 for a BatchNorm made with ``final_gamma_zero``)."""
     with torch.no_grad():
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
@@ -28,19 +34,26 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             else:
                 nn.init.trunc_normal_(p, std=0.02, a=-0.04, b=0.04,
                                       generator=generator)
+        for m in model.modules():
+            if is_bn(m) and m.final_gamma_zero:
+                m.weight.zero_()
 
 
 def build_model(cfg, device: str | torch.device = "cuda",
-                seed: int | None = None) -> MViT:
-    """MViT for ``cfg`` on ``device``, in eval mode, with weights drawn from
-    ``seed`` (default ``cfg.RNG_SEED``). Raises if ``device`` is CUDA and
-    there is no card."""
-    if cfg.MODEL.MODEL_NAME != "MViT":
-        raise NotImplementedError(
-            f"MODEL_NAME {cfg.MODEL.MODEL_NAME!r} is not ported yet")
+                seed: int | None = None) -> nn.Module:
+    """The ``MODEL.MODEL_NAME`` model for ``cfg`` on ``device``, in eval
+    mode, with weights drawn from ``seed`` (default ``cfg.RNG_SEED``).
+    Raises if ``device`` is CUDA and there is no card."""
+    name = cfg.MODEL.MODEL_NAME
+    if name != "MViT" and name not in _CONV_NETS:
+        raise NotImplementedError(f"MODEL_NAME {name!r} is not ported yet")
     dev = resolve_device(device)
-    model = MViT(build_mvit_spec(cfg), compute_dtype(cfg.TPU.COMPUTE_DTYPE))
+    dtype = compute_dtype(cfg.TPU.COMPUTE_DTYPE)
+    model = (MViT(build_mvit_spec(cfg), dtype) if name == "MViT"
+             else _CONV_NETS[name](cfg, dtype))
     gen = torch.Generator().manual_seed(
         cfg.RNG_SEED if seed is None else seed)
     init_weights(model, gen)
+    if name != "MViT":
+        model.set_channels_last(model.channels_last)
     return model.to(dev).eval()

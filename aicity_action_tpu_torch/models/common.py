@@ -8,6 +8,7 @@ from torch import nn
 
 from ..ops.fused_dense import exact_gelu  # noqa: F401  (the MLP's GELU)
 from ..ops.layer_norm import fused_layer_norm
+from ..parallel.mesh import dp_rand
 
 
 def round_width(width: float, multiplier: float, min_width: int = 1,
@@ -30,10 +31,11 @@ def drop_path_mask(batch: int, rate: float, generator: torch.Generator,
     probability ``1 - rate``), drawn from ``generator``; None when ``rate``
     is 0. Drawn outside any checkpointed region, so that a recompute under
     ``torch.utils.checkpoint`` (which restores only the default RNG) applies
-    the same mask."""
+    the same mask; under data parallelism drawn for the global batch and
+    sliced to this rank's rows (``parallel/mesh.py:dp_rand``)."""
     if rate == 0.0:
         return None
-    keep = torch.rand(batch, generator=generator, device=device) < 1.0 - rate
+    keep = dp_rand((batch,), generator, device) < 1.0 - rate
     return keep.to(dtype).reshape(batch, 1, 1)
 
 

@@ -7,12 +7,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import dp_rand
+
 
 class TransformerBasicHead(nn.Module):
     """dropout -> linear ``projection``; the activation (softmax or sigmoid)
     is applied at eval, and in training only when ``use_act_in_train``.
     Dropout acts in training only, with its mask drawn from the
-    ``generator`` the caller passes."""
+    ``generator`` the caller passes (for the global batch under data
+    parallelism)."""
 
     def __init__(self, dim_in: int, num_classes: int,
                  dropout_rate: float = 0.0, act_func: str = "softmax",
@@ -32,8 +35,7 @@ class TransformerBasicHead(nn.Module):
             if generator is None:
                 raise ValueError("head dropout in training needs a generator")
             keep = 1.0 - self.dropout_rate
-            mask = torch.rand(x.shape, generator=generator,
-                              device=x.device) < keep
+            mask = dp_rand(tuple(x.shape), generator, x.device) < keep
             x = torch.where(mask, x / keep, torch.zeros_like(x))
         x = F.linear(x, self.projection.weight.to(x.dtype),
                      self.projection.bias.to(x.dtype))

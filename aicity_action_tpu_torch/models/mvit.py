@@ -486,7 +486,8 @@ class MultiScaleAttention(nn.Module):
         (grouped per head: one row of d per head and token), then
         :func:`flash_attention` (:func:`flash_attention_padded` at a cls
         token's odd lengths) and the v2 residual ``+ q`` outside it. A pool
-        norm without a cls token over ``L % 8 == 0`` tokens reads the pool
+        norm of head dim 96 without a cls token over ``L % 8 == 0`` tokens
+        reads the pool
         convolution's ``[B, h*d, L]`` and writes the rows itself
         (:func:`pool_norm_rows`); every other tensor is copied into
         contiguous rows (one transpose each; their gradients pay one back),
@@ -497,7 +498,7 @@ class MultiScaleAttention(nn.Module):
             n = t.shape[-1]
             normed = self.mode == "conv" and name in self.pooled
             norm = getattr(self, f"norm_{name}") if normed else None
-            if normed and channel_major_applies(n, self.has_cls):
+            if normed and channel_major_applies(n, self.has_cls, d):
                 rows[name] = pool_norm_rows(
                     t.contiguous(), norm.weight.to(t.dtype),
                     norm.bias.to(t.dtype), norm.eps, h)

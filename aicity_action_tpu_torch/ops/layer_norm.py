@@ -60,12 +60,14 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def channel_major_applies(length: int, cls: bool) -> bool:
-    """Whether a pool norm over ``length`` tokens takes the channel-major
-    instance: TMA reads the ``[B*h*d, L]`` view, whose rows must be whole
-    16 bytes (``L % 8 == 0``), and a cls token's column takes the rows
-    instance (its lengths ``1 + L'`` are odd anyway)."""
-    return not cls and length % 8 == 0
+def channel_major_applies(length: int, cls: bool, head_dim: int) -> bool:
+    """Whether a pool norm over ``length`` tokens of ``head_dim`` channels a
+    head takes the channel-major instance: its kernels are built for
+    ``POOL_NORM_D`` channels, TMA reads the ``[B*h*d, L]`` view, whose rows
+    must be whole 16 bytes (``L % 8 == 0``), and a cls token's column takes
+    the rows instance (its lengths ``1 + L'`` are odd anyway). Every other
+    pool norm takes the rows instance."""
+    return head_dim == POOL_NORM_D and not cls and length % 8 == 0
 
 
 def _col_smem(bwd: bool, tile: int, stages: int) -> int:

@@ -17,7 +17,11 @@
   converts to normalized RGB and scores batches of windows, while a decoder
   thread keeps two chunks ahead. :meth:`WindowScorer.score_chunks` takes
   any iterator of chunks plus the window plans, so a caller can drive it
-  without a video file.
+  without a video file. A two-pathway (SlowFast) model takes the
+  window-streaming path instead, as in the JAX package: one sequential
+  decode into a rolling buffer of resized RGB frames, each window packed
+  into its slow and fast clips (``data/transform.py:pack_pathway_output``)
+  and scored ``batch_size`` windows at a time.
 
 Output per video: the sorted list of ``(t0, t1, scores[num_class])`` that
 the JAX package and the reference pickle (run_action_...py:110-130).
@@ -36,6 +40,7 @@ import numpy as np
 import torch
 
 from ..data.decoder import cv2_video_meta, probe, sample_indices
+from ..data.transform import pack_pathway_output
 
 _ITEM_8 = "ROADMAP Queue 1 item 8"
 
@@ -66,7 +71,9 @@ class WindowDataset:
 
     ``backend`` (``DATA.DECODING_BACKEND``) must be ``cv2``, the JAX
     package's default; decord and PyAV are not ported. Items
-    (``dataset[i]``) are ``([clip f32 [T, s, s, 3]], t0, t1)``.
+    (``dataset[i]``) are ``(pathway clips, t0, t1)``: ``[clip f32 [T, s,
+    s, 3]]``, or with ``arch_pathways`` 2 the slow clip of ``T //
+    slowfast_alpha`` frames and the fast clip.
     """
 
     def __init__(
@@ -82,6 +89,7 @@ class WindowDataset:
         mean: Sequence[float] = (0.45, 0.45, 0.45),
         std: Sequence[float] = (0.225, 0.225, 0.225),
         arch_pathways: int = 1,
+        slowfast_alpha: int = 4,
         backend: str = "cv2",
     ):
         if backend != "cv2":
@@ -89,10 +97,8 @@ class WindowDataset:
                 f"DATA.DECODING_BACKEND {backend!r} is not ported for "
                 f"window scoring; the scorer decodes with cv2 or the port's "
                 f"FFmpeg library")
-        if arch_pathways != 1:
-            raise NotImplementedError(
-                f"{arch_pathways}-pathway (SlowFast) window inputs are not "
-                f"ported ({_ITEM_8})")
+        self.arch_pathways = arch_pathways
+        self.slowfast_alpha = slowfast_alpha
         self.video_path = video_path
         self.frame_length = frame_length
         self.frame_size = frame_size
@@ -192,7 +198,49 @@ class WindowDataset:
             cv2.resize(cropped[i], (s, s), dst=resized[i],
                        interpolation=cv2.INTER_LINEAR)
         x = (resized.astype(np.float32) / 255.0 - self.mean) / self.std
-        return [x], t0, t1
+        return (pack_pathway_output(x, self.arch_pathways,
+                                    self.slowfast_alpha), t0, t1)
+
+    def stream_windows(self) -> Iterator[tuple]:
+        """Single-pass windows: every frame decoded, cropped and resized
+        once (the chunk paths' per-frame cv2 arithmetic) into a rolling
+        buffer that holds the frames a later window still needs; yields
+        ``(pathway clips, t0, t1)`` as :meth:`__getitem__` does, in t0
+        order. A frame index past EOF takes the last decoded frame."""
+        import cv2
+
+        plans = self.plans()
+        s = self.frame_size
+        write = self._frame_writer(s, yuv420=False, rgb=True)
+        cap = cv2.VideoCapture(self.video_path)
+        buf: dict[int, np.ndarray] = {}
+        frame_idx, eof = 0, False
+        try:
+            for w, (t0, t1, idxs) in enumerate(plans):
+                while frame_idx <= int(idxs[-1]) and not eof:
+                    ok, frame = cap.read()
+                    if not ok:
+                        eof = True
+                        break
+                    self._resolve_roi_px(frame)
+                    row = np.empty((s, s, 3), np.uint8)
+                    write(frame, row)
+                    buf[frame_idx] = row
+                    frame_idx += 1
+                if not buf:
+                    raise RuntimeError(
+                        f"decoded 0 frames from {self.video_path}")
+                last = max(buf)
+                u8 = np.stack([buf.get(int(i), buf[last]) for i in idxs])
+                x = (u8.astype(np.float32) / 255.0 - self.mean) / self.std
+                yield (pack_pathway_output(x, self.arch_pathways,
+                                           self.slowfast_alpha), t0, t1)
+                if w + 1 < len(plans):  # drop what no later window reads
+                    low = int(plans[w + 1][2][0])
+                    for i in [i for i in buf if i < low]:
+                        del buf[i]
+        finally:
+            cap.release()
 
     def stream_chunks(self, chunk_frames: int, rgb: bool = True,
                       yuv420: bool = True) -> Iterator[np.ndarray]:
@@ -455,8 +503,9 @@ class WindowScorer:
     processes. Results stay on the card until the video ends, so host
     decode overlaps device compute. ``last_timers`` holds the device-gather
     run's phase split (seconds of decode / upload / dispatch / drain, and
-    the calls, chunks and decoder) and is None after any other path.
-    Detection (an RoI head on whole-frame boxes) is not ported.
+    the calls, chunks and decoder) and is None after any other path. A
+    two-pathway model's windows take :meth:`_score_streaming`. Detection
+    (an RoI head on whole-frame boxes) is not ported.
     """
 
     def __init__(self, model: torch.nn.Module, batch_size: int = 8,
@@ -477,13 +526,41 @@ class WindowScorer:
     def score_video(self, dataset: WindowDataset, *,
                     streaming: bool = True) -> list:
         """Sorted ``[(t0, t1, scores)]`` for every window of ``dataset``:
-        the device-gather path, or under ``streaming=False`` the loader
-        path. (The JAX package routes two-pathway and detection models to a
-        third, window-streaming path; the port refuses both earlier.)"""
+        the device-gather path (the window-streaming path for a
+        two-pathway model), or under ``streaming=False`` the loader path."""
         self.last_timers = None
         if streaming:
-            return self._score_device_gather(dataset)
+            if dataset.arch_pathways == 1:
+                return self._score_device_gather(dataset)
+            return self._score_streaming(dataset)
         return self._score_loader(dataset)
+
+    @torch.no_grad()
+    def _score_streaming(self, dataset: WindowDataset) -> list:
+        """:meth:`WindowDataset.stream_windows` in batches of
+        ``batch_size`` windows, each pathway's clips copied to the card;
+        the scores stay there until the video ends."""
+        pending = []
+        group: list = []
+
+        def flush():
+            if not group:
+                return
+            xs = [torch.from_numpy(np.stack([g[0][p] for g in group]))
+                  for p in range(len(group[0][0]))]
+            if self.device.type == "cuda":
+                xs = [x.pin_memory().to(self.device, non_blocking=True)
+                      for x in xs]
+            out = self.model(xs).float()
+            pending.append((out, [(g[1], g[2]) for g in group]))
+            group.clear()
+
+        for item in dataset.stream_windows():
+            group.append(item)
+            if len(group) == self.batch_size:
+                flush()
+        flush()
+        return _sorted_preds(pending)
 
     def _score_device_gather(self, dataset: WindowDataset) -> list:
         plans = dataset.plans()
@@ -578,12 +655,14 @@ class WindowScorer:
         if chroma:
             row = (s * 3 // 2, s)
         else:
-            # BGR frames: reversing the patch embed's input channels (dim 1
-            # of the Conv3d weight [out, in, t, h, w]) and the mean / std
+            # BGR frames: reversing the stem's input channels (dim 1 of the
+            # Conv3d weight [out, in, t, h, w]) and the mean / std
             # gives the RGB model's output bit for bit
             row = (s, s, 3)
-            w = self.model.patch_embed.proj.weight
-            params["patch_embed.proj.weight"] = w.flip(1)
+            # the stem's conv: the model's first 5-D parameter
+            name, w = next((n, p) for n, p in self.model.named_parameters()
+                           if p.dim() == 5)
+            params[name] = w.flip(1)
             mean, std = np.flip(mean).copy(), np.flip(std).copy()
         mean_t = torch.as_tensor(np.asarray(mean, np.float32), device=dev)
         std_t = torch.as_tensor(np.asarray(std, np.float32), device=dev)
@@ -630,7 +709,8 @@ class WindowScorer:
             multiprocessing_context="spawn" if self.num_workers else None)
         pending = []
         for inputs, t0, t1 in loader:
-            out = self.model(inputs[0].to(self.device)).float()
+            xs = [x.to(self.device) for x in inputs]
+            out = self.model(xs[0] if len(xs) == 1 else xs).float()
             pending.append((out, list(zip(t0.tolist(), t1.tolist()))))
         return _sorted_preds(pending)
 

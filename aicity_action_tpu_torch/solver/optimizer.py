@@ -4,8 +4,9 @@ slowfast/models/optimizer.py:26-236).
 
 - Zero weight decay for 1-D params and biases when
   ``SOLVER.ZERO_WD_1D_PARAM`` (``optimizer.py:71-74``), and for the model's
-  position embeddings when ``MVIT.ZERO_DECAY_POS_CLS``: two torch param
-  groups, where the JAX package masks optax's decay.
+  position embeddings when ``MVIT.ZERO_DECAY_POS_CLS``; BatchNorm
+  parameters decay by ``BN.WEIGHT_DECAY`` (``optimizer.py:92``): torch
+  param groups, where the JAX package masks optax's decay.
 - Gradients are clipped first (``CLIP_GRAD_VAL`` elementwise, or
   ``CLIP_GRAD_L2NORM`` by the global norm with optax's rule), then the
   torch optimizer steps with the LR the schedule gives for the step count.
@@ -18,8 +19,13 @@ slowfast/models/optimizer.py:26-236).
   package's ``adam`` chain (``scale_by_adam -> scale_by_learning_rate``)
   applies none, unlike upstream PySlowFast's. ``sgd_8bit`` and
   ``adam_8bit`` are the JAX package's aliases of ``sgd`` and ``adam`` (no
-  8-bit state there either). ``zero_sgd`` / ``zero_adamw`` (the optimizer
-  state sharded over data-parallel ranks) wait for ROADMAP Queue 1 item 7.
+  8-bit state there either).
+- ``zero_sgd`` / ``zero_adamw`` are ``sgd`` / ``adamw`` inside
+  ``torch.distributed.optim.ZeroRedundancyOptimizer``: each rank keeps the
+  moments of its share of the parameters and broadcasts its updated share
+  (ZeRO stage 1; the JAX package shards the moments over the mesh's data
+  axis, ``parallel/tp.py:zero1_state_shardings``). Without a process
+  group they are the plain optimizers, which is what one rank would do.
 """
 
 from __future__ import annotations
@@ -28,7 +34,9 @@ from typing import Callable, Iterable
 
 import torch
 from torch import nn
+from torch.distributed.optim import ZeroRedundancyOptimizer
 
+from ..parallel import mesh
 from .lr_policy import make_lr_schedule
 
 _NO_DECAY_POS_CLS = ("pos_embed_spatial", "pos_embed_temporal",
@@ -43,22 +51,36 @@ def no_weight_decay_names(cfg) -> frozenset:
     return frozenset()
 
 
+def _is_bn_param(name: str) -> bool:
+    """The JAX package's 'bn' label: a module name holding "bn" (and not
+    "attn")."""
+    return any("bn" in k.lower() and "attn" not in k.lower()
+               for k in name.split(".")[:-1])
+
+
 def param_groups(model: nn.Module, weight_decay: float, zero_wd_1d: bool,
-                 no_decay_names: Iterable[str] = ()) -> list[dict]:
-    """``[{params decayed}, {params not decayed}]`` (the JAX package's
-    ``_param_labels``: 'zero_wd' vs 'default')."""
-    decay, no_decay = [], []
+                 no_decay_names: Iterable[str] = (),
+                 bn_weight_decay: float = 0.0) -> list[dict]:
+    """``[{params decayed}, {params not decayed}]``, plus ``{BatchNorm
+    params}`` decayed by ``bn_weight_decay`` where the model has any (the
+    JAX package's ``_param_labels``: 'default', 'zero_wd', 'bn')."""
+    decay, no_decay, bn = [], [], []
     names = tuple(no_decay_names)
     for name, p in model.named_parameters():
         if not p.requires_grad:
             continue
-        if any(n in name for n in names) or (
+        if _is_bn_param(name):
+            bn.append(p)
+        elif any(n in name for n in names) or (
                 zero_wd_1d and (p.dim() <= 1 or name.endswith(".bias"))):
             no_decay.append(p)
         else:
             decay.append(p)
-    return [{"params": decay, "weight_decay": weight_decay},
-            {"params": no_decay, "weight_decay": 0.0}]
+    groups = [{"params": decay, "weight_decay": weight_decay},
+              {"params": no_decay, "weight_decay": 0.0}]
+    if bn:
+        groups.append({"params": bn, "weight_decay": bn_weight_decay})
+    return groups
 
 
 def global_norm(params: Iterable[torch.Tensor]) -> torch.Tensor:
@@ -84,6 +106,20 @@ class TrainOptimizer:
     @property
     def params(self) -> list[torch.Tensor]:
         return [p for g in self.opt.param_groups for p in g["params"]]
+
+    @property
+    def zero(self) -> bool:
+        """Whether the state is sharded over ranks (ZeRO-1)."""
+        return isinstance(self.opt, ZeroRedundancyOptimizer)
+
+    def state_dict(self) -> dict | None:
+        """The torch optimizer's state in the plain optimizer's format. A
+        collective under ZeRO (every rank must call it): the shards gather
+        on rank 0, which alone gets the dict; the other ranks get None."""
+        if not self.zero:
+            return self.opt.state_dict()
+        self.opt.consolidate_state_dict(to=0)
+        return self.opt.state_dict() if mesh.get_rank() == 0 else None
 
     def zero_grad(self) -> None:
         self.opt.zero_grad(set_to_none=True)
@@ -115,23 +151,29 @@ def construct_optimizer(cfg, model: nn.Module,
     solver = cfg.SOLVER
     schedule = make_lr_schedule(solver, steps_per_epoch)
     groups = param_groups(model, solver.WEIGHT_DECAY,
-                          solver.ZERO_WD_1D_PARAM, no_weight_decay_names(cfg))
+                          solver.ZERO_WD_1D_PARAM, no_weight_decay_names(cfg),
+                          cfg.BN.WEIGHT_DECAY)
     method = solver.OPTIMIZING_METHOD
+    zero = method in ("zero_sgd", "zero_adamw")
+    if zero:
+        method = method[len("zero_"):]
     lr0 = schedule(0)
     if method == "adamw":
-        opt = torch.optim.AdamW(groups, lr=lr0, betas=(0.9, 0.999), eps=1e-8)
+        cls, kw = torch.optim.AdamW, dict(betas=(0.9, 0.999), eps=1e-8)
     elif method in ("adam", "adam_8bit"):
         for g in groups:
             g["weight_decay"] = 0.0
-        opt = torch.optim.Adam(groups, lr=lr0, betas=(0.9, 0.999), eps=1e-8)
+        cls, kw = torch.optim.Adam, dict(betas=(0.9, 0.999), eps=1e-8)
     elif method in ("sgd", "sgd_8bit"):
-        opt = torch.optim.SGD(groups, lr=lr0, momentum=solver.MOMENTUM,
-                              nesterov=solver.NESTEROV)
-    elif method in ("zero_sgd", "zero_adamw"):
-        raise NotImplementedError(
-            f"{method} shards the optimizer state over data-parallel ranks, "
-            f"which is not ported (ROADMAP Queue 1 item 7)")
+        cls, kw = torch.optim.SGD, dict(momentum=solver.MOMENTUM,
+                                        nesterov=solver.NESTEROV)
     else:
-        raise NotImplementedError(f"Does not support {method} optimizer")
+        raise NotImplementedError(
+            f"Does not support {solver.OPTIMIZING_METHOD} optimizer")
+    if zero and mesh.is_initialized():
+        opt = ZeroRedundancyOptimizer(groups, optimizer_class=cls, lr=lr0,
+                                      **kw)
+    else:
+        opt = cls(groups, lr=lr0, **kw)
     return TrainOptimizer(opt, schedule, solver.CLIP_GRAD_VAL,
                           solver.CLIP_GRAD_L2NORM)

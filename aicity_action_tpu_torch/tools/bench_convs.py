@@ -1,6 +1,17 @@
-"""Time the convolutions of MViT-v2-B 16x4 @ 448 on the card, by layout.
+"""Time the convolutions of MViT-v2-B 16x4 @ 448 on the card, by layout;
+with ``--convnet``, a conv net's whole forward and train step instead.
 
     python -m aicity_action_tpu_torch.tools.bench_convs [--batch 8]
+    python -m aicity_action_tpu_torch.tools.bench_convs --convnet \
+        [--batch 8]
+
+``--convnet`` builds SlowFast R50 8x8 (``config.slowfast_8x8_r50_cfg``,
+seed-0 weights, bf16) and times its batch eval forward and SGD train step
+with CUDA events in the two layouts of ``models/resnet_models.py``'s
+``set_channels_last``: the channels-last clips viewed as NCDHW
+(``channels_last_3d`` in memory, no copy, conv weights in the same format)
+and copies to contiguous NCDHW with contiguous weights, in turns (A, B, B,
+A), after checking that their forwards agree.
 
 The convolutions are the ones the JAX package leaves to XLA and the port to
 cuDNN / PyTorch: the patch-embed stem (3 -> 96 channels, kernel 3x7x7) and
@@ -67,11 +78,62 @@ def conv_shapes(batch: int):
     return out
 
 
+def convnet_layouts(batch: int, iters: int, seed: int, card: str) -> dict:
+    """SlowFast R50 8x8's forward and train step in both layouts."""
+    import torch
+
+    from ..config import slowfast_8x8_r50_cfg
+    from ..engine.steps import make_train_step
+    from ..models.build import build_model
+    from ..solver.optimizer import construct_optimizer
+
+    cfg = slowfast_8x8_r50_cfg()
+    model = build_model(cfg, device="cuda", seed=seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    T, S = cfg.DATA.NUM_FRAMES, cfg.DATA.TRAIN_CROP_SIZE
+    fast = torch.randn((batch, T, S, S, 3), generator=gen, device="cuda")
+    xs = [fast[:, ::cfg.SLOWFAST.ALPHA].contiguous(), fast]
+    labels = torch.arange(batch, device="cuda") % cfg.MODEL.NUM_CLASSES
+    step = make_train_step(model, construct_optimizer(cfg, model, 100),
+                           cfg.MODEL.LOSS_FUNC,
+                           num_classes=cfg.MODEL.NUM_CLASSES)
+
+    def forward():
+        model.eval()
+        with torch.no_grad():
+            return model(xs)
+
+    outs, times = {}, {"channels_last_3d": [], "ncdhw": []}
+    for cl in (True, False):
+        model.set_channels_last(cl)
+        outs[cl] = forward().float()
+    err = (outs[True] - outs[False]).abs().max().item()
+    if not err <= 1e-2:
+        raise SystemExit(f"the two layouts' forwards differ by {err}")
+    for cl in (True, False, False, True):  # A, B, B, A
+        model.set_channels_last(cl)
+        name = "channels_last_3d" if cl else "ncdhw"
+        fwd = _time_ms(forward, iters)
+        train = _time_ms(lambda: step({"inputs": xs, "labels": labels}),
+                         iters)
+        times[name].append({"forward_ms": fwd, "train_step_ms": train})
+    for name, runs in times.items():
+        print(f"# SlowFast R50 8x8 b{batch} ({card}), {name}: forward "
+              + " / ".join(f"{r['forward_ms']:.2f}" for r in runs)
+              + " ms, train step "
+              + " / ".join(f"{r['train_step_ms']:.2f}" for r in runs)
+              + " ms")
+    return {"card": card, "batch": batch, "forward_err": err, **times}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--iters", type=int, default=5)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--convnet", action="store_true",
+                   help="SlowFast R50 8x8's forward and train step by "
+                        "layout")
     args = p.parse_args(argv)
 
     import torch
@@ -84,6 +146,10 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     torch.backends.cudnn.allow_tf32 = False
+    if args.convnet:
+        print(json.dumps(convnet_layouts(args.batch, args.iters, args.seed,
+                                         card)))
+        return 0
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     bf = torch.bfloat16
 

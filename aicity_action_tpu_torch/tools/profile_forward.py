@@ -299,7 +299,7 @@ def layout_copy_ms(model, batch: int, remat: int) -> dict:
         for name, (n, _) in lens.items():
             n += cls
             if (a.mode == "conv" and name in a.pooled
-                    and channel_major_applies(n, bool(cls))):
+                    and channel_major_applies(n, bool(cls), d)):
                 continue  # the pool norm reads its layout: no copy
             t = torch.empty((batch, h * d, n), dtype=torch.bfloat16,
                             device="cuda")

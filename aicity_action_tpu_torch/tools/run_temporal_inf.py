@@ -15,9 +15,13 @@ Usage:
         --video_lst FILE --video_path DIR --out_dir DIR \
         [--checkpoint CKPT] [--device cuda] [opts...]
 
+A two-pathway model (``MODEL.ARCH slowfast``, e.g. SlowFast R50 8x8) is
+scored through the window-streaming path with its slow and fast clips; its
+BatchNorm statistics come with the checkpoint's ``model_state``.
+
 Without ``--checkpoint`` (or ``TEST.CHECKPOINT_FILE_PATH``) the model keeps
-the weights drawn from ``RNG_SEED``; a torch checkpoint loads by shape
-(``utils/checkpoint.py``).
+the weights drawn from ``RNG_SEED``; a torch checkpoint (or a Caffe2
+``.pkl``) loads by shape (``utils/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -115,6 +119,7 @@ def main(argv=None) -> dict:
             mean=cfg.DATA.MEAN,
             std=cfg.DATA.STD,
             arch_pathways=n_path,
+            slowfast_alpha=cfg.SLOWFAST.ALPHA,
             backend=cfg.DATA.DECODING_BACKEND,
         )
         preds = scorer.score_video(ds)

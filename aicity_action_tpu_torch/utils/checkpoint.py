@@ -28,8 +28,19 @@ loaded, a key whose shape differs or that the model lacks is skipped, and a
 parameter the checkpoint lacks keeps the model's own value (the reference's
 fine-tuning load, ``checkpoint.py:322-347``). The port keeps the
 reference's parameter names, so the only rename is DDP's ``module.``
-prefix. Caffe2 ``.pkl`` checkpoints wait for the convnets (ROADMAP Queue 1
-item 8).
+prefix. A 2-D kernel ``[O, I, H, W]`` loads into a 3-D one by temporal
+inflation, and a plain BatchNorm's ``[C]`` statistics into a SubBatchNorm's
+``[splits, C]`` by repetition, as the JAX package's loader does. Caffe2
+``.pkl`` checkpoints go through the reference's name chain
+(``utils/convert.py:load_c2_checkpoint``). A conv net's ``model_state``
+holds its BatchNorm statistics (``running_mean`` / ``running_var``), which
+the JAX package's converter carries to its ``batch_stats``.
+
+Data parallelism: only rank 0 writes; under ZeRO every rank first hands
+its optimizer shard to rank 0, so that the file has the plain optimizer's
+format (a run saved under ``zero_adamw`` resumes under ``adamw`` and back).
+Every load starts with a barrier, so that no rank reads before rank 0's
+writes are done.
 """
 
 from __future__ import annotations
@@ -43,7 +54,8 @@ from typing import Optional
 
 import torch
 
-from .convert import load_pyth
+from ..parallel import mesh
+from .convert import inflate_2d_to_3d, load_c2_checkpoint, load_pyth
 
 logger = logging.getLogger(__name__)
 
@@ -127,15 +139,19 @@ def save_checkpoint(output_dir: str, model: torch.nn.Module, optimizer,
     """Save epoch ``epoch + 1``: the model's ``state_dict``, the torch
     optimizer's and ``optimizer.count`` (a :class:`~aicity_action_tpu_torch.
     solver.optimizer.TrainOptimizer`), copied to the host here; the file is
-    written here or, with ``async_write``, on the writer thread."""
+    written here or, with ``async_write``, on the writer thread. Every rank
+    calls it (ZeRO's shards gather here); rank 0 writes."""
     path = checkpoint_path(output_dir, epoch + 1)
+    opt_state = optimizer.state_dict()
+    if not mesh.is_main_process():
+        return path
     wait_for_pending_saves()
     os.makedirs(checkpoint_dir(output_dir), exist_ok=True)
     payload = {
         "epoch": epoch + 1,
         "step": int(optimizer.count),
         "model_state": _to_host(model.state_dict()),
-        "optimizer_state": _to_host(optimizer.opt.state_dict()),
+        "optimizer_state": _to_host(opt_state),
         "cfg": cfg.dump() if cfg is not None else "",
     }
     if cfg is not None:
@@ -159,16 +175,25 @@ def save_checkpoint(output_dir: str, model: torch.nn.Module, optimizer,
 
 def merge_state_dict(model: torch.nn.Module, state: dict):
     """Load the entries of ``state`` whose shapes match ``model``'s, cast
-    to the model's dtypes; the model keeps its own value elsewhere. Returns
-    ``(loaded, mismatched, missing)``: keys loaded, ``(key, checkpoint
-    shape, model shape or None)`` of the keys skipped, and the model's keys
-    the checkpoint lacks."""
+    to the model's dtypes; the model keeps its own value elsewhere. A 2-D
+    conv kernel is inflated to the model's 3-D one, and a ``[C]`` BatchNorm
+    statistic is repeated into a SubBatchNorm's ``[splits, C]``. Returns ``(loaded, mismatched,
+    missing)``: keys loaded, ``(key, checkpoint shape, model shape or
+    None)`` of the keys skipped, and the model's keys the checkpoint
+    lacks."""
     own = model.state_dict()
     merged = dict(own)
     loaded, mismatched = [], []
     for k, v in state.items():
         if not isinstance(v, torch.Tensor):
             v = torch.as_tensor(v)
+        want = tuple(own[k].shape) if k in own else None
+        if want and v.dim() == 4 and len(want) == 5 and \
+                tuple(v.shape) == want[:2] + want[3:]:
+            v = inflate_2d_to_3d(v, want[2])
+        elif want and k.endswith(("running_mean", "running_var")) and \
+                len(want) == v.dim() + 1 and want[1:] == v.shape:
+            v = v[None].repeat(want[0], *([1] * v.dim()))
         if k not in own:
             mismatched.append((k, tuple(v.shape), None))
         elif tuple(v.shape) != tuple(own[k].shape):
@@ -182,10 +207,6 @@ def merge_state_dict(model: torch.nn.Module, state: dict):
 
 
 def _check_torch_path(path: str) -> None:
-    if path.endswith(".pkl"):
-        raise NotImplementedError(
-            f"{path}: Caffe2 .pkl checkpoints are not ported (ROADMAP Queue "
-            f"1 item 8)")
     if os.path.isdir(path):
         raise NotImplementedError(
             f"{path}: a directory (the JAX package's orbax layout); the port "
@@ -201,7 +222,8 @@ def load_torch_checkpoint(path: str, model: torch.nn.Module,
     missing`` and up to 10 mismatches. Returns what
     :func:`merge_state_dict` returns."""
     _check_torch_path(path)
-    state = load_pyth(path)
+    state = load_c2_checkpoint(path) if path.endswith(".pkl") \
+        else load_pyth(path)
     for p in clear_name_pattern:
         state = {k.replace(p, ""): v for k, v in state.items()}
     loaded, mismatched, missing = merge_state_dict(model, state)
@@ -213,6 +235,8 @@ def load_torch_checkpoint(path: str, model: torch.nn.Module,
 
 
 def _load_epoch(path: str) -> int:
+    if path.endswith(".pkl"):
+        return 0
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     return int(ckpt.get("epoch", 0)) if isinstance(ckpt, dict) else 0
 
@@ -232,6 +256,7 @@ def resume_checkpoint(path: str, model: torch.nn.Module, optimizer) -> int:
 def load_train_checkpoint(cfg, model: torch.nn.Module, optimizer) -> int:
     """Auto-resume from the last checkpoint > ``TRAIN.CHECKPOINT_FILE_PATH``
     (weights only) > fresh. Returns the epoch to start from."""
+    mesh.barrier()
     if cfg.TRAIN.AUTO_RESUME and has_checkpoint(cfg.OUTPUT_DIR):
         last = get_last_checkpoint(cfg.OUTPUT_DIR)
         logger.info("Auto-resuming from %s", last)
@@ -249,6 +274,7 @@ def load_test_checkpoint(cfg, model: torch.nn.Module) -> None:
     ``OUTPUT_DIR`` > ``TRAIN.CHECKPOINT_FILE_PATH`` into ``model``, by
     shape (``checkpoint.py:466-501``); else the model keeps its
     initialization."""
+    mesh.barrier()
     if cfg.TEST.CHECKPOINT_FILE_PATH:
         load_torch_checkpoint(cfg.TEST.CHECKPOINT_FILE_PATH, model)
     elif has_checkpoint(cfg.OUTPUT_DIR):

@@ -9,7 +9,6 @@ Master-only console + ``stdout.log`` file logging; on the other ranks
 from __future__ import annotations
 
 import builtins
-import functools
 import json
 import logging
 import os
@@ -23,9 +22,21 @@ def _suppress_print() -> None:
     builtins.print = ignore
 
 
-@functools.lru_cache(maxsize=None)
+# the handlers this module added to the root logger, and for which
+# (output dir, master) they were made: a run with another OUTPUT_DIR in the
+# same process replaces them instead of adding a second set
+_installed: dict = {"key": None, "handlers": []}
+
+
 def _configure(output_dir: str | None, is_master: bool) -> None:
+    key = (output_dir, is_master)
+    if _installed["key"] == key:
+        return
     logger = logging.getLogger()
+    for h in _installed["handlers"]:
+        logger.removeHandler(h)
+        h.close()
+    _installed.update(key=key, handlers=[])
     logger.setLevel(logging.INFO)
     logger.propagate = False
     formatter = logging.Formatter(
@@ -34,13 +45,15 @@ def _configure(output_dir: str | None, is_master: bool) -> None:
     )
     if is_master:
         ch = logging.StreamHandler(stream=sys.stdout)
-        ch.setFormatter(formatter)
-        logger.addHandler(ch)
+        handlers = [ch]
         if output_dir:
             os.makedirs(output_dir, exist_ok=True)
-            fh = logging.FileHandler(os.path.join(output_dir, "stdout.log"))
-            fh.setFormatter(formatter)
-            logger.addHandler(fh)
+            handlers.append(logging.FileHandler(
+                os.path.join(output_dir, "stdout.log")))
+        for h in handlers:
+            h.setFormatter(formatter)
+            logger.addHandler(h)
+        _installed["handlers"] = handlers
     else:
         _suppress_print()
 

@@ -4,8 +4,7 @@ reference: slowfast/utils/misc.py).
 Model statistics (parameters, and forward FLOPs from
 ``torch.utils.flop_counter.FlopCounterMode`` where the JAX package asks
 XLA's cost analysis), memory logging, the NaN check, the eval cadence and
-class names. ``frozen_bn_stats`` waits for the BatchNorm models (ROADMAP
-Queue 1 item 8).
+class names, and ``frozen_bn_stats``.
 """
 
 from __future__ import annotations
@@ -127,3 +126,16 @@ def get_class_names(path: str, parent_path: Optional[str] = None,
                 if class2idx.get(name) is not None
             ]
     return class_names, class_parent, subset_ids
+
+
+def frozen_bn_stats(model: torch.nn.Module) -> torch.nn.Module:
+    """Put every BatchNorm of ``model`` in eval mode, so that a training
+    forward normalizes with, and leaves unchanged, its running statistics
+    (reference misc.py ``frozen_bn_stats``; the JAX package's eval step
+    never writes ``batch_stats``). Returns ``model``."""
+    from ..models.convnets import is_bn
+
+    for m in model.modules():
+        if is_bn(m):
+            m.eval()
+    return model

@@ -91,7 +91,22 @@ NVIDIA card.
     its checkpoints and step count, the model's inputs bf16 on the card,
     the test's stats and results pickle; prints ms/step with data, the
     data-wait share, eval clips/s, peak memory and checkpoint seconds.
-11. Prints ``{"kernels": [...]}``, the card line, and last
+11. Runs the same loop under DDP (``ddp_loop_checks``): ``run_net --ddp``
+    (a one-rank NCCL group, ``DistributedDataParallel``, ``zero_adamw``)
+    for epoch 1, then a call without a group that resumes its checkpoint
+    under ``adamw`` for epoch 2, held as phase 10; prints the DDP epoch's
+    ms/step with data beside phase 10's.
+12. Two gloo ranks on the one card (``two_rank_checks``), each with 2 of a
+    4-clip global batch, take two SGD steps of MViT-v2-B @448 and of
+    SlowFast R50 8x8 under DDP, held to a one-process run on the whole
+    batch: each step's loss and grad norm, every leaf's gradient and
+    every BatchNorm statistic (``PERF.md`` section 2's gates).
+13. SlowFast R50 8x8 (``slowfast_checks``; seed 0, bf16): the batch-8 eval
+    forward in both conv layouts, a batch-8 train step with BatchNorm
+    updates, precise BN over 2 batches, a batch-1 forward against the
+    plain f32 forward on the CPU, ``run_temporal_inf`` on a written view
+    through the window-streaming path, and no launch of any kernel row.
+14. Prints ``{"kernels": [...]}``, the card line, and last
     ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no result.
@@ -1284,7 +1299,7 @@ def derived_counts(model, train: bool) -> dict:
             add(attend, attend + "_bwd")
             for L in pool_norms.get(i, []):
                 add("fused_layer_norm", "fused_layer_norm_bwd")
-                if channel_major_applies(L, attn.has_cls):
+                if channel_major_applies(L, attn.has_cls, attn.head_dim):
                     add("pool_norm_rows", "pool_norm_rows_bwd")
         if blk.proj is None:
             add("fused_ln_mlp", "fused_ln_mlp_bwd")
@@ -1933,16 +1948,50 @@ LOOP_CFG = os.path.join(_REPO, "configs", "AICITY_MVITV2_B_16x4_448.yaml")
 LOOP_DEVICE = "cuda"
 LOOP_VIEWS = 8
 LOOP_INPUT = ("torch.bfloat16", "cuda")  # what reaches the model
+DDP_BACKEND = "nccl"
 
 
-def _loop_opts(d: str, max_epoch: int) -> list:
+def _loop_opts(d: str, max_epoch: int, out: str = "out") -> list:
     return ["NUM_GPUS", "1", "TRAIN.BATCH_SIZE", "4", "TEST.BATCH_SIZE", "8",
             "TRAIN.EVAL_PERIOD", "1", "TRAIN.CHECKPOINT_PERIOD", "1",
             "TEST.NUM_ENSEMBLE_VIEWS", "2", "DATA_LOADER.NUM_WORKERS", "4",
             "DATA.PATH_TO_DATA_DIR", d, "DATA.PATH_PREFIX", d,
-            "OUTPUT_DIR", os.path.join(d, "out"), "RNG_SEED", str(SEED),
-            "TEST.SAVE_RESULTS_PATH", os.path.join(d, "test_results.pkl"),
+            "OUTPUT_DIR", os.path.join(d, out), "RNG_SEED", str(SEED),
+            "TEST.SAVE_RESULTS_PATH", os.path.join(d, f"{out}_results.pkl"),
             "LOG_CFG", "False", "SOLVER.MAX_EPOCH", str(max_epoch)]
+
+
+def write_loop_views(d: str) -> float:
+    """The loop's 8 YUV4MPEG2 views of CHAIN_SIZE (72-100 frames) and its
+    train / val / test csvs over them, in ``d``; returns the seconds."""
+    from aicity_action_tpu_torch.data.decoder import write_y4m
+
+    t = time.time()
+    for i in range(LOOP_VIEWS):
+        write_y4m(os.path.join(d, f"v{i}.y4m"),
+                  _view_frames(72 + 4 * i, SEED + 30 + i))
+    for split in ("train", "val", "test"):
+        with open(os.path.join(d, f"{split}.csv"), "w") as f:
+            f.writelines(f"v{i}.y4m {i % 18}\n" for i in range(LOOP_VIEWS))
+    return time.time() - t
+
+
+@contextlib.contextmanager
+def model_inputs_seen():
+    """The ``(dtype, device type)`` of each MViT forward's input, while
+    open."""
+    import torch
+
+    from aicity_action_tpu_torch.models.mvit import MViT
+
+    seen = []
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(
+        lambda m, args: seen.append((str(args[0].dtype), args[0].device.type))
+        if isinstance(m, MViT) else None)
+    try:
+        yield seen
+    finally:
+        hook.remove()
 
 
 def feed_check() -> None:
@@ -1981,60 +2030,42 @@ def feed_check() -> None:
         del staged, dev
 
 
-def train_loop_checks(card: str):
+def train_loop_checks(card: str, d: str, write_s: float):
     """The training loop of the main path through ``tools/run_net.py``'s
     ``main``, in process: MViT-v2-B 16x4 @448 (seed-0 weights, batch 4,
-    bf16) on 8 written YUV4MPEG2 views (train, val and test csvs over
-    them). ``SOLVER.MAX_EPOCH 1`` (2 steps, an eval, a checkpoint, the
-    two-view test), then ``MAX_EPOCH 2``, which must auto-resume at epoch 1
-    and train only epoch 2, after :func:`feed_check`. Each run's kernel
-    launches (set to 0 just before, read just after) are held to
-    ``derived_counts`` times the steps and forwards that its loaders gave;
-    every loss finite; both checkpoints on disk with the step count carried
-    over; every input to the model bf16 on the card; the test's stats and
-    results pickle."""
+    bf16) on the 8 written YUV4MPEG2 views of ``d`` (train, val and test
+    csvs over them). ``SOLVER.MAX_EPOCH 1`` (2 steps, an eval, a
+    checkpoint, the two-view test), then ``MAX_EPOCH 2``, which must
+    auto-resume at epoch 1 and train only epoch 2, after
+    :func:`feed_check`. Each run's kernel launches (set to 0 just before,
+    read just after) are held to ``derived_counts`` times the steps and
+    forwards that its loaders gave; every loss finite; both checkpoints on
+    disk with the step count carried over; every input to the model bf16 on
+    the card; the test's stats and results pickle."""
     import pickle
 
     import torch
 
-    from aicity_action_tpu_torch.data.decoder import write_y4m
-    from aicity_action_tpu_torch.models.mvit import MViT
     from aicity_action_tpu_torch.tools import run_net
 
     feed_check()
-    seen = []  # (dtype, device type) of each MViT forward's input
-    hook = torch.nn.modules.module.register_module_forward_pre_hook(
-        lambda m, args: seen.append((str(args[0].dtype), args[0].device.type))
-        if isinstance(m, MViT) else None)
     runs = []
-    with tempfile.TemporaryDirectory() as d:
-        t = time.time()
-        for i in range(LOOP_VIEWS):
-            write_y4m(os.path.join(d, f"v{i}.y4m"),
-                      _view_frames(72 + 4 * i, SEED + 30 + i))
-        write_s = time.time() - t
-        for split in ("train", "val", "test"):
-            with open(os.path.join(d, f"{split}.csv"), "w") as f:
-                f.writelines(f"v{i}.y4m {i % 18}\n"
-                             for i in range(LOOP_VIEWS))
-        try:
-            torch.cuda.reset_peak_memory_stats()
-            for max_epoch in (1, 2):
-                seen.clear()
-                reset_counts()
-                t = time.perf_counter()
-                out = run_net.main(["--cfg", LOOP_CFG, "--device",
-                                    LOOP_DEVICE, *_loop_opts(d, max_epoch)])
-                torch.cuda.synchronize()
-                runs.append(_check_loop_run(out, read_counts(), list(seen),
-                                            max_epoch, d))
-                runs[-1]["seconds"] = time.perf_counter() - t
-                del out
-            peak = torch.cuda.max_memory_allocated()
-            with open(os.path.join(d, "test_results.pkl"), "rb") as f:
-                video_preds, video_labels = pickle.load(f)
-        finally:
-            hook.remove()
+    with model_inputs_seen() as seen:
+        torch.cuda.reset_peak_memory_stats()
+        for max_epoch in (1, 2):
+            seen.clear()
+            reset_counts()
+            t = time.perf_counter()
+            out = run_net.main(["--cfg", LOOP_CFG, "--device", LOOP_DEVICE,
+                                *_loop_opts(d, max_epoch)])
+            torch.cuda.synchronize()
+            runs.append(_check_loop_run(out, read_counts(), list(seen),
+                                        max_epoch, d))
+            runs[-1]["seconds"] = time.perf_counter() - t
+            del out
+        peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(d, "out_results.pkl"), "rb") as f:
+        video_preds, video_labels = pickle.load(f)
     if video_preds.shape != (LOOP_VIEWS, 18) or \
             not np.isfinite(video_preds).all() or \
             list(video_labels) != [i % 18 for i in range(LOOP_VIEWS)]:
@@ -2072,8 +2103,73 @@ def train_loop_checks(card: str):
                          for k in runs[0]["launches"]}}
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def ddp_loop_checks(card: str, d: str, loop_stats: dict):
+    """The same loop under ``DistributedDataParallel``: ``run_net --ddp``
+    joins a one-rank NCCL group and trains epoch 1 under ``zero_adamw``
+    (ZeRO-1); a second call, with no group, resumes that checkpoint at
+    epoch 1 under plain ``adamw`` and trains epoch 2. Held as the loop
+    above (launches equal to ``derived_counts``, finite losses, the epoch
+    and step carried over, bf16 inputs on the card)."""
+    import torch
+
+    from aicity_action_tpu_torch.tools import run_net
+
+    init = f"tcp://localhost:{_free_port()}"
+    runs = []
+    with model_inputs_seen() as seen:
+        for max_epoch, flags, method in ((1, ["--ddp"], "zero_adamw"),
+                                         (2, [], "adamw")):
+            seen.clear()
+            reset_counts()
+            t = time.perf_counter()
+            out = run_net.main([
+                "--cfg", LOOP_CFG, "--device", LOOP_DEVICE, *flags,
+                *_loop_opts(d, max_epoch, "ddp_out"), "DIST_BACKEND",
+                DDP_BACKEND, "INIT_METHOD", init,
+                "SOLVER.OPTIMIZING_METHOD", method])
+            torch.cuda.synchronize()
+            zero = out["train"].optimizer.zero
+            if zero != (method == "zero_adamw"):
+                _fail(f"DDP loop: {method} ran with ZeRO {zero}")
+            runs.append(_check_loop_run(out, read_counts(), list(seen),
+                                        max_epoch, d, "ddp_out"))
+            runs[-1]["seconds"] = time.perf_counter() - t
+            del out
+    if torch.distributed.is_initialized():
+        _fail("DDP loop: run_net left its process group up")
+    torch.cuda.empty_cache()
+    ddp, plain = runs[0]["epochs"][0], runs[1]["epochs"][0]
+    steps = len(ddp["iter_s"])
+    ms = ddp["wall_s"] * 1e3 / steps
+    ms_plain = plain["wall_s"] * 1e3 / steps
+    print(f"# v2 train loop, DDP ({card}): run_net --ddp (one-rank NCCL "
+          f"group, DistributedDataParallel, zero_adamw) epoch 1, then a "
+          f"call without a group resuming its checkpoint under adamw for "
+          f"epoch 2; batch 4 on the loop's 8 views; DDP epoch "
+          f"{ms:.2f} ms/step with data over {steps} steps (step walls "
+          f"{ddp['iter_s']}, data waits {ddp['data_s']}), the resumed "
+          f"plain epoch {ms_plain:.2f} ms/step, the loop phase's plain "
+          f"epoch 2 {loop_stats['ms_per_step']:.2f} ms/step; losses "
+          f"{[e['losses'] for r in runs for e in r['epochs']]}; runs "
+          f"{runs[0]['seconds']:.1f} / {runs[1]['seconds']:.1f} s; launches "
+          f"{runs[0]['launches']} / {runs[1]['launches']}")
+    return {"ms_per_step": ms, "resumed_ms_per_step": ms_plain,
+            "loop_ms_per_step": loop_stats["ms_per_step"],
+            "losses": [e["losses"] for r in runs for e in r["epochs"]],
+            "launches": {k: runs[0]["launches"][k] + runs[1]["launches"][k]
+                         for k in runs[0]["launches"]}}
+
+
 def _check_loop_run(out: dict, launches: dict, seen: list, max_epoch: int,
-                    d: str) -> dict:
+                    d: str, out_dir: str = "out") -> dict:
     """One run_net call of :func:`train_loop_checks`, held to what it must
     have done; returns its record."""
     import torch
@@ -2099,7 +2195,7 @@ def _check_loop_run(out: dict, launches: dict, seen: list, max_epoch: int,
         _fail(f"train loop: the step count {run.optimizer.count} did not "
               f"carry over ({steps * max_epoch} expected)")
     for e in range(1, max_epoch + 1):
-        path = os.path.join(d, "out", "checkpoints",
+        path = os.path.join(d, out_dir, "checkpoints",
                             f"checkpoint_epoch_{e:05d}")
         ckpt = torch.load(path, map_location="cpu", weights_only=True)
         if ckpt["epoch"] != e or ckpt["step"] != steps * e:
@@ -2119,6 +2215,395 @@ def _check_loop_run(out: dict, launches: dict, seen: list, max_epoch: int,
     if "top1_acc" not in test or "top5_acc" not in test:
         _fail(f"train loop: test stats {test}")
     return {"epochs": run.epochs, "test": test, "launches": launches}
+
+
+# ------------------------------------------------------- two ranks, one card
+
+# two gloo ranks on cuda:0 (NCCL refuses two ranks on one device; gloo
+# reduces and broadcasts CUDA tensors, all that DDP and the BatchNorm
+# reduction take), each with half of a global batch of TWO_RANK_BATCH
+TWO_RANK_BATCH = 4
+TWO_RANK_STEPS = 2
+TWO_RANK_DEVICE = "cuda"  # the one card both ranks share
+TWO_RANK_BACKEND = "gloo"
+# PERF.md section 2's train-step gates: loss, gradient norm, each leaf's
+# update over the two steps (relative L2)
+GATE_LOSS, GATE_NORM, GATE_LEAF = 1e-2, 2e-2, 5e-2
+
+
+def _two_rank_cfgs() -> list:
+    """``(label, cfg)`` of the phase: the AI City 448 model (its dropout
+    and DropPath on, SGD) and SlowFast R50 8x8."""
+    from aicity_action_tpu_torch.config import (mvitv2_b_16x4_448_cfg,
+                                                slowfast_8x8_r50_cfg)
+
+    out = []
+    for label, make in (("MViT-v2-B 16x4 @448", mvitv2_b_16x4_448_cfg),
+                        ("SlowFast R50 8x8", slowfast_8x8_r50_cfg)):
+        cfg = make()
+        cfg.SOLVER.OPTIMIZING_METHOD = "sgd"
+        cfg.RNG_SEED = SEED
+        out.append((label, cfg))
+    return out
+
+
+def _two_rank_batch(cfg, rows: slice, dev):
+    """``rows`` of the phase's global batch, made with numpy from the seed
+    (every process makes the same), on ``dev``."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 70)
+    T, S = cfg.DATA.NUM_FRAMES, cfg.DATA.TRAIN_CROP_SIZE
+    fast = rng.standard_normal((TWO_RANK_BATCH, T, S, S, 3),
+                               dtype=np.float32)
+    if cfg.MODEL.ARCH == "slowfast":
+        idx = np.linspace(0, T - 1, T // cfg.SLOWFAST.ALPHA).astype(np.int64)
+        xs = [fast[:, idx], fast]
+    else:
+        xs = [fast]
+    labels = np.arange(TWO_RANK_BATCH) % cfg.MODEL.NUM_CLASSES
+    xs = [torch.from_numpy(np.ascontiguousarray(x[rows])).to(dev)
+          for x in xs]
+    return (xs if len(xs) > 1 else xs[0],
+            torch.from_numpy(labels[rows]).to(dev))
+
+
+def _sgd_steps(cfg, rows: slice, dev, perturb: bool = False) -> dict:
+    """``TWO_RANK_STEPS`` train steps of ``cfg``'s seed-0 model on ``rows``
+    of the global batch (under DDP where a group is up): each step's loss,
+    gradient norm and gradients (DDP's average, clipped as the optimizer
+    took them), and each BatchNorm statistic after, on the host in f32.
+    ``perturb`` moves the inputs by a bf16 rounding (relative 2^-9 noise):
+    the reference's noise floor. (Gradients, not the updates: at the
+    recipes' warm-up LRs an O(1) scale moves by a few f32 ulps a step.)"""
+    import torch
+
+    from aicity_action_tpu_torch.engine.steps import make_train_step
+    from aicity_action_tpu_torch.engine.train_loop import wrap_ddp
+    from aicity_action_tpu_torch.models.build import build_model
+    from aicity_action_tpu_torch.solver.optimizer import construct_optimizer
+
+    model = build_model(cfg, device=dev, seed=SEED)
+    opt = construct_optimizer(cfg, model, 100)
+    step = make_train_step(wrap_ddp(model, dev), opt,
+                           cfg.MODEL.LOSS_FUNC,
+                           num_classes=cfg.MODEL.NUM_CLASSES, seed=SEED)
+    inputs, labels = _two_rank_batch(cfg, rows, dev)
+    if perturb:
+        gen = torch.Generator(device=dev).manual_seed(SEED + 71)
+        inputs = [x * (1 + 2.0 ** -9 * torch.randn(
+            x.shape, generator=gen, device=dev))
+            for x in (inputs if isinstance(inputs, list) else [inputs])]
+        inputs = inputs if len(inputs) > 1 else inputs[0]
+    out = {"loss": [], "grad_norm": []}
+    for i in range(TWO_RANK_STEPS):
+        metrics, _ = step({"inputs": inputs, "labels": labels})
+        out["loss"].append(float(metrics["loss"]))
+        out["grad_norm"].append(float(metrics["grad_norm"]))
+        out[f"grad {i + 1}"] = {n: p.grad.detach().float().cpu().clone()
+                                for n, p in model.named_parameters()}
+    out["stats"] = {n: b.float().cpu().clone()
+                    for n, b in model.named_buffers() if "running" in n}
+    return out
+
+
+def _two_rank_worker(rank: int, init: str, d: str, cases: list,
+                     device: str, backend: str) -> None:
+    """One of the phase's two ranks (spawned): both on ``device``."""
+    import torch
+
+    sys.path.insert(0, _REPO)
+    from aicity_action_tpu_torch.parallel import mesh
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", 0)
+    cfg0 = cases[0][1].clone()
+    cfg0.NUM_GPUS, cfg0.DIST_BACKEND, cfg0.INIT_METHOD = 2, backend, init
+    mesh.init_distributed(cfg0, rank, device=dev)
+    for i, (_, cfg) in enumerate(cases):
+        b = TWO_RANK_BATCH // 2
+        res = _sgd_steps(cfg, slice(rank * b, (rank + 1) * b), dev)
+        torch.save(res, os.path.join(d, f"case{i}_rank{rank}.pt"))
+        del res
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    mesh.destroy()
+
+
+def _rel(a, b) -> float:
+    import torch
+
+    return float(torch.linalg.vector_norm(a - b)
+                 / max(float(torch.linalg.vector_norm(b)), 1e-30))
+
+
+def two_rank_checks(card: str) -> dict:
+    """Two gloo ranks on the one card, each with 2 of a 4-clip global
+    batch, take two SGD steps of MViT-v2-B @448 and of SlowFast R50 8x8
+    under DDP (SlowFast's BatchNorms reduce their statistics over the two
+    ranks); a one-process run on the whole batch in this call is the
+    reference. Gates (``PERF.md`` section 2): each step's loss (1e-2) and
+    gradient norm (2e-2) relative; each step's gradient of every leaf,
+    and each BatchNorm statistic after, within 5e-2 relative L2 or within
+    what the reference itself moves it by for a bf16 rounding of its input
+    (a third, one-process run); the k pool norms' biases, whose gradient
+    is zero by softmax's shift invariance, against their scales'."""
+    import torch
+    import torch.multiprocessing as mp
+
+    cases = _two_rank_cfgs()
+    dev = torch.device(TWO_RANK_DEVICE)
+    refs, floors = [], []
+    full = slice(0, TWO_RANK_BATCH)
+    for label, cfg in cases:
+        refs.append(_sgd_steps(cfg, full, dev))
+        floors.append(_sgd_steps(cfg, full, dev, perturb=True))
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        mp.spawn(_two_rank_worker,
+                 args=(f"tcp://localhost:{_free_port()}", d, cases,
+                       TWO_RANK_DEVICE, TWO_RANK_BACKEND), nprocs=2,
+                 join=True)
+        ranks = [[torch.load(os.path.join(d, f"case{i}_rank{r}.pt"))
+                  for r in range(2)] for i in range(len(refs))]
+    spawn_s = time.perf_counter() - t
+
+    def rel(got, want, n):
+        if n.endswith("attn.norm_k.bias"):
+            scale = want[n[:-len("bias")] + "weight"]
+            return _rel(got[n] - want[n] + scale, scale)
+        return _rel(got[n], want[n])
+
+    report = {}
+    for (label, _), ref, floor, got in zip(cases, refs, floors, ranks):
+        worst = {"loss": 0.0, "grad_norm": 0.0}
+        leaf = {}  # name -> (error, bound)
+        for kind in [f"grad {i + 1}" for i in range(TWO_RANK_STEPS)] + [
+                "stats"]:
+            for n in ref[kind]:
+                fl = rel(floor[kind], ref[kind], n)
+                err = max(rel(g[kind], ref[kind], n) for g in got)
+                leaf[f"{kind} {n}"] = (err, max(GATE_LEAF, fl), fl)
+        for g in got:
+            for key, gate in (("loss", GATE_LOSS), ("grad_norm", GATE_NORM)):
+                for a, b in zip(g[key], ref[key]):
+                    err = abs(a - b) / abs(b)
+                    worst[key] = max(worst[key], err)
+                    if not (np.isfinite(a) and err <= gate):
+                        _fail(f"two ranks, {label}: {key} {g[key]} vs one "
+                              f"process {ref[key]}")
+        name = max(leaf, key=lambda k: leaf[k][0] / leaf[k][1])
+        err, bound, fl = leaf[name]
+        if not err <= bound:
+            _fail(f"two ranks, {label}: {name} off by {err:.3e} relative "
+                  f"L2 (bound {bound:.3e}, the reference's bf16 floor "
+                  f"{fl:.3e})")
+        over = sum(e > GATE_LEAF for e, _, _ in leaf.values())
+        median = float(np.median([e for e, _, _ in leaf.values()]))
+        report[label] = {"losses": ref["loss"], "grad_norms":
+                         ref["grad_norm"], "worst": worst,
+                         "worst_leaf": name, "worst_leaf_rel_l2": err,
+                         "worst_leaf_floor": fl, "median_leaf": median,
+                         "leaves_over_5e-2": over,
+                         "bn_stats": len(ref["stats"])}
+        print(f"# two ranks, one card ({card}): {label}, gloo, 2 x 2 clips "
+              f"vs one process on 4, {TWO_RANK_STEPS} SGD steps: losses "
+              f"{ref['loss']}, grad norms {ref['grad_norm']}; worst "
+              f"relative loss {worst['loss']:.3e} (gate {GATE_LOSS}), grad "
+              f"norm {worst['grad_norm']:.3e} ({GATE_NORM}); worst leaf "
+              f"{name} {err:.3e} relative L2 (bound {bound:.3e}: "
+              f"{GATE_LEAF}, or the reference's own move for a bf16 "
+              f"rounding of its input, {fl:.3e}), median {median:.3e}, "
+              f"{over} of {len(leaf)} leaves and BN statistics past "
+              f"{GATE_LEAF} within their floors; spawned ranks "
+              f"{spawn_s:.1f} s")
+    return report
+
+
+# --------------------------------------------------------- SlowFast R50 8x8
+
+SF_BATCH = 8
+SF_VIEW_FRAMES = 160
+SF_CFG = "slowfast_8x8_r50_cfg"  # the config factory of the phase
+SF_DEVICE = "cuda"
+# PERF.md section 2's forward gates: the head's input (relative L2) and
+# the scores (max abs) of the card's bf16 forward against the plain f32
+# forward on the CPU
+GATE_HEAD_IN, GATE_SCORES = 5e-2, 1e-2
+
+
+def _sf_inputs(cfg, batch: int, seed: int, device):
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    T, S = cfg.DATA.NUM_FRAMES, cfg.DATA.TRAIN_CROP_SIZE
+    fast = torch.randn((batch, T, S, S, 3), generator=gen, device=device)
+    idx = torch.linspace(0, T - 1, T // cfg.SLOWFAST.ALPHA).long()
+    return [fast[:, idx.to(device)].contiguous(), fast]
+
+
+def slowfast_checks(card: str) -> dict:
+    """SlowFast R50 8x8 at full width (``slowfast_8x8_r50_cfg()``, seed-0
+    weights, bf16): a batch-8 eval forward (timed in both conv layouts), a
+    batch-8 SGD train step with BatchNorm updates, precise BN over 2
+    batches, ``run_temporal_inf`` scoring one written YUV4MPEG2 view through
+    the window-streaming path with the model's statistics, and a batch-1
+    forward against the plain f32 forward on the CPU. None of the 13
+    kernel rows may launch."""
+    import torch
+
+    from aicity_action_tpu_torch import config as tconfig
+    from aicity_action_tpu_torch.data.decoder import write_y4m
+    from aicity_action_tpu_torch.engine.precise_bn import \
+        calculate_and_update_precise_bn
+    from aicity_action_tpu_torch.engine.steps import (make_eval_step,
+                                                      make_train_step)
+    from aicity_action_tpu_torch.models.build import build_model
+    from aicity_action_tpu_torch.pipeline.window_inference import (
+        WindowDataset, load_window_predictions)
+    from aicity_action_tpu_torch.solver.optimizer import construct_optimizer
+    from aicity_action_tpu_torch.tools import run_temporal_inf
+
+    cfg = getattr(tconfig, SF_CFG)()
+    cfg.RNG_SEED = SEED
+    dev = torch.device(SF_DEVICE)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=dev, seed=SEED)
+    xs = _sf_inputs(cfg, SF_BATCH, SEED + 80, dev)
+    eval_step = make_eval_step(model)
+    layouts = {}
+    default = model.channels_last
+    for cl in (not default, default):
+        model.set_channels_last(cl)
+        layouts["channels_last_3d" if cl else "ncdhw"] = time_ms(
+            lambda: eval_step({"inputs": xs}), 5)
+    fwd_ms = layouts["channels_last_3d" if default else "ncdhw"]
+    scores = eval_step({"inputs": xs})
+    if scores.shape != (SF_BATCH, cfg.MODEL.NUM_CLASSES) or \
+            not torch.isfinite(scores).all():
+        _fail("SlowFast: eval scores are not finite [8, 400]")
+
+    opt = construct_optimizer(cfg, model, 100)
+    step = make_train_step(model, opt, cfg.MODEL.LOSS_FUNC,
+                           num_classes=cfg.MODEL.NUM_CLASSES, seed=SEED)
+    labels = torch.arange(SF_BATCH, device=dev) % cfg.MODEL.NUM_CLASSES
+    stats0 = {n: b.clone() for n, b in model.named_buffers()
+              if "running" in n}
+    losses, walls = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        metrics, _ = step({"inputs": xs, "labels": labels})
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(metrics["loss"]))
+    if not all(np.isfinite(losses)):
+        _fail(f"SlowFast: train losses {losses}")
+    moved = sum(not torch.equal(b, stats0[n]) for n, b in
+                model.named_buffers() if "running" in n)
+    if moved != len(stats0):
+        _fail(f"SlowFast: {len(stats0) - moved} BatchNorm statistics did "
+              f"not move in training")
+    step_ms = float(np.median(walls[1:]))
+    peak = torch.cuda.max_memory_allocated()
+
+    before = {n: b.clone() for n, b in model.named_buffers()
+              if "running" in n}
+    n_bn = calculate_and_update_precise_bn(
+        model, iter([_sf_inputs(cfg, SF_BATCH, SEED + 81 + i, dev)
+                     for i in range(3)]), num_batches=2)
+    after = dict(model.named_buffers())
+    if n_bn != 2 or any(not torch.isfinite(after[n]).all() or
+                        torch.equal(after[n], b) for n, b in before.items()):
+        _fail("SlowFast: precise BN did not replace every statistic")
+
+    # the batch-1 forward against the plain f32 forward on the CPU, same
+    # weights and statistics
+    model.eval()
+    x1 = [x[:1] for x in xs]
+    heads = []
+    hook = model.head.register_forward_pre_hook(
+        lambda m, args: heads.append([t.float().cpu() for t in args[0]]))
+    with torch.no_grad():
+        card_scores = model(x1).float().cpu()
+        cpu_cfg = cfg.clone()
+        cpu_cfg.TPU.COMPUTE_DTYPE = "float32"
+        cpu_model = build_model(cpu_cfg, device="cpu")
+        cpu_model.load_state_dict({k: v.cpu() for k, v in
+                                   model.state_dict().items()})
+        hook2 = cpu_model.head.register_forward_pre_hook(
+            lambda m, args: heads.append([t.cpu() for t in args[0]]))
+        cpu_scores = cpu_model([x.cpu() for x in x1])
+        hook2.remove()
+    hook.remove()
+    head_err = max(_rel(a, b) for a, b in zip(heads[0], heads[1]))
+    score_err = float((card_scores - cpu_scores).abs().max())
+    if not (head_err <= GATE_HEAD_IN and score_err <= GATE_SCORES):
+        _fail(f"SlowFast: the card's forward is off the CPU's: head input "
+              f"{head_err:.3e}, scores {score_err:.3e}")
+
+    with tempfile.TemporaryDirectory() as d:
+        ckpt = os.path.join(d, "slowfast.pyth")
+        torch.save({"model_state": {k: v.cpu() for k, v in
+                                    model.state_dict().items()},
+                    "epoch": 1}, ckpt)
+        cfg_path = os.path.join(d, "slowfast.yaml")
+        with open(cfg_path, "w") as f:
+            f.write(cfg.dump())
+        write_y4m(os.path.join(d, "view.y4m"),
+                  _view_frames(SF_VIEW_FRAMES, SEED + 90))
+        with open(os.path.join(d, "videos.txt"), "w") as f:
+            f.write("view.y4m\n")
+        kw = dict(frame_length=cfg.DATA.NUM_FRAMES,
+                  frame_stride=cfg.DATA.SAMPLING_RATE, proposal_stride=16,
+                  frame_size=cfg.DATA.TRAIN_CROP_SIZE)
+        t = time.perf_counter()
+        run = run_temporal_inf.main([
+            "--cfg", cfg_path, "--video_lst", os.path.join(d, "videos.txt"),
+            "--video_path", d, "--out_dir", os.path.join(d, "pkl"),
+            "--checkpoint", ckpt, "--frame_length",
+            str(kw["frame_length"]), "--frame_stride",
+            str(kw["frame_stride"]), "--proposal_stride", "16",
+            "--frame_size", str(kw["frame_size"]), "--batch_size",
+            str(SF_BATCH), "--device", dev.type])
+        torch.cuda.synchronize()
+        score_s = time.perf_counter() - t
+        preds = load_window_predictions(os.path.join(d, "pkl", "view.pkl"))
+        ds = WindowDataset(os.path.join(d, "view.y4m"), arch_pathways=2,
+                           slowfast_alpha=cfg.SLOWFAST.ALPHA, **kw)
+    win = np.stack([p[2] for p in preds])
+    if [p[:2] for p in preds] != ds.windows or \
+            run["view.y4m"]["timers"] is not None or \
+            win.shape[1] != cfg.MODEL.NUM_CLASSES or \
+            not np.isfinite(win).all() or \
+            not np.allclose(win.sum(1), 1.0, atol=1e-3):
+        _fail("SlowFast: run_temporal_inf's windows or scores are wrong")
+    launches = read_counts()
+    if any(launches.values()):
+        _fail(f"SlowFast: kernel rows launched: {launches}")
+    clips_s = SF_BATCH / (fwd_ms / 1e3)
+    wins_s = len(preds) / score_s
+    print(f"# SlowFast R50 8x8 ({card}): seed-0 weights, bf16; batch-8 eval "
+          f"forward {fwd_ms:.2f} ms ({clips_s:.1f} clips/s; by layout "
+          f"{layouts}); train step (SGD, BN updates) "
+          f"{step_ms:.2f} ms/step (walls {[round(w, 2) for w in walls]}, "
+          f"losses {losses}); peak memory {peak / 2 ** 30:.2f} GiB; "
+          f"precise BN over {n_bn} batches; batch-1 card vs CPU f32: head "
+          f"input {head_err:.3e} (gate {GATE_HEAD_IN}), scores "
+          f"{score_err:.3e} ({GATE_SCORES}); run_temporal_inf (streaming "
+          f"path) {len(preds)} windows of a {SF_VIEW_FRAMES}-frame view in "
+          f"{score_s:.2f} s with the CLI's model build and checkpoint load "
+          f"({wins_s:.2f} windows/s); kernel rows launched: 0")
+    del model, cpu_model
+    torch.cuda.empty_cache()
+    return {"fwd_ms": fwd_ms, "clips_per_s": clips_s, "layouts_ms": layouts,
+            "step_ms": step_ms, "peak_mem_bytes": peak,
+            "head_in_err": head_err, "score_err": score_err,
+            "windows": len(preds), "windows_per_s": wins_s,
+            "launches": launches}
 
 
 # ------------------------------------------------------------------ main
@@ -2209,8 +2694,15 @@ def main() -> int:
     v1_train["grad_check"] = train_grad_check(v1_cfg, "MViT-B 16x4 @224")
     launches["v1 train"] = v1_train["launches"]
 
-    loop_stats = train_loop_checks(card)
-    launches["v2 train loop"] = loop_stats["launches"]
+    with tempfile.TemporaryDirectory() as loop_dir:
+        write_s = write_loop_views(loop_dir)
+        loop_stats = train_loop_checks(card, loop_dir, write_s)
+        launches["v2 train loop"] = loop_stats["launches"]
+        ddp_stats = ddp_loop_checks(card, loop_dir, loop_stats)
+        launches["v2 train loop, DDP"] = ddp_stats["launches"]
+    two_rank = two_rank_checks(card)
+    sf_stats = slowfast_checks(card)
+    launches["SlowFast R50 8x8"] = sf_stats["launches"]
 
     # launches of each kernel in the run of the path it serves: the AI City
     # chain's run_temporal_inf for the inference kernels, the timed train
@@ -2250,7 +2742,9 @@ def main() -> int:
                       "fused_train": fused_stats, "v1_model": v1_stats,
                       "v1_train": v1_train,
                       "train_loop": {k: v for k, v in loop_stats.items()
-                                     if k != "runs"}}))
+                                     if k != "runs"},
+                      "train_loop_ddp": ddp_stats,
+                      "two_ranks": two_rank, "slowfast": sf_stats}))
     print(json.dumps({"kernels": kernels_line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

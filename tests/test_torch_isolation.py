@@ -84,7 +84,11 @@ def test_the_walk_covers_the_host_pipeline_and_its_tools():
             "aicity_action_tpu_torch.utils.misc",
             "aicity_action_tpu_torch.engine.train_loop",
             "aicity_action_tpu_torch.engine.test_loop",
-            "aicity_action_tpu_torch.tools.run_net"} <= mods
+            "aicity_action_tpu_torch.tools.run_net",
+            "aicity_action_tpu_torch.parallel.mesh",
+            "aicity_action_tpu_torch.models.convnets",
+            "aicity_action_tpu_torch.models.resnet_models",
+            "aicity_action_tpu_torch.engine.precise_bn"} <= mods
 
 
 def _imported_names(path):
@@ -127,6 +131,25 @@ def test_build_model_weights_come_from_the_seed():
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["blocks.0.attn.qkv.weight"],
                            c["blocks.0.attn.qkv.weight"])
+
+
+def test_slowfast_config_in_code_builds_on_the_meta_device():
+    """SlowFast R50 8x8: PySlowFast's parameter names and shapes, built
+    without weights."""
+    from aicity_action_tpu_torch.config import slowfast_8x8_r50_cfg
+    from aicity_action_tpu_torch.models.resnet_models import SlowFast
+
+    cfg = slowfast_8x8_r50_cfg()
+    with torch.device("meta"):
+        model = SlowFast(cfg)
+    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    assert shapes["s1.pathway0_stem.conv.weight"] == (64, 3, 1, 7, 7)
+    assert shapes["s1.pathway1_stem.conv.weight"] == (8, 3, 5, 7, 7)
+    assert shapes["s1_fuse.conv_f2s.weight"] == (16, 8, 7, 1, 1)
+    assert shapes["s2.pathway0_res0.branch1.weight"] == (256, 80, 1, 1, 1)
+    assert shapes["s5.pathway1_res2.branch2.c_bn.running_var"] == (256,)
+    assert shapes["head.projection.weight"] == (400, 2048 + 256)
+    assert model.head.pool_size == [(8, 7, 7), (32, 7, 7)]
 
 
 def test_448_config_in_code_equals_the_yaml():

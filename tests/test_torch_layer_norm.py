@@ -243,8 +243,8 @@ def test_layer_norm_plans_fit_the_card(case):
         shapes = [("rows", (rows, C, 1)), ("rows_bwd", (rows, C, 1))]
     else:
         B, h, d, L, cls = case
-        cm = tln.channel_major_applies(L, cls)
-        assert cm == (not cls and L % 8 == 0)
+        cm = tln.channel_major_applies(L, cls, d)
+        assert cm == (d == 96 and not cls and L % 8 == 0)
         assert cm == (not cls)  # every v2 length is a multiple of 8
         shapes = ([("cols", (B * h, d, L)), ("cols_bwd", (B * h, d, L))]
                   if cm else [("rows", (B * h * L, d, 1)),
@@ -310,3 +310,17 @@ def test_pool_norm_wrappers_raise_instead_of_falling_back(monkeypatch):
         tln.pool_norm_rows_bwd(t, g, torch.ones(4, 16, 96), EPS, 2)
     with pytest.raises(ValueError, match="heads"):
         tln.pool_norm_rows(torch.ones(2, 100, 16), g, b, EPS, 3)
+
+
+@pytest.mark.parametrize("d,L,cls,want", [
+    (96, 3136, False, True), (96, 3137, True, False), (96, 100, False, False),
+    (64, 3136, False, False), (64, 392, False, False), (32, 64, False, False),
+    (128, 784, False, False)])
+def test_channel_major_applies_only_at_head_dim_96(d, L, cls, want):
+    """Only d == 96 takes the channel-major instance (its kernels are built
+    for 96 channels a head); any other head dim takes the rows instance,
+    whose plan accepts it, where the JAX package computes it through XLA."""
+    assert tln.channel_major_applies(L, cls, d) is want
+    if not want and d % 8 == 0:
+        p = tln._ln_plan("rows", (2 * L, d, 1), H100_SMS)
+        assert p["lanes"] * 8 * tln.LN_VPL >= d

@@ -164,8 +164,9 @@ def test_unported_branches_raise(videos, model):
         twi.WindowDataset(videos["mp4"], backend="decord", **DS_ARGS)
     with pytest.raises(NotImplementedError, match="window scoring"):
         twi.WindowDataset(videos["mp4"], backend="pyav", **DS_ARGS)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        twi.WindowDataset(videos["mp4"], arch_pathways=2, **DS_ARGS)
+    # two-pathway windows are ported (the window-streaming path)
+    assert twi.WindowDataset(videos["mp4"], arch_pathways=2,
+                             **DS_ARGS).arch_pathways == 2
     with pytest.raises(NotImplementedError, match="item 8"):
         twi.WindowScorer(model, detection=True)
 

@@ -316,6 +316,14 @@ def test_load_test_checkpoint_merges_by_shape_like_jax(tmp_path, caplog):
         keep = k in ("head.projection.weight", "norm.bias")
         assert torch.equal(after[k], before[k] if keep else src[k]), k
 
+    # a Caffe2 .pkl loads through the reference's name chain, by shape
+    import pickle
+
+    bias = np.arange(18, dtype=np.float32)
+    with open(tmp_path / "ckpt.pkl", "wb") as f:
+        pickle.dump({"blobs": {"pred_b": bias, "model_iter": np.int64(1),
+                               "pred_b_momentum": bias}}, f)
     cfg.TEST.CHECKPOINT_FILE_PATH = str(tmp_path / "ckpt.pkl")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tckpt.load_test_checkpoint(cfg, model)
+    tckpt.load_test_checkpoint(cfg, model)
+    assert np.array_equal(model.state_dict()["head.projection.bias"].numpy(),
+                          bias)

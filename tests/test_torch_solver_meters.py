@@ -104,8 +104,16 @@ def test_optimizer_methods_match_optax(method):
 
 
 def test_zero_methods_raise_naming_their_item():
+    """The ZeRO methods are ported: without a process group (one rank)
+    they are the plain optimizers; a method nobody knows still raises."""
+    for zero, plain in (("zero_adamw", torch.optim.AdamW),
+                        ("zero_sgd", torch.optim.SGD)):
+        _, pcfg = _opt_cfgs(zero)
+        opt = topt.construct_optimizer(pcfg, torch.nn.Linear(2, 2), 2)
+        assert type(opt.opt) is plain and not opt.zero
     _, pcfg = _opt_cfgs("zero_adamw")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    pcfg.SOLVER.OPTIMIZING_METHOD = "zero_lamb"
+    with pytest.raises(NotImplementedError, match="zero_lamb"):
         topt.construct_optimizer(pcfg, torch.nn.Linear(2, 2), 2)
 
 

@@ -1,0 +1,122 @@
+"""Ranks of the port's CPU data-parallel tests: ``torch.multiprocessing.
+spawn`` of gloo ranks that import torch and the port only (no JAX).
+
+    python tests/torch_dp_worker.py JOB.pkl
+
+``JOB.pkl`` holds ``{"kind", "world", "init_method", "out", ...}``; each
+rank ``r`` writes what it saw to ``out/rank{r}.pkl``. Kinds:
+
+- ``"loop"``: ``runs``, a list of ``(name, cfg)`` of the port's config,
+  each trained (``engine/train_loop.train``) and, where ``TEST.ENABLE``,
+  tested; then the ragged ``process_allgather`` and, for each cfg of
+  ``loaders``, the clip indices of every batch this rank's train loader
+  gives.
+- ``"step"``: ``cases``, each a conv net's ``cfg``, a ``state`` of f64
+  tensors, an SGD ``lr`` and a global ``batch`` ``(inputs, labels)``: one
+  f64 train step under DDP on this rank's rows; the loss, gradient norm,
+  gradients and ``state_dict`` after (BatchNorm statistics included).
+"""
+
+import os
+import pickle
+import sys
+
+import numpy as np
+import torch
+import torch.multiprocessing as mp
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+from aicity_action_tpu_torch.parallel import mesh  # noqa: E402
+
+
+def _numpy_state(model):
+    return {k: v.detach().cpu().numpy().copy()
+            for k, v in model.state_dict().items()}
+
+
+def _loop(rank, job):
+    from aicity_action_tpu_torch.data.loader import construct_loader
+    from aicity_action_tpu_torch.engine.test_loop import test
+    from aicity_action_tpu_torch.engine.train_loop import train
+
+    out = {"runs": {}, "loaders": []}
+    for name, cfg in job["runs"]:
+        run = train(cfg, device="cpu")
+        out["runs"][name] = {
+            "start_epoch": run.start_epoch,
+            "losses": [e["losses"] for e in run.epochs],
+            "val": [e["val"] for e in run.epochs],
+            "count": run.optimizer.count,
+            "zero": run.optimizer.zero,
+            "params": {k: v.detach().numpy().copy()
+                       for k, v in run.model.named_parameters()},
+            "test": test(cfg, device="cpu") if cfg.TEST.ENABLE else None,
+        }
+    out["allgather"] = mesh.process_allgather(
+        np.arange(rank * 10, rank * 10 + rank + 1))
+    for cfg in job["loaders"]:
+        cfg = cfg.clone()
+        cfg.SHARD_ID = rank // cfg.NUM_GPUS  # hosts of NUM_GPUS ranks
+        loader = construct_loader(cfg, "train")
+        loader.set_epoch(1)
+        out["loaders"].append([b["index"].tolist() for b in loader])
+    return out
+
+
+def _step(rank, job):
+    from aicity_action_tpu_torch.engine.steps import make_train_step
+    from aicity_action_tpu_torch.engine.train_loop import wrap_ddp
+    from aicity_action_tpu_torch.models.build import build_model
+    from aicity_action_tpu_torch.solver.optimizer import TrainOptimizer
+
+    out = []
+    for case in job["cases"]:
+        cfg = case["cfg"]
+        model = build_model(cfg, device="cpu").double()
+        model.compute_dtype = torch.float64
+        model.load_state_dict(case["state"])
+        ddp = wrap_ddp(model, torch.device("cpu"))
+        lr = case["lr"]
+        opt = TrainOptimizer(torch.optim.SGD(model.parameters(), lr=lr),
+                             lambda step: lr)
+        step = make_train_step(ddp, opt, cfg.MODEL.LOSS_FUNC)
+        inputs, labels = case["batch"]
+        b = labels.shape[0] // job["world"]
+        rows = slice(rank * b, (rank + 1) * b)
+        xs = [torch.from_numpy(x[rows]) for x in inputs]
+        metrics, _ = step({"inputs": xs if len(xs) > 1 else xs[0],
+                           "labels": torch.from_numpy(labels[rows])})
+        out.append({"loss": float(metrics["loss"]),
+                    "grad_norm": float(metrics["grad_norm"]),
+                    "grads": {n: p.grad.numpy().copy()
+                              for n, p in model.named_parameters()},
+                    "state": _numpy_state(model)})
+    return out
+
+
+def _rank(rank, job):
+    torch.set_num_threads(1)
+    cfg = (job["runs"][0][1] if job["kind"] == "loop"
+           else job["cases"][0]["cfg"])
+    cfg = cfg.clone()
+    cfg.NUM_SHARDS, cfg.NUM_GPUS = 1, job["world"]
+    cfg.DIST_BACKEND, cfg.INIT_METHOD = "gloo", job["init_method"]
+    mesh.init_distributed(cfg, rank, device="cpu")
+    try:
+        res = (_loop if job["kind"] == "loop" else _step)(rank, job)
+    finally:
+        mesh.destroy()
+    with open(os.path.join(job["out"], f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+
+
+def main(path):
+    with open(path, "rb") as f:
+        job = pickle.load(f)
+    mp.spawn(_rank, args=(job,), nprocs=job["world"], join=True)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1])

@@ -4,6 +4,11 @@ per process, numpy-made parameter noise, and the one-thread fixture each
 port test module imports."""
 
 import functools
+import os
+import pickle
+import socket
+import subprocess
+import sys
 
 import jax
 import numpy as np
@@ -11,6 +16,8 @@ import pytest
 import torch
 
 YAML = "configs/AICITY_MVITV2_B_16x4_448.yaml"
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WORLD = 2  # ranks of the data-parallel tests
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -180,3 +187,41 @@ def write_mp4(path, num_frames=90, fps=30, size=(64, 48), seed=1):
                           rng.integers(0, 256, xx.shape)], -1)
                 .astype(np.uint8))
     w.release()
+
+
+def free_init_method() -> str:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return f"tcp://localhost:{s.getsockname()[1]}"
+
+
+def start_ranks(job: dict, out):
+    """Starts ``job`` on ``WORLD`` gloo ranks (one process that spawns
+    them); :func:`collect_ranks` waits for them."""
+    os.makedirs(out, exist_ok=True)
+    job = dict(job, world=WORLD, out=str(out),
+               init_method=free_init_method())
+    path = os.path.join(out, "job.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(job, f)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(REPO, "tests", "torch_dp_worker.py"),
+         path], cwd=REPO, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    return proc, str(out)
+
+
+def collect_ranks(handle) -> list:
+    """Each rank's results of a :func:`start_ranks`."""
+    proc, out = handle
+    try:
+        log, _ = proc.communicate(timeout=600)
+    finally:
+        proc.kill()
+    assert proc.returncode == 0, log[-8000:]
+    ranks = []
+    for r in range(WORLD):
+        with open(os.path.join(out, f"rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    return ranks

@@ -1,8 +1,11 @@
 from .node import CfgNode
 from .defaults import (assert_and_infer_cfg, get_cfg, mvit_b_16x4_224_cfg,
-                       mvitv2_b_16x4_448_cfg, slowfast_8x8_r50_cfg)
+                       mvitv2_b_16x4_448_cfg, mvitv2_b_16x4_448_det_cfg,
+                       slowfast_8x8_r50_cfg, slowfast_32x2_r50_ava_cfg)
 from .parser import parse_args, load_config
 
 __all__ = ["CfgNode", "get_cfg", "assert_and_infer_cfg",
-           "mvit_b_16x4_224_cfg", "mvitv2_b_16x4_448_cfg", "slowfast_8x8_r50_cfg", "parse_args",
+           "mvit_b_16x4_224_cfg", "mvitv2_b_16x4_448_cfg",
+           "mvitv2_b_16x4_448_det_cfg", "slowfast_8x8_r50_cfg",
+           "slowfast_32x2_r50_ava_cfg", "parse_args",
            "load_config"]

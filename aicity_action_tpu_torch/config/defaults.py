@@ -638,3 +638,79 @@ def slowfast_8x8_r50_cfg() -> CfgNode:
     cfg = get_cfg()
     cfg.merge_from_other_cfg(CfgNode(_SLOWFAST_8x8_R50))
     return cfg
+
+
+def mvitv2_b_16x4_448_det_cfg() -> CfgNode:
+    """MViT-v2-B 16x4 @ 448 with the RoI head: the AI City model as the
+    reference's detection-checkpoint path serves it (whole-frame boxes,
+    scripts/module_wrapper.py:558-576). ``mvitv2_b_16x4_448_cfg()`` with
+    DETECTION.ENABLE True, DETECTION.ALIGNED True, ROI_XFORM_RESOLUTION 7,
+    SPATIAL_SCALE_FACTOR 32 (the stride of the final 8x14x14 map at 448; the
+    default 16 would put a whole-frame box past the map), MODEL.HEAD_ACT
+    sigmoid and MODEL.LOSS_FUNC bce (the detection step applies its loss to
+    the head's probabilities)."""
+    cfg = mvitv2_b_16x4_448_cfg()
+    cfg.DETECTION.ENABLE = True
+    cfg.DETECTION.ALIGNED = True
+    cfg.DETECTION.ROI_XFORM_RESOLUTION = 7
+    cfg.DETECTION.SPATIAL_SCALE_FACTOR = 32
+    cfg.MODEL.HEAD_ACT = "sigmoid"
+    cfg.MODEL.LOSS_FUNC = "bce"
+    return cfg
+
+
+# PySlowFast's AVA v2.2 SlowFast R50 32x2 (facebookresearch/SlowFast
+# configs/AVA/SLOWFAST_32x2_R50_SHORT.yaml); see the factory.
+_SLOWFAST_32x2_R50_AVA = {
+    "TRAIN": {"DATASET": "ava", "EVAL_PERIOD": 5},
+    "DATA": {"TEST_CROP_SIZE": 224},
+    "DETECTION": {"ENABLE": True, "ALIGNED": True,
+                  "ROI_XFORM_RESOLUTION": 7, "SPATIAL_SCALE_FACTOR": 16},
+    "AVA": {
+        "DETECTION_SCORE_THRESH": 0.8,
+        "TRAIN_PREDICT_BOX_LISTS": [
+            "ava_train_v2.2.csv",
+            "person_box_67091280_iou90/ava_detection_train_boxes_and_"
+            "labels_include_negative_v2.2.csv"],
+        "TEST_PREDICT_BOX_LISTS": [
+            "person_box_67091280_iou90/ava_detection_val_boxes_and_"
+            "labels.csv"],
+    },
+    "RESNET": {"SPATIAL_STRIDES": [[1, 1], [2, 2], [2, 2], [1, 1]],
+               "SPATIAL_DILATIONS": [[1, 1], [1, 1], [1, 1], [2, 2]]},
+    "BN": {"USE_PRECISE_STATS": False},
+    "SOLVER": {"LR_POLICY": "steps_with_relative_lrs",
+               "STEPS": [0, 10, 15, 20], "LRS": [1, 0.1, 0.01, 0.001],
+               "MAX_EPOCH": 20, "WEIGHT_DECAY": 1e-7, "WARMUP_EPOCHS": 5.0,
+               "WARMUP_START_LR": 0.000125},
+    "MODEL": {"NUM_CLASSES": 80, "LOSS_FUNC": "bce", "HEAD_ACT": "sigmoid"},
+    "TEST": {"DATASET": "ava", "BATCH_SIZE": 8},
+    "DATA_LOADER": {"NUM_WORKERS": 2},
+}
+
+
+def slowfast_32x2_r50_ava_cfg() -> CfgNode:
+    """SlowFast R50 32x2 on AVA v2.2 (PySlowFast's
+    ``configs/AVA/SLOWFAST_32x2_R50_SHORT.yaml``; Feichtenhofer et al.,
+    SlowFast Networks for Video Recognition, ICCV 2019), built in code on
+    ``slowfast_8x8_r50_cfg()``: 32 frames at sampling rate 2, alpha 4, beta
+    1/8, fusion ratio 2 with kernel 7, crop 224, jitter 256-320, SGD,
+    momentum 0.9 and dropout 0.5 as there.
+
+    Against ``slowfast_8x8_r50_cfg()`` it sets TRAIN.DATASET and
+    TEST.DATASET ava (kinetics), TRAIN.EVAL_PERIOD 5 (10),
+    DATA.TEST_CROP_SIZE 224 (256), DETECTION.ENABLE True with the aligned
+    RoIAlign at resolution 7 and SPATIAL_SCALE_FACTOR 16,
+    AVA.DETECTION_SCORE_THRESH 0.8 (0.9) and its predicted-box lists,
+    RESNET.SPATIAL_STRIDES ``[[1, 1], [2, 2], [2, 2], [1, 1]]`` and
+    SPATIAL_DILATIONS ``[[1, 1], [1, 1], [1, 1], [2, 2]]`` (res5 at stride
+    1 and dilation 2: a stride-16, 14x14 map at 224), BN.USE_PRECISE_STATS
+    False (True), SOLVER.LR_POLICY steps_with_relative_lrs (cosine) with
+    STEPS ``[0, 10, 15, 20]`` and LRS ``[1, 0.1, 0.01, 0.001]``,
+    MAX_EPOCH 20 (196), WEIGHT_DECAY 1e-7 (1e-4), WARMUP_EPOCHS 5 (34),
+    WARMUP_START_LR 0.000125 (0.01), MODEL.NUM_CLASSES 80 (400),
+    LOSS_FUNC bce (cross_entropy), HEAD_ACT sigmoid (softmax),
+    TEST.BATCH_SIZE 8 (64) and DATA_LOADER.NUM_WORKERS 2 (8)."""
+    cfg = slowfast_8x8_r50_cfg()
+    cfg.merge_from_other_cfg(CfgNode(_SLOWFAST_32x2_R50_AVA))
+    return cfg

@@ -286,13 +286,14 @@ class WebVideoText(VideoCsvDataset):
 
 # datasets of the JAX package that the port does not have yet, with the
 # ROADMAP Queue 1 item that brings each
-_NOT_PORTED = {"Ava": 8, "Ssv2": 8, "Charades": 8, "Imagenet": 8,
-               "Multi_dataset_seq": 9}
+_NOT_PORTED = {"Multi_dataset_seq": 9}
 
 
 def build_dataset(name: str, cfg, split: str):
     """Reference: datasets/build.py:15-31; the name is capitalized to the
     class's."""
+    from . import ava, frame_datasets  # noqa: F401 (register their classes)
+
     name = name.capitalize()
     if name in _NOT_PORTED:
         raise NotImplementedError(

@@ -82,8 +82,11 @@ class Loader:
         self._epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
-        """Reseed the shuffle (parity with sampler.set_epoch)."""
+        """Reseed the shuffle (parity with sampler.set_epoch), and the
+        draws of a dataset that keys them by epoch (``Ava``)."""
         self._epoch = epoch
+        if hasattr(self.dataset, "set_epoch"):
+            self.dataset.set_epoch(epoch)
 
     def _indices(self) -> np.ndarray:
         n = len(self.dataset)

@@ -30,8 +30,9 @@ def calculate_and_update_precise_bn(model: torch.nn.Module,
                                     num_batches: int) -> int:
     """Replace the running statistics of ``model``'s BatchNorms by their
     average over the first ``num_batches`` of ``batches`` (each the
-    model's input). Returns the number of batches used; with none the
-    statistics stay as they were."""
+    model's input, or a tuple of its positional arguments: a detection
+    model's input and boxes). Returns the number of batches used; with
+    none the statistics stay as they were."""
     norms = [m for m in model.modules() if is_bn(m)]
     if not norms or num_batches <= 0:
         return 0
@@ -49,7 +50,7 @@ def calculate_and_update_precise_bn(model: torch.nn.Module,
             if seen >= num_batches:
                 break
             with collect_bn_stats() as stats:
-                model(x)
+                model(*x) if isinstance(x, tuple) else model(x)
             for m, mean, var in stats:
                 acc = sums[id(m)]
                 acc[0] += mean

@@ -6,8 +6,10 @@ Each video is scored ``NUM_ENSEMBLE_VIEWS x NUM_SPATIAL_CROPS`` times; the
 parallelism each rank scores its slice of every batch, and one host-side
 gather of predictions, labels and clip indices an epoch
 (``parallel/mesh.py:process_allgather``) gives every rank the whole set
-before the meter. Detection (ROADMAP Queue 1 item 8) and the multi-head
-models (item 9) raise.
+before the meter. Under ``DETECTION.ENABLE`` the test set's boxes are
+scored into the ``AVAMeter`` instead and the run returns ``{"map"}``
+(``engine/train_loop.py:eval_epoch_detection``). The multi-head models
+(ROADMAP Queue 1 item 9) raise.
 """
 
 from __future__ import annotations
@@ -27,8 +29,10 @@ from ..parallel.prefetch import DeviceFeed, host_transfer_dtype
 from ..utils import checkpoint as cu
 from ..utils.logging import get_logger, setup_logging
 from ..utils.meters import TestMeter
+from .detection import make_detection_eval_step
 from .steps import make_eval_step
-from .train_loop import _device_batch, _pad_batch, check_supported
+from .train_loop import (_device_batch, _pad_batch, check_supported,
+                         eval_epoch_detection)
 
 logger = get_logger(__name__)
 
@@ -36,8 +40,9 @@ logger = get_logger(__name__)
 def test(cfg, device: str | torch.device = "cuda") -> dict:
     """Test entry (reference: test_net.py:173-248) on ``device`` (a machine
     without a card raises unless the caller asks for the CPU). Returns the
-    ``TestMeter``'s final stats plus the run's ``forwards``, ``clips`` and
-    ``seconds`` (data loading included)."""
+    ``TestMeter``'s final stats (a detection config: ``{"map"}``) plus the
+    run's ``forwards``, ``clips`` and ``seconds`` (data loading
+    included)."""
     dev = resolve_device(device)
     check_supported(cfg)
     setup_logging(cfg.OUTPUT_DIR)
@@ -50,6 +55,11 @@ def test(cfg, device: str | torch.device = "cuda") -> dict:
     cu.load_test_checkpoint(cfg, model)
     loader = construct_loader(cfg, "test")
     dataset = loader.dataset
+    feed = DeviceFeed(dev, host_transfer_dtype(cfg))
+    if cfg.DETECTION.ENABLE:
+        # AVA box testing: the frame mAP (the JAX test_loop.py:57-65)
+        return eval_epoch_detection(cfg, make_detection_eval_step(model),
+                                    feed, loader, "test")
 
     num_clips = cfg.TEST.NUM_ENSEMBLE_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
     if len(dataset) % num_clips:
@@ -63,7 +73,6 @@ def test(cfg, device: str | torch.device = "cuda") -> dict:
         ensemble_method=cfg.DATA.ENSEMBLE_METHOD,
     )
     eval_step = make_eval_step(model)
-    feed = DeviceFeed(dev, host_transfer_dtype(cfg))
 
     t = time.perf_counter()
     preds_all, labels_all, index_all = [], [], []

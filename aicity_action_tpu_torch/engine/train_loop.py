@@ -25,9 +25,15 @@ eval. Then the cadence of checkpoints and evals of the JAX loop.
 checkpoint and eval (``engine/precise_bn.py``; MViT has none, so nothing
 runs for it, as in the JAX package).
 
+Detection (``DETECTION.ENABLE``, AVA): the train step of
+``engine/detection.py`` on the batch's box slabs, and an eval that scores
+the val set's boxes into the ``AVAMeter``'s frame mAP
+(:func:`eval_epoch_detection`, the JAX package's ``train_loop.py:
+422-466``), each rank's slabs gathered once an epoch under data
+parallelism.
+
 Not ported, each raising with the ROADMAP Queue 1 item that brings it:
-multigrid (item 10), detection (item 8), the multi-head models (item 9),
-TensorBoard (item 11).
+multigrid (item 10), the multi-head models (item 9), TensorBoard (item 11).
 """
 
 from __future__ import annotations
@@ -52,7 +58,9 @@ from ..parallel.prefetch import (DeviceFeed, host_transfer_dtype,
 from ..solver.optimizer import TrainOptimizer, construct_optimizer
 from ..utils import checkpoint as cu
 from ..utils.logging import get_logger, setup_logging
-from ..utils.meters import EpochTimer, TrainMeter, ValMeter
+from ..utils.meters import AVAMeter, EpochTimer, TrainMeter, ValMeter
+from .detection import (flatten_boxes, make_detection_eval_step,
+                        make_detection_train_step)
 from .precise_bn import calculate_and_update_precise_bn
 from .steps import make_eval_step, make_train_step
 
@@ -111,7 +119,6 @@ def check_supported(cfg) -> None:
     unported = (
         (cfg.MULTIGRID.LONG_CYCLE or cfg.MULTIGRID.SHORT_CYCLE,
          "multigrid training", 10),
-        (cfg.DETECTION.ENABLE, "detection", 8),
         (cfg.MODEL.USE_MULTI_HEAD, "multi-head models", 9),
         (cfg.TENSORBOARD.ENABLE, "TensorBoard", 11),
     )
@@ -128,12 +135,25 @@ def check_supported(cfg) -> None:
             f"process a card) or call parallel.mesh.init_distributed first")
 
 
+# what a detection batch adds to the model's inputs and labels on the card
+_BOX_KEYS = ("boxes", "box_mask")
+
+
 def _device_batch(feed: DeviceFeed, staged) -> dict:
     """The model's input (one clip, or the list of a multi-pathway model's)
-    and the labels, on the card."""
+    and the labels, and a detection batch's boxes and their mask, on the
+    card."""
     dev = feed.take(staged)
     xs = dev["inputs"]
-    return {"inputs": xs[0] if len(xs) == 1 else xs, "labels": dev["labels"]}
+    out = {"inputs": xs[0] if len(xs) == 1 else xs, "labels": dev["labels"]}
+    out.update((k, dev[k]) for k in _BOX_KEYS if k in dev)
+    return out
+
+
+def _put(feed: DeviceFeed, batch: dict):
+    """Starts the copies of a host batch's model inputs, labels and boxes."""
+    return feed.put({k: batch[k] for k in ("inputs", "labels", *_BOX_KEYS)
+                     if k in batch})
 
 
 def wrap_ddp(model: torch.nn.Module, dev: torch.device) -> torch.nn.Module:
@@ -199,11 +219,17 @@ def train(cfg, device: str | torch.device = "cuda") -> TrainRun:
     precise_bn = cfg.BN.USE_PRECISE_STATS and any(
         is_bn(m) for m in model.modules())
 
-    mixup_fn = build_mixup_from_cfg(cfg)
-    train_step = make_train_step(
-        ddp_model, optimizer, cfg.MODEL.LOSS_FUNC, mixup_fn=mixup_fn,
-        num_classes=cfg.MODEL.NUM_CLASSES, seed=cfg.RNG_SEED)
-    eval_step = make_eval_step(model)
+    detection = cfg.DETECTION.ENABLE
+    mixup_fn = None if detection else build_mixup_from_cfg(cfg)
+    if detection:
+        train_step = make_detection_train_step(
+            ddp_model, optimizer, cfg.MODEL.LOSS_FUNC, seed=cfg.RNG_SEED)
+        eval_step = make_detection_eval_step(model)
+    else:
+        train_step = make_train_step(
+            ddp_model, optimizer, cfg.MODEL.LOSS_FUNC, mixup_fn=mixup_fn,
+            num_classes=cfg.MODEL.NUM_CLASSES, seed=cfg.RNG_SEED)
+        eval_step = make_eval_step(model)
     feed = DeviceFeed(dev, host_transfer_dtype(cfg))
 
     train_meter = TrainMeter(steps_per_epoch, cfg)
@@ -212,8 +238,14 @@ def train(cfg, device: str | torch.device = "cuda") -> TrainRun:
     per_host_batch = train_loader.batch_size
     run = TrainRun(model, optimizer, start_epoch, [])
 
+    def run_eval(epoch: int) -> dict:
+        if detection:
+            return eval_epoch_detection(cfg, eval_step, feed, val_loader,
+                                        "val")
+        return eval_epoch(eval_step, feed, val_loader, val_meter, epoch)
+
     if cfg.TRAIN.EVAL_FIRST:
-        eval_epoch(eval_step, feed, val_loader, val_meter, start_epoch - 1)
+        run_eval(start_epoch - 1)
 
     profiler = None
     for cur_epoch in range(start_epoch, cfg.SOLVER.MAX_EPOCH):
@@ -223,9 +255,7 @@ def train(cfg, device: str | torch.device = "cuda") -> TrainRun:
 
         def pad_and_put(batch):
             padded, n_valid = _pad_batch(batch, per_host_batch)
-            staged = feed.put({"inputs": padded["inputs"],
-                               "labels": padded["labels"]})
-            return staged, padded["labels"], n_valid
+            return _put(feed, padded), padded["labels"], n_valid
 
         runahead = max(int(cfg.TPU.PREFETCH_DEPTH), 0)
         host_step = optimizer.count
@@ -272,9 +302,12 @@ def train(cfg, device: str | torch.device = "cuda") -> TrainRun:
             if profiler is not None and host_step == \
                     cfg.TPU.PROFILE_START_STEP + cfg.TPU.PROFILE_NUM_STEPS:
                 profiler = _stop_profile(profiler, dev, cfg, host_step)
-            # the global batch's rows, for its top-k errors
-            preds, labels, n_all = _gathered_rows(preds, batch["labels"],
-                                                  n_valid)
+            if detection:  # no top-k errors: the global batch's count only
+                labels = batch["labels"]
+                n_all = n_valid * mesh.get_world_size()
+            else:  # the global batch's rows, for its top-k errors
+                preds, labels, n_all = _gathered_rows(
+                    preds, batch["labels"], n_valid)
             pending.append((cur_iter, metrics, preds, labels, n_all,
                             host_step))
             host_step += 1
@@ -312,8 +345,7 @@ def train(cfg, device: str | torch.device = "cuda") -> TrainRun:
                                cfg, async_write=cfg.TPU.ASYNC_CHECKPOINT)
             record["ckpt_s"] = time.perf_counter() - t
         if is_eval:
-            record["val"] = eval_epoch(eval_step, feed, val_loader,
-                                       val_meter, cur_epoch)
+            record["val"] = run_eval(cur_epoch)
         run.epochs.append(record)
 
     if profiler is not None:  # the run ended inside the traced steps
@@ -325,11 +357,13 @@ def train(cfg, device: str | torch.device = "cuda") -> TrainRun:
 
 
 def _model_inputs(loader, feed: DeviceFeed):
-    """The model inputs of ``loader``'s batches, padded and on the card."""
+    """The model inputs of ``loader``'s batches, padded and on the card (a
+    detection batch's with its flattened boxes, as a tuple)."""
     for b in loader:
         b, _ = _pad_batch(b, loader.batch_size)
-        yield _device_batch(feed, feed.put({"inputs": b["inputs"],
-                                            "labels": b["labels"]}))["inputs"]
+        dev = _device_batch(feed, _put(feed, b))
+        yield ((dev["inputs"], flatten_boxes(dev["boxes"])) if "boxes" in dev
+               else dev["inputs"])
 
 
 def _start_profile(dev: torch.device):
@@ -384,3 +418,53 @@ def eval_epoch(eval_step, feed: DeviceFeed, val_loader, val_meter,
     stats.update(forwards=forwards, clips=clips,
                  seconds=time.perf_counter() - t)
     return stats
+
+
+def eval_epoch_detection(cfg, eval_step, feed: DeviceFeed, loader,
+                         mode: str) -> dict:
+    """AVA detection eval (the JAX package's ``eval_epoch_detection``;
+    reference: train_net.py's DETECTION branch of eval_epoch and
+    test_net.py:98-108): every batch's box slabs scored, then the valid
+    boxes' scores, their original boxes normalized by the frame's
+    ``orig_hw`` and their (video, second) into the ``AVAMeter``. Under data
+    parallelism each rank's fixed-size slabs are gathered once, after the
+    last batch, and put back in the one-process order with each batch's
+    padded rows dropped. Returns ``{"map"}`` plus the pass's ``forwards``,
+    ``clips`` and ``seconds`` (data loading included)."""
+    t = time.perf_counter()
+    slabs: dict = {k: [] for k in ("preds", "box_mask", "ori_boxes",
+                                   "metadata", "orig_hw")}
+    n_valid_all = []
+    for batch in loader:
+        batch, n_valid = _pad_batch(batch, loader.batch_size)
+        dev_batch = _device_batch(feed, _put(feed, batch))
+        preds = eval_step(dev_batch).float().cpu().numpy()
+        m = batch["boxes"].shape[1]
+        slabs["preds"].append(preds.reshape(-1, m, preds.shape[-1]))
+        for k in ("box_mask", "ori_boxes", "metadata", "orig_hw"):
+            slabs[k].append(np.asarray(batch[k]))
+        n_valid_all.append(n_valid)
+    # [ranks][batches][rows, ...]: rank-major per epoch, one gather a slab
+    ranks = {k: mesh.process_allgather(np.stack(v))
+             for k, v in slabs.items()}
+    counts = mesh.process_allgather(np.asarray(n_valid_all, np.int64))
+    rows = {k: [] for k in slabs}
+    for i in range(len(n_valid_all)):
+        for r, n in enumerate(counts):
+            for k in slabs:
+                rows[k].append(ranks[k][r][i][:int(n[i])])
+    got = {k: np.concatenate(v) for k, v in rows.items()}
+    meter = AVAMeter(len(loader), cfg, mode)
+    meter.video_idx_to_name = loader.dataset.video_idx_to_name
+    for b in range(len(got["preds"])):
+        keep = got["box_mask"][b].astype(bool)
+        if not keep.any():
+            continue
+        h, w = got["orig_hw"][b]
+        boxes = got["ori_boxes"][b][keep] / np.asarray([w, h, w, h],
+                                                       np.float32)
+        meter.update_stats(got["preds"][b][keep], boxes,
+                           got["metadata"][b][keep])
+    full_map = meter.finalize_metrics()
+    return {"map": full_map, "forwards": len(n_valid_all),
+            "clips": len(got["preds"]), "seconds": time.perf_counter() - t}

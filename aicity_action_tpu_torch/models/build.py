@@ -1,6 +1,7 @@
 """Model builder (port of ``aicity_action_tpu/models/{build,zoo}.py``):
 ``MODEL.MODEL_NAME`` ``MViT``, and the BatchNorm conv nets ``ResNet``,
-``SlowFast`` and ``X3D``."""
+``SlowFast`` and ``X3D``; :func:`example_inputs` gives a model's
+positional arguments at batch 1 (the zoo's example inputs)."""
 
 from __future__ import annotations
 
@@ -57,3 +58,28 @@ def build_model(cfg, device: str | torch.device = "cuda",
     if name != "MViT":
         model.set_channels_last(model.channels_last)
     return model.to(dev).eval()
+
+
+def example_inputs(cfg, device: str | torch.device = "cpu") -> tuple:
+    """Zero positional arguments of the ``cfg`` model at batch 1 (the JAX
+    package's ``models/zoo.py`` example inputs): the clip, or for a conv
+    net the list of its pathways' clips (the slow one ``T // alpha``
+    frames long), channels-last, in the compute dtype; and under
+    ``DETECTION.ENABLE`` one all-zero ``[1, 5]`` box row."""
+    dtype = compute_dtype(cfg.TPU.COMPUTE_DTYPE)
+    T, C = cfg.DATA.NUM_FRAMES, cfg.DATA.INPUT_CHANNEL_NUM
+    S = cfg.DATA.TRAIN_CROP_SIZE
+
+    def clip(t, c):
+        return torch.zeros((1, t, S, S, c), dtype=dtype, device=device)
+
+    if cfg.MODEL.MODEL_NAME == "MViT":
+        xs = clip(T, C[0])
+    elif cfg.MODEL.MODEL_NAME == "SlowFast":
+        xs = [clip(T // cfg.SLOWFAST.ALPHA, C[0]),
+              clip(T, C[1] if len(C) > 1 else C[0])]
+    else:
+        xs = [clip(T, C[0])]
+    if cfg.DETECTION.ENABLE:
+        return xs, torch.zeros((1, 5), dtype=torch.float32, device=device)
+    return (xs,)

@@ -56,6 +56,7 @@ from ..ops.layer_norm import (channel_major_applies, fused_layer_norm,
 from ..ops.pooling import attention_pool, pool3d_ncdhw
 from .common import FusedLayerNorm, drop_path, drop_path_mask, round_width
 from .heads import TransformerBasicHead
+from .roi_head import ResNetRoIHead
 
 Triple = tuple[int, int, int]
 
@@ -674,21 +675,32 @@ class MViT(nn.Module):
     compute type in training. A training forward with DropPath or head
     dropout draws their masks from ``generator``. With a cls token
     (``MVIT.CLS_EMBED_ON``) the head reads its row of the final norm, else
-    the mean over tokens.
+    the mean over tokens, or under ``DETECTION.USE_SPATIAL_MAXPOOL_BEFORE_
+    PROJ`` the spatial max of the map's temporal mean. Under
+    ``DETECTION.ENABLE`` the final norm's tokens become a ``[B, T, H, W,
+    C]`` map for the RoI head: ``forward(x, bboxes)`` returns the f32
+    activation of each ``[N, 5]`` box row, in training too.
     """
 
     def __init__(self, spec: MViTSpec,
                  compute_dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         sp = spec
-        for flag, what in ((sp.detection_enable, "detection"),
-                           (sp.contra_enable, "contrastive"),
+        for flag, what in ((sp.contra_enable, "contrastive"),
                            (sp.use_multi_head, "multi-head"),
-                           (sp.use_spatial_maxpool_before_proj,
-                            "spatial-maxpool head"),
                            (sp.moe.num_experts > 0, "MoE")):
             if flag:
                 raise NotImplementedError(f"{what} MViT is not ported yet")
+        if sp.cls_embed and (sp.detection_enable
+                             or sp.use_spatial_maxpool_before_proj):
+            # the JAX package's reshape of the L + 1 final-norm rows into
+            # [B, T, H, W, C] cannot succeed (mvit.py:1026, 1042); the
+            # reference drops the cls row first
+            # (video_model_builder.py:1258-1271)
+            raise ValueError("a cls-token MViT (MVIT.CLS_EMBED_ON) takes "
+                             "neither the RoI head nor the spatial-maxpool "
+                             "head: the JAX package cannot reshape its L + 1 "
+                             "tokens into their map")
         self.spec = sp
         self.compute_dtype = compute_dtype
         self.patch_embed = PatchEmbed(sp.in_channels, sp.embed_dim,
@@ -717,9 +729,17 @@ class MViT(nn.Module):
         dim_out = sp.blocks[-1].dim_out
         self.norm = (None if sp.no_norm_before_avg
                      else FusedLayerNorm(dim_out, eps=1e-6))
-        self.head = TransformerBasicHead(
-            dim_out, sp.num_classes, dropout_rate=sp.head_dropout,
-            act_func=sp.head_act, use_act_in_train=sp.use_head_act_in_train)
+        if sp.detection_enable:
+            self.head = ResNetRoIHead(
+                [dim_out], sp.num_classes, resolution=[sp.roi_resolution],
+                scale_factor=[sp.roi_scale_factor],
+                dropout_rate=sp.head_dropout, act_func=sp.head_act,
+                aligned=sp.roi_aligned)
+        else:
+            self.head = TransformerBasicHead(
+                dim_out, sp.num_classes, dropout_rate=sp.head_dropout,
+                act_func=sp.head_act,
+                use_act_in_train=sp.use_head_act_in_train)
 
     def _pos_embed(self) -> torch.Tensor:
         if not self.spec.sep_pos_embed:
@@ -731,7 +751,8 @@ class MViT(nn.Module):
             pos = torch.cat([self.pos_embed_class, pos], dim=1)
         return pos
 
-    def forward(self, x, generator: torch.Generator | None = None):
+    def forward(self, x, bboxes: torch.Tensor | None = None,
+                generator: torch.Generator | None = None):
         if isinstance(x, (list, tuple)):
             x = x[0]
         x = x.to(self.compute_dtype)
@@ -751,5 +772,33 @@ class MViT(nn.Module):
                 x, thw = blk(x, thw, masks)
         if self.norm is not None:
             x = self.norm(x)
-        feat = x[:, 0] if self.spec.cls_embed else x.mean(dim=1)
+        sp = self.spec
+        if sp.detection_enable:
+            # the RoI path (video_model_builder.py:1258-1271): tokens back
+            # to a [B, T, H, W, C] map for the RoI head
+            if bboxes is None:
+                raise ValueError("a detection model scores boxes: pass "
+                                 "bboxes")
+            return self.head([x.reshape(x.shape[0], *thw, x.shape[-1])],
+                             bboxes, generator)
+        if sp.use_spatial_maxpool_before_proj:
+            feat = self._spatial_maxpool(x, thw)
+        elif sp.cls_embed:
+            feat = x[:, 0]
+        else:
+            feat = x.mean(dim=1)
         return self.head(feat, generator)
+
+    def _spatial_maxpool(self, x: torch.Tensor, thw: Triple) -> torch.Tensor:
+        """The whole-frame head's pooling (video_model_builder.py:1273-1303;
+        JAX ``mvit.py:1040-1051``): the mean over time, a bilinear resize to
+        the RoI resolution where the map's height differs from it, then the
+        max over space. ``jax.image.resize`` antialiases when it shrinks a
+        map, and so does this resize."""
+        r = self.spec.roi_resolution
+        fm = x.reshape(x.shape[0], *thw, x.shape[-1]).mean(dim=1)
+        if thw[1] != r:
+            fm = F.interpolate(fm.permute(0, 3, 1, 2), size=(r, r),
+                               mode="bilinear", align_corners=False,
+                               antialias=True).permute(0, 2, 3, 1)
+        return fm.amax(dim=(1, 2))

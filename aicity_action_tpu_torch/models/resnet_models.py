@@ -10,8 +10,10 @@ in the same format, or, after ``set_channels_last(False)``, copies to
 contiguous NCDHW with contiguous weights. It returns the head's
 softmax / sigmoid scores in f32 at eval and the logits in training. A
 training forward with dropout or drop-connect draws its masks from the
-``generator`` the caller passes. Detection heads are not ported (ROADMAP
-Queue 1 item 8).
+``generator`` the caller passes. Under ``DETECTION.ENABLE`` the head is the
+RoI head (``models/roi_head.py``): ``forward(xs, bboxes)`` scores each
+``[N, 5]`` box row (batch index, then x1, y1, x2, y2 in input pixels) from
+the last stage's maps, and applies its activation in training too.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from .common import round_width
 from .convnets import (MODEL_STAGE_DEPTH, POOL1, TEMPORAL_KERNEL_BASIS,
                        ResNetBasicStem, ResStage, VideoModelStem, X3DStem,
                        conv3d, make_norm)
+from .roi_head import ResNetRoIHead
 
 def _head_out(x: torch.Tensor, projection: nn.Linear, dropout_rate: float,
               act_func: str, training: bool, generator) -> torch.Tensor:
@@ -152,10 +155,7 @@ class _ConvNet(nn.Module):
 
     def __init__(self, cfg, compute_dtype: torch.dtype):
         super().__init__()
-        if cfg.DETECTION.ENABLE:
-            raise NotImplementedError(
-                "detection conv nets (an RoI head) are not ported (ROADMAP "
-                "Queue 1 item 8)")
+        self.detection = cfg.DETECTION.ENABLE
         self.compute_dtype = compute_dtype
         # channels-last clips viewed as NCDHW are channels_last_3d already;
         # on an H100 SlowFast R50 8x8's b8 forward runs 38.2 ms so against
@@ -179,6 +179,27 @@ class _ConvNet(nn.Module):
             t = t.to(self.compute_dtype).permute(0, 4, 1, 2, 3)
             out.append(t if self.channels_last else t.contiguous())
         return out
+
+    def _head(self, xs: list, bboxes, generator) -> torch.Tensor:
+        if not self.detection:
+            return self.head(xs, generator)
+        if bboxes is None:
+            raise ValueError("a detection model scores boxes: pass bboxes")
+        # the RoI head reads channels-last [B, T, H, W, C] views
+        return self.head([x.permute(0, 2, 3, 4, 1) for x in xs], bboxes,
+                         generator)
+
+    def _roi_head(self, cfg, dim_in: list) -> ResNetRoIHead:
+        """The RoI head (reference video_model_builder.py:404-416, 595-606)
+        over ``dim_in`` channels a pathway."""
+        det = cfg.DETECTION
+        n = len(dim_in)
+        return ResNetRoIHead(
+            dim_in, cfg.MODEL.NUM_CLASSES,
+            resolution=[det.ROI_XFORM_RESOLUTION] * n,
+            scale_factor=[det.SPATIAL_SCALE_FACTOR] * n,
+            dropout_rate=cfg.MODEL.DROPOUT_RATE,
+            act_func=cfg.MODEL.HEAD_ACT, aligned=det.ALIGNED)
 
 
 class ResNet(_ConvNet):
@@ -212,20 +233,21 @@ class ResNet(_ConvNet):
                 **_stage_kwargs(cfg, si, self.norm, self.final_norm)))
         ps = self.pool_size[0]
         crop = cfg.DATA.TRAIN_CROP_SIZE
-        self.head = ResNetBasicHead(
-            [dims[4]], cfg.MODEL.NUM_CLASSES,
-            [(cfg.DATA.NUM_FRAMES // ps[0], crop // 32 // ps[1],
-              crop // 32 // ps[2])],
-            cfg.MODEL.DROPOUT_RATE, cfg.MODEL.HEAD_ACT)
+        self.head = self._roi_head(cfg, [dims[4]]) if self.detection else \
+            ResNetBasicHead(
+                [dims[4]], cfg.MODEL.NUM_CLASSES,
+                [(cfg.DATA.NUM_FRAMES // ps[0], crop // 32 // ps[1],
+                  crop // 32 // ps[2])],
+                cfg.MODEL.DROPOUT_RATE, cfg.MODEL.HEAD_ACT)
 
-    def forward(self, x, generator=None):
+    def forward(self, x, bboxes=None, generator=None):
         xs = self.s1(self._inputs(x))
         xs = self.s2(xs, generator)
         ps = self.pool_size[0]
         xs = [F.max_pool3d(xs[0], ps, ps)]
         for name in ("s3", "s4", "s5"):
             xs = getattr(self, name)(xs, generator)
-        return self.head(xs, generator)
+        return self._head(xs, bboxes, generator)
 
 
 class SlowFast(_ConvNet):
@@ -274,13 +296,16 @@ class SlowFast(_ConvNet):
                     dims[si + 1] // beta, fcr, fk, alpha, self.norm))
         crop, T = cfg.DATA.TRAIN_CROP_SIZE, cfg.DATA.NUM_FRAMES
         p0, p1 = self.pool_size
-        self.head = ResNetBasicHead(
-            [dims[4], dims[4] // beta], cfg.MODEL.NUM_CLASSES,
-            [(T // alpha // p0[0], crop // 32 // p0[1], crop // 32 // p0[2]),
-             (T // p1[0], crop // 32 // p1[1], crop // 32 // p1[2])],
-            cfg.MODEL.DROPOUT_RATE, cfg.MODEL.HEAD_ACT)
+        self.head = (
+            self._roi_head(cfg, [dims[4], dims[4] // beta]) if self.detection
+            else ResNetBasicHead(
+                [dims[4], dims[4] // beta], cfg.MODEL.NUM_CLASSES,
+                [(T // alpha // p0[0], crop // 32 // p0[1],
+                  crop // 32 // p0[2]),
+                 (T // p1[0], crop // 32 // p1[1], crop // 32 // p1[2])],
+                cfg.MODEL.DROPOUT_RATE, cfg.MODEL.HEAD_ACT))
 
-    def forward(self, x, generator=None):
+    def forward(self, x, bboxes=None, generator=None):
         xs = self.s1_fuse(self.s1(self._inputs(x)))
         for si in range(4):
             xs = getattr(self, f"s{si + 2}")(xs, generator)
@@ -289,13 +314,17 @@ class SlowFast(_ConvNet):
                       for t, ps in zip(xs, self.pool_size)]
             if si < 3:
                 xs = getattr(self, f"s{si + 2}_fuse")(xs)
-        return self.head(xs, generator)
+        return self._head(xs, bboxes, generator)
 
 
 class X3D(_ConvNet):
-    """X3D with width / depth expansion."""
+    """X3D with width / depth expansion. It has no detection head, in the
+    reference as in the JAX package."""
 
     def __init__(self, cfg, compute_dtype: torch.dtype = torch.float32):
+        if cfg.DETECTION.ENABLE:
+            raise ValueError("X3D has no RoI head (neither the reference nor "
+                             "the JAX package builds one)")
         super().__init__(cfg, compute_dtype)
         tk = TEMPORAL_KERNEL_BASIS["x3d"]
         w_mul, d_mul = cfg.X3D.WIDTH_FACTOR, cfg.X3D.DEPTH_FACTOR

@@ -21,7 +21,10 @@
   window-streaming path instead, as in the JAX package: one sequential
   decode into a rolling buffer of resized RGB frames, each window packed
   into its slow and fast clips (``data/transform.py:pack_pathway_output``)
-  and scored ``batch_size`` windows at a time.
+  and scored ``batch_size`` windows at a time. A detection model
+  (``detection=True``: an RoI head) takes that path too, with one
+  whole-frame box a window; with one pathway its windows cross to the card
+  as u8 and are normalized there, as in the JAX package.
 
 Output per video: the sorted list of ``(t0, t1, scores[num_class])`` that
 the JAX package and the reference pickle (run_action_...py:110-130).
@@ -41,8 +44,6 @@ import torch
 
 from ..data.decoder import cv2_video_meta, probe, sample_indices
 from ..data.transform import pack_pathway_output
-
-_ITEM_8 = "ROADMAP Queue 1 item 8"
 
 
 def window_spans(num_frames: int, fps: float, frame_length: int,
@@ -201,12 +202,14 @@ class WindowDataset:
         return (pack_pathway_output(x, self.arch_pathways,
                                     self.slowfast_alpha), t0, t1)
 
-    def stream_windows(self) -> Iterator[tuple]:
+    def stream_windows(self, raw_u8: bool = False) -> Iterator[tuple]:
         """Single-pass windows: every frame decoded, cropped and resized
         once (the chunk paths' per-frame cv2 arithmetic) into a rolling
         buffer that holds the frames a later window still needs; yields
         ``(pathway clips, t0, t1)`` as :meth:`__getitem__` does, in t0
-        order. A frame index past EOF takes the last decoded frame."""
+        order, or under ``raw_u8`` ``([RGB u8 [T, s, s, 3]], t0, t1)`` for
+        the consumer to normalize. A frame index past EOF takes the last
+        decoded frame."""
         import cv2
 
         plans = self.plans()
@@ -232,9 +235,12 @@ class WindowDataset:
                         f"decoded 0 frames from {self.video_path}")
                 last = max(buf)
                 u8 = np.stack([buf.get(int(i), buf[last]) for i in idxs])
-                x = (u8.astype(np.float32) / 255.0 - self.mean) / self.std
-                yield (pack_pathway_output(x, self.arch_pathways,
-                                           self.slowfast_alpha), t0, t1)
+                if raw_u8:
+                    yield [u8], t0, t1
+                else:
+                    x = (u8.astype(np.float32) / 255.0 - self.mean) / self.std
+                    yield (pack_pathway_output(x, self.arch_pathways,
+                                               self.slowfast_alpha), t0, t1)
                 if w + 1 < len(plans):  # drop what no later window reads
                     low = int(plans[w + 1][2][0])
                     for i in [i for i in buf if i < low]:
@@ -504,17 +510,16 @@ class WindowScorer:
     decode overlaps device compute. ``last_timers`` holds the device-gather
     run's phase split (seconds of decode / upload / dispatch / drain, and
     the calls, chunks and decoder) and is None after any other path. A
-    two-pathway model's windows take :meth:`_score_streaming`. Detection
-    (an RoI head on whole-frame boxes) is not ported.
+    two-pathway model's windows take :meth:`_score_streaming`, and so do a
+    detection model's (``detection=True``): its RoI head scores one
+    whole-frame box a window, ``[i, 0, 0, s, s]`` (the reference's
+    module_wrapper.py:558-576), the mean-pooled frame in effect.
     """
 
     def __init__(self, model: torch.nn.Module, batch_size: int = 8,
                  num_workers: int = 8, chunk_frames: int = 512,
                  detection: bool = False, chroma420: bool = True):
-        if detection:
-            raise NotImplementedError(
-                f"detection scoring (an RoI head on whole-frame boxes) is not "
-                f"ported ({_ITEM_8})")
+        self.detection = detection
         self.model = model
         self.device = next(model.parameters()).device
         self.batch_size = batch_size
@@ -530,18 +535,33 @@ class WindowScorer:
         two-pathway model), or under ``streaming=False`` the loader path."""
         self.last_timers = None
         if streaming:
-            if dataset.arch_pathways == 1:
+            if dataset.arch_pathways == 1 and not self.detection:
                 return self._score_device_gather(dataset)
             return self._score_streaming(dataset)
         return self._score_loader(dataset)
 
+    def _boxes(self, n: int, s: int) -> tuple:
+        """The model's box argument for ``n`` windows of ``s x s`` frames:
+        one whole-frame ``[i, 0, 0, s, s]`` row each under detection, else
+        nothing."""
+        if not self.detection:
+            return ()
+        boxes = torch.zeros((n, 5), dtype=torch.float32)
+        boxes[:, 0] = torch.arange(n, dtype=torch.float32)
+        boxes[:, 3:] = float(s)
+        return (boxes.to(self.device),)
+
     @torch.no_grad()
     def _score_streaming(self, dataset: WindowDataset) -> list:
         """:meth:`WindowDataset.stream_windows` in batches of
-        ``batch_size`` windows, each pathway's clips copied to the card;
-        the scores stay there until the video ends."""
+        ``batch_size`` windows, each pathway's clips copied to the card (a
+        one-pathway detection model's as u8, normalized there); the scores
+        stay there until the video ends."""
         pending = []
         group: list = []
+        raw_u8 = dataset.arch_pathways == 1
+        mean = torch.as_tensor(dataset.mean, device=self.device)
+        std = torch.as_tensor(dataset.std, device=self.device)
 
         def flush():
             if not group:
@@ -551,11 +571,14 @@ class WindowScorer:
             if self.device.type == "cuda":
                 xs = [x.pin_memory().to(self.device, non_blocking=True)
                       for x in xs]
-            out = self.model(xs).float()
+            if raw_u8:
+                xs = [(xs[0].float() / 255.0 - mean) / std]
+            out = self.model(xs, *self._boxes(len(group),
+                                              dataset.frame_size)).float()
             pending.append((out, [(g[1], g[2]) for g in group]))
             group.clear()
 
-        for item in dataset.stream_windows():
+        for item in dataset.stream_windows(raw_u8=raw_u8):
             group.append(item)
             if len(group) == self.batch_size:
                 flush()
@@ -710,7 +733,9 @@ class WindowScorer:
         pending = []
         for inputs, t0, t1 in loader:
             xs = [x.to(self.device) for x in inputs]
-            out = self.model(xs[0] if len(xs) == 1 else xs).float()
+            out = self.model(xs[0] if len(xs) == 1 else xs,
+                             *self._boxes(len(t0), dataset.frame_size))
+            out = out.float()
             pending.append((out, list(zip(t0.tolist(), t1.tolist()))))
         return _sorted_preds(pending)
 

@@ -5,15 +5,16 @@ Host-side bookkeeping: windowed-median scalars, ETA estimation, the
 clip -> video ensemble ``TestMeter`` and numpy mAP. Values arrive here as
 host numbers. ``TrainMeter`` also keeps each iteration's wall and data
 wait of the epoch (``iter_times``, ``data_times``), from which the train
-loop reports its data-wait share. ``MultiDatasetValMeter`` (the multi-head
-heads, ROADMAP Queue 1 item 9) and ``AVAMeter`` (detection, item 8) are not
-ported.
+loop reports its data-wait share. ``AVAMeter`` gives the AVA frame mAP of
+detection. ``MultiDatasetValMeter`` (the multi-head heads, ROADMAP Queue 1
+item 9) is not ported.
 """
 
 from __future__ import annotations
 
 import datetime
 import logging
+import os
 import time
 from collections import deque
 
@@ -357,3 +358,64 @@ def get_map(preds: np.ndarray, labels: np.ndarray) -> float:
         ap = (precision * y).sum() / y.sum()
         aps.append(ap)
     return float(np.mean(aps)) if aps else 0.0
+
+
+class AVAMeter:
+    """Accumulates box predictions over an epoch and computes the AVA frame
+    mAP (reference: meters.py:48-275 + ava_eval_helper).
+
+    ``update_stats(preds, ori_boxes, metadata)`` takes per-box rows already
+    filtered to the valid boxes, ``ori_boxes`` ``(x1, y1, x2, y2)``
+    normalized to the original frame; ``finalize_metrics`` runs the frame
+    mAP against the configured ground-truth, exclusion and label-map files
+    and returns it (also kept as ``full_map``).
+    """
+
+    def __init__(self, overall_iters: int, cfg, mode: str):
+        from ..evaluation import ava_eval
+
+        self.cfg = cfg
+        self.mode = mode
+        self.overall_iters = overall_iters
+        self.all_preds: list = []
+        self.all_ori_boxes: list = []
+        self.all_metadata: list = []
+        self.full_map = 0.0
+        self._eval = ava_eval
+
+        anno_dir = cfg.AVA.ANNOTATION_DIR
+        self.excluded_keys = ava_eval.read_exclusions(
+            os.path.join(anno_dir, cfg.AVA.EXCLUSION_FILE)
+            if cfg.AVA.EXCLUSION_FILE else None)
+        self.categories, self.class_whitelist = ava_eval.read_labelmap(
+            os.path.join(anno_dir, cfg.AVA.LABEL_MAP_FILE))
+        gt_file = os.path.join(anno_dir, cfg.AVA.GROUNDTRUTH_FILE)
+        self.full_groundtruth = ava_eval.read_csv(gt_file,
+                                                  self.class_whitelist)
+        self.video_idx_to_name: list = []
+
+    def reset(self):
+        self.all_preds = []
+        self.all_ori_boxes = []
+        self.all_metadata = []
+
+    def update_stats(self, preds, ori_boxes, metadata):
+        self.all_preds.append(np.asarray(preds))
+        self.all_ori_boxes.append(np.asarray(ori_boxes))
+        self.all_metadata.append(np.asarray(metadata))
+
+    def finalize_metrics(self, log: bool = True) -> float:
+        preds = np.concatenate(self.all_preds)
+        boxes = np.concatenate(self.all_ori_boxes)
+        metadata = np.concatenate(self.all_metadata)
+        full_boxes = np.concatenate(
+            [np.zeros((len(boxes), 1), np.float32), boxes], axis=1)
+        self.full_map = self._eval.evaluate_ava(
+            preds, full_boxes, metadata.tolist(),
+            self.excluded_keys, self.class_whitelist,
+            groundtruth=self.full_groundtruth,
+            video_idx_to_name=self.video_idx_to_name)
+        if log:
+            log_json_stats({"_type": f"{self.mode}_ava_map",
+                            "map": self.full_map})
+        return self.full_map

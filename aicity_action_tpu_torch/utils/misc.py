@@ -32,18 +32,21 @@ def params_count(model: torch.nn.Module) -> int:
 
 
 def get_flop_stats(model: torch.nn.Module, example_inputs) -> float:
-    """Forward GFLOPs of ``model`` on ``example_inputs``, counted by
-    ``FlopCounterMode`` (replaces fvcore's count, reference
-    misc.py:78-206). The model runs once in eval mode without gradients;
-    on the CPU every kernel wrapper runs its plain version, which the
-    counter sees."""
+    """Forward GFLOPs of ``model`` on ``example_inputs`` (its input, or a
+    tuple of its positional arguments as ``models/build.py:
+    example_inputs`` gives them), counted by ``FlopCounterMode`` (replaces
+    fvcore's count, reference misc.py:78-206). The model runs once in eval
+    mode without gradients; on the CPU every kernel wrapper runs its plain
+    version, which the counter sees."""
     from torch.utils.flop_counter import FlopCounterMode
 
+    args = example_inputs if isinstance(example_inputs, tuple) \
+        else (example_inputs,)
     was_training = model.training
     model.eval()
     counter = FlopCounterMode(display=False)
     with torch.no_grad(), counter:
-        model(example_inputs)
+        model(*args)
     model.train(was_training)
     return counter.get_total_flops() / 1e9
 

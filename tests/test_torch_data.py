@@ -294,8 +294,8 @@ def test_labels_and_unported_datasets(videos, tmp_path):
         tdatasets.Mmit
     with pytest.raises(NotImplementedError, match="item 9"):
         tdatasets.build_dataset("web_video_text", cfg, "val")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tdatasets.build_dataset("ava", cfg, "val")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        tdatasets.build_dataset("multi_dataset_seq", cfg, "val")
 
 
 def test_decode_failures_retry_then_raise(videos, tmp_path):

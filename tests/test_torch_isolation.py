@@ -88,7 +88,14 @@ def test_the_walk_covers_the_host_pipeline_and_its_tools():
             "aicity_action_tpu_torch.parallel.mesh",
             "aicity_action_tpu_torch.models.convnets",
             "aicity_action_tpu_torch.models.resnet_models",
-            "aicity_action_tpu_torch.engine.precise_bn"} <= mods
+            "aicity_action_tpu_torch.engine.precise_bn",
+            "aicity_action_tpu_torch.ops.roi_align",
+            "aicity_action_tpu_torch.models.roi_head",
+            "aicity_action_tpu_torch.engine.detection",
+            "aicity_action_tpu_torch.data.ava",
+            "aicity_action_tpu_torch.data.cv2_transform",
+            "aicity_action_tpu_torch.data.frame_datasets",
+            "aicity_action_tpu_torch.evaluation.ava_eval"} <= mods
 
 
 def _imported_names(path):

@@ -174,9 +174,11 @@ def test_unported_branches_raise():
     assert build_model(cfg, device="cpu").blocks[0].attn.mode == "max"
     cfg.MVIT.CLS_EMBED_ON = True  # ported: builds
     assert build_model(cfg, device="cpu").cls_token.shape == (1, 1, 32)
-    cfg.DETECTION.ENABLE = True
-    with pytest.raises(NotImplementedError):
+    cfg.DETECTION.ENABLE = True  # the JAX package cannot reshape L + 1
+    with pytest.raises(ValueError, match="cls-token"):
         build_model(cfg, device="cpu")
+    cfg.MVIT.CLS_EMBED_ON = False  # detection is ported: builds
+    assert build_model(cfg, device="cpu").head.resolution == (7,)
     cfg = tiny_cfg(get_cfg)
     cfg.MODEL.MODEL_NAME = "ActionCLIP"  # the conv nets build; this does not
     with pytest.raises(NotImplementedError):

@@ -167,8 +167,8 @@ def test_unported_branches_raise(videos, model):
     # two-pathway windows are ported (the window-streaming path)
     assert twi.WindowDataset(videos["mp4"], arch_pathways=2,
                              **DS_ARGS).arch_pathways == 2
-    with pytest.raises(NotImplementedError, match="item 8"):
-        twi.WindowScorer(model, detection=True)
+    # detection scoring is ported (whole-frame boxes, the streaming path)
+    assert twi.WindowScorer(model, detection=True).detection
 
 
 def test_decode_errors_reach_the_caller(videos, model, monkeypatch):

@@ -7,8 +7,8 @@ spawn`` of gloo ranks that import torch and the port only (no JAX).
 rank ``r`` writes what it saw to ``out/rank{r}.pkl``. Kinds:
 
 - ``"loop"``: ``runs``, a list of ``(name, cfg)`` of the port's config,
-  each trained (``engine/train_loop.train``) and, where ``TEST.ENABLE``,
-  tested; then the ragged ``process_allgather`` and, for each cfg of
+  each trained (``engine/train_loop.train``) where ``TRAIN.ENABLE`` and
+  tested where ``TEST.ENABLE``; then the ragged ``process_allgather`` and, for each cfg of
   ``loaders``, the clip indices of every batch this rank's train loader
   gives.
 - ``"step"``: ``cases``, each a conv net's ``cfg``, a ``state`` of f64
@@ -43,17 +43,20 @@ def _loop(rank, job):
 
     out = {"runs": {}, "loaders": []}
     for name, cfg in job["runs"]:
-        run = train(cfg, device="cpu")
-        out["runs"][name] = {
-            "start_epoch": run.start_epoch,
-            "losses": [e["losses"] for e in run.epochs],
-            "val": [e["val"] for e in run.epochs],
-            "count": run.optimizer.count,
-            "zero": run.optimizer.zero,
-            "params": {k: v.detach().numpy().copy()
-                       for k, v in run.model.named_parameters()},
-            "test": test(cfg, device="cpu") if cfg.TEST.ENABLE else None,
-        }
+        res = {}
+        if cfg.TRAIN.ENABLE:
+            run = train(cfg, device="cpu")
+            res = {
+                "start_epoch": run.start_epoch,
+                "losses": [e["losses"] for e in run.epochs],
+                "val": [e["val"] for e in run.epochs],
+                "count": run.optimizer.count,
+                "zero": run.optimizer.zero,
+                "params": {k: v.detach().numpy().copy()
+                           for k, v in run.model.named_parameters()},
+            }
+        res["test"] = test(cfg, device="cpu") if cfg.TEST.ENABLE else None
+        out["runs"][name] = res
     out["allgather"] = mesh.process_allgather(
         np.arange(rank * 10, rank * 10 + rank + 1))
     for cfg in job["loaders"]:

@@ -714,3 +714,22 @@ def slowfast_32x2_r50_ava_cfg() -> CfgNode:
     cfg = slowfast_8x8_r50_cfg()
     cfg.merge_from_other_cfg(CfgNode(_SLOWFAST_32x2_R50_AVA))
     return cfg
+
+
+def actionclip_mvitv2_b_16x4_448_cfg() -> CfgNode:
+    """ActionCLIP at full width: the AI City MViT-v2-B 16x4 @ 448
+    (``mvitv2_b_16x4_448_cfg()``) as the video tower, with MODEL.MODEL_NAME
+    ActionCLIP and CONTRA.ENABLE True, so that its head is the contrastive
+    projection (LN, then a bias-free linear map to CONTRA.embed_dim); the
+    text tower keeps the CONTRA defaults, CLIP's ViT-B text encoder
+    (Radford et al., Learning Transferable Visual Models From Natural
+    Language Supervision, ICML 2021): width 512, 12 layers, 8 heads,
+    context 77, vocabulary 49408, embedding 512, no MLP projection. The
+    data is ``Web_video_text`` (captions as BPE ids in
+    ``{split}_tokenized.csv``) for training and test."""
+    cfg = mvitv2_b_16x4_448_cfg()
+    cfg.MODEL.MODEL_NAME = "ActionCLIP"
+    cfg.CONTRA.ENABLE = True
+    cfg.TRAIN.DATASET = "web_video_text"
+    cfg.TEST.DATASET = "web_video_text"
+    return cfg

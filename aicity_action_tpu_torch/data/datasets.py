@@ -275,18 +275,47 @@ class Mit(VideoCsvDataset):
 
 @DATASET_REGISTRY.register(name="Web_video_text")
 class WebVideoText(VideoCsvDataset):
-    """Video+caption pairs: they serve the contrastive stack, which is not
-    ported."""
+    """Video-caption pairs for contrastive training (reference:
+    web_video_text.py:117-180): ``{mode}_tokenized.csv`` rows of
+    ``path<sep>label<sep>comma-separated BPE ids``; the ids are padded with
+    zeros (or cut) to ``CONTRA.CONTEXT_LENGTH``, and an item carries them
+    in its meta dict as ``tokens`` (the loader's batch key)."""
 
-    def __init__(self, cfg, mode: str):
-        raise NotImplementedError(
-            "Web_video_text serves the contrastive stack, which is not "
-            "ported (ROADMAP Queue 1 item 9)")
+    def _csv_name(self) -> str:
+        return f"{self.mode}_tokenized.csv"
+
+    def _construct(self):
+        cfg = self.cfg
+        path = os.path.join(cfg.DATA.PATH_TO_DATA_DIR, self._csv_name())
+        assert os.path.exists(path), f"{path} not found"
+        self._tokens: list[np.ndarray] = []
+        with open(path) as f:
+            rows = [ln for ln in f.read().splitlines() if ln]
+        for row in rows:
+            video_path, label, token_str = row.split(
+                cfg.DATA.PATH_LABEL_SEPARATOR)
+            ids = [int(t) for t in token_str.split(",") if t]
+            padded = np.zeros(cfg.CONTRA.CONTEXT_LENGTH, np.int64)
+            ids = ids[: cfg.CONTRA.CONTEXT_LENGTH]
+            padded[: len(ids)] = ids
+            for idx in range(self._num_clips):
+                self._path_to_videos.append(
+                    os.path.join(cfg.DATA.PATH_PREFIX, video_path))
+                self._labels.append(int(label))
+                self._tokens.append(padded)
+                self._spatial_temporal_idx.append(idx)
+        assert self._path_to_videos, f"empty dataset from {path}"
+
+    def __getitem__(self, index: int):
+        inputs, label, index, meta = super().__getitem__(index)
+        meta = dict(meta)
+        meta["tokens"] = self._tokens[index]
+        return inputs, label, index, meta
 
 
 # datasets of the JAX package that the port does not have yet, with the
 # ROADMAP Queue 1 item that brings each
-_NOT_PORTED = {"Multi_dataset_seq": 9}
+_NOT_PORTED = {"Multi_dataset_seq": "9b"}
 
 
 def build_dataset(name: str, cfg, split: str):

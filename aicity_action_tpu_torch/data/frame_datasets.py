@@ -10,7 +10,7 @@ from an unseeded ``random.Random()`` and val and test items from
 ``random.Random(index)``, in the JAX package's order of calls; cv2 is
 imported where frames are read. The multi-dataset concatenation
 (``Multi_dataset_seq``) comes with the multi-head models (ROADMAP Queue 1
-item 9).
+item 9b).
 """
 
 from __future__ import annotations

@@ -9,7 +9,7 @@ gather of predictions, labels and clip indices an epoch
 before the meter. Under ``DETECTION.ENABLE`` the test set's boxes are
 scored into the ``AVAMeter`` instead and the run returns ``{"map"}``
 (``engine/train_loop.py:eval_epoch_detection``). The multi-head models
-(ROADMAP Queue 1 item 9) raise.
+(ROADMAP Queue 1 item 9b) raise.
 """
 
 from __future__ import annotations

@@ -33,7 +33,7 @@ the val set's boxes into the ``AVAMeter``'s frame mAP
 parallelism.
 
 Not ported, each raising with the ROADMAP Queue 1 item that brings it:
-multigrid (item 10), the multi-head models (item 9), TensorBoard (item 11).
+multigrid (item 10), the multi-head models (item 9b), TensorBoard (item 11).
 """
 
 from __future__ import annotations
@@ -119,7 +119,7 @@ def check_supported(cfg) -> None:
     unported = (
         (cfg.MULTIGRID.LONG_CYCLE or cfg.MULTIGRID.SHORT_CYCLE,
          "multigrid training", 10),
-        (cfg.MODEL.USE_MULTI_HEAD, "multi-head models", 9),
+        (cfg.MODEL.USE_MULTI_HEAD, "multi-head models", "9b"),
         (cfg.TENSORBOARD.ENABLE, "TensorBoard", 11),
     )
     for on, what, item in unported:
@@ -135,24 +135,26 @@ def check_supported(cfg) -> None:
             f"process a card) or call parallel.mesh.init_distributed first")
 
 
-# what a detection batch adds to the model's inputs and labels on the card
-_BOX_KEYS = ("boxes", "box_mask")
+# what a batch adds to the model's inputs and labels on the card: a
+# detection batch's boxes and their mask, a contrastive batch's token ids
+_EXTRA_KEYS = ("boxes", "box_mask", "tokens")
 
 
 def _device_batch(feed: DeviceFeed, staged) -> dict:
     """The model's input (one clip, or the list of a multi-pathway model's)
-    and the labels, and a detection batch's boxes and their mask, on the
-    card."""
+    and the labels, and a detection batch's boxes and their mask or a
+    contrastive batch's token ids, on the card."""
     dev = feed.take(staged)
     xs = dev["inputs"]
     out = {"inputs": xs[0] if len(xs) == 1 else xs, "labels": dev["labels"]}
-    out.update((k, dev[k]) for k in _BOX_KEYS if k in dev)
+    out.update((k, dev[k]) for k in _EXTRA_KEYS if k in dev)
     return out
 
 
 def _put(feed: DeviceFeed, batch: dict):
-    """Starts the copies of a host batch's model inputs, labels and boxes."""
-    return feed.put({k: batch[k] for k in ("inputs", "labels", *_BOX_KEYS)
+    """Starts the copies of a host batch's model inputs, labels, and boxes
+    or token ids."""
+    return feed.put({k: batch[k] for k in ("inputs", "labels", *_EXTRA_KEYS)
                      if k in batch})
 
 

@@ -1,7 +1,8 @@
 """Model builder (port of ``aicity_action_tpu/models/{build,zoo}.py``):
-``MODEL.MODEL_NAME`` ``MViT``, and the BatchNorm conv nets ``ResNet``,
-``SlowFast`` and ``X3D``; :func:`example_inputs` gives a model's
-positional arguments at batch 1 (the zoo's example inputs)."""
+``MODEL.MODEL_NAME`` ``MViT``, ``ActionCLIP`` (the video-text dual
+encoder), and the BatchNorm conv nets ``ResNet``, ``SlowFast`` and
+``X3D``; :func:`example_inputs` gives a model's positional arguments at
+batch 1 (the zoo's example inputs)."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import torch
 from torch import nn
 
 from ..device import compute_dtype, resolve_device
+from .actionclip import ActionCLIP
 from .convnets import is_bn
 from .mvit import MViT, build_mvit_spec
 from .resnet_models import X3D, ResNet, SlowFast
@@ -46,14 +48,22 @@ def build_model(cfg, device: str | torch.device = "cuda",
     mode, with weights drawn from ``seed`` (default ``cfg.RNG_SEED``).
     Raises if ``device`` is CUDA and there is no card."""
     name = cfg.MODEL.MODEL_NAME
-    if name != "MViT" and name not in _CONV_NETS:
+    if name not in ("MViT", "ActionCLIP") and name not in _CONV_NETS:
         raise NotImplementedError(f"MODEL_NAME {name!r} is not ported yet")
     dev = resolve_device(device)
     dtype = compute_dtype(cfg.TPU.COMPUTE_DTYPE)
-    model = (MViT(build_mvit_spec(cfg), dtype) if name == "MViT"
-             else _CONV_NETS[name](cfg, dtype))
     gen = torch.Generator().manual_seed(
         cfg.RNG_SEED if seed is None else seed)
+    if name == "ActionCLIP":
+        # the video tower by the reference's rules, the text tower by
+        # CLIP's; logit_scale keeps its ln(1 / 0.07)
+        model = ActionCLIP(cfg, dtype)
+        if model.video_encoder is not None:
+            init_weights(model.video_encoder, gen)
+        model.text_encoder.init_weights(gen)
+        return model.to(dev).eval()
+    model = (MViT(build_mvit_spec(cfg), dtype) if name == "MViT"
+             else _CONV_NETS[name](cfg, dtype))
     init_weights(model, gen)
     if name != "MViT":
         model.set_channels_last(model.channels_last)
@@ -65,7 +75,8 @@ def example_inputs(cfg, device: str | torch.device = "cpu") -> tuple:
     package's ``models/zoo.py`` example inputs): the clip, or for a conv
     net the list of its pathways' clips (the slow one ``T // alpha``
     frames long), channels-last, in the compute dtype; and under
-    ``DETECTION.ENABLE`` one all-zero ``[1, 5]`` box row."""
+    ``DETECTION.ENABLE`` one all-zero ``[1, 5]`` box row, or for
+    ActionCLIP one all-zero row of token ids."""
     dtype = compute_dtype(cfg.TPU.COMPUTE_DTYPE)
     T, C = cfg.DATA.NUM_FRAMES, cfg.DATA.INPUT_CHANNEL_NUM
     S = cfg.DATA.TRAIN_CROP_SIZE
@@ -73,7 +84,7 @@ def example_inputs(cfg, device: str | torch.device = "cpu") -> tuple:
     def clip(t, c):
         return torch.zeros((1, t, S, S, c), dtype=dtype, device=device)
 
-    if cfg.MODEL.MODEL_NAME == "MViT":
+    if cfg.MODEL.MODEL_NAME in ("MViT", "ActionCLIP"):
         xs = clip(T, C[0])
     elif cfg.MODEL.MODEL_NAME == "SlowFast":
         xs = [clip(T // cfg.SLOWFAST.ALPHA, C[0]),
@@ -82,4 +93,7 @@ def example_inputs(cfg, device: str | torch.device = "cpu") -> tuple:
         xs = [clip(T, C[0])]
     if cfg.DETECTION.ENABLE:
         return xs, torch.zeros((1, 5), dtype=torch.float32, device=device)
+    if cfg.MODEL.MODEL_NAME == "ActionCLIP":
+        return xs, torch.zeros((1, cfg.CONTRA.CONTEXT_LENGTH),
+                               dtype=torch.long, device=device)
     return (xs,)

@@ -1,5 +1,8 @@
-"""Classification head (port of ``aicity_action_tpu/models/heads.py:
-TransformerBasicHead``; reference: head_helper.py:369-417)."""
+"""Classification and contrastive heads (port of ``aicity_action_tpu/
+models/heads.py``: ``TransformerBasicHead``, reference head_helper.py:
+369-417, and ``ContrastiveProjectionHead``, head_helper.py:419-450).
+``TransformerMultiHead`` (the multi-dataset heads) is not ported yet
+(ROADMAP Queue 1 item 9b)."""
 
 from __future__ import annotations
 
@@ -8,6 +11,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.mesh import dp_rand
+from .text import ProjectionMlp
 
 
 class TransformerBasicHead(nn.Module):
@@ -45,3 +49,28 @@ class TransformerBasicHead(nn.Module):
             x = torch.softmax(x, dim=1) if self.act_func == "softmax" \
                 else torch.sigmoid(x)
         return x
+
+
+class ContrastiveProjectionHead(nn.Module):
+    """The video tower's head of ActionCLIP: LayerNorm (eps 1e-6, f32
+    statistics) then a bias-free linear ``projection`` to ``dim_out``, or
+    under ``use_mlp`` a 2048-wide MLP (``projection.fc1`` / ``fc2``, dropout
+    in training). Plain PyTorch, as the JAX package's is plain XLA; returns
+    the compute type."""
+
+    def __init__(self, dim_in: int, dim_out: int, use_mlp: bool = False,
+                 dropout_rate: float = 0.0):
+        super().__init__()
+        self.norm = nn.LayerNorm(dim_in, eps=1e-6)
+        self.projection = (ProjectionMlp(dim_in, 2048, dim_out, dropout_rate)
+                           if use_mlp else nn.Linear(dim_in, dim_out,
+                                                     bias=False))
+
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        dt = x.dtype
+        x = F.layer_norm(x.float(), (x.shape[-1],), self.norm.weight,
+                         self.norm.bias, 1e-6).to(dt)
+        if isinstance(self.projection, nn.Linear):
+            return F.linear(x, self.projection.weight.to(dt))
+        return self.projection(x, generator)

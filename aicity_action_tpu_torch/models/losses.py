@@ -4,7 +4,7 @@ registered losses; reference: slowfast/models/losses.py).
 Each loss is ``loss(logits, targets, reduction)``: int labels for
 ``cross_entropy``, ``[B, C]`` soft or multi-hot targets for the rest.
 Computed in f32 whatever the logits' type. The multi-dataset and VICReg
-losses serve the multi-head models (ROADMAP Queue 1 item 9).
+losses serve the multi-head models (ROADMAP Queue 1 item 9b).
 """
 
 from __future__ import annotations

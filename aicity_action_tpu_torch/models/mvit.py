@@ -55,7 +55,7 @@ from ..ops.layer_norm import (channel_major_applies, fused_layer_norm,
                               pool_norm_rows)
 from ..ops.pooling import attention_pool, pool3d_ncdhw
 from .common import FusedLayerNorm, drop_path, drop_path_mask, round_width
-from .heads import TransformerBasicHead
+from .heads import ContrastiveProjectionHead, TransformerBasicHead
 from .roi_head import ResNetRoIHead
 
 Triple = tuple[int, int, int]
@@ -591,7 +591,8 @@ class MultiScaleBlock(nn.Module):
         super().__init__()
         s = spec
         if s.moe:
-            raise NotImplementedError("MoE blocks are not ported yet")
+            raise NotImplementedError(
+                "MoE blocks are not ported yet (ROADMAP Queue 1 item 10)")
         expand = channel_expand_front and s.dim != s.dim_out
         dim_att = s.dim_out if expand else s.dim
         self.has_cls = has_cls
@@ -679,18 +680,21 @@ class MViT(nn.Module):
     PROJ`` the spatial max of the map's temporal mean. Under
     ``DETECTION.ENABLE`` the final norm's tokens become a ``[B, T, H, W,
     C]`` map for the RoI head: ``forward(x, bboxes)`` returns the f32
-    activation of each ``[N, 5]`` box row, in training too.
+    activation of each ``[N, 5]`` box row, in training too. Under
+    ``CONTRA.ENABLE`` (ActionCLIP's video tower) the head is the contrastive
+    projection, and the forward returns its features in the compute type.
     """
 
     def __init__(self, spec: MViTSpec,
                  compute_dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         sp = spec
-        for flag, what in ((sp.contra_enable, "contrastive"),
-                           (sp.use_multi_head, "multi-head"),
-                           (sp.moe.num_experts > 0, "MoE")):
+        for flag, what, item in ((sp.use_multi_head, "multi-head", "9b"),
+                                 (sp.moe.num_experts > 0, "MoE", "10")):
             if flag:
-                raise NotImplementedError(f"{what} MViT is not ported yet")
+                raise NotImplementedError(
+                    f"{what} MViT is not ported yet (ROADMAP Queue 1 item "
+                    f"{item})")
         if sp.cls_embed and (sp.detection_enable
                              or sp.use_spatial_maxpool_before_proj):
             # the JAX package's reshape of the L + 1 final-norm rows into
@@ -729,7 +733,12 @@ class MViT(nn.Module):
         dim_out = sp.blocks[-1].dim_out
         self.norm = (None if sp.no_norm_before_avg
                      else FusedLayerNorm(dim_out, eps=1e-6))
-        if sp.detection_enable:
+        if sp.contra_enable and not sp.detection_enable:
+            # ActionCLIP's video tower (mvit.py:1057-1065)
+            self.head = ContrastiveProjectionHead(
+                dim_out, sp.contra_embed_dim, use_mlp=sp.contra_use_mlp,
+                dropout_rate=sp.head_dropout)
+        elif sp.detection_enable:
             self.head = ResNetRoIHead(
                 [dim_out], sp.num_classes, resolution=[sp.roi_resolution],
                 scale_factor=[sp.roi_scale_factor],

@@ -17,7 +17,8 @@ each rank its slice of the host's batch and lets
   BatchNorm statistics); :func:`gather_rows` assembles the global batch
   from every rank's rows with one all-reduce (gloo reduces CUDA tensors but
   does not gather them).
-- :func:`process_allgather` is the JAX package's ragged host-side gather.
+- :func:`process_allgather` is the JAX package's ragged host-side gather;
+  :func:`allgather_objects` gathers any picklable object.
 """
 
 from __future__ import annotations
@@ -148,6 +149,16 @@ def dp_rand(shape: tuple, generator: Optional[torch.Generator],
     full = torch.rand((shape[0] * world, *shape[1:]), generator=generator,
                       device=device)
     return local_rows(full)
+
+
+def allgather_objects(obj) -> list:
+    """Every rank's picklable ``obj``, in rank order (``[obj]`` without a
+    group)."""
+    if get_world_size() == 1:
+        return [obj]
+    out: list = [None] * get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
 
 
 def process_allgather(x) -> list:

@@ -12,7 +12,9 @@
   ``pkg-config``, a yuv420p source, an even pixel ROI, ``AICITY_VDEC`` not
   0. Everything else decodes with cv2, imported only there.
 - :class:`WindowScorer` scores the windows with the model on the card that
-  holds it. The default path uploads each chunk once, keeps the previous
+  holds it (in a process group of several ranks, each rank a contiguous,
+  chunk-aligned share of one video's windows, gathered back in order).
+  The default path uploads each chunk once, keeps the previous
   chunk's tail on the card, gathers every window's frames there by index,
   converts to normalized RGB and scores batches of windows, while a decoder
   thread keeps two chunks ahead. :meth:`WindowScorer.score_chunks` takes
@@ -44,6 +46,7 @@ import torch
 
 from ..data.decoder import cv2_video_meta, probe, sample_indices
 from ..data.transform import pack_pathway_output
+from ..parallel import mesh
 
 
 def window_spans(num_frames: int, fps: float, frame_length: int,
@@ -338,14 +341,17 @@ class WindowDataset:
 
         return write
 
-    def _decode_chunk(self, c: int, F: int, rgb: bool, yuv420: bool):
-        """Chunk ``c`` (source frames ``[c*F, (c+1)*F)``) from a decoder of
-        its own: ``(slab, n_real)``, the slab's tail padded with the chunk's
-        own last frame where ``0 < n_real < F`` (the sequential generator's
-        partial chunk); ``(None, 0)`` past EOF. The same backend as
-        :meth:`stream_chunks`, so the bytes are the same."""
+    def _decode_chunk(self, c: int, F: int, rgb: bool, yuv420: bool,
+                      end_frame: Optional[int] = None):
+        """Chunk ``c`` (source frames ``[c*F, (c+1)*F)``, none at or past
+        ``end_frame``) from a decoder of its own: ``(slab, n_real)``, the
+        slab's tail padded with the chunk's own last frame where ``0 <
+        n_real < F`` (the sequential generator's partial chunk); ``(None,
+        0)`` past EOF. The same backend as :meth:`stream_chunks`, so the
+        bytes are the same."""
         s = self.frame_size
         slab = np.empty(self._chunk_shape(F, yuv420), np.uint8)
+        n = F if end_frame is None else min(F, end_frame - c * F)
         done = 0
         dec = self._open_vdec(s) if yuv420 else None
         if dec is not None:
@@ -354,7 +360,7 @@ class WindowDataset:
                 # decode-and-discard skip (no crop or scale work)
                 if c and not dec.seek(c * F):
                     dec.skip(c * F)
-                while done < F and dec.read(slab[done]):
+                while done < n and dec.read(slab[done]):
                     done += 1
         else:
             import cv2
@@ -373,7 +379,7 @@ class WindowDataset:
                         for _ in range(c * F):
                             if not cap.grab():
                                 break
-                while done < F:
+                while done < n:
                     ok, frame = cap.read()
                     if not ok:
                         break
@@ -388,7 +394,9 @@ class WindowDataset:
 
     def stream_chunks_parallel(self, chunk_frames: int, n_threads: int,
                                rgb: bool = True, yuv420: bool = True,
-                               max_chunks: Optional[int] = None
+                               max_chunks: Optional[int] = None,
+                               first_chunk: int = 0,
+                               end_frame: Optional[int] = None
                                ) -> Iterator[np.ndarray]:
         """Ordered ``n_threads`` variant of :meth:`stream_chunks`, equal to it
         bit for bit (EOF padding included) and infinite like it. Chunk ``c``
@@ -398,20 +406,23 @@ class WindowDataset:
         ``n_threads + 1`` slabs are in flight. No chunk at or past
         ``max_chunks`` is submitted (a consumer that stops there leaves no
         decode behind; chunks asked for past it are repeat-last pads, as
-        past EOF)."""
-        if n_threads <= 1:
+        past EOF). ``first_chunk`` starts the stream at that chunk (a rank's
+        share of the video), and no frame at or past ``end_frame`` is
+        decoded: the chunk that holds it is padded from there, as at EOF."""
+        if n_threads <= 1 and not first_chunk and end_frame is None:
             yield from self.stream_chunks(chunk_frames, rgb=rgb,
                                           yuv420=yuv420)
             return
         from concurrent.futures import ThreadPoolExecutor
 
         F = chunk_frames
+        n_threads = max(n_threads, 1)
         if yuv420 and self.frame_size % 2:
             raise ValueError("I420 packing needs an even frame size")
         self._resolve_roi_px()  # once, before the workers race on it
         shape = self._chunk_shape(F, yuv420)
         limit = max_chunks if max_chunks is not None else float("inf")
-        n0 = int(min(n_threads + 1, limit))
+        n0 = int(min(first_chunk + n_threads + 1, limit))
         last = None  # the last real frame seen so far
 
         def pad():
@@ -419,10 +430,13 @@ class WindowDataset:
             out[:] = last if last is not None else 0
             return out
 
+        def submit(c):
+            return pool.submit(self._decode_chunk, c, F, rgb, yuv420,
+                               end_frame)
+
         with ThreadPoolExecutor(max_workers=n_threads) as pool:
-            futs = {c: pool.submit(self._decode_chunk, c, F, rgb, yuv420)
-                    for c in range(n0)}
-            nxt, c, eof = n0, 0, False
+            futs = {c: submit(c) for c in range(first_chunk, n0)}
+            nxt, c, eof = n0, first_chunk, False
             try:
                 while True:
                     if eof or c not in futs:
@@ -431,8 +445,7 @@ class WindowDataset:
                     slab, n_real = futs.pop(c).result()
                     if n_real == F:
                         if nxt < limit:
-                            futs[nxt] = pool.submit(self._decode_chunk, nxt,
-                                                    F, rgb, yuv420)
+                            futs[nxt] = submit(nxt)
                             nxt += 1
                         last = slab[-1].copy()  # the consumer owns the slab
                         yield slab
@@ -514,6 +527,12 @@ class WindowScorer:
     detection model's (``detection=True``): its RoI head scores one
     whole-frame box a window, ``[i, 0, 0, s, s]`` (the reference's
     module_wrapper.py:558-576), the mean-pooled frame in effect.
+
+    In a process group of several ranks (``parallel/mesh.py``: one process
+    a card, where the JAX package shards each batch over a host's chips,
+    ``window_inference.py:559-571``) the device-gather path splits one
+    video's windows over the ranks (:meth:`_score_ranks`); every rank
+    returns the whole video's windows.
     """
 
     def __init__(self, model: torch.nn.Module, batch_size: int = 8,
@@ -587,8 +606,56 @@ class WindowScorer:
 
     def _score_device_gather(self, dataset: WindowDataset) -> list:
         plans = dataset.plans()
+        if mesh.get_world_size() > 1:
+            return self._score_ranks(dataset, plans)
         if not plans:
             return []
+        return self._gather_windows(dataset, plans)
+
+    def _score_ranks(self, dataset: WindowDataset, plans: list) -> list:
+        """One video's windows over the group's ranks (one a card): rank r
+        takes the windows whose first frame lies in its contiguous share of
+        the chunks (:func:`rank_chunks`), decodes from its first chunk to
+        the last frame its windows read (past its share's end where a
+        window spans into the next chunk) and scores them; then every rank
+        gathers ``(window index, scores)`` and returns the whole video's
+        list, in the one-rank order. A rank with no windows (a video of
+        fewer chunks than ranks) joins the gathers. ``last_timers`` holds
+        ``ranks``, each rank's split (its ``windows`` too)."""
+        F = self.chunk_frames
+        first = [int(p[2][0]) // F for p in plans]
+        lo, hi = rank_chunks(max(first) + 1 if plans else 0,
+                             mesh.get_world_size(), mesh.get_rank())
+        mine = [w for w, c in enumerate(first) if lo <= c < hi]
+        timers = {"upload": 0.0, "dispatch": 0.0, "drain": 0.0,
+                  "calls": 0, "chunks": 0, "decode": 0.0, "decoder": None}
+        scores = np.zeros((0, 0), np.float32)
+        if mine:
+            share = [plans[w] for w in mine]
+            preds = self._gather_windows(
+                dataset, share, first_chunk=lo,
+                end_frame=max(int(p[2][-1]) for p in share) + 1)
+            scores = np.stack([p[2] for p in preds])
+            timers = self.last_timers
+        idx = np.concatenate(mesh.process_allgather(np.asarray(mine,
+                                                               np.int64)))
+        scores = [x for x in mesh.process_allgather(scores) if len(x)]
+        ranks = mesh.allgather_objects({**timers, "windows": len(mine)})
+        self.last_timers = {"ranks": ranks}
+        if not len(idx):
+            return []
+        scores = np.concatenate(scores)
+        return [(plans[w][0], plans[w][1], scores[k])
+                for k, w in sorted(enumerate(idx.tolist()),
+                                   key=lambda kw: kw[1])]
+
+    def _gather_windows(self, dataset: WindowDataset, plans: list,
+                        first_chunk: int = 0,
+                        end_frame: Optional[int] = None) -> list:
+        """The device-gather path over ``plans``; a rank's share passes the
+        chunk its windows start in (``first_chunk``: none reads a frame
+        before it) and ``end_frame``, past the last frame they read, so that
+        its decoders decode only from the one to the other."""
         s = dataset.frame_size
         F = self.chunk_frames
         chroma = self.chroma420 and s % 2 == 0
@@ -596,9 +663,9 @@ class WindowScorer:
         # decoders fill disjoint chunks in parallel, one core left for this
         # thread; max_chunks: no decode past the last scored chunk
         n_dec = max(1, min(self.num_workers, (os.cpu_count() or 1) - 1))
-        gen = dataset.stream_chunks_parallel(F, n_dec, rgb=False,
-                                             yuv420=chroma,
-                                             max_chunks=n_chunks)
+        gen = dataset.stream_chunks_parallel(
+            F, n_dec, rgb=False, yuv420=chroma, max_chunks=n_chunks,
+            first_chunk=first_chunk, end_frame=end_frame)
         q: queue.Queue = queue.Queue(maxsize=2)
         stop = threading.Event()
         decode = [0.0]
@@ -618,7 +685,7 @@ class WindowScorer:
             # q.get(): it travels through the queue and is raised there; a
             # scoring error stops the decoding at the next chunk
             try:
-                for _ in range(n_chunks):
+                for _ in range(n_chunks - first_chunk):
                     t = time.perf_counter()
                     chunk = next(gen)
                     decode[0] += time.perf_counter() - t
@@ -639,7 +706,7 @@ class WindowScorer:
         th.start()
         try:
             preds = self.score_chunks(chunks(), plans, s, dataset.mean,
-                                      dataset.std)
+                                      dataset.std, first_chunk=first_chunk)
         finally:
             stop.set()
             th.join()
@@ -651,10 +718,12 @@ class WindowScorer:
     @torch.no_grad()
     def score_chunks(self, chunks: Iterator[np.ndarray],
                      plans: Sequence[tuple[int, int, np.ndarray]], s: int,
-                     mean: Sequence[float], std: Sequence[float]) -> list:
+                     mean: Sequence[float], std: Sequence[float],
+                     first_chunk: int = 0) -> list:
         """Score ``plans`` (``(t0, t1, frame indices)``, indices ascending
         within a window) over ``chunks``, an iterator of consecutive u8
-        chunks of ``chunk_frames`` frames that covers every indexed frame:
+        chunks of ``chunk_frames`` frames from chunk ``first_chunk`` on (no
+        window reads a frame before it) that covers every indexed frame:
         planar I420 ``[F, s*3//2, s]`` (``chroma420`` and an even ``s``),
         else BGR ``[F, s, s, 3]``. ``mean`` / ``std`` are in RGB order.
         Returns the sorted ``[(t0, t1, scores f32)]``; sets ``last_timers``
@@ -692,7 +761,7 @@ class WindowScorer:
         timers = {"upload": 0.0, "dispatch": 0.0, "drain": 0.0}
         prev = torch.zeros((F, *row), dtype=torch.uint8, device=dev)
         pending = []  # (scores on the card, [(t0, t1)])
-        for c in range(n_chunks):
+        for c in range(first_chunk, n_chunks):
             chunk = next(chunks)
             t = time.perf_counter()
             host = torch.from_numpy(chunk)
@@ -718,7 +787,7 @@ class WindowScorer:
         preds = _sorted_preds(pending)
         timers["drain"] += time.perf_counter() - t
         self.last_timers = {**timers, "calls": len(pending),
-                            "chunks": n_chunks}
+                            "chunks": n_chunks - first_chunk}
         return preds
 
     @torch.no_grad()
@@ -738,6 +807,15 @@ class WindowScorer:
             out = out.float()
             pending.append((out, list(zip(t0.tolist(), t1.tolist()))))
         return _sorted_preds(pending)
+
+
+def rank_chunks(n_chunks: int, world: int, rank: int) -> tuple[int, int]:
+    """``[lo, hi)``: rank ``rank``'s contiguous share of ``n_chunks``
+    chunks over ``world`` ranks (the first ``n_chunks % world`` ranks take
+    one more; shares past the chunks are empty)."""
+    per, extra = divmod(n_chunks, world)
+    lo = rank * per + min(rank, extra)
+    return lo, lo + per + (rank < extra)
 
 
 def _sorted_preds(pending: list) -> list:

@@ -53,17 +53,22 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def run(local_rank: int, cfg, device: str, ddp: bool) -> dict:
+def run(local_rank: int, cfg, device: str, ddp: bool, train=None,
+        test=None) -> dict:
     """One rank: joins the group where the config or ``ddp`` asks for one,
-    then ``train`` where ``TRAIN.ENABLE`` and ``test`` where
-    ``TEST.ENABLE``. Returns ``{"train": TrainRun or None, "test": stats or
-    None}``."""
+    then ``train(cfg, device=...)`` where ``TRAIN.ENABLE`` and ``test(cfg,
+    device=...)`` where ``TEST.ENABLE`` (by default the classification
+    loops', ``engine/{train_loop,test_loop}.py``). Returns ``{"train": what
+    train returned or None, "test": stats or None}``."""
     import torch
 
     from ..device import resolve_device
-    from ..engine.test_loop import test
-    from ..engine.train_loop import train
     from ..parallel import mesh
+
+    if train is None:
+        from ..engine.train_loop import train
+    if test is None:
+        from ..engine.test_loop import test
 
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None and (
@@ -83,14 +88,16 @@ def run(local_rank: int, cfg, device: str, ddp: bool) -> dict:
     return out
 
 
-def _spawned(local_rank: int, cfg, device: str, ddp: bool) -> None:
-    run(local_rank, cfg, device, ddp)
+def _spawned(local_rank: int, cfg, device: str, ddp: bool, train,
+             test) -> None:
+    run(local_rank, cfg, device, ddp, train, test)
 
 
-def main(argv=None) -> dict:
-    """Runs :func:`run` in this process, or, at ``NUM_GPUS`` > 1, in that
-    many spawned processes (then returns ``{"train": None, "test": None}``:
-    the ranks' results stay in ``OUTPUT_DIR``)."""
+def main(argv=None, train=None, test=None) -> dict:
+    """Runs :func:`run` (with ``train`` and ``test`` where given) in this
+    process, or, at ``NUM_GPUS`` > 1, in that many spawned processes (then
+    returns ``{"train": None, "test": None}``: the ranks' results stay in
+    ``OUTPUT_DIR``)."""
     from ..config import assert_and_infer_cfg, load_config
     from ..device import resolve_device
 
@@ -100,10 +107,10 @@ def main(argv=None) -> dict:
     if cfg.NUM_GPUS > 1:
         import torch.multiprocessing as mp
 
-        mp.spawn(_spawned, args=(cfg, args.device, args.ddp),
+        mp.spawn(_spawned, args=(cfg, args.device, args.ddp, train, test),
                  nprocs=cfg.NUM_GPUS, join=True)
         return {"train": None, "test": None}
-    return run(0, cfg, args.device, args.ddp)
+    return run(0, cfg, args.device, args.ddp, train, test)
 
 
 if __name__ == "__main__":

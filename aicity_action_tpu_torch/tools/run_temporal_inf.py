@@ -15,6 +15,13 @@ Usage:
         --video_lst FILE --video_path DIR --out_dir DIR \
         [--checkpoint CKPT] [--device cuda] [opts...]
 
+``NUM_GPUS N`` (N > 1) among the opts spawns N ranks on this host, one a
+card (rank i on ``cuda:i``), in a process group on ``DIST_BACKEND``
+(``nccl``; ``gloo`` for ``--device cpu``) at ``INIT_METHOD``, as
+``tools/run_net.py`` does: each video's windows are split over the ranks
+(``WindowScorer``), and rank 0 alone writes the pickle, the same file a
+one-card run writes.
+
 A two-pathway model (``MODEL.ARCH slowfast``, e.g. SlowFast R50 8x8) is
 scored through the window-streaming path with its slow and fast clips; its
 BatchNorm statistics come with the checkpoint's ``model_state``.
@@ -50,6 +57,9 @@ def parse_args(argv=None):
     p.add_argument("--num_workers", type=int, default=8,
                    help="parallel decoders (at most one fewer than the "
                         "host's cores)")
+    p.add_argument("--chunk_frames", type=int, default=512,
+                   help="source frames decoded and shipped to the card at "
+                        "a time (at least a window's span)")
     p.add_argument("--roi", type=float, nargs=4, default=[0.0, 0.0, 1.0, 1.0])
     p.add_argument("--exact_rgb", action="store_true",
                    help="ship exact BGR chunks decoded by cv2 instead of "
@@ -60,24 +70,8 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def main(argv=None) -> dict:
-    """Scores every listed video that has no pickle yet; returns ``{video:
-    {"windows", "seconds", "timers"}}`` for the videos it scored."""
-    args = parse_args(argv)
-    if args.exact_rgb and importlib.util.find_spec("cv2") is None:
-        raise SystemExit("--exact_rgb: the RGB chunk path decodes with cv2, "
-                         "which is not installed")
-
+def _config(args):
     from ..config import assert_and_infer_cfg, get_cfg
-    from ..models.build import build_model
-    from ..pipeline.window_inference import (
-        WindowDataset, WindowScorer, save_window_predictions,
-    )
-    from ..utils.checkpoint import load_test_checkpoint
-
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(name)s %(message)s")
-    logger = logging.getLogger("run_temporal_inf")
 
     cfg = get_cfg()
     cfg.merge_from_file(args.cfg)
@@ -87,26 +81,69 @@ def main(argv=None) -> dict:
         cfg.TEST.CHECKPOINT_FILE_PATH = args.checkpoint
     cfg.DATA.TRAIN_CROP_SIZE = args.frame_size
     cfg.DATA.TEST_CROP_SIZE = args.frame_size
-    cfg = assert_and_infer_cfg(cfg)
+    return assert_and_infer_cfg(cfg)
 
-    model = build_model(cfg, device=args.device)
+
+def run(local_rank: int, argv=None) -> dict:
+    """One rank (the only one at ``NUM_GPUS`` 1): scores every listed video
+    that had no pickle when the run began; returns ``{video: {"windows",
+    "seconds", "timers"}}`` for the videos it scored. Rank 0 writes the
+    pickles."""
+    import torch
+
+    from ..device import resolve_device
+    from ..parallel import mesh
+
+    args = parse_args(argv)
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(message)s")
+    cfg = _config(args)
+    dev = torch.device(args.device)
+    if dev.type == "cuda" and dev.index is None and mesh.world_size(cfg) > 1:
+        dev = torch.device("cuda", local_rank)
+    dev = resolve_device(dev)
+    grouped = mesh.init_distributed(cfg, local_rank, device=dev)
+    try:
+        return _score_videos(args, cfg, dev)
+    finally:
+        if grouped:
+            mesh.destroy()
+
+
+def _score_videos(args, cfg, dev) -> dict:
+    from ..models.build import build_model
+    from ..parallel import mesh
+    from ..pipeline.window_inference import (
+        WindowDataset, WindowScorer, save_window_predictions,
+    )
+    from ..utils.checkpoint import load_test_checkpoint
+
+    logger = logging.getLogger("run_temporal_inf")
+    model = build_model(cfg, device=dev)
     load_test_checkpoint(cfg, model)
     scorer = WindowScorer(model, batch_size=args.batch_size,
                           num_workers=args.num_workers,
+                          chunk_frames=args.chunk_frames,
                           detection=cfg.DETECTION.ENABLE,
                           chroma420=not args.exact_rgb)
-    os.makedirs(args.out_dir, exist_ok=True)
     n_path = 2 if cfg.MODEL.ARCH in cfg.MODEL.MULTI_PATHWAY_ARCH else 1
 
     with open(args.video_lst) as f:
         videos = [ln.strip() for ln in f if ln.strip()]
-    stats = {}
+    todo = []
     for name in videos:
         stem = os.path.splitext(name)[0]
         out_pkl = os.path.join(args.out_dir, f"{stem}.pkl")
         if os.path.exists(out_pkl):  # per-video resume (saves are atomic)
             logger.info("%s: %s exists, skipping", name, out_pkl)
-            continue
+        else:
+            todo.append((name, out_pkl))
+    # every rank has its list before rank 0 writes a pickle
+    mesh.barrier()
+    if mesh.is_main_process():
+        os.makedirs(args.out_dir, exist_ok=True)
+    stats = {}
+    for name, out_pkl in todo:
         t0 = time.time()
         ds = WindowDataset(
             os.path.join(args.video_path, name),
@@ -123,7 +160,8 @@ def main(argv=None) -> dict:
             backend=cfg.DATA.DECODING_BACKEND,
         )
         preds = scorer.score_video(ds)
-        save_window_predictions(preds, out_pkl)
+        if mesh.is_main_process():
+            save_window_predictions(preds, out_pkl)
         dt = time.time() - t0
         stats[name] = {"windows": len(preds), "seconds": dt,
                        "timers": scorer.last_timers}
@@ -131,6 +169,29 @@ def main(argv=None) -> dict:
                     name, len(preds), dt, len(preds) / max(dt, 1e-9),
                     scorer.last_timers)
     return stats
+
+
+def _spawned(local_rank: int, argv) -> None:
+    run(local_rank, argv)
+
+
+def main(argv=None) -> dict:
+    """Runs :func:`run` in this process, or at ``NUM_GPUS`` > 1 in that many
+    spawned ranks (then returns ``{}``: the pickles are the result)."""
+    args = parse_args(argv)
+    if args.exact_rgb and importlib.util.find_spec("cv2") is None:
+        raise SystemExit("--exact_rgb: the RGB chunk path decodes with cv2, "
+                         "which is not installed")
+    from ..device import resolve_device
+
+    resolve_device(args.device)  # no card and no --device cpu: raise here
+    cfg = _config(args)
+    if cfg.NUM_GPUS > 1:
+        import torch.multiprocessing as mp
+
+        mp.spawn(_spawned, args=(argv,), nprocs=cfg.NUM_GPUS, join=True)
+        return {}
+    return run(0, argv)
 
 
 if __name__ == "__main__":

@@ -9,8 +9,10 @@ slowfast/utils/checkpoint.py).
   port writes one ``torch.save`` file in the reference ``.pyth`` format:
   ``epoch``, ``model_state`` (the reference parameter names),
   ``optimizer_state`` and ``cfg``, plus ``step``, the optimizer's step
-  count, on which the LR schedule and the step's random draws key. The
-  run's ``config.yaml`` goes beside them.
+  count, on which the LR schedule and the step's random draws key, and
+  under MoCo ``ema_state``, the momentum model's ``state_dict`` (the JAX
+  package's ``ema_params``, ``checkpoint.py:123-124``). The run's
+  ``config.yaml`` goes beside them.
 - ``TPU.ASYNC_CHECKPOINT``: the copy to the host stays on the training
   thread; only the file write moves to a writer thread, one in flight at a
   time. Every checkpoint scan or load drains it first
@@ -19,8 +21,13 @@ slowfast/utils/checkpoint.py).
   (``TRAIN.AUTO_RESUME``), else ``TRAIN.CHECKPOINT_FILE_PATH`` (a partial
   load by shape, ``CHECKPOINT_CLEAR_NAME_PATTERN`` stripped from the names,
   the epoch kept unless ``CHECKPOINT_EPOCH_RESET``), else epoch 0.
+  Auto-resume restores the momentum weights too (``checkpoint.py:
+  219-222``).
 - :func:`load_test_checkpoint`: ``TEST.CHECKPOINT_FILE_PATH``, else the
-  last checkpoint, else ``TRAIN.CHECKPOINT_FILE_PATH``.
+  last checkpoint, else ``TRAIN.CHECKPOINT_FILE_PATH``. Into a text-only
+  ActionCLIP (``MODEL.LOAD_VISUAL False``) this loads the text tower and
+  ``logit_scale``: the video tower's keys are skipped as the model lacks
+  them.
 
 A torch checkpoint's ``model_state`` (or a bare state dict) is merged into
 the model by shape: a key whose shape matches the model's parameter is
@@ -134,11 +141,12 @@ def _write(payload: dict, path: str) -> None:
 
 
 def save_checkpoint(output_dir: str, model: torch.nn.Module, optimizer,
-                    epoch: int, cfg=None, *,
-                    async_write: bool = False) -> str:
+                    epoch: int, cfg=None, *, async_write: bool = False,
+                    momentum_model: Optional[torch.nn.Module] = None) -> str:
     """Save epoch ``epoch + 1``: the model's ``state_dict``, the torch
     optimizer's and ``optimizer.count`` (a :class:`~aicity_action_tpu_torch.
-    solver.optimizer.TrainOptimizer`), copied to the host here; the file is
+    solver.optimizer.TrainOptimizer`), and MoCo's ``momentum_model``'s
+    ``state_dict`` where given, copied to the host here; the file is
     written here or, with ``async_write``, on the writer thread. Every rank
     calls it (ZeRO's shards gather here); rank 0 writes."""
     path = checkpoint_path(output_dir, epoch + 1)
@@ -154,6 +162,8 @@ def save_checkpoint(output_dir: str, model: torch.nn.Module, optimizer,
         "optimizer_state": _to_host(opt_state),
         "cfg": cfg.dump() if cfg is not None else "",
     }
+    if momentum_model is not None:
+        payload["ema_state"] = _to_host(momentum_model.state_dict())
     if cfg is not None:
         with open(os.path.join(checkpoint_dir(output_dir),
                                "config.yaml"), "w") as f:
@@ -241,26 +251,34 @@ def _load_epoch(path: str) -> int:
     return int(ckpt.get("epoch", 0)) if isinstance(ckpt, dict) else 0
 
 
-def resume_checkpoint(path: str, model: torch.nn.Module, optimizer) -> int:
+def resume_checkpoint(path: str, model: torch.nn.Module, optimizer,
+                      momentum_model: Optional[torch.nn.Module] = None) -> int:
     """Restore a training checkpoint of :func:`save_checkpoint` whole: the
-    model (strictly), the torch optimizer's state and its step count.
+    model (strictly), the torch optimizer's state and its step count, and
+    the momentum weights into ``momentum_model`` where the checkpoint has
+    them (else it keeps its own, as the JAX package's resume does).
     Returns the checkpoint's epoch."""
     _check_torch_path(path)
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     model.load_state_dict(ckpt["model_state"])
+    if momentum_model is not None and "ema_state" in ckpt:
+        momentum_model.load_state_dict(ckpt["ema_state"])
     optimizer.opt.load_state_dict(ckpt["optimizer_state"])
     optimizer.count = int(ckpt["step"])
     return int(ckpt["epoch"])
 
 
-def load_train_checkpoint(cfg, model: torch.nn.Module, optimizer) -> int:
-    """Auto-resume from the last checkpoint > ``TRAIN.CHECKPOINT_FILE_PATH``
-    (weights only) > fresh. Returns the epoch to start from."""
+def load_train_checkpoint(cfg, model: torch.nn.Module, optimizer,
+                          momentum_model: Optional[torch.nn.Module] = None
+                          ) -> int:
+    """Auto-resume from the last checkpoint (MoCo's momentum weights
+    included) > ``TRAIN.CHECKPOINT_FILE_PATH`` (weights only) > fresh.
+    Returns the epoch to start from."""
     mesh.barrier()
     if cfg.TRAIN.AUTO_RESUME and has_checkpoint(cfg.OUTPUT_DIR):
         last = get_last_checkpoint(cfg.OUTPUT_DIR)
         logger.info("Auto-resuming from %s", last)
-        return resume_checkpoint(last, model, optimizer)
+        return resume_checkpoint(last, model, optimizer, momentum_model)
     path = cfg.TRAIN.CHECKPOINT_FILE_PATH
     if path:
         load_torch_checkpoint(path, model,

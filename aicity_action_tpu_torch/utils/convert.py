@@ -10,6 +10,15 @@
 - :func:`jax_tree_to_named` applies the same mapping to any tree of the
   params' structure (a gradient tree, an optimizer moment) and keeps numpy
   leaves, so that tests compare the two packages leaf by leaf.
+- :func:`jax_actionclip_to_state_dict` / :func:`jax_actionclip_tree_to_named`
+  carry a JAX ActionCLIP tree (``video_encoder``, ``text_encoder``,
+  ``logit_scale``) over: the video tower by the MViT map (its contrastive
+  head's ``norm`` and ``projection`` included), the text tower to CLIP's
+  names (``resblocks_{i}`` -> ``resblocks.{i}``, ``in_proj_kernel [D,
+  3D]`` -> ``attn.in_proj_weight [3D, D]``, ``c_fc`` / ``c_proj`` ->
+  ``mlp.c_fc`` / ``mlp.c_proj``, ``token_embedding.embedding`` ->
+  ``token_embedding.weight``; ``positional_embedding`` and a matrix
+  ``text_projection`` keep their layout).
 - :func:`jax_convnet_to_state_dict` is the inverse of ``convert_convnet_
   state_dict`` (``aicity_action_tpu/utils/convert.py:162``): JAX conv-net
   ``params`` and ``batch_stats`` become the port's ``state_dict``. DHWIO
@@ -72,6 +81,57 @@ def jax_tree_to_named(tree: Mapping) -> dict[str, np.ndarray]:
 
     walk(tree, [])
     return sd
+
+
+def _text_tree_to_named(tree: Mapping) -> dict[str, np.ndarray]:
+    """The JAX text tower's tree -> ``{CLIP name: numpy array}``."""
+    sd: dict[str, np.ndarray] = {}
+
+    def emit(path: list[str], leaf: str, w: np.ndarray) -> None:
+        mods = []
+        for p in path:
+            if p.startswith("resblocks_"):
+                mods += ["resblocks", p[len("resblocks_"):]]
+            elif p in ("c_fc", "c_proj"):
+                mods += ["mlp", p]
+            else:
+                mods.append(p)
+        if leaf == "in_proj_kernel":
+            leaf, w = "in_proj_weight", w.T
+        elif leaf == "kernel":
+            leaf, w = "weight", w.T
+        elif leaf in ("scale", "embedding"):
+            leaf = "weight"
+        sd[".".join(mods + [leaf])] = np.array(w)
+
+    def walk(node: Mapping, path: list[str]) -> None:
+        for k, v in node.items():
+            if isinstance(v, Mapping):
+                walk(v, path + [k])
+            else:
+                emit(path, k, np.asarray(v))
+
+    walk(tree, [])
+    return sd
+
+
+def jax_actionclip_tree_to_named(tree: Mapping) -> dict[str, np.ndarray]:
+    """A tree shaped like the JAX ActionCLIP params -> ``{port name: numpy
+    array in the port's layout}``."""
+    sd: dict[str, np.ndarray] = {}
+    if "video_encoder" in tree:
+        sd.update(("video_encoder." + k, v) for k, v in
+                  jax_tree_to_named(tree["video_encoder"]).items())
+    sd.update(("text_encoder." + k, v) for k, v in
+              _text_tree_to_named(tree["text_encoder"]).items())
+    sd["logit_scale"] = np.array(np.asarray(tree["logit_scale"]))
+    return sd
+
+
+def jax_actionclip_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
+    """JAX ActionCLIP params -> the port's ActionCLIP ``state_dict``."""
+    return {k: torch.from_numpy(v)
+            for k, v in jax_actionclip_tree_to_named(params).items()}
 
 
 def load_pyth(path: str) -> dict[str, torch.Tensor]:

@@ -7,7 +7,7 @@ host numbers. ``TrainMeter`` also keeps each iteration's wall and data
 wait of the epoch (``iter_times``, ``data_times``), from which the train
 loop reports its data-wait share. ``AVAMeter`` gives the AVA frame mAP of
 detection. ``MultiDatasetValMeter`` (the multi-head heads, ROADMAP Queue 1
-item 9) is not ported.
+item 9b) is not ported.
 """
 
 from __future__ import annotations

@@ -71,7 +71,11 @@ NVIDIA card.
    ``postprocess``. Decodes as a user's run does: with the port's FFmpeg
    library where ``pkg-config`` finds FFmpeg's development files, else
    with cv2 (and then checks that asking for the library raises, naming
-   the missing package).
+   the missing package). Then two gloo ranks on the one card score the
+   long view through ``run_temporal_inf NUM_GPUS 2`` (each rank the
+   windows that start in its share of the chunks): rank 0's pickle held
+   to the one-rank pickle, the ranks' launches summed to ``derived_counts``
+   times their forwards.
 8. Drives the training path, ``make_train_step``, at batch 4 with mixup,
    activation checkpointing and AdamW (two warm-up steps, then timed
    steps; the counts set to 0 just before the timed steps and read just
@@ -98,9 +102,11 @@ NVIDIA card.
     ms/step with data beside phase 10's.
 12. Two gloo ranks on the one card (``two_rank_checks``), each with 2 of a
     4-clip global batch, take two SGD steps of MViT-v2-B @448 and of
-    SlowFast R50 8x8 under DDP, held to a one-process run on the whole
-    batch: each step's loss and grad norm, every leaf's gradient and
-    every BatchNorm statistic (``PERF.md`` section 2's gates).
+    SlowFast R50 8x8 under DDP, held to one-process runs on the whole
+    batch: each step's loss and grad norm against the bf16 run, every
+    leaf's gradient and every BatchNorm statistic against the f32 run
+    (``PERF.md`` section 2's gates), which must also reject what a rank
+    computes without the cross-rank all-reduces.
 13. SlowFast R50 8x8 (``slowfast_checks``; seed 0, bf16): the batch-8 eval
     forward in both conv layouts, a batch-8 train step with BatchNorm
     updates, precise BN over 2 batches, a batch-1 forward against the
@@ -116,7 +122,23 @@ NVIDIA card.
 15. SlowFast R50 32x2 on AVA (``ava_checks``): ``tools/run_net.py`` on a
     written AVA tree, one epoch, eval and test to a finite frame mAP, and
     no launch of any kernel row.
-16. Prints ``{"kernels": [...]}``, the card line, and last
+16. ActionCLIP @448 (``actionclip_checks``; the AI City MViT-v2-B video
+    tower and CLIP's ViT-B text tower, seed 0, bf16): the batch-8 feature
+    forward (launches held to ``derived_counts``, video features against
+    the plain reference mode, text features against the plain f32 text
+    tower), the batch-4 contrastive train step without and with MoCo
+    (launches held to ``derived_counts``, the momentum forward's inference
+    rows counted apart from the step's training rows; finite losses, the
+    temperature clamped), a batch-2 step's gradients against the plain
+    reference.
+17. The ActionCLIP loop (``actionclip_loop_checks``):
+    ``tools/run_net_contrastive.py`` in process on the train loop's 8
+    written views with captions tokenized by the port's tokenizer, one
+    epoch with MoCo, an eval and a checkpoint, then a call that
+    auto-resumes (the momentum weights too), trains epoch 2 and writes
+    the test's feature pickle; then ``inference_videotext`` with the text
+    tower alone ranks the pickle as the loop's own features do.
+18. Prints ``{"kernels": [...]}``, the card line, and last
     ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no result.
@@ -1545,6 +1567,8 @@ CHAIN_VIEWS = (("Dashboard", 576), ("Rear_view", 100),
                ("Right_side_window", 90))
 CHAIN_SIZE = (960, 540)
 CHAIN_DECODE_CHUNK, CHAIN_DECODE_THREADS = 48, 4
+# the CLI's config: the AI City recipe (the model's, from the seed)
+CHAIN_CFG = os.path.join(_REPO, "configs", "AICITY_MVITV2_B_16x4_448.yaml")
 
 
 def _view_frames(num_frames: int, seed: int):
@@ -1636,6 +1660,9 @@ def aicity_chain_checks(card: str, cfg, model):
                       _view_frames(n, SEED + 10 + i))
         write_s = time.time() - t
         stats = _chain(d, stems, kw, cfg, model, decoder, s)
+        stats["two_ranks"] = two_rank_video_checks(
+            card, d, stems[0], stats.pop("argv"),
+            os.path.join(d, "pkl", f"{stems[0]}.pkl"), model)
     stats["write_s"] = write_s
     run = stats["run_temporal_inf"]
     parts = "; ".join(
@@ -1680,14 +1707,12 @@ def _chain(d, stems, kw, cfg, model, decoder, s):
     pkl = os.path.join(d, "pkl")
     reset_counts()
     torch.cuda.synchronize()
-    run = run_temporal_inf.main([
-        "--cfg", os.path.join(_REPO, "configs",
-                              "AICITY_MVITV2_B_16x4_448.yaml"),
-        "--video_lst", lst, "--video_path", d, "--out_dir", pkl,
-        "--frame_length", str(kw["frame_length"]), "--frame_size", str(s),
-        "--batch_size", str(BATCH), "--num_workers",
-        str(CHAIN_DECODE_THREADS), "--device", dev.type, "RNG_SEED",
-        str(SEED)])
+    argv = ["--cfg", CHAIN_CFG, "--video_lst", lst, "--video_path", d, "--out_dir", pkl,
+            "--frame_length", str(kw["frame_length"]), "--frame_size",
+            str(s), "--batch_size", str(BATCH), "--num_workers",
+            str(CHAIN_DECODE_THREADS), "--device", dev.type, "RNG_SEED",
+            str(SEED)]
+    run = run_temporal_inf.main(argv + ["NUM_GPUS", "1"])
     torch.cuda.synchronize()
     launches = read_counts()
     forwards = sum(r["timers"]["calls"] for r in run.values())
@@ -1798,11 +1823,112 @@ def _chain(d, stems, kw, cfg, model, decoder, s):
             for p in lines):
         _fail(f"malformed submission rows: {lines}")
     return {"run_temporal_inf": run, "decode_check_s": decode_s,
-            "launches": launches, "forwards": forwards,
+            "argv": argv, "launches": launches, "forwards": forwards,
             "pickle_vs_score_video_err": pickle_err,
             "direct_err": direct_err, "cv2_paths_err": cv2_err,
             "f1": graph["f1"],
             "submission_rows": len(rows)}
+
+
+# ------------------------------------------------------ two ranks, one video
+
+# both ranks on the one card (NCCL refuses two ranks on one device; gloo
+# gathers the host-side windows)
+VIDEO_RANK_DEVICE = "cuda:0"
+
+
+def _video_rank_worker(rank: int, argv: list, out: str,
+                       device: str) -> None:
+    """One of the phase's two ranks (spawned): ``run_temporal_inf.run`` on
+    ``device`` with its launch counts set to 0 just before and written,
+    with its stats and peak memory, to ``out/rank{rank}.json`` just
+    after."""
+    import torch
+
+    sys.path.insert(0, _REPO)
+    from aicity_action_tpu_torch.tools import run_temporal_inf
+
+    dev = torch.device(device)
+    reset_counts()  # a fresh process: its peak memory is the run's
+    stats = run_temporal_inf.run(rank, argv)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump({"launches": read_counts(), "stats": stats,
+                   "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)
+                   if dev.type == "cuda" else 0}, f)
+
+
+def two_rank_video_checks(card: str, d: str, stem: str, argv: list,
+                          one_pkl: str, model) -> dict:
+    """One video's windows over two gloo ranks on the one card: the
+    ``run_temporal_inf`` call of the AI City chain (``argv``, the same
+    weights from the seed) on its long view alone at ``NUM_GPUS 2``, each
+    rank scoring the windows that start in its share of the chunks
+    (``WindowScorer._score_ranks``). Rank 0's pickle must hold the one-rank
+    pickle's windows in order with every score within 1e-2; each rank must
+    have windows; the two ranks' launches must sum to ``derived_counts``
+    times their forwards."""
+    import torch.multiprocessing as mp
+
+    from aicity_action_tpu_torch.pipeline.window_inference import (
+        load_window_predictions)
+
+    lst = os.path.join(d, "one_video.txt")
+    with open(lst, "w") as f:
+        f.write(f"{stem}.y4m\n")
+    out_dir = os.path.join(d, "pkl_two_ranks")
+    argv = list(argv)
+    for flag, value in (("--video_lst", lst), ("--out_dir", out_dir),
+                        ("--device", VIDEO_RANK_DEVICE)):
+        argv[argv.index(flag) + 1] = value
+    argv += ["NUM_GPUS", "2", "DIST_BACKEND", "gloo", "INIT_METHOD",
+             f"tcp://localhost:{_free_port()}"]
+    t = time.perf_counter()
+    mp.spawn(_video_rank_worker, args=(argv, d, VIDEO_RANK_DEVICE),
+             nprocs=2, join=True)
+    wall = time.perf_counter() - t
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    timers = ranks[0]["stats"][f"{stem}.y4m"]["timers"]["ranks"]
+    forwards = sum(r["calls"] for r in timers)
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    want = {k: v * forwards
+            for k, v in derived_counts(model, train=False).items()}
+    if launches != want:
+        _fail(f"two ranks, one video: launches {launches} != "
+              f"derived_counts x {forwards} forwards {want}")
+    if not all(r["windows"] > 0 for r in timers):
+        _fail(f"two ranks, one video: a rank scored no window: {timers}")
+    if os.listdir(out_dir) != [f"{stem}.pkl"]:
+        _fail(f"two ranks, one video: {os.listdir(out_dir)} written")
+    got = load_window_predictions(os.path.join(out_dir, f"{stem}.pkl"))
+    want_preds = load_window_predictions(one_pkl)
+    if [p[:2] for p in got] != [p[:2] for p in want_preds]:
+        _fail("two ranks, one video: the windows differ from one rank's")
+    err = float(np.abs(np.stack([p[2] for p in got])
+                       - np.stack([p[2] for p in want_preds])).max())
+    if not err <= 1e-2:
+        _fail(f"two ranks, one video: scores off by {err} (tol 1e-2)")
+    split = "; ".join(
+        f"rank {i}: {r['windows']} windows, {r['chunks']} chunks, decode "
+        f"{r['decode']:.2f}, upload {r['upload']:.2f}, dispatch "
+        f"{r['dispatch']:.2f}, drain {r['drain']:.2f} s, peak memory "
+        f"{ranks[i]['peak_mem_bytes'] / 2 ** 30:.2f} GiB"
+        for i, r in enumerate(timers))
+    seconds = [rk["stats"][f"{stem}.y4m"]["seconds"] for rk in ranks]
+    print(f"# two ranks, one video ({card}): {len(got)} windows of the "
+          f"{stem} view over 2 gloo ranks on one card, "
+          f"{len(got) / max(seconds):.2f} windows/s (the slower rank's "
+          f"{max(seconds):.2f} s, spawn included {wall:.1f} s); {split}; "
+          f"max |score - one rank's| {err:.2e} (tol 1e-2); launches "
+          f"{launches} = derived_counts x {forwards} forwards")
+    return {"windows": len(got), "seconds": seconds, "spawn_s": wall,
+            "windows_per_s": len(got) / max(seconds), "ranks": timers,
+            "score_err": err, "launches": launches, "forwards": forwards}
 
 
 # ------------------------------------------------------------------ train
@@ -1901,8 +2027,10 @@ def train_grad_check(cfg, label: str):
     return _hold_grads(label, model, run, x, gen)
 
 
-def _hold_grads(label: str, model, run, x, gen, f32_truth=False) -> dict:
-    """``run(x) -> (loss, grad norm, leaf gradients)`` of one batch-1 step
+def _hold_grads(label: str, model, run, x, gen, f32_truth=False,
+                batch: int = 1) -> dict:
+    """``run(x) -> (loss, grad norm, leaf gradients)`` of one step at
+    ``batch`` (1 unless stated)
     with the kernels against the plain reference mode (the gates of
     ``train_grad_check``); frees the model. Each leaf is held within 5e-2
     relative L2 of the plain reference's gradient, or within what the
@@ -1956,7 +2084,8 @@ def _hold_grads(label: str, model, run, x, gen, f32_truth=False) -> dict:
     median = float(np.median(list(err.values())))
     loss_err = abs(loss_k - loss_p) / abs(loss_p)
     norm_err = abs(norm_k - norm_p) / norm_p
-    print(f"# {label} batch-1 train step, kernels vs plain reference: loss "
+    print(f"# {label} batch-{batch} train step, kernels vs plain reference: "
+          f"loss "
           f"{loss_k:.6f} vs {loss_p:.6f} (rel {loss_err:.2e}, tol 1e-2), "
           f"grad_norm {norm_k:.6f} vs {norm_p:.6f} (rel {norm_err:.2e}, "
           f"tol 2e-2), worst leaf {names[worst]} relative L2 "
@@ -2275,8 +2404,12 @@ TWO_RANK_STEPS = 2
 TWO_RANK_DEVICE = "cuda"  # the one card both ranks share
 TWO_RANK_BACKEND = "gloo"
 # PERF.md section 2's train-step gates: loss, gradient norm, each leaf's
-# update over the two steps (relative L2)
+# gradient (relative L2)
 GATE_LOSS, GATE_NORM, GATE_LEAF = 1e-2, 2e-2, 5e-2
+# one-process bf16 runs whose largest distance from the f32 run is bf16's
+# own: at SlowFast's 8-channel BatchNorms one draw ranged up to 0.57 and a
+# rank's distance up to 1.46 x one draw (PERF.md section 6, PR 15)
+TWO_RANK_DRAWS = 3
 
 
 def _two_rank_cfgs() -> list:
@@ -2316,13 +2449,13 @@ def _two_rank_batch(cfg, rows: slice, dev):
             torch.from_numpy(labels[rows]).to(dev))
 
 
-def _sgd_steps(cfg, rows: slice, dev, perturb: bool = False) -> dict:
+def _sgd_steps(cfg, rows: slice, dev, perturb: int = 0) -> dict:
     """``TWO_RANK_STEPS`` train steps of ``cfg``'s seed-0 model on ``rows``
     of the global batch (under DDP where a group is up): each step's loss,
     gradient norm and gradients (DDP's average, clipped as the optimizer
     took them), and each BatchNorm statistic after, on the host in f32.
-    ``perturb`` moves the inputs by a bf16 rounding (relative 2^-9 noise):
-    the reference's noise floor. (Gradients, not the updates: at the
+    ``perturb`` (a seed) moves the inputs by a bf16 rounding (relative
+    2^-9 noise): another draw of bf16's noise. (Gradients, not the updates: at the
     recipes' warm-up LRs an O(1) scale moves by a few f32 ulps a step.)"""
     import torch
 
@@ -2338,7 +2471,7 @@ def _sgd_steps(cfg, rows: slice, dev, perturb: bool = False) -> dict:
                            num_classes=cfg.MODEL.NUM_CLASSES, seed=SEED)
     inputs, labels = _two_rank_batch(cfg, rows, dev)
     if perturb:
-        gen = torch.Generator(device=dev).manual_seed(SEED + 71)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 70 + perturb)
         inputs = [x * (1 + 2.0 ** -9 * torch.randn(
             x.shape, generator=gen, device=dev))
             for x in (inputs if isinstance(inputs, list) else [inputs])]
@@ -2390,23 +2523,40 @@ def two_rank_checks(card: str) -> dict:
     """Two gloo ranks on the one card, each with 2 of a 4-clip global
     batch, take two SGD steps of MViT-v2-B @448 and of SlowFast R50 8x8
     under DDP (SlowFast's BatchNorms reduce their statistics over the two
-    ranks); a one-process run on the whole batch in this call is the
-    reference. Gates (``PERF.md`` section 2): each step's loss (1e-2) and
-    gradient norm (2e-2) relative; each step's gradient of every leaf,
-    and each BatchNorm statistic after, within 5e-2 relative L2 or within
-    what the reference itself moves it by for a bf16 rounding of its input
-    (a third, one-process run); the k pool norms' biases, whose gradient
-    is zero by softmax's shift invariance, against their scales'."""
+    ranks); one-process runs on the whole batch in this call are the
+    references. Gates (``PERF.md`` section 2): each step's loss (1e-2) and
+    gradient norm (2e-2) against the one-process bf16 run; each step's
+    gradient of every leaf, and each BatchNorm statistic after, against
+    the one-process run in f32 (the plain reference mode at
+    ``TPU.COMPUTE_DTYPE float32``): within 5e-2 relative L2, or within
+    ``F32_TRUTH_FACTOR`` times bf16's own distance from it
+    (``det_grad_check``'s rule), that distance the largest of
+    TWO_RANK_DRAWS one-process bf16 runs' (the batch as given, then moved
+    by bf16 roundings): one draw of it is as noisy as the error it bounds
+    at SlowFast's 8-channel BatchNorms (the k pool norms' biases, whose
+    gradient is zero by softmax's shift invariance, against their
+    scales'). A
+    control: what a rank computes when the cross-rank all-reduces are
+    skipped (one process on rank 0's 2 clips: its own gradient and
+    BatchNorm statistics) must fail that gate."""
     import torch
     import torch.multiprocessing as mp
 
+    from aicity_action_tpu_torch.ops import kernels
+
     cases = _two_rank_cfgs()
     dev = torch.device(TWO_RANK_DEVICE)
-    refs, floors = [], []
+    refs, draws, truths, skips = [], [], [], []
     full = slice(0, TWO_RANK_BATCH)
     for label, cfg in cases:
         refs.append(_sgd_steps(cfg, full, dev))
-        floors.append(_sgd_steps(cfg, full, dev, perturb=True))
+        draws.append([_sgd_steps(cfg, full, dev, perturb=i)
+                      for i in range(1, TWO_RANK_DRAWS)])
+        f32 = cfg.clone()
+        f32.TPU.COMPUTE_DTYPE = "float32"
+        with kernels.plain_reference():
+            truths.append(_sgd_steps(f32, full, dev))
+        skips.append(_sgd_steps(cfg, slice(0, TWO_RANK_BATCH // 2), dev))
         torch.cuda.empty_cache()
     t = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
@@ -2425,15 +2575,18 @@ def two_rank_checks(card: str) -> dict:
         return _rel(got[n], want[n])
 
     report = {}
-    for (label, _), ref, floor, got in zip(cases, refs, floors, ranks):
+    for (label, _), ref, draw, truth, skip, got in zip(
+            cases, refs, draws, truths, skips, ranks):
         worst = {"loss": 0.0, "grad_norm": 0.0}
-        leaf = {}  # name -> (error, bound)
+        leaf = {}  # name -> (error, bound, floor, the control's error)
         for kind in [f"grad {i + 1}" for i in range(TWO_RANK_STEPS)] + [
                 "stats"]:
-            for n in ref[kind]:
-                fl = rel(floor[kind], ref[kind], n)
-                err = max(rel(g[kind], ref[kind], n) for g in got)
-                leaf[f"{kind} {n}"] = (err, max(GATE_LEAF, fl), fl)
+            for n in truth[kind]:
+                fl = max(rel(r[kind], truth[kind], n) for r in [ref, *draw])
+                err = max(rel(g[kind], truth[kind], n) for g in got)
+                leaf[f"{kind} {n}"] = (
+                    err, max(GATE_LEAF, F32_TRUTH_FACTOR * fl), fl,
+                    rel(skip[kind], truth[kind], n))
         for g in got:
             for key, gate in (("loss", GATE_LOSS), ("grad_norm", GATE_NORM)):
                 for a, b in zip(g[key], ref[key]):
@@ -2443,30 +2596,43 @@ def two_rank_checks(card: str) -> dict:
                         _fail(f"two ranks, {label}: {key} {g[key]} vs one "
                               f"process {ref[key]}")
         name = max(leaf, key=lambda k: leaf[k][0] / leaf[k][1])
-        err, bound, fl = leaf[name]
+        err, bound, fl, _ = leaf[name]
         if not err <= bound:
             _fail(f"two ranks, {label}: {name} off by {err:.3e} relative "
-                  f"L2 (bound {bound:.3e}, the reference's bf16 floor "
-                  f"{fl:.3e})")
-        over = sum(e > GATE_LEAF for e, _, _ in leaf.values())
-        median = float(np.median([e for e, _, _ in leaf.values()]))
+                  f"L2 from f32 (bound {bound:.3e}; the one-process bf16 "
+                  f"runs' distance {fl:.3e})")
+        rejected = [k for k, (_, b, _, e) in leaf.items() if e > b]
+        control = max(leaf, key=lambda k: leaf[k][3] / leaf[k][1])
+        if not rejected:
+            _fail(f"two ranks, {label}: the gate passes the run without "
+                  f"the cross-rank all-reduce")
+        over = sum(e > GATE_LEAF for e, _, _, _ in leaf.values())
+        median = float(np.median([e for e, _, _, _ in leaf.values()]))
         report[label] = {"losses": ref["loss"], "grad_norms":
                          ref["grad_norm"], "worst": worst,
                          "worst_leaf": name, "worst_leaf_rel_l2": err,
-                         "worst_leaf_floor": fl, "median_leaf": median,
-                         "leaves_over_5e-2": over,
-                         "bn_stats": len(ref["stats"])}
+                         "worst_leaf_bound": bound, "worst_leaf_floor": fl,
+                         "median_leaf": median, "leaves_over_5e-2": over,
+                         "bn_stats": len(ref["stats"]),
+                         "control_rejected_leaves": len(rejected),
+                         "control_worst_leaf": control,
+                         "control_worst_ratio": leaf[control][3]
+                         / leaf[control][1]}
         print(f"# two ranks, one card ({card}): {label}, gloo, 2 x 2 clips "
               f"vs one process on 4, {TWO_RANK_STEPS} SGD steps: losses "
               f"{ref['loss']}, grad norms {ref['grad_norm']}; worst "
               f"relative loss {worst['loss']:.3e} (gate {GATE_LOSS}), grad "
-              f"norm {worst['grad_norm']:.3e} ({GATE_NORM}); worst leaf "
-              f"{name} {err:.3e} relative L2 (bound {bound:.3e}: "
-              f"{GATE_LEAF}, or the reference's own move for a bf16 "
-              f"rounding of its input, {fl:.3e}), median {median:.3e}, "
-              f"{over} of {len(leaf)} leaves and BN statistics past "
-              f"{GATE_LEAF} within their floors; spawned ranks "
-              f"{spawn_s:.1f} s")
+              f"norm {worst['grad_norm']:.3e} ({GATE_NORM}); against the "
+              f"f32 one-process run: worst leaf {name} {err:.3e} relative "
+              f"L2 (bound {bound:.3e}: {GATE_LEAF}, or {F32_TRUTH_FACTOR} x "
+              f"bf16's own distance, the largest of {TWO_RANK_DRAWS} "
+              f"one-process bf16 runs', {fl:.3e}), median "
+              f"{median:.3e}, {over} of {len(leaf)} leaves and BN "
+              f"statistics past {GATE_LEAF} within their bounds; the "
+              f"control without the cross-rank all-reduce fails the gate "
+              f"at {len(rejected)} of {len(leaf)} (worst {control}, "
+              f"{leaf[control][3]:.3e} against {leaf[control][1]:.3e}); "
+              f"spawned ranks {spawn_s:.1f} s")
     return report
 
 
@@ -2616,7 +2782,7 @@ def slowfast_checks(card: str) -> dict:
             str(kw["frame_length"]), "--frame_stride",
             str(kw["frame_stride"]), "--proposal_stride", "16",
             "--frame_size", str(kw["frame_size"]), "--batch_size",
-            str(SF_BATCH), "--device", dev.type])
+            str(SF_BATCH), "--device", dev.type, "NUM_GPUS", "1"])
         torch.cuda.synchronize()
         score_s = time.perf_counter() - t
         preds = load_window_predictions(os.path.join(d, "pkl", "view.pkl"))
@@ -2825,7 +2991,7 @@ def detection_checks(card: str) -> dict:
             "--checkpoint", ckpt, "--frame_length", str(T),
             "--frame_stride", str(kw["frame_stride"]), "--proposal_stride",
             "16", "--frame_size", str(S), "--batch_size", str(BATCH),
-            "--device", dev.type])
+            "--device", dev.type, "NUM_GPUS", "1"])
         torch.cuda.synchronize()
         score_s = time.perf_counter() - t
         counts = read_counts()
@@ -2972,6 +3138,360 @@ def ava_checks(card: str) -> dict:
             "launches": launches}
 
 
+# -------------------------------------------------------------- ActionCLIP
+
+CLIP_CFG = "actionclip_mvitv2_b_16x4_448_cfg"  # the config factory
+CLIP_DEVICE = "cuda"
+# the b8 feature forward's gates (relative L2): the video features of the
+# kernel path against the plain reference mode (3.6e-3 on an H100), and the
+# bf16 text features against the plain f32 text tower: no kernel runs
+# there, so that distance is bf16's own rounding through 12 layers, 1.16e-2
+# on an H100 (PERF.md section 6, PR 15); a wrong mask, pooling or
+# projection moves normalized features by O(1)
+CLIP_VIDEO_GATE, CLIP_TEXT_GATE = 1e-2, 2e-2
+# the loop's captions, tokenized by the port's tokenizer over a merges
+# file written in code (CLIP's bpe_simple_vocab_16e6.txt.gz is
+# user-supplied)
+CLIP_CAPTIONS = ("a person drinking from a bottle", "texting on the phone",
+                 "eating while driving the car", "reaching to the back seat",
+                 "talking on the phone", "adjusting the control panel",
+                 "drinking and then texting", "hand on the head")
+CLIP_MERGES = ("h e", "he l", "hel l", "t h", "th e</w>", "i n", "in g</w>",
+               "p h", "ph o", "pho n", "phon e</w>", "t e", "te x", "tex t",
+               "text ing</w>", "d r", "dr i", "dri n", "drin k",
+               "drink ing</w>", "c a", "ca r</w>", "e a", "ea t",
+               "eat ing</w>", "a n", "an d</w>", "o n</w>", "t o</w>")
+
+
+def clip_tokens(batch: int, context: int, vocab: int, seed: int, device):
+    """Token rows as the tokenizer writes them, drawn with numpy from
+    ``seed``: ids below the end-of-text id, the end-of-text id (the
+    vocabulary's largest) at 5-76, then zero padding."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    tok = rng.integers(1, vocab - 1, (batch, context))
+    for i in range(batch):
+        end = int(rng.integers(5, context))
+        tok[i, end] = vocab - 1
+        tok[i, end + 1:] = 0
+    return torch.from_numpy(tok).to(device)
+
+
+def actionclip_checks(card: str) -> dict:
+    """ActionCLIP at full width (``actionclip_mvitv2_b_16x4_448_cfg()``:
+    the AI City MViT-v2-B @448 video tower, CLIP's ViT-B text tower; seed-0
+    weights, bf16): the batch-8 feature forward (8 clips, 8 captions of 77
+    ids) with its launches held to ``derived_counts`` of the video tower,
+    its video features against the plain reference mode and its text
+    features against the plain f32 text tower; the batch-4 contrastive
+    train step without and with MoCo (warm-up, then timed steps, launches
+    held to ``derived_counts``: the step's training rows, and under MoCo
+    the momentum forward's inference rows too), its losses finite and the
+    temperature's log within [0, ln 100]; a batch-2 step's gradients
+    against the plain reference (``_hold_grads``, the f32 rule)."""
+    import torch
+
+    from aicity_action_tpu_torch import config as tconfig
+    from aicity_action_tpu_torch.engine import contrastive as con
+    from aicity_action_tpu_torch.engine.steps import step_generators
+    from aicity_action_tpu_torch.models.build import build_model
+    from aicity_action_tpu_torch.ops import kernels
+    from aicity_action_tpu_torch.solver.optimizer import (construct_optimizer,
+                                                          global_norm)
+
+    label = "ActionCLIP @448"
+    cfg = getattr(tconfig, CLIP_CFG)()
+    dev = torch.device(CLIP_DEVICE)
+    T, S = cfg.DATA.NUM_FRAMES, cfg.DATA.TEST_CROP_SIZE
+    L, V = cfg.CONTRA.CONTEXT_LENGTH, cfg.CONTRA.vocab_size
+    gen = torch.Generator(device=dev).manual_seed(SEED + 90)
+    x = _normal(gen, (BATCH, T, S, S, 3), device=dev)
+    tokens = clip_tokens(BATCH, L, V, SEED + 91, dev)
+    batch = {"inputs": x, "tokens": tokens}
+
+    model = build_model(cfg, device=dev, seed=SEED)
+    feature_step = con.make_feature_step(model)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    v, t, scale = feature_step(batch)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = derived_counts(model.video_encoder, train=False)
+    if counts != want:
+        _fail(f"{label}: launches per feature forward {counts} != {want}")
+    ones = torch.ones(BATCH, device=dev)
+    if v.shape != (BATCH, cfg.CONTRA.embed_dim) or t.shape != v.shape or \
+            not (torch.isfinite(v).all() and torch.isfinite(t).all()) or \
+            not torch.allclose(v.norm(dim=-1), ones, atol=1e-3) or \
+            not torch.allclose(t.norm(dim=-1), ones, atol=1e-3):
+        _fail(f"{label}: features not finite, L2-normed [{BATCH}, "
+              f"{cfg.CONTRA.embed_dim}]")
+    ms = time_ms(lambda: feature_step(batch), iters=5)
+    peak = torch.cuda.max_memory_allocated()
+    with kernels.plain_reference():
+        v_p, _, _ = feature_step(batch)
+        model.compute_dtype = torch.float32
+        v_f32, t_f32, _ = feature_step(batch)
+        model.compute_dtype = torch.bfloat16
+    torch.cuda.synchronize()
+    video_err, text_err = _rel(v, v_p), _rel(t, t_f32)
+    # the plain reference's own distance from f32 (what bf16 costs)
+    video_floor = _rel(v_p, v_f32)
+    fwd = {"ms": ms, "clips_per_s": BATCH / ms * 1e3, "peak_mem_bytes": peak,
+           "launches": counts, "video_rel_err": video_err,
+           "video_plain_vs_f32": video_floor, "text_rel_err": text_err}
+    print(f"# {label} feature forward, batch {BATCH} bf16 (8 clips of "
+          f"{T}x{S}^2, 8 captions of {L} ids): {ms:.2f} ms, "
+          f"{fwd['clips_per_s']:.2f} clips/s, peak memory "
+          f"{peak / 2 ** 30:.2f} GiB ({card}); launches {counts}; video "
+          f"features vs plain reference relative L2 {video_err:.3e} (tol "
+          f"{CLIP_VIDEO_GATE}; the plain reference's own distance from f32 "
+          f"{video_floor:.3e}), text features vs the plain f32 text tower "
+          f"{text_err:.3e} (tol {CLIP_TEXT_GATE}); temperature "
+          f"{float(scale):.4f}")
+    if not (video_err <= CLIP_VIDEO_GATE and text_err <= CLIP_TEXT_GATE):
+        _fail(f"{label}: features disagree with the plain references")
+    del model, feature_step, v_p, v_f32, t_f32
+    torch.cuda.empty_cache()
+
+    tb = TRAIN_BATCH
+    train_batch = {"inputs": x[:tb], "tokens": tokens[:tb],
+                   "labels": torch.arange(tb, device=dev)}
+    steps = {}
+    for use_moco in (False, True):
+        name = "MoCo" if use_moco else "no MoCo"
+        model = build_model(cfg, device=dev, seed=SEED)
+        opt = construct_optimizer(cfg, model, steps_per_epoch=100)
+        momentum = con.make_momentum_model(model) if use_moco else None
+        step = con.make_contrastive_train_step(
+            model, opt, use_moco=use_moco,
+            moco_momentum=cfg.TRAIN.MOCO_MOMENTUM, momentum_model=momentum,
+            seed=SEED)
+        losses = [float(step(train_batch)[0]["loss"])
+                  for _ in range(TRAIN_WARMUP)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = [step(train_batch)[0] for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+        launches = read_counts()
+        step_peak = torch.cuda.max_memory_allocated()
+        losses += [float(m["loss"]) for m in metrics]
+        log_scale = model.logit_scale.item()
+        want = {k: TRAIN_STEPS * n for k, n in
+                derived_counts(model.video_encoder, train=True).items()}
+        if use_moco:  # the momentum forward's inference rows, counted apart
+            for k, n in derived_counts(model.video_encoder,
+                                       train=False).items():
+                want[k] += TRAIN_STEPS * n
+        print(f"# {label} contrastive train step ({name}), batch {tb}: "
+              f"{step_ms:.2f} ms/step, {tb / step_ms * 1e3:.3f} clips/s, "
+              f"peak memory {step_peak / 2 ** 30:.2f} GiB ({card}); losses "
+              f"{losses}; logit_scale after {log_scale:.6f}; launches over "
+              f"{TRAIN_STEPS} steps {launches}")
+        if not all(np.isfinite(losses)) or \
+                not 0.0 <= log_scale <= con.LOGIT_SCALE_MAX:
+            _fail(f"{label} ({name}): loss {losses}, logit_scale "
+                  f"{log_scale}")
+        if launches != want:
+            _fail(f"{label} ({name}): train-step launches {launches} != "
+                  f"{want}")
+        steps[name] = {"ms_per_step": step_ms,
+                       "clips_per_s": tb / step_ms * 1e3,
+                       "peak_mem_bytes": step_peak, "losses": losses,
+                       "logit_scale": log_scale, "launches": launches}
+        del model, opt, momentum, step
+        torch.cuda.empty_cache()
+
+    # batch 2 (two labels: a batch of one has a constant softmax and no
+    # gradient), one step's loss and gradients against the plain reference
+    model = build_model(cfg, device=dev, seed=SEED)
+    model.train()
+    params = list(model.parameters())
+    x2, tok2 = x[:2], tokens[:2]
+    labels = torch.arange(2, device=dev)
+    valid = torch.ones(2, dtype=torch.bool, device=dev)
+
+    def run(xx=x2):
+        g, _ = step_generators(SEED, 7, dev)
+        model.zero_grad(set_to_none=True)
+        v2, t2, s2 = model(xx, tok2, generator=g)
+        loss = con.contrastive_loss(v2, t2, s2, labels, valid)
+        loss.backward()
+        return (loss.item(), global_norm(params).item(),
+                [p.grad.detach().float().clone() for p in params])
+
+    grads = _hold_grads(f"{label} contrastive", model, run, x2, gen,
+                        f32_truth=True, batch=2)
+    return {"forward": fwd, "train": steps, "grad_check": grads}
+
+
+def _clip_loop_opts(d: str, max_epoch: int) -> list:
+    return ["NUM_GPUS", "1", "TRAIN.BATCH_SIZE", "4", "TEST.BATCH_SIZE", "8",
+            "TRAIN.EVAL_PERIOD", "1", "TRAIN.CHECKPOINT_PERIOD", "1",
+            "TEST.NUM_ENSEMBLE_VIEWS", "1", "TEST.NUM_SPATIAL_CROPS", "1",
+            "DATA_LOADER.NUM_WORKERS", "4",
+            "DATA.PATH_TO_DATA_DIR", d, "DATA.PATH_PREFIX", d,
+            "OUTPUT_DIR", os.path.join(d, "clip_out"), "RNG_SEED", str(SEED),
+            "TRAIN.USE_MOCO", "True", "LOG_CFG", "False",
+            "SOLVER.MAX_EPOCH", str(max_epoch)]
+
+
+def actionclip_loop_checks(card: str, d: str) -> dict:
+    """``tools/run_net_contrastive.py`` in process on the loop's 8 written
+    views of ``d`` (:func:`write_loop_views`) with ``{split}_tokenized.csv``
+    of CLIP_CAPTIONS made by the port's tokenizer over CLIP_MERGES: the
+    ActionCLIP config from seed 0 with MoCo at batch 4, ``MAX_EPOCH 1`` (2
+    steps, an eval with finite recall@1/5/10, a checkpoint with the
+    momentum weights), then ``MAX_EPOCH 2``, which must auto-resume at epoch
+    1, train epoch 2 and run the test, which writes the feature pickle;
+    each call's launches held to ``derived_counts`` (per step the training
+    rows and the momentum forward's, per eval or test batch a forward).
+    Then ``inference_videotext`` with the text tower alone, loaded from the
+    last checkpoint, must rank the pickled videos as the trained model's
+    own text features do."""
+    import pickle
+
+    import torch
+
+    from aicity_action_tpu_torch import config as tconfig
+    from aicity_action_tpu_torch.data.tokenizer import (SimpleTokenizer,
+                                                        tokenize)
+    from aicity_action_tpu_torch.engine import contrastive as con
+    from aicity_action_tpu_torch.pipeline.zeroshot import filter_query
+    from aicity_action_tpu_torch.tools import (inference_videotext,
+                                               run_net_contrastive)
+
+    merges = os.path.join(d, "clip_merges.txt")
+    with open(merges, "w") as f:
+        f.write("#version: 0.2\n" + "\n".join(CLIP_MERGES) + "\n")
+    tok = SimpleTokenizer(merges)
+    cfg = getattr(tconfig, CLIP_CFG)()
+    L = cfg.CONTRA.CONTEXT_LENGTH
+    ids = tokenize(tok, list(CLIP_CAPTIONS), L)
+    for split in ("train", "val", "test"):
+        with open(os.path.join(d, f"{split}_tokenized.csv"), "w") as f:
+            f.writelines(f"v{i}.y4m {i % 4} "
+                         f"{','.join(str(t) for t in row if t)}\n"
+                         for i, row in enumerate(ids))
+    cfg_path = os.path.join(d, "actionclip.yaml")
+    with open(cfg_path, "w") as f:
+        f.write(cfg.dump())
+    pkl = os.path.join(d, "clip_features.pkl")
+    steps, val_fwd, test_fwd = LOOP_VIEWS // 4, LOOP_VIEWS // 4, \
+        -(-LOOP_VIEWS // 8)
+    runs = []
+    torch.cuda.reset_peak_memory_stats()
+    for max_epoch, with_test in ((1, False), (2, True)):
+        extra = (["TEST.SAVE_RESULTS_PATH", pkl] if with_test
+                 else ["TEST.ENABLE", "False"])
+        reset_counts()
+        t0 = time.perf_counter()
+        out = run_net_contrastive.main(
+            ["--cfg", cfg_path, "--device", LOOP_DEVICE,
+             *_clip_loop_opts(d, max_epoch), *extra])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        run = out["train"]
+        if run.start_epoch != max_epoch - 1 or len(run.epochs) != 1 or \
+                run.optimizer.count != steps * max_epoch:
+            _fail(f"ActionCLIP loop MAX_EPOCH {max_epoch}: start "
+                  f"{run.start_epoch}, {len(run.epochs)} epochs, step "
+                  f"{run.optimizer.count}")
+        epoch = run.epochs[0]
+        recalls = {k: v for k, v in epoch["val"].items() if "recall" in k}
+        if len(epoch["losses"]) != steps or \
+                not np.isfinite(epoch["losses"]).all() or \
+                len(recalls) != 6 or \
+                not all(0.0 <= r <= 1.0 for r in recalls.values()) or \
+                epoch["val"]["forwards"] != val_fwd:
+            _fail(f"ActionCLIP loop MAX_EPOCH {max_epoch}: losses "
+                  f"{epoch['losses']}, eval {epoch['val']}")
+        ckpt = torch.load(os.path.join(d, "clip_out", "checkpoints",
+                                       f"checkpoint_epoch_{max_epoch:05d}"),
+                          map_location="cpu", weights_only=True)
+        if ckpt["step"] != steps * max_epoch or \
+                set(ckpt.get("ema_state", {})) != set(ckpt["model_state"]):
+            _fail(f"ActionCLIP loop: checkpoint {max_epoch} without its "
+                  f"step or momentum weights")
+        tower = run.model.video_encoder
+        want = {k: steps * n for k, n in
+                derived_counts(tower, train=True).items()}
+        fwds = steps + val_fwd + (test_fwd if with_test else 0)
+        for k, n in derived_counts(tower, train=False).items():
+            want[k] += fwds * n  # the momentum forwards, evals, the test
+        if launches != want:
+            _fail(f"ActionCLIP loop MAX_EPOCH {max_epoch}: launches "
+                  f"{launches} != {want}")
+        runs.append({"epoch": epoch, "seconds": seconds,
+                     "launches": launches, "test": out["test"]})
+    peak = torch.cuda.max_memory_allocated()
+    test = runs[1]["test"]
+    if test["forwards"] != test_fwd or test["clips"] != LOOP_VIEWS or \
+            not all(np.isfinite(v) for k, v in test.items()
+                    if "recall" in k):
+        _fail(f"ActionCLIP loop: test stats {test}")
+    with open(pkl, "rb") as f:
+        feats, vids = pickle.load(f)
+    if feats.shape != (LOOP_VIEWS, cfg.CONTRA.embed_dim) or \
+            list(vids) != list(range(LOOP_VIEWS)) or \
+            not np.isfinite(feats).all():
+        _fail("ActionCLIP loop: the feature pickle is wrong")
+
+    query = "the person is texting on the phone"
+    ranked = inference_videotext.main([
+        "--cfg", cfg_path, "--features", pkl, "--bpe_path", merges,
+        "--query", query, "--top_k", str(LOOP_VIEWS), "--device",
+        LOOP_DEVICE, "--checkpoint",
+        os.path.join(d, "clip_out", "checkpoints",
+                     "checkpoint_epoch_00002")])
+    model = out["train"].model.eval()
+    with torch.no_grad():
+        t = model.encode_text(torch.from_numpy(tokenize(
+            tok, [filter_query(query)], L)).to(LOOP_DEVICE))[0]
+    t = t.float().cpu().numpy()
+    v = feats / np.linalg.norm(feats, axis=1, keepdims=True)
+    scores = v @ (t / np.linalg.norm(t))
+    order = [int(i) for i in np.argsort(-scores)]
+    got_scores = np.asarray([s for _, s in ranked])
+    score_err = float(np.abs(got_scores - scores[order]).max())
+    if [vid for vid, _ in ranked] != [int(vids[i]) for i in order] or \
+            not score_err <= 1e-3:
+        _fail(f"inference_videotext ranked {ranked}, the loop's features "
+              f"{[(int(vids[i]), float(scores[i])) for i in order]}")
+    r0, r1 = runs
+    e1, e2 = r0["epoch"], r1["epoch"]
+    ms = e2["wall_s"] * 1e3 / steps
+    print(f"# ActionCLIP loop ({card}): run_net_contrastive MAX_EPOCH 1 "
+          f"then 2 (auto-resumed at epoch 1, MoCo weights restored), batch "
+          f"4 with MoCo, {LOOP_VIEWS} views of {CHAIN_SIZE[0]}x"
+          f"{CHAIN_SIZE[1]}; epoch 2: {ms:.2f} ms/step "
+          f"with data over {steps} steps (epoch wall {e2['wall_s']:.3f} s), "
+          f"step walls {e2['iter_s']}, data waits {e2['data_s']}; losses "
+          f"{e1['losses'] + e2['losses']}; logit scales "
+          f"{e1['logit_scales'] + e2['logit_scales']}; eval recalls "
+          f"{[{k: v for k, v in e['val'].items() if 'recall' in k} for e in (e1, e2)]}, "
+          f"{e2['val']['clips'] / e2['val']['seconds']:.2f} clips/s with "
+          f"data; test {test['clips'] / test['seconds']:.2f} clips/s; "
+          f"checkpoint {e1['ckpt_s']:.2f} / {e2['ckpt_s']:.2f} s; peak "
+          f"memory {peak / 2 ** 30:.2f} GiB; runs {r0['seconds']:.1f} / "
+          f"{r1['seconds']:.1f} s; inference_videotext ranks as the "
+          f"features (max |score diff| {score_err:.2e}); launches "
+          f"{r0['launches']} / {r1['launches']}")
+    return {"ms_per_step": ms, "peak_mem_bytes": peak,
+            "val_clips_per_s": e2["val"]["clips"] / e2["val"]["seconds"],
+            "test_clips_per_s": test["clips"] / test["seconds"],
+            "losses": e1["losses"] + e2["losses"],
+            "videotext_score_err": score_err,
+            "launches": {k: r0["launches"][k] + r1["launches"][k]
+                         for k in r0["launches"]},
+            "logit_scale_max": con.LOGIT_SCALE_MAX}
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -3076,6 +3596,18 @@ def main() -> int:
         "launches"]
     ava_stats = ava_checks(card)
     launches["SlowFast R50 32x2 AVA"] = ava_stats["launches"]
+    clip_stats = actionclip_checks(card)
+    launches["ActionCLIP feature forward"] = clip_stats["forward"][
+        "launches"]
+    launches["ActionCLIP train"] = clip_stats["train"]["no MoCo"]["launches"]
+    launches["ActionCLIP MoCo train"] = clip_stats["train"]["MoCo"][
+        "launches"]
+    with tempfile.TemporaryDirectory() as clip_dir:
+        write_loop_views(clip_dir)
+        clip_stats["loop"] = actionclip_loop_checks(card, clip_dir)
+    launches["ActionCLIP loop"] = clip_stats["loop"]["launches"]
+    launches["two ranks, one video"] = model_stats["aicity_chain"][
+        "two_ranks"]["launches"]
 
     # launches of each kernel in the run of the path it serves: the AI City
     # chain's run_temporal_inf for the inference kernels, the timed train
@@ -3118,7 +3650,8 @@ def main() -> int:
                                      if k != "runs"},
                       "train_loop_ddp": ddp_stats,
                       "two_ranks": two_rank, "slowfast": sf_stats,
-                      "detection": det_stats, "ava": ava_stats}))
+                      "detection": det_stats, "ava": ava_stats,
+                      "actionclip": clip_stats}))
     print(json.dumps({"kernels": kernels_line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

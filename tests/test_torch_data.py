@@ -292,9 +292,18 @@ def test_labels_and_unported_datasets(videos, tmp_path):
             [np.asarray(x).tolist() for x in want]
     assert type(tdatasets.build_dataset("mmit", cfg, "val")) is \
         tdatasets.Mmit
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tdatasets.build_dataset("web_video_text", cfg, "val")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # Web_video_text is ported: the captions' ids, padded to the context
+    with open(tmp_path / "val_tokenized.csv", "w") as f:
+        f.write(f"{videos}/v0.mp4 3 5,9,1\n{videos}/v1.mp4 1 "
+                + ",".join(map(str, range(1, 90))) + "\n")
+    got = tdatasets.build_dataset("web_video_text", cfg, "val")
+    want = jdatasets.WebVideoText(jcfg, "val")
+    assert type(got) is tdatasets.WebVideoText
+    assert got._labels == want._labels == [3, 1]
+    assert [t.tolist() for t in got._tokens] == \
+        [t.tolist() for t in want._tokens]
+    assert got._tokens[0].shape == (cfg.CONTRA.CONTEXT_LENGTH,)
+    with pytest.raises(NotImplementedError, match="item 9b"):
         tdatasets.build_dataset("multi_dataset_seq", cfg, "val")
 
 

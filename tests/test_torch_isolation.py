@@ -95,7 +95,16 @@ def test_the_walk_covers_the_host_pipeline_and_its_tools():
             "aicity_action_tpu_torch.data.ava",
             "aicity_action_tpu_torch.data.cv2_transform",
             "aicity_action_tpu_torch.data.frame_datasets",
-            "aicity_action_tpu_torch.evaluation.ava_eval"} <= mods
+            "aicity_action_tpu_torch.evaluation.ava_eval",
+            "aicity_action_tpu_torch.data.tokenizer",
+            "aicity_action_tpu_torch.models.text",
+            "aicity_action_tpu_torch.models.actionclip",
+            "aicity_action_tpu_torch.engine.contrastive",
+            "aicity_action_tpu_torch.engine.contrastive_loop",
+            "aicity_action_tpu_torch.pipeline.zeroshot",
+            "aicity_action_tpu_torch.tools.run_net_contrastive",
+            "aicity_action_tpu_torch.tools.inference_videotext",
+            "aicity_action_tpu_torch.tools.inference_zeroshot_cls"} <= mods
 
 
 def _imported_names(path):

@@ -180,6 +180,22 @@ def test_unported_branches_raise():
     cfg.MVIT.CLS_EMBED_ON = False  # detection is ported: builds
     assert build_model(cfg, device="cpu").head.resolution == (7,)
     cfg = tiny_cfg(get_cfg)
-    cfg.MODEL.MODEL_NAME = "ActionCLIP"  # the conv nets build; this does not
+    cfg.MODEL.MODEL_NAME = "ActionCLIP"  # ported: needs its contrastive head
+    with pytest.raises(ValueError, match="CONTRA.ENABLE"):
+        build_model(cfg, device="cpu")
+    cfg.CONTRA.ENABLE = True
+    assert build_model(cfg, device="cpu").video_encoder.head.projection \
+        .weight.shape == (cfg.CONTRA.embed_dim, 128)
+    cfg = tiny_cfg(get_cfg)
+    cfg.MODEL.MODEL_NAME = "Unknown"
     with pytest.raises(NotImplementedError):
+        build_model(cfg, device="cpu")
+    # what stays unported names the ROADMAP item that brings it
+    cfg = tiny_cfg(get_cfg)
+    cfg.MODEL.USE_MULTI_HEAD = True
+    with pytest.raises(NotImplementedError, match="item 9b"):
+        build_model(cfg, device="cpu")
+    cfg = tiny_cfg(get_cfg)
+    cfg.MVIT.MOE.ENABLE = True
+    with pytest.raises(NotImplementedError, match="item 10"):
         build_model(cfg, device="cpu")

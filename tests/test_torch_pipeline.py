@@ -262,7 +262,8 @@ def test_run_temporal_inf_scores_with_parallel_decoders(videos, model,
     opts = ["DATA.NUM_FRAMES", "4", "MVIT.DEPTH", "4", "MVIT.EMBED_DIM",
             "32", "MVIT.DIM_MUL", "[[1, 2.0], [3, 2.0]]", "MVIT.HEAD_MUL",
             "[[1, 2.0], [3, 2.0]]", "MVIT.POOL_Q_STRIDE",
-            "[[1, 1, 2, 2], [3, 1, 2, 2]]", "TPU.COMPUTE_DTYPE", "float32"]
+            "[[1, 1, 2, 2], [3, 1, 2, 2]]", "TPU.COMPUTE_DTYPE", "float32",
+            "NUM_GPUS", "1"]
     for extra in ([], ["--exact_rgb"]):
         out_dir = tmp_path / f"out{len(extra)}"
         stats = run_temporal_inf.main([

@@ -170,7 +170,8 @@ def test_run_temporal_inf_cli_writes_readable_pickles(video, tmp_path):
     opts = ["DATA.NUM_FRAMES", "4", "MVIT.DEPTH", "4", "MVIT.EMBED_DIM",
             "32", "MVIT.DIM_MUL", "[[1, 2.0], [3, 2.0]]", "MVIT.HEAD_MUL",
             "[[1, 2.0], [3, 2.0]]", "MVIT.POOL_Q_STRIDE",
-            "[[1, 1, 2, 2], [3, 1, 2, 2]]", "TPU.COMPUTE_DTYPE", "float32"]
+            "[[1, 1, 2, 2], [3, 1, 2, 2]]", "TPU.COMPUTE_DTYPE", "float32",
+            "NUM_GPUS", "1"]
     run_temporal_inf.main([
         "--cfg", "configs/AICITY_MVITV2_B_16x4_448.yaml",
         "--video_lst", str(lst), "--video_path", os.path.dirname(video),

@@ -15,6 +15,12 @@ rank ``r`` writes what it saw to ``out/rank{r}.pkl``. Kinds:
   tensors, an SGD ``lr`` and a global ``batch`` ``(inputs, labels)``: one
   f64 train step under DDP on this rank's rows; the loss, gradient norm,
   gradients and ``state_dict`` after (BatchNorm statistics included).
+- ``"contrastive"``: an ActionCLIP ``cfg`` (MoCo per ``TRAIN.USE_MOCO``),
+  its ``state``, an SGD ``lr``, ``steps`` and a global ``batch`` of
+  ``inputs``, ``tokens``, ``labels`` and ``n_valid`` real rows: the
+  contrastive train steps under DDP on this rank's rows (its real ones
+  first); each step's loss and temperature, the parameters and the
+  momentum weights after.
 """
 
 import os
@@ -99,16 +105,58 @@ def _step(rank, job):
     return out
 
 
+def _contrastive(rank, job):
+    from aicity_action_tpu_torch.engine import contrastive as con
+    from aicity_action_tpu_torch.engine.train_loop import wrap_ddp
+    from aicity_action_tpu_torch.models.build import build_model
+    from aicity_action_tpu_torch.solver.optimizer import TrainOptimizer
+
+    cfg, lr = job["cfg"], job["lr"]
+    model = build_model(cfg, device="cpu")
+    model.load_state_dict(job["state"])
+    momentum = con.make_momentum_model(model) if cfg.TRAIN.USE_MOCO \
+        else None
+    opt = TrainOptimizer(torch.optim.SGD(model.parameters(), lr=lr),
+                         lambda step: lr)
+    step = con.make_contrastive_train_step(
+        wrap_ddp(model, torch.device("cpu")), opt,
+        use_moco=cfg.TRAIN.USE_MOCO, moco_momentum=cfg.TRAIN.MOCO_MOMENTUM,
+        momentum_model=momentum)
+    batch = job["batch"]
+    b = batch["labels"].shape[0] // job["world"]
+    rows = slice(rank * b, (rank + 1) * b)
+    n_valid = int(np.clip(batch["n_valid"] - rank * b, 0, b))
+    out = {"loss": [], "logit_scale": []}
+    for _ in range(job["steps"]):
+        metrics, _ = step({
+            "inputs": torch.from_numpy(batch["inputs"][rows]),
+            "tokens": torch.from_numpy(batch["tokens"][rows]),
+            "labels": torch.from_numpy(batch["labels"][rows]),
+            "n_valid": n_valid})
+        out["loss"].append(float(metrics["loss"]))
+        out["logit_scale"].append(float(metrics["logit_scale"]))
+    out["params"] = {n: p.detach().numpy().copy()
+                     for n, p in model.named_parameters()}
+    if momentum is not None:
+        out["ema"] = {n: p.detach().numpy().copy()
+                      for n, p in momentum.named_parameters()}
+    return out
+
+
+_KINDS = {"loop": _loop, "step": _step, "contrastive": _contrastive}
+
+
 def _rank(rank, job):
     torch.set_num_threads(1)
-    cfg = (job["runs"][0][1] if job["kind"] == "loop"
-           else job["cases"][0]["cfg"])
+    cfg = {"loop": lambda: job["runs"][0][1],
+           "step": lambda: job["cases"][0]["cfg"],
+           "contrastive": lambda: job["cfg"]}[job["kind"]]()
     cfg = cfg.clone()
     cfg.NUM_SHARDS, cfg.NUM_GPUS = 1, job["world"]
     cfg.DIST_BACKEND, cfg.INIT_METHOD = "gloo", job["init_method"]
     mesh.init_distributed(cfg, rank, device="cpu")
     try:
-        res = (_loop if job["kind"] == "loop" else _step)(rank, job)
+        res = _KINDS[job["kind"]](rank, job)
     finally:
         mesh.destroy()
     with open(os.path.join(job["out"], f"rank{rank}.pkl"), "wb") as f:

@@ -225,3 +225,107 @@ def collect_ranks(handle) -> list:
         with open(os.path.join(out, f"rank{r}.pkl"), "rb") as f:
             ranks.append(pickle.load(f))
     return ranks
+
+
+def tiny_clip_cfg(get, use_mlp=False):
+    """The tiny ActionCLIP of the JAX package's contrastive tests
+    (``tests/test_contrastive.py:_tiny_clip_cfg``): a depth-2 MViT-v2 of
+    width 16 at crop 32 and 4 frames, a text tower of width 32, 2 layers, 2
+    heads, context 8, vocabulary 64, embedding 16; dropout and DropPath 0,
+    f32. ``get`` is either package's ``get_cfg``."""
+    cfg = get()
+    cfg.CONTRA.ENABLE = True
+    cfg.CONTRA.transformer_width = 32
+    cfg.CONTRA.transformer_layers = 2
+    cfg.CONTRA.transformer_heads = 2
+    cfg.CONTRA.CONTEXT_LENGTH = 8
+    cfg.CONTRA.vocab_size = 64
+    cfg.CONTRA.embed_dim = 16
+    cfg.CONTRA.use_MLP = use_mlp
+    cfg.MODEL.MODEL_NAME = "ActionCLIP"
+    cfg.MODEL.ARCH = "mvit"
+    cfg.MODEL.DROPOUT_RATE = 0.0
+    cfg.MODEL.ACT_CHECKPOINT = False
+    cfg.DATA.TRAIN_CROP_SIZE = 32
+    cfg.DATA.TEST_CROP_SIZE = 32
+    cfg.DATA.NUM_FRAMES = 4
+    cfg.DATA.INPUT_CHANNEL_NUM = [3]
+    m = cfg.MVIT
+    m.EMBED_DIM = 16
+    m.DEPTH = 2
+    m.PATCH_PADDING = (1, 3, 3)
+    m.DIM_MUL = [[1, 2.0]]
+    m.HEAD_MUL = [[1, 2.0]]
+    m.POOL_KVQ_KERNEL = [3, 3, 3]
+    m.POOL_KV_STRIDE_ADAPTIVE = [1, 2, 2]
+    m.POOL_Q_STRIDE = [[1, 1, 2, 2]]
+    m.CLS_EMBED_ON = False
+    m.SEP_POS_EMBED = True
+    m.CHANNEL_EXPAND_FRONT = True
+    m.Q_POOL_ALL = True
+    m.Q_POOL_RESIDUAL = True
+    m.DROPPATH_RATE = 0.0
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    return cfg
+
+
+def clip_params_to_jax(state_dict) -> dict:
+    """The port's ActionCLIP ``state_dict`` as JAX ActionCLIP params (numpy
+    leaves): the video tower through the JAX package's own converter
+    (``convert_mvit_state_dict``), the text tower by CLIP's names (the
+    mapping of ``tests/test_contrastive.py:_convert_text_weights``)."""
+    from aicity_action_tpu.utils.convert import convert_mvit_state_dict
+
+    sd = {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
+    out = {"logit_scale": sd["logit_scale"]}
+    video = {k[len("video_encoder."):]: v for k, v in sd.items()
+             if k.startswith("video_encoder.")}
+    if video:
+        out["video_encoder"], skipped = convert_mvit_state_dict(video)
+        if skipped:
+            raise ValueError(f"unconverted port parameters: {skipped}")
+    t = {k[len("text_encoder."):]: v for k, v in sd.items()
+         if k.startswith("text_encoder.")}
+
+    def ln(name):
+        return {"scale": t[name + ".weight"], "bias": t[name + ".bias"]}
+
+    def dense(name):
+        return {"kernel": t[name + ".weight"].T, "bias": t[name + ".bias"]}
+
+    text = {"token_embedding": {"embedding": t["token_embedding.weight"]},
+            "positional_embedding": t["positional_embedding"],
+            "ln_final": ln("ln_final")}
+    if "text_projection" in t:
+        text["text_projection"] = t["text_projection"]
+    else:
+        text["text_projection"] = {"fc1": dense("text_projection.fc1"),
+                                   "fc2": dense("text_projection.fc2")}
+    i = 0
+    while f"resblocks.{i}.ln_1.weight" in t:
+        r = f"resblocks.{i}"
+        text[f"resblocks_{i}"] = {
+            "ln_1": ln(r + ".ln_1"), "ln_2": ln(r + ".ln_2"),
+            "attn": {"in_proj_kernel": t[r + ".attn.in_proj_weight"].T,
+                     "in_proj_bias": t[r + ".attn.in_proj_bias"],
+                     "out_proj": dense(r + ".attn.out_proj")},
+            "c_fc": dense(r + ".mlp.c_fc"),
+            "c_proj": dense(r + ".mlp.c_proj")}
+        i += 1
+    out["text_encoder"] = text
+    return out
+
+
+def write_merges(path) -> str:
+    """A small CLIP merges file (the version line, then merges) written in
+    code: the real ``bpe_simple_vocab_16e6.txt.gz`` is user-supplied."""
+    merges = ["h e", "he l", "hel l", "hell o</w>", "w o", "wo r", "wor l",
+              "worl d</w>", "t h", "th e</w>", "i n", "in g</w>", "a n",
+              "an d</w>", "p e", "pe r", "per s", "pers o", "perso n</w>",
+              "d r", "dr i", "dri n", "drin k", "drink ing</w>", "p h",
+              "ph o", "pho n", "phon e</w>", "t e", "te x", "tex t",
+              "text ing</w>", "c a", "ca r</w>", "e a", "ea t", "eat ing</w>",
+              "r e", "re a", "rea ch", "o f</w>", "a </w>", "s </w>"]
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "\n".join(merges) + "\n")
+    return str(path)

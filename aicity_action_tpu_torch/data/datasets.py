@@ -313,19 +313,10 @@ class WebVideoText(VideoCsvDataset):
         return inputs, label, index, meta
 
 
-# datasets of the JAX package that the port does not have yet, with the
-# ROADMAP Queue 1 item that brings each
-_NOT_PORTED = {"Multi_dataset_seq": "9b"}
-
-
 def build_dataset(name: str, cfg, split: str):
     """Reference: datasets/build.py:15-31; the name is capitalized to the
     class's."""
     from . import ava, frame_datasets  # noqa: F401 (register their classes)
 
     name = name.capitalize()
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"dataset {name} is not ported (ROADMAP Queue 1 item "
-            f"{_NOT_PORTED[name]})")
     return DATASET_REGISTRY.get(name)(cfg, split)

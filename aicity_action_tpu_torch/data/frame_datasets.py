@@ -1,6 +1,7 @@
 """Frame-list and image datasets (port of
 ``aicity_action_tpu/data/frame_datasets.py``): Ssv2, Charades, Ssv2_frames
-and Imagenet.
+and Imagenet, and ``Multi_dataset_seq``, the concatenation of the
+multi-head models' datasets.
 
 References: datasets/ssv2.py (segment-uniform frame sampling, TSM-style),
 datasets/charades.py (frame lists, multi-label, video-level labels the
@@ -8,9 +9,7 @@ union of the frames' labels), datasets/ssv2_frames.py and
 datasets/imagenet.py. As in the port's clip datasets, train items draw
 from an unseeded ``random.Random()`` and val and test items from
 ``random.Random(index)``, in the JAX package's order of calls; cv2 is
-imported where frames are read. The multi-dataset concatenation
-(``Multi_dataset_seq``) comes with the multi-head models (ROADMAP Queue 1
-item 9b).
+imported where frames are read.
 """
 
 from __future__ import annotations
@@ -22,7 +21,8 @@ from collections import defaultdict
 import numpy as np
 
 from . import transform
-from .datasets import DATASET_REGISTRY, VideoCsvDataset, get_seq_frames
+from .datasets import (DATASET_REGISTRY, VideoCsvDataset, build_dataset,
+                       get_seq_frames)
 from .decoder import (_cv2_decode_indices, cv2_video_meta, get_start_end_idx,
                       sample_indices)
 
@@ -323,3 +323,53 @@ class Imagenet:
         frames = transform.tensor_normalize(frames, cfg.DATA.MEAN,
                                             cfg.DATA.STD)
         return [frames], self._labels[index], index, {}
+
+
+@DATASET_REGISTRY.register(name="Multi_dataset_seq")
+class MultiDatasetSeq:
+    """The ``MODEL.MULTI_DATASETS`` one after another (the JAX
+    ``frame_datasets.py:336``; reference multi_dataset_seq.py:38-51), each
+    built from its own ``MULTI_PATH_TO_DATA_DIR`` / ``MULTI_PATH_PREFIX``
+    entry where given and its ``MULTI_NUM_CLASSES``; in training each
+    repeated ``MULTI_REPLICAS`` times. Labels become one-hot (an int
+    label) or zero-padded (a multi-hot one) f32 vectors of the largest
+    class count, and ``meta["dataset_idx"]`` says which dataset an item
+    comes from."""
+
+    def __init__(self, cfg, mode: str):
+        self.cfg = cfg
+        self.mode = mode
+        names = cfg.MODEL.MULTI_DATASETS
+        data_dirs = cfg.MODEL.MULTI_PATH_TO_DATA_DIR or [""] * len(names)
+        prefixes = cfg.MODEL.MULTI_PATH_PREFIX or [""] * len(names)
+        self.max_classes = max(cfg.MODEL.MULTI_NUM_CLASSES)
+        self.datasets = []
+        self._index_map = []  # global index -> (dataset index, its index)
+        for di, name in enumerate(names):
+            sub = cfg.clone()
+            if data_dirs[di]:
+                sub.DATA.PATH_TO_DATA_DIR = data_dirs[di]
+            if prefixes[di]:
+                sub.DATA.PATH_PREFIX = prefixes[di]
+            sub.MODEL.NUM_CLASSES = cfg.MODEL.MULTI_NUM_CLASSES[di]
+            ds = build_dataset(name, sub, mode)
+            self.datasets.append(ds)
+            reps = cfg.MODEL.MULTI_REPLICAS[di] if mode == "train" else 1
+            self._index_map += [(di, li) for _ in range(reps)
+                                for li in range(len(ds))]
+
+    def __len__(self):
+        return len(self._index_map)
+
+    def __getitem__(self, index: int):
+        di, li = self._index_map[int(index)]
+        inputs, label, _, meta = self.datasets[di][li]
+        meta = dict(meta)
+        meta["dataset_idx"] = np.int64(di)
+        onehot = np.zeros(self.max_classes, np.float32)
+        lab = np.asarray(label)
+        if lab.ndim == 0:
+            onehot[int(lab)] = 1.0
+        else:
+            onehot[:lab.shape[0]] = lab
+        return inputs, onehot, index, meta

@@ -8,8 +8,10 @@ gather of predictions, labels and clip indices an epoch
 (``parallel/mesh.py:process_allgather``) gives every rank the whole set
 before the meter. Under ``DETECTION.ENABLE`` the test set's boxes are
 scored into the ``AVAMeter`` instead and the run returns ``{"map"}``
-(``engine/train_loop.py:eval_epoch_detection``). The multi-head models
-(ROADMAP Queue 1 item 9b) raise.
+(``engine/train_loop.py:eval_epoch_detection``). A multi-head model is
+tested on one head: ``TEST.DATASET``'s, or under ``DATA.MODEL_DIFF_DATA``
+``TRAIN.DATASET``'s (the JAX ``test_loop.py:79-91``; reference
+test_net.py:109-114).
 """
 
 from __future__ import annotations
@@ -72,7 +74,16 @@ def test(cfg, device: str | torch.device = "cuda") -> dict:
         multi_label=cfg.DATA.MULTI_LABEL,
         ensemble_method=cfg.DATA.ENSEMBLE_METHOD,
     )
-    eval_step = make_eval_step(model)
+    if cfg.MODEL.USE_MULTI_HEAD:
+        head = (cfg.TRAIN.DATASET if cfg.DATA.MODEL_DIFF_DATA
+                else cfg.TEST.DATASET)
+
+        def eval_step(batch):
+            model.eval()
+            with torch.no_grad():
+                return model(batch["inputs"], dataset_name=head)[head]
+    else:
+        eval_step = make_eval_step(model)
 
     t = time.perf_counter()
     preds_all, labels_all, index_all = [], [], []

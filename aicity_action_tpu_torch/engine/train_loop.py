@@ -32,8 +32,17 @@ the val set's boxes into the ``AVAMeter``'s frame mAP
 422-466``), each rank's slabs gathered once an epoch under data
 parallelism.
 
-Not ported, each raising with the ROADMAP Queue 1 item that brings it:
-multigrid (item 10), the multi-head models (item 9b), TensorBoard (item 11).
+Multi-head models (``MODEL.USE_MULTI_HEAD``, the JAX ``train_loop.py:
+84-176``): the multi-dataset train step (``engine/steps.py:
+make_multihead_train_step``) on batches that carry each row's
+``dataset_idx``, the cross projections set from ``MODEL.
+LOAD_MULTI_PROJ_INIT_FILE`` on a fresh start, and an eval that scores every
+head into the ``MultiDatasetValMeter`` (:func:`eval_epoch_multihead`).
+``TENSORBOARD.ENABLE`` writes the train scalars on rank 0
+(``visualization/tensorboard_vis.py``).
+
+Not ported, raising with the ROADMAP Queue 1 item that brings it:
+multigrid (item 10).
 """
 
 from __future__ import annotations
@@ -58,11 +67,15 @@ from ..parallel.prefetch import (DeviceFeed, host_transfer_dtype,
 from ..solver.optimizer import TrainOptimizer, construct_optimizer
 from ..utils import checkpoint as cu
 from ..utils.logging import get_logger, setup_logging
-from ..utils.meters import AVAMeter, EpochTimer, TrainMeter, ValMeter
+from ..utils.convert import load_cross_proj_weight
+from ..utils.meters import (AVAMeter, EpochTimer, MultiDatasetValMeter,
+                            TrainMeter, ValMeter)
 from .detection import (flatten_boxes, make_detection_eval_step,
                         make_detection_train_step)
 from .precise_bn import calculate_and_update_precise_bn
-from .steps import make_eval_step, make_train_step
+from .steps import (make_eval_step, make_multihead_eval_step,
+                    make_multihead_train_step, make_train_step,
+                    multihead_step_kwargs)
 
 logger = get_logger(__name__)
 
@@ -116,16 +129,9 @@ def _errors(preds: np.ndarray, labels: np.ndarray, ks=(1, 5)):
 
 def check_supported(cfg) -> None:
     """Raise for the branches of the JAX loops that the port lacks."""
-    unported = (
-        (cfg.MULTIGRID.LONG_CYCLE or cfg.MULTIGRID.SHORT_CYCLE,
-         "multigrid training", 10),
-        (cfg.MODEL.USE_MULTI_HEAD, "multi-head models", "9b"),
-        (cfg.TENSORBOARD.ENABLE, "TensorBoard", 11),
-    )
-    for on, what, item in unported:
-        if on:
-            raise NotImplementedError(
-                f"{what} is not ported (ROADMAP Queue 1 item {item})")
+    if cfg.MULTIGRID.LONG_CYCLE or cfg.MULTIGRID.SHORT_CYCLE:
+        raise NotImplementedError(
+            "multigrid training is not ported (ROADMAP Queue 1 item 10)")
     world = mesh.world_size(cfg)
     if world > 1 and mesh.get_world_size() != world:
         raise RuntimeError(
@@ -136,14 +142,16 @@ def check_supported(cfg) -> None:
 
 
 # what a batch adds to the model's inputs and labels on the card: a
-# detection batch's boxes and their mask, a contrastive batch's token ids
-_EXTRA_KEYS = ("boxes", "box_mask", "tokens")
+# detection batch's boxes and their mask, a contrastive batch's token ids,
+# a multi-dataset batch's dataset indices
+_EXTRA_KEYS = ("boxes", "box_mask", "tokens", "dataset_idx")
 
 
 def _device_batch(feed: DeviceFeed, staged) -> dict:
     """The model's input (one clip, or the list of a multi-pathway model's)
-    and the labels, and a detection batch's boxes and their mask or a
-    contrastive batch's token ids, on the card."""
+    and the labels, and a detection batch's boxes and their mask, a
+    contrastive batch's token ids or a multi-dataset batch's dataset
+    indices, on the card."""
     dev = feed.take(staged)
     xs = dev["inputs"]
     out = {"inputs": xs[0] if len(xs) == 1 else xs, "labels": dev["labels"]}
@@ -169,20 +177,26 @@ def wrap_ddp(model: torch.nn.Module, dev: torch.device) -> torch.nn.Module:
         broadcast_buffers=False)
 
 
+def _global_rows(tensors: list, n_valid: int) -> tuple[list, int]:
+    """The global batch's real rows of each of ``tensors`` (rows of one
+    batch) from every rank's (rank-major; a rank's real rows come first),
+    and their count. A collective: every rank calls it."""
+    if mesh.get_world_size() == 1:
+        return [t[:n_valid] for t in tensors], n_valid
+    dev = tensors[0].device
+    b = tensors[0].shape[0]
+    counts = mesh.gather_rows(torch.tensor([n_valid], device=dev))
+    keep = torch.cat([torch.arange(r * b, r * b + int(c))
+                      for r, c in enumerate(counts.tolist())]).to(dev)
+    return [mesh.gather_rows(t)[keep] for t in tensors], int(keep.numel())
+
+
 def _gathered_rows(preds: torch.Tensor, labels: torch.Tensor,
                    n_valid: int) -> tuple:
-    """The global batch's real rows of ``preds`` and ``labels`` from every
-    rank's (rank-major; a rank's real rows come first), and their count.
-    A collective: every rank calls it."""
-    if mesh.get_world_size() == 1:
-        return preds[:n_valid], labels[:n_valid], n_valid
-    b = preds.shape[0]
-    counts = mesh.gather_rows(torch.tensor([n_valid], device=preds.device))
-    keep = torch.cat([torch.arange(r * b, r * b + int(c))
-                      for r, c in enumerate(counts.tolist())])
-    keep = keep.to(preds.device)
-    return (mesh.gather_rows(preds)[keep], mesh.gather_rows(labels)[keep],
-            int(keep.numel()))
+    """:func:`_global_rows` of ``preds`` and ``labels``: ``(preds, labels,
+    count)``."""
+    (preds, labels), n = _global_rows([preds, labels], n_valid)
+    return preds, labels, n
 
 
 @dataclasses.dataclass
@@ -217,16 +231,28 @@ def train(cfg, device: str | torch.device = "cuda") -> TrainRun:
 
     optimizer = construct_optimizer(cfg, model, steps_per_epoch)
     start_epoch = cu.load_train_checkpoint(cfg, model, optimizer)
+    if (cfg.MODEL.MULTI_ADD_CROSS_PROJ and cfg.MODEL.LOAD_MULTI_PROJ_INIT_FILE
+            and start_epoch == 0):
+        # word-embedding-similarity warm start of the cross projections
+        # (train_net.py:679-686)
+        logger.info("loaded %d cross-dataset projection weights from %s",
+                    load_cross_proj_weight(cfg, model),
+                    cfg.MODEL.LOAD_MULTI_PROJ_INIT_FILE)
     ddp_model = wrap_ddp(model, dev)
     precise_bn = cfg.BN.USE_PRECISE_STATS and any(
         is_bn(m) for m in model.modules())
 
     detection = cfg.DETECTION.ENABLE
-    mixup_fn = None if detection else build_mixup_from_cfg(cfg)
+    multihead = cfg.MODEL.USE_MULTI_HEAD and not detection
+    mixup_fn = None if detection or multihead else build_mixup_from_cfg(cfg)
     if detection:
         train_step = make_detection_train_step(
             ddp_model, optimizer, cfg.MODEL.LOSS_FUNC, seed=cfg.RNG_SEED)
         eval_step = make_detection_eval_step(model)
+    elif multihead:
+        train_step = make_multihead_train_step(
+            ddp_model, optimizer, **multihead_step_kwargs(cfg))
+        eval_step = make_multihead_eval_step(model)
     else:
         train_step = make_train_step(
             ddp_model, optimizer, cfg.MODEL.LOSS_FUNC, mixup_fn=mixup_fn,
@@ -235,8 +261,14 @@ def train(cfg, device: str | torch.device = "cuda") -> TrainRun:
     feed = DeviceFeed(dev, host_transfer_dtype(cfg))
 
     train_meter = TrainMeter(steps_per_epoch, cfg)
-    val_meter = ValMeter(len(val_loader), cfg)
+    val_meter = (MultiDatasetValMeter if multihead else ValMeter)(
+        len(val_loader), cfg)
     epoch_timer = EpochTimer()
+    writer = None
+    if cfg.TENSORBOARD.ENABLE and mesh.is_main_process():
+        from ..visualization.tensorboard_vis import TensorboardWriter
+
+        writer = TensorboardWriter(cfg)
     per_host_batch = train_loader.batch_size
     run = TrainRun(model, optimizer, start_epoch, [])
 
@@ -244,6 +276,9 @@ def train(cfg, device: str | torch.device = "cuda") -> TrainRun:
         if detection:
             return eval_epoch_detection(cfg, eval_step, feed, val_loader,
                                         "val")
+        if multihead:
+            return eval_epoch_multihead(eval_step, feed, val_loader,
+                                        val_meter, epoch)
         return eval_epoch(eval_step, feed, val_loader, val_meter, epoch)
 
     if cfg.TRAIN.EVAL_FIRST:
@@ -287,6 +322,13 @@ def train(cfg, device: str | torch.device = "cuda") -> TrainRun:
                 top1 = top5 = None
             lr = float(optimizer.schedule(step_at))
             train_meter.update_stats(top1, top5, loss, lr, n_valid)
+            if writer is not None:
+                scalars = {"Train/loss": loss, "Train/lr": lr}
+                if top1 is not None:
+                    scalars["Train/Top1_err"] = top1
+                    scalars["Train/Top5_err"] = top5
+                writer.add_scalars(
+                    scalars, global_step=cur_epoch * steps_per_epoch + cur_it)
             train_meter.log_iter_stats(cur_epoch, cur_it)
 
         prefetched = prefetch_to_device(train_loader, pad_and_put,
@@ -304,7 +346,8 @@ def train(cfg, device: str | torch.device = "cuda") -> TrainRun:
             if profiler is not None and host_step == \
                     cfg.TPU.PROFILE_START_STEP + cfg.TPU.PROFILE_NUM_STEPS:
                 profiler = _stop_profile(profiler, dev, cfg, host_step)
-            if detection:  # no top-k errors: the global batch's count only
+            if detection or multihead:
+                # no top-k errors: the global batch's count only
                 labels = batch["labels"]
                 n_all = n_valid * mesh.get_world_size()
             else:  # the global batch's rows, for its top-k errors
@@ -352,6 +395,8 @@ def train(cfg, device: str | torch.device = "cuda") -> TrainRun:
 
     if profiler is not None:  # the run ended inside the traced steps
         _stop_profile(profiler, dev, cfg, optimizer.count - 1)
+    if writer is not None:
+        writer.close()
     cu.wait_for_pending_saves()
     mesh.barrier()  # rank 0's checkpoints are on disk for every rank
     logger.info("Training done.")
@@ -414,6 +459,36 @@ def eval_epoch(eval_step, feed: DeviceFeed, val_loader, val_meter,
             top1, top5 = _errors(preds_np, labels)
             val_meter.update_stats(top1, top5, n_valid)
         val_meter.update_predictions(preds_np, labels)
+        forwards += 1
+        clips += n_valid
+    stats = val_meter.log_epoch_stats(cur_epoch)
+    stats.update(forwards=forwards, clips=clips,
+                 seconds=time.perf_counter() - t)
+    return stats
+
+
+def eval_epoch_multihead(eval_step, feed: DeviceFeed, val_loader, val_meter,
+                         cur_epoch: int) -> dict:
+    """Multi-head validation (the JAX ``eval_epoch_multihead``; reference:
+    train_net.py's USE_MULTI_HEAD branch of eval_epoch): every head scores
+    the batch, and the ``MultiDatasetValMeter`` keeps each sample's own
+    dataset's scores; the global batch's rows under data parallelism.
+    Returns the meter's stats plus the pass's ``forwards``, ``clips`` and
+    ``seconds`` (data loading included)."""
+    val_meter.reset()
+    t = time.perf_counter()
+    forwards = clips = 0
+    for batch in val_loader:
+        batch, n_valid = _pad_batch(batch, val_loader.batch_size)
+        dev = _device_batch(feed, _put(feed, batch))
+        preds = eval_step(dev)
+        names = list(preds)
+        rows, n_valid = _global_rows(
+            [preds[k] for k in names] + [dev["labels"], dev["dataset_idx"]],
+            n_valid)
+        val_meter.update_stats(
+            {k: r.float().cpu().numpy() for k, r in zip(names, rows)},
+            rows[-2].cpu().numpy(), rows[-1].cpu().numpy())
         forwards += 1
         clips += n_valid
     stats = val_meter.log_epoch_stats(cur_epoch)

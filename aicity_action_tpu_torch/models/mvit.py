@@ -55,7 +55,8 @@ from ..ops.layer_norm import (channel_major_applies, fused_layer_norm,
                               pool_norm_rows)
 from ..ops.pooling import attention_pool, pool3d_ncdhw
 from .common import FusedLayerNorm, drop_path, drop_path_mask, round_width
-from .heads import ContrastiveProjectionHead, TransformerBasicHead
+from .heads import (ContrastiveProjectionHead, TransformerBasicHead,
+                    TransformerMultiHead)
 from .roi_head import ResNetRoIHead
 
 Triple = tuple[int, int, int]
@@ -683,18 +684,19 @@ class MViT(nn.Module):
     activation of each ``[N, 5]`` box row, in training too. Under
     ``CONTRA.ENABLE`` (ActionCLIP's video tower) the head is the contrastive
     projection, and the forward returns its features in the compute type.
+    Under ``MODEL.USE_MULTI_HEAD`` the head is :class:`~aicity_action_tpu_
+    torch.models.heads.TransformerMultiHead`: the forward returns its dict
+    (``dataset_name``'s head only where given; the cross projections under
+    ``run_cross_proj``), with ``return_emb`` as ``(dict, pooled features)``.
     """
 
     def __init__(self, spec: MViTSpec,
                  compute_dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         sp = spec
-        for flag, what, item in ((sp.use_multi_head, "multi-head", "9b"),
-                                 (sp.moe.num_experts > 0, "MoE", "10")):
-            if flag:
-                raise NotImplementedError(
-                    f"{what} MViT is not ported yet (ROADMAP Queue 1 item "
-                    f"{item})")
+        if sp.moe.num_experts > 0:
+            raise NotImplementedError(
+                "MoE MViT is not ported yet (ROADMAP Queue 1 item 10)")
         if sp.cls_embed and (sp.detection_enable
                              or sp.use_spatial_maxpool_before_proj):
             # the JAX package's reshape of the L + 1 final-norm rows into
@@ -738,6 +740,13 @@ class MViT(nn.Module):
             self.head = ContrastiveProjectionHead(
                 dim_out, sp.contra_embed_dim, use_mlp=sp.contra_use_mlp,
                 dropout_rate=sp.head_dropout)
+        elif sp.use_multi_head and not sp.detection_enable:
+            # the multi-dataset heads (mvit.py:1067-1080)
+            self.head = TransformerMultiHead(
+                dim_out, sp.multi_datasets, sp.multi_num_classes,
+                sp.multi_head_act, dropout_rate=sp.head_dropout,
+                use_mlp=sp.multi_use_mlp,
+                add_cross_proj=sp.multi_add_cross_proj)
         elif sp.detection_enable:
             self.head = ResNetRoIHead(
                 [dim_out], sp.num_classes, resolution=[sp.roi_resolution],
@@ -761,7 +770,9 @@ class MViT(nn.Module):
         return pos
 
     def forward(self, x, bboxes: torch.Tensor | None = None,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None,
+                dataset_name: str | None = None,
+                run_cross_proj: bool = False, return_emb: bool = False):
         if isinstance(x, (list, tuple)):
             x = x[0]
         x = x.to(self.compute_dtype)
@@ -796,6 +807,11 @@ class MViT(nn.Module):
             feat = x[:, 0]
         else:
             feat = x.mean(dim=1)
+        if isinstance(self.head, TransformerMultiHead):
+            out = self.head(feat, dataset_name, run_cross_proj, generator)
+            # (preds, pooled representation) for the VICReg regularizer
+            # (video_model_builder.py:1325-1331)
+            return (out, feat) if return_emb else out
         return self.head(feat, generator)
 
     def _spatial_maxpool(self, x: torch.Tensor, thw: Triple) -> torch.Tensor:

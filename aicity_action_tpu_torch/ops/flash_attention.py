@@ -179,6 +179,9 @@ def flash_attention_ln(q, k, v, gq, bq, gk, bk, gv, bv, scale: float,
     the residual (:func:`flash_attention_ln_lse`), and the backward is
     :func:`flash_attention_ln_bwd`.
     """
+    if torch.compiler.is_exporting():
+        return _FLASH_LN_OP(q, k, v, gq, bq, gk, bk, gv, bv, scale, eps,
+                            list(flags), add_qn)
     if not kernels.use_kernel(q):
         return flash_attention_ln_plain(q, k, v, gq, bq, gk, bk, gv, bv,
                                         scale, eps, flags, add_qn)
@@ -189,6 +192,14 @@ def flash_attention_ln(q, k, v, gq, bq, gk, bk, gv, bv, scale: float,
     out, _, _ = _flash_ln_fwd(*tensors, scale, eps, flags, add_qn, False)
     flash_attention_ln.launches += 1
     return out
+
+
+_FLASH_LN_OP = kernels.export_op(
+    "flash_attention_ln", "(Tensor q, Tensor k, Tensor v, Tensor gq, Tensor "
+    "bq, Tensor gk, Tensor bk, Tensor gv, Tensor bv, float scale, float eps, "
+    "bool[] flags, bool add_qn) -> Tensor",
+    lambda q, k, v, *rest: flash_attention_ln(q, k, v, *rest),
+    lambda q, *rest: torch.empty(q.shape, dtype=q.dtype, device=q.device))
 
 
 def _ln_operands(name, q, k, v, params):
@@ -499,10 +510,19 @@ def flash_attention(q, k, v, scale: float):
     v [G, Lk, d]``. A CPU tensor runs the plain version (autograd
     differentiates it); a CUDA tensor the kernels, which take contiguous
     bf16 token rows with d = 96, forward and backward."""
+    if torch.compiler.is_exporting():
+        return _FLASH_OP(q, k, v, scale)
     if not kernels.use_kernel(q):
         return flash_attention_plain(q, k, v, scale)
     return _FlashAttention.apply(q, k, v, scale, flash_attention_fwd,
                                  flash_attention_bwd)
+
+
+_FLASH_OP = kernels.export_op(
+    "flash_attention", "(Tensor q, Tensor k, Tensor v, float scale) -> "
+    "Tensor", flash_attention,
+    lambda q, k, v, scale: torch.empty(q.shape, dtype=q.dtype,
+                                       device=q.device))
 
 
 def flash_attention_padded(q, k, v, scale: float):

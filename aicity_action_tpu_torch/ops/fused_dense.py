@@ -446,9 +446,22 @@ def fused_ln_qkv(x2, gamma, beta, w, bias, eps, tokens):
     (M = B * tokens), ``gamma``/``beta [D]``, ``w [3C, D]``, ``bias [3C]``
     or None; returns (q, k, v), each a contiguous channel-major
     ``[B, C, tokens]``: the NCDHW layout the pool convolutions take."""
+    if torch.compiler.is_exporting():
+        return tuple(_LN_QKV_OP(x2, gamma, beta, w, bias, eps, tokens))
     if not kernels.use_kernel(x2):
         return ln_qkv_plain(x2, gamma, beta, w, bias, eps, tokens)
     return _LnQkv.apply(x2, gamma, beta, w, bias, eps, tokens)
+
+
+def _ln_qkv_fake(x2, gamma, beta, w, bias, eps, tokens):
+    shape = (x2.shape[0] // tokens, w.shape[0] // 3, tokens)
+    return tuple(x2.new_empty(shape) for _ in range(3))
+
+
+_LN_QKV_OP = kernels.export_op(
+    "ln_qkv", "(Tensor x2, Tensor gamma, Tensor beta, Tensor w, Tensor? "
+    "bias, float eps, int tokens) -> (Tensor, Tensor, Tensor)",
+    fused_ln_qkv, _ln_qkv_fake)
 
 
 def _stats_scratch(M: int, dev) -> torch.Tensor:
@@ -504,9 +517,18 @@ def ln_mlp_plain(x2, gamma, beta, w1, b1, w2, b2, eps):
 def fused_ln_mlp(x2, gamma, beta, w1, b1, w2, b2, eps):
     """norm2 + MLP. ``x2 [M, D]``, ``w1 [H, D]``, ``b1 [H]``, ``w2 [C, H]``,
     ``b2 [C]``; returns ``[M, C]``."""
+    if torch.compiler.is_exporting():
+        return _LN_MLP_OP(x2, gamma, beta, w1, b1, w2, b2, eps)
     if not kernels.use_kernel(x2):
         return ln_mlp_plain(x2, gamma, beta, w1, b1, w2, b2, eps)
     return _LnMlp.apply(x2, gamma, beta, w1, b1, w2, b2, eps)
+
+
+_LN_MLP_OP = kernels.export_op(
+    "ln_mlp", "(Tensor x2, Tensor gamma, Tensor beta, Tensor w1, Tensor b1, "
+    "Tensor w2, Tensor b2, float eps) -> Tensor", fused_ln_mlp,
+    lambda x2, gamma, beta, w1, b1, w2, b2, eps: x2.new_empty(
+        (x2.shape[0], w2.shape[0])))
 
 
 def _ln_mlp_forward(x2, gamma, beta, w1, b1, w2, b2, eps):

@@ -10,6 +10,13 @@ module on a machine without ``nvcc``.
 
 Each C entry point launches on the caller's stream and returns
 ``cudaGetLastError()``; :func:`check` raises on anything but 0.
+
+:func:`export_op` registers an inference wrapper as a ``torch.library``
+custom op (``aicity::NAME``) with the output shapes of its fake, so that
+``torch.export`` traces the wrapper as one opaque op (its launches read
+``data_ptr()``, which no traced tensor has) and the exported program calls
+it, and so launches the kernel, when it runs. The registration runs no
+build.
 """
 
 from __future__ import annotations
@@ -214,3 +221,15 @@ def require(t: torch.Tensor, name: str, shape: tuple | None = None,
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
+
+
+def export_op(name: str, schema: str, impl, fake):
+    """``impl`` registered as the custom op ``aicity::{name}`` of
+    ``schema`` (no argument mutated), with ``fake`` its output shapes and
+    types; returns the op. Wrappers call it only under
+    ``torch.compiler.is_exporting()``, so that the eager path launches as
+    before; the op runs ``impl``, the wrapper itself."""
+    op = torch.library.custom_op(f"aicity::{name}", impl, mutates_args=(),
+                                 schema=schema)
+    op.register_fake(fake)
+    return op

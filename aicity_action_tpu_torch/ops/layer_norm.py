@@ -28,7 +28,9 @@ finish sums the group's, the last of those the groups' (ticket counters:
 Launches count under ``fused_layer_norm.launches`` (row 12, both
 instances) and ``fused_layer_norm_bwd.launches`` (row 13); the
 channel-major instance also under ``pool_norm_rows.launches`` and
-``pool_norm_rows_bwd.launches``.
+``pool_norm_rows_bwd.launches``. Under ``torch.export`` both forwards
+trace as the custom ops ``aicity::layer_norm`` and
+``aicity::pool_norm_rows`` (``kernels.export_op``).
 """
 
 from __future__ import annotations
@@ -213,9 +215,18 @@ def fused_layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     through the rows kernel (bf16, contiguous), differentiable through
     :func:`fused_layer_norm_bwd`; a CPU tensor through the plain version,
     which autograd differentiates."""
+    if torch.compiler.is_exporting():
+        return _LAYER_NORM_OP(x, gamma, beta, eps, groups)
     if not kernels.use_kernel(x):
         return layer_norm_plain(x, gamma, beta, eps, groups)
     return _FusedLayerNorm.apply(x, gamma, beta, eps, groups)
+
+
+_LAYER_NORM_OP = kernels.export_op(
+    "layer_norm", "(Tensor x, Tensor gamma, Tensor beta, float eps, int "
+    "groups) -> Tensor", fused_layer_norm,
+    lambda x, gamma, beta, eps, groups: torch.empty_like(
+        x, memory_format=torch.contiguous_format))
 
 
 def _ln_forward(x, gamma, beta, eps, groups):
@@ -331,9 +342,18 @@ def pool_norm_rows(t: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     channel-major kernel (bf16, contiguous, d 96, ``L % 8 == 0``; it
     raises on anything else), differentiable through
     :func:`pool_norm_rows_bwd`; a CPU tensor through the plain version."""
+    if torch.compiler.is_exporting():
+        return _POOL_NORM_OP(t, gamma, beta, eps, heads)
     if not kernels.use_kernel(t):
         return pool_norm_rows_plain(t, gamma, beta, eps, heads)
     return _PoolNormRows.apply(t, gamma, beta, eps, heads)
+
+
+_POOL_NORM_OP = kernels.export_op(
+    "pool_norm_rows", "(Tensor t, Tensor gamma, Tensor beta, float eps, int "
+    "heads) -> Tensor", pool_norm_rows,
+    lambda t, gamma, beta, eps, heads: t.new_empty(
+        (t.shape[0] * heads, t.shape[2], t.shape[1] // heads)))
 
 
 def _pool_norm_forward(t, gamma, beta, eps, heads):

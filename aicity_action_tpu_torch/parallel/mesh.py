@@ -57,6 +57,22 @@ def global_rank(cfg, local_rank: int) -> int:
     return cfg.SHARD_ID * max(cfg.NUM_GPUS, 1) + local_rank
 
 
+def check_card_count(cfg, device: str | torch.device) -> None:
+    """Raise before any rank is spawned where a card run asks for more
+    ranks on this host (``NUM_GPUS``, one a card) than the host has cards.
+    Taking fewer ranks instead would change each rank's share of the
+    global batch. CPU (gloo) runs are not limited."""
+    if torch.device(device).type != "cuda":
+        return
+    have = torch.cuda.device_count()
+    if cfg.NUM_GPUS > have:
+        raise RuntimeError(
+            f"NUM_GPUS={cfg.NUM_GPUS} asks for {cfg.NUM_GPUS} ranks on this "
+            f"host, one a card, but torch.cuda.device_count() is {have}: "
+            f"pass NUM_GPUS {have} (e.g. NUM_GPUS 1 on a one-card host) and "
+            f"a TRAIN.BATCH_SIZE that divides by it")
+
+
 def init_distributed(cfg, local_rank: int = 0, *,
                      device: str | torch.device = "cuda",
                      force: bool = False) -> bool:

@@ -205,22 +205,27 @@ class WindowDataset:
         return (pack_pathway_output(x, self.arch_pathways,
                                     self.slowfast_alpha), t0, t1)
 
-    def stream_windows(self, raw_u8: bool = False) -> Iterator[tuple]:
+    def stream_windows(self, raw_u8: bool = False,
+                       windows: Optional[Sequence[int]] = None
+                       ) -> Iterator[tuple]:
         """Single-pass windows: every frame decoded, cropped and resized
         once (the chunk paths' per-frame cv2 arithmetic) into a rolling
         buffer that holds the frames a later window still needs; yields
         ``(pathway clips, t0, t1)`` as :meth:`__getitem__` does, in t0
         order, or under ``raw_u8`` ``([RGB u8 [T, s, s, 3]], t0, t1)`` for
         the consumer to normalize. A frame index past EOF takes the last
-        decoded frame."""
-        import cv2
-
+        decoded frame. ``windows`` (ascending indices into :meth:`plans`)
+        streams only those, decoding from the first one's first frame."""
         plans = self.plans()
+        if windows is not None:
+            plans = [plans[w] for w in windows]
+        if not plans:
+            return
         s = self.frame_size
         write = self._frame_writer(s, yuv420=False, rgb=True)
-        cap = cv2.VideoCapture(self.video_path)
+        frame_idx, eof = int(plans[0][2][0]), False
+        cap = _cv2_capture_at(self.video_path, frame_idx)
         buf: dict[int, np.ndarray] = {}
-        frame_idx, eof = 0, False
         try:
             for w, (t0, t1, idxs) in enumerate(plans):
                 while frame_idx <= int(idxs[-1]) and not eof:
@@ -363,22 +368,9 @@ class WindowDataset:
                 while done < n and dec.read(slab[done]):
                     done += 1
         else:
-            import cv2
-
-            cap = cv2.VideoCapture(self.video_path)
+            cap = _cv2_capture_at(self.video_path, c * F)
             write = self._frame_writer(s, yuv420, rgb)
             try:
-                if c:
-                    cap.set(cv2.CAP_PROP_POS_FRAMES, c * F)
-                    # the seek is estimated from the average fps and can
-                    # land off target on VFR / odd-GOP sources: then an
-                    # exact sequential skip from frame 0
-                    if int(round(cap.get(cv2.CAP_PROP_POS_FRAMES))) != c * F:
-                        cap.release()
-                        cap = cv2.VideoCapture(self.video_path)
-                        for _ in range(c * F):
-                            if not cap.grab():
-                                break
                 while done < n:
                     ok, frame = cap.read()
                     if not ok:
@@ -465,6 +457,25 @@ class WindowDataset:
                     f.cancel()
 
 
+def _cv2_capture_at(path: str, frame: int):
+    """A ``cv2.VideoCapture`` of ``path`` whose next read returns source
+    frame ``frame``. cv2's seek is estimated from the average fps and can
+    land off target on VFR / odd-GOP sources: then an exact sequential
+    skip from frame 0."""
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    if frame:
+        cap.set(cv2.CAP_PROP_POS_FRAMES, frame)
+        if int(round(cap.get(cv2.CAP_PROP_POS_FRAMES))) != frame:
+            cap.release()
+            cap = cv2.VideoCapture(path)
+            for _ in range(frame):
+                if not cap.grab():
+                    break
+    return cap
+
+
 def _emit_chunks(slab: np.ndarray, read_row) -> Iterator[np.ndarray]:
     """Drive ``read_row(slab_row) -> bool`` into full chunks: yields each
     filled slab, pads the EOF partial with its own last frame, then yields
@@ -522,7 +533,8 @@ class WindowScorer:
     processes. Results stay on the card until the video ends, so host
     decode overlaps device compute. ``last_timers`` holds the device-gather
     run's phase split (seconds of decode / upload / dispatch / drain, and
-    the calls, chunks and decoder) and is None after any other path. A
+    the calls, chunks and decoder) and is None after any other path at one
+    rank. A
     two-pathway model's windows take :meth:`_score_streaming`, and so do a
     detection model's (``detection=True``): its RoI head scores one
     whole-frame box a window, ``[i, 0, 0, s, s]`` (the reference's
@@ -530,9 +542,12 @@ class WindowScorer:
 
     In a process group of several ranks (``parallel/mesh.py``: one process
     a card, where the JAX package shards each batch over a host's chips,
-    ``window_inference.py:559-571``) the device-gather path splits one
-    video's windows over the ranks (:meth:`_score_ranks`); every rank
-    returns the whole video's windows.
+    ``window_inference.py:559-571``) every path splits one video's windows
+    over the ranks by the chunk their first frame lies in
+    (:meth:`_rank_windows`; the device-gather path through
+    :meth:`_score_ranks`), each rank scores only its own, and every rank
+    returns the whole video's windows; ``last_timers`` then holds each
+    rank's split and windows under ``ranks``.
     """
 
     def __init__(self, model: torch.nn.Module, batch_size: int = 8,
@@ -553,11 +568,15 @@ class WindowScorer:
         the device-gather path (the window-streaming path for a
         two-pathway model), or under ``streaming=False`` the loader path."""
         self.last_timers = None
-        if streaming:
-            if dataset.arch_pathways == 1 and not self.detection:
-                return self._score_device_gather(dataset)
-            return self._score_streaming(dataset)
-        return self._score_loader(dataset)
+        if streaming and dataset.arch_pathways == 1 and not self.detection:
+            return self._score_device_gather(dataset)
+        score = self._score_streaming if streaming else self._score_loader
+        if mesh.get_world_size() == 1:
+            return score(dataset)
+        plans = dataset.plans()
+        mine, _ = self._rank_windows(plans)
+        preds = score(dataset, mine) if mine else []
+        return self._gather_ranks(plans, mine, preds, {})
 
     def _boxes(self, n: int, s: int) -> tuple:
         """The model's box argument for ``n`` windows of ``s x s`` frames:
@@ -571,11 +590,12 @@ class WindowScorer:
         return (boxes.to(self.device),)
 
     @torch.no_grad()
-    def _score_streaming(self, dataset: WindowDataset) -> list:
-        """:meth:`WindowDataset.stream_windows` in batches of
-        ``batch_size`` windows, each pathway's clips copied to the card (a
-        one-pathway detection model's as u8, normalized there); the scores
-        stay there until the video ends."""
+    def _score_streaming(self, dataset: WindowDataset,
+                         windows: Optional[Sequence[int]] = None) -> list:
+        """:meth:`WindowDataset.stream_windows` (of ``windows`` only, where
+        given) in batches of ``batch_size`` windows, each pathway's clips
+        copied to the card (a one-pathway detection model's as u8,
+        normalized there); the scores stay there until the video ends."""
         pending = []
         group: list = []
         raw_u8 = dataset.arch_pathways == 1
@@ -597,7 +617,7 @@ class WindowScorer:
             pending.append((out, [(g[1], g[2]) for g in group]))
             group.clear()
 
-        for item in dataset.stream_windows(raw_u8=raw_u8):
+        for item in dataset.stream_windows(raw_u8=raw_u8, windows=windows):
             group.append(item)
             if len(group) == self.batch_size:
                 flush()
@@ -612,31 +632,25 @@ class WindowScorer:
             return []
         return self._gather_windows(dataset, plans)
 
-    def _score_ranks(self, dataset: WindowDataset, plans: list) -> list:
-        """One video's windows over the group's ranks (one a card): rank r
-        takes the windows whose first frame lies in its contiguous share of
-        the chunks (:func:`rank_chunks`), decodes from its first chunk to
-        the last frame its windows read (past its share's end where a
-        window spans into the next chunk) and scores them; then every rank
-        gathers ``(window index, scores)`` and returns the whole video's
-        list, in the one-rank order. A rank with no windows (a video of
-        fewer chunks than ranks) joins the gathers. ``last_timers`` holds
-        ``ranks``, each rank's split (its ``windows`` too)."""
+    def _rank_windows(self, plans: list) -> tuple[list[int], int]:
+        """This rank's windows (ascending indices into ``plans``) and the
+        first chunk of its share: the windows whose first frame lies in
+        its contiguous share of the chunks (:func:`rank_chunks`)."""
         F = self.chunk_frames
         first = [int(p[2][0]) // F for p in plans]
         lo, hi = rank_chunks(max(first) + 1 if plans else 0,
                              mesh.get_world_size(), mesh.get_rank())
-        mine = [w for w, c in enumerate(first) if lo <= c < hi]
-        timers = {"upload": 0.0, "dispatch": 0.0, "drain": 0.0,
-                  "calls": 0, "chunks": 0, "decode": 0.0, "decoder": None}
-        scores = np.zeros((0, 0), np.float32)
-        if mine:
-            share = [plans[w] for w in mine]
-            preds = self._gather_windows(
-                dataset, share, first_chunk=lo,
-                end_frame=max(int(p[2][-1]) for p in share) + 1)
-            scores = np.stack([p[2] for p in preds])
-            timers = self.last_timers
+        return [w for w, c in enumerate(first) if lo <= c < hi], lo
+
+    def _gather_ranks(self, plans: list, mine: list[int], preds: list,
+                      timers: dict) -> list:
+        """Every rank's ``(window index, scores)`` gathered to every rank
+        (``preds``: this rank's sorted scores of its windows ``mine``);
+        returns the whole video's list in the one-rank order and leaves
+        ``last_timers`` ``{"ranks": [each rank's timers and windows]}``.
+        A rank with no windows joins the gathers."""
+        scores = (np.stack([p[2] for p in preds]) if preds
+                  else np.zeros((0, 0), np.float32))
         idx = np.concatenate(mesh.process_allgather(np.asarray(mine,
                                                                np.int64)))
         scores = [x for x in mesh.process_allgather(scores) if len(x)]
@@ -648,6 +662,25 @@ class WindowScorer:
         return [(plans[w][0], plans[w][1], scores[k])
                 for k, w in sorted(enumerate(idx.tolist()),
                                    key=lambda kw: kw[1])]
+
+    def _score_ranks(self, dataset: WindowDataset, plans: list) -> list:
+        """One video's windows over the group's ranks (one a card): each
+        rank scores its windows (:meth:`_rank_windows`), decoding from its
+        first chunk to the last frame its windows read (past its share's
+        end where a window spans into the next chunk), then the ranks
+        gather (:meth:`_gather_ranks`); each rank's timers carry its
+        device-gather split."""
+        mine, lo = self._rank_windows(plans)
+        timers = {"upload": 0.0, "dispatch": 0.0, "drain": 0.0,
+                  "calls": 0, "chunks": 0, "decode": 0.0, "decoder": None}
+        preds = []
+        if mine:
+            share = [plans[w] for w in mine]
+            preds = self._gather_windows(
+                dataset, share, first_chunk=lo,
+                end_frame=max(int(p[2][-1]) for p in share) + 1)
+            timers = self.last_timers
+        return self._gather_ranks(plans, mine, preds, timers)
 
     def _gather_windows(self, dataset: WindowDataset, plans: list,
                         first_chunk: int = 0,
@@ -791,12 +824,16 @@ class WindowScorer:
         return preds
 
     @torch.no_grad()
-    def _score_loader(self, dataset: WindowDataset) -> list:
-        """Windows decoded one by one (``dataset[i]``, a seek each) by a
-        ``torch.utils.data.DataLoader`` with ``num_workers`` spawned worker
-        processes, ``batch_size`` at a time."""
+    def _score_loader(self, dataset: WindowDataset,
+                      windows: Optional[Sequence[int]] = None) -> list:
+        """Windows (``windows`` only, where given) decoded one by one
+        (``dataset[i]``, a seek each) by a ``torch.utils.data.DataLoader``
+        with ``num_workers`` spawned worker processes, ``batch_size`` at a
+        time."""
         loader = torch.utils.data.DataLoader(
-            dataset, batch_size=self.batch_size, shuffle=False,
+            dataset if windows is None
+            else torch.utils.data.Subset(dataset, list(windows)),
+            batch_size=self.batch_size, shuffle=False,
             drop_last=False, num_workers=self.num_workers,
             multiprocessing_context="spawn" if self.num_workers else None)
         pending = []

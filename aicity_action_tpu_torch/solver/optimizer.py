@@ -7,6 +7,12 @@ slowfast/models/optimizer.py:26-236).
   position embeddings when ``MVIT.ZERO_DECAY_POS_CLS``; BatchNorm
   parameters decay by ``BN.WEIGHT_DECAY`` (``optimizer.py:92``): torch
   param groups, where the JAX package masks optax's decay.
+- The multi-dataset head's cross projections (``head.cross_*``) form a
+  group of their own without weight decay (the JAX ``cross_proj`` label):
+  ``MODEL.MULTI_FIX_PROJ`` (with ``MULTI_ADD_CROSS_PROJ``) freezes them
+  (LR 0), else ``MODEL.MULTI_PROJ_TRAIN_DIFF_LR`` steps them at
+  ``MULTI_PROJ_LR`` whatever the schedule says (the JAX chain scales their
+  update by ``MULTI_PROJ_LR / lr(step)``, ``optimizer.py:134-151``).
 - Gradients are clipped first (``CLIP_GRAD_VAL`` elementwise, or
   ``CLIP_GRAD_L2NORM`` by the global norm with optax's rule), then the
   torch optimizer steps with the LR the schedule gives for the step count.
@@ -58,18 +64,28 @@ def _is_bn_param(name: str) -> bool:
                for k in name.split(".")[:-1])
 
 
+def _is_cross_proj(name: str) -> bool:
+    """The JAX package's 'cross_proj' label: a module named ``cross_*``."""
+    return any(k.startswith("cross_") for k in name.split(".")[:-1])
+
+
 def param_groups(model: nn.Module, weight_decay: float, zero_wd_1d: bool,
                  no_decay_names: Iterable[str] = (),
-                 bn_weight_decay: float = 0.0) -> list[dict]:
+                 bn_weight_decay: float = 0.0,
+                 cross_proj_lr: float | None = None) -> list[dict]:
     """``[{params decayed}, {params not decayed}]``, plus ``{BatchNorm
-    params}`` decayed by ``bn_weight_decay`` where the model has any (the
-    JAX package's ``_param_labels``: 'default', 'zero_wd', 'bn')."""
-    decay, no_decay, bn = [], [], []
+    params}`` decayed by ``bn_weight_decay`` where the model has any, and
+    ``{cross projections}`` (no decay; at the fixed LR ``cross_proj_lr``
+    where it is not None) where it has any (the JAX package's
+    ``_param_labels``: 'default', 'zero_wd', 'bn', 'cross_proj')."""
+    decay, no_decay, bn, cross = [], [], [], []
     names = tuple(no_decay_names)
     for name, p in model.named_parameters():
         if not p.requires_grad:
             continue
-        if _is_bn_param(name):
+        if _is_cross_proj(name):
+            cross.append(p)
+        elif _is_bn_param(name):
             bn.append(p)
         elif any(n in name for n in names) or (
                 zero_wd_1d and (p.dim() <= 1 or name.endswith(".bias"))):
@@ -80,6 +96,10 @@ def param_groups(model: nn.Module, weight_decay: float, zero_wd_1d: bool,
               {"params": no_decay, "weight_decay": 0.0}]
     if bn:
         groups.append({"params": bn, "weight_decay": bn_weight_decay})
+    if cross:
+        groups.append({"params": cross, "weight_decay": 0.0})
+        if cross_proj_lr is not None:
+            groups[-1]["fixed_lr"] = cross_proj_lr
     return groups
 
 
@@ -139,7 +159,7 @@ class TrainOptimizer:
                 p.grad.mul_(scale.to(p.grad.dtype))
         lr = self.schedule(self.count)
         for g in self.opt.param_groups:
-            g["lr"] = lr
+            g["lr"] = g.get("fixed_lr", lr)
         self.opt.step()
         self.count += 1
         return norm
@@ -150,9 +170,12 @@ def construct_optimizer(cfg, model: nn.Module,
     """The optimizer of ``cfg.SOLVER`` over ``model``'s parameters."""
     solver = cfg.SOLVER
     schedule = make_lr_schedule(solver, steps_per_epoch)
+    m = cfg.MODEL
+    cross_lr = (0.0 if m.MULTI_ADD_CROSS_PROJ and m.MULTI_FIX_PROJ
+                else m.MULTI_PROJ_LR if m.MULTI_PROJ_TRAIN_DIFF_LR else None)
     groups = param_groups(model, solver.WEIGHT_DECAY,
                           solver.ZERO_WD_1D_PARAM, no_weight_decay_names(cfg),
-                          cfg.BN.WEIGHT_DECAY)
+                          cfg.BN.WEIGHT_DECAY, cross_lr)
     method = solver.OPTIMIZING_METHOD
     zero = method in ("zero_sgd", "zero_adamw")
     if zero:

@@ -100,10 +100,12 @@ def main(argv=None, train=None, test=None) -> dict:
     ``OUTPUT_DIR``)."""
     from ..config import assert_and_infer_cfg, load_config
     from ..device import resolve_device
+    from ..parallel import mesh
 
     args = parse_args(argv)
     resolve_device(args.device)  # no card and no --device cpu: raise here
     cfg = assert_and_infer_cfg(load_config(args))
+    mesh.check_card_count(cfg, args.device)
     if cfg.NUM_GPUS > 1:
         import torch.multiprocessing as mp
 

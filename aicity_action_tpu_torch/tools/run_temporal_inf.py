@@ -183,9 +183,11 @@ def main(argv=None) -> dict:
         raise SystemExit("--exact_rgb: the RGB chunk path decodes with cv2, "
                          "which is not installed")
     from ..device import resolve_device
+    from ..parallel import mesh
 
     resolve_device(args.device)  # no card and no --device cpu: raise here
     cfg = _config(args)
+    mesh.check_card_count(cfg, args.device)
     if cfg.NUM_GPUS > 1:
         import torch.multiprocessing as mp
 

@@ -9,7 +9,13 @@
   -> ``weight``.
 - :func:`jax_tree_to_named` applies the same mapping to any tree of the
   params' structure (a gradient tree, an optimizer moment) and keeps numpy
-  leaves, so that tests compare the two packages leaf by leaf.
+  leaves, so that tests compare the two packages leaf by leaf. The
+  multi-dataset head's leaves map by the same rules: ``head/head_{ds}/
+  {kernel,bias}`` -> ``head.head_{ds}.{weight,bias}`` (its MLP variant's
+  ``head/head_{ds}/fc{1,2}/...`` -> ``head.head_{ds}.fc{1,2}.*``) and
+  ``head/cross_{src}_{dst}/kernel`` -> ``head.cross_{src}_{dst}.weight``.
+- :func:`load_cross_proj_weight` sets the cross-dataset projections from
+  word-embedding similarity ``.npy`` files.
 - :func:`jax_actionclip_to_state_dict` / :func:`jax_actionclip_tree_to_named`
   carry a JAX ActionCLIP tree (``video_encoder``, ``text_encoder``,
   ``logit_scale``) over: the video tower by the MViT map (its contrastive
@@ -81,6 +87,42 @@ def jax_tree_to_named(tree: Mapping) -> dict[str, np.ndarray]:
 
     walk(tree, [])
     return sd
+
+
+def load_cross_proj_weight(cfg, model: torch.nn.Module) -> int:
+    """Sets the multi-dataset head's cross projections of ``model`` from
+    ``MODEL.LOAD_MULTI_PROJ_INIT_FILE``, a directory of ``{src}_{dst}.npy``
+    files of torch-layout ``[classes of dst, classes of src]`` weights
+    (``kinetics`` named ``kinetics{its classes}``; the JAX ``utils/
+    convert.py:255``, reference train_net.py:567-617). Returns how many it
+    set; a file of another shape raises."""
+    import os
+
+    datasets = list(cfg.MODEL.MULTI_DATASETS)
+    num_classes = list(cfg.MODEL.MULTI_NUM_CLASSES)
+
+    def fname(ds):
+        if ds == "kinetics":
+            return f"kinetics{num_classes[datasets.index(ds)]}"
+        return ds
+
+    head = getattr(model, "module", model).head
+    n_loaded = 0
+    for src in datasets:
+        for dst in datasets:
+            layer = getattr(head, f"cross_{src}_{dst}", None)
+            if src == dst or layer is None:
+                continue
+            path = os.path.join(cfg.MODEL.LOAD_MULTI_PROJ_INIT_FILE,
+                                f"{fname(src)}_{fname(dst)}.npy")
+            w = np.load(path)
+            if w.shape != tuple(layer.weight.shape):
+                raise ValueError(f"{path}: shape {w.shape}, the projection "
+                                 f"takes {tuple(layer.weight.shape)}")
+            with torch.no_grad():
+                layer.weight.copy_(torch.from_numpy(w))
+            n_loaded += 1
+    return n_loaded
 
 
 def _text_tree_to_named(tree: Mapping) -> dict[str, np.ndarray]:

@@ -6,8 +6,8 @@ clip -> video ensemble ``TestMeter`` and numpy mAP. Values arrive here as
 host numbers. ``TrainMeter`` also keeps each iteration's wall and data
 wait of the epoch (``iter_times``, ``data_times``), from which the train
 loop reports its data-wait share. ``AVAMeter`` gives the AVA frame mAP of
-detection. ``MultiDatasetValMeter`` (the multi-head heads, ROADMAP Queue 1
-item 9b) is not ported.
+detection. ``MultiDatasetValMeter`` gives the multi-head models' top-k
+per dataset.
 """
 
 from __future__ import annotations
@@ -309,6 +309,57 @@ def topks_correct_full_label(preds: np.ndarray, labels: np.ndarray,
         hit = pos[np.arange(len(preds))[:, None], top[:, :k]].any(axis=1)
         out.append(float(hit.mean()) if len(preds) else 0.0)
     return out
+
+
+class MultiDatasetValMeter:
+    """Per-dataset validation accuracy of a multi-head model (the JAX
+    ``meters.py:304``; reference: meters.py:856-898). Every head scores
+    each sample; :meth:`update_stats` keeps each sample's own dataset's
+    scores and labels (``labels_full [B, max classes]`` cut to the
+    dataset's classes); :meth:`log_epoch_stats` gives each dataset's top-1
+    / top-5 (:func:`topks_correct_full_label`) and their means."""
+
+    def __init__(self, max_iter: int, cfg):
+        self.cfg = cfg
+        self.max_iter = max_iter
+        self.datasets = list(cfg.MODEL.MULTI_DATASETS)
+        self.num_classes = list(cfg.MODEL.MULTI_NUM_CLASSES)
+        self.reset()
+
+    def reset(self):
+        self.all_preds = {ds: [] for ds in self.datasets}
+        self.all_labels = {ds: [] for ds in self.datasets}
+
+    def update_stats(self, preds_by_ds: dict, labels_full: np.ndarray,
+                     dataset_idx: np.ndarray):
+        dataset_idx = np.asarray(dataset_idx)
+        for i, (ds, n_cls) in enumerate(zip(self.datasets,
+                                            self.num_classes)):
+            sel = dataset_idx == i
+            if not sel.any():
+                continue
+            self.all_preds[ds].append(np.asarray(preds_by_ds[ds])[sel])
+            self.all_labels[ds].append(
+                np.asarray(labels_full)[sel][:, :n_cls])
+
+    def log_epoch_stats(self, cur_epoch: int) -> dict:
+        stats = {"_type": "val_epoch",
+                 "epoch": f"{cur_epoch + 1}/{self.cfg.SOLVER.MAX_EPOCH}"}
+        per_ds, top1s, top5s = {}, [], []
+        for ds in self.datasets:
+            if not self.all_preds[ds]:
+                continue
+            top1, top5 = topks_correct_full_label(
+                np.concatenate(self.all_preds[ds]),
+                np.concatenate(self.all_labels[ds]), ks=(1, 5))
+            per_ds[ds] = {"top1_acc": top1, "top5_acc": top5}
+            top1s.append(top1)
+            top5s.append(top5)
+        stats["dataset_topk"] = per_ds
+        stats["top1_avg_acc"] = float(np.mean(top1s)) if top1s else 0.0
+        stats["top5_avg_acc"] = float(np.mean(top5s)) if top5s else 0.0
+        log_json_stats(stats)
+        return stats
 
 
 class EpochTimer:

@@ -138,7 +138,28 @@ NVIDIA card.
     auto-resumes (the momentum weights too), trains epoch 2 and writes
     the test's feature pickle; then ``inference_videotext`` with the text
     tower alone ranks the pickle as the loop's own features do.
-18. Prints ``{"kernels": [...]}``, the card line, and last
+18. The multi-head fine-tune (``multihead_checks``): ``tools/run_net.py``
+    in process with MViT-v2-B 16x4 @448 and the reference's default
+    multi-dataset heads (kinetics 700, mmit 292, activitynet 200), the
+    cross projections and VICReg, batch 4 on clips of the loop's views,
+    3 steps and an eval with TensorBoard where it imports (else the
+    writer's named error); launches held to ``derived_counts``, finite
+    losses, and a batch-1 step's gradients (heads and cross projections
+    included) against the plain reference. Prints whether TensorBoard
+    imports.
+19. The loader and decode benchmarks (``benchmark_checks``):
+    ``tools/benchmark.py`` on the loop's views and
+    ``tools/benchmark_decode.py --seconds 10 60 --reps 3``, printed.
+20. ``VideoActionClassifier`` at @448 batch 8 (``classifier_checks``):
+    eager inference (padding, splitting) with its launches held to
+    ``derived_counts``, then ``export`` / ``exported_path=``: the program's
+    launches of rows 5, 8, 10 and 12 equal one forward's, its scores the
+    eager ones within 1e-2; both forwards timed.
+21. The fire drill (``fire_drill_checks``): ``tools/fire_drill.py`` as a
+    subprocess on a seed-0 @448 ``.pyth`` and two written views: a finite
+    F1, a clean load, a rerun that skips scoring; and the YAML's
+    ``NUM_GPUS 8`` refused before spawning on this one-card host.
+22. Prints ``{"kernels": [...]}``, the card line, and last
     ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no result.
@@ -3492,6 +3513,427 @@ def actionclip_loop_checks(card: str, d: str) -> dict:
             "logit_scale_max": con.LOGIT_SCALE_MAX}
 
 
+# ------------------------------------------------------ multi-head fine-tune
+
+# the reference's default multi-dataset setting (config/defaults.py:139-146)
+# on the AI City backbone; each dataset's csvs over the train loop's views
+MH_DATASETS = ("kinetics", "mmit", "activitynet")
+MH_TRAIN_VIEWS, MH_VAL_VIEWS = 4, 2  # a dataset: 12 clips = 3 steps of 4
+MH_DEVICE = "cuda"
+
+
+def _mh_labels(name: str, i: int) -> str:
+    """A view's label in dataset ``name``'s csv: an id of its class space
+    (700 / 292 / 200), mmit's a comma-separated multi-label."""
+    if name == "mmit":
+        return f"{(7 * i) % 292},{(7 * i + 100) % 292}"
+    return str((37 * i) % (700 if name == "kinetics" else 200))
+
+
+def write_multi_dataset(d: str) -> list:
+    """Each of MH_DATASETS's train and val csvs in ``d/<name>`` over the
+    loop's views in ``d``; returns the config overrides of the run."""
+    dirs = []
+    for k, name in enumerate(MH_DATASETS):
+        sub = os.path.join(d, name)
+        os.makedirs(sub, exist_ok=True)
+        for split, views in (("train", range(MH_TRAIN_VIEWS)),
+                             ("val", range(MH_TRAIN_VIEWS,
+                                           MH_TRAIN_VIEWS + MH_VAL_VIEWS))):
+            with open(os.path.join(sub, f"{split}.csv"), "w") as f:
+                f.writelines(f"v{(i + k) % LOOP_VIEWS}.y4m "
+                             f"{_mh_labels(name, i + k)}\n" for i in views)
+        dirs.append(sub)
+    return ["TRAIN.DATASET", "multi_dataset_seq", "MODEL.USE_MULTI_HEAD",
+            "True", "MODEL.MULTI_ADD_CROSS_PROJ", "True",
+            "MODEL.USE_VICREG_LOSS", "True", "MODEL.MULTI_DATASETS",
+            str(list(MH_DATASETS)), "MODEL.MULTI_PATH_TO_DATA_DIR",
+            str(dirs), "MODEL.MULTI_PATH_PREFIX", str([d] * len(dirs)),
+            "TEST.ENABLE", "False"]
+
+
+def tensorboard_probe() -> str:
+    """Whether ``torch.utils.tensorboard`` imports here, in words."""
+    try:
+        import torch.utils.tensorboard  # noqa: F401
+    except ImportError as e:
+        return f"torch.utils.tensorboard does not import ({e})"
+    import tensorboard
+
+    return f"torch.utils.tensorboard imports (tensorboard {tensorboard.__version__})"
+
+
+def multihead_checks(card: str, d: str) -> dict:
+    """The multi-dataset fine-tune through ``tools/run_net.py``'s ``main``,
+    in process: the AI City MViT-v2-B 16x4 @448 (seed 0, bf16) with the
+    reference's three default datasets' heads (kinetics 700 soft CE, mmit
+    292 BCE x 10, activitynet 200 soft CE), the cross projections and
+    VICReg, batch 4 on clips of the loop's views; one epoch (3 steps, an
+    eval), with TensorBoard on where it imports. Launches held to
+    ``derived_counts`` times the steps and eval forwards (the heads launch
+    none), finite losses, each dataset's eval top-k, the event file (or,
+    where TensorBoard does not import, the writer's named error); then a
+    batch-1 step's gradients, the heads' and cross projections' leaves
+    included, against the plain reference (:func:`_hold_grads`)."""
+    import glob
+
+    import torch
+
+    from aicity_action_tpu_torch.tools import run_net
+
+    probe = tensorboard_probe()
+    has_tb = probe.startswith("torch.utils.tensorboard imports")
+    out = os.path.join(d, "mh_out")
+    opts = _loop_opts(d, 1, "mh_out")
+    opts[opts.index("TRAIN.CHECKPOINT_PERIOD") + 1] = "10"
+    opts += write_multi_dataset(d) + ["TENSORBOARD.ENABLE", str(has_tb)]
+    reset_counts()
+    t = time.perf_counter()
+    with model_inputs_seen() as seen:
+        res = run_net.main(["--cfg", LOOP_CFG, "--device", MH_DEVICE,
+                            *opts])
+        torch.cuda.synchronize()
+        seen = list(seen)
+    seconds = time.perf_counter() - t
+    launches = read_counts()
+    run = res["train"]
+    epoch = run.epochs[0]
+    steps = len(MH_DATASETS) * MH_TRAIN_VIEWS // 4
+    val = epoch["val"]
+    val_fwd = -(-len(MH_DATASETS) * MH_VAL_VIEWS // 4)
+    if len(epoch["losses"]) != steps or not all(np.isfinite(epoch["losses"])):
+        _fail(f"multi-head fine-tune: losses {epoch['losses']}")
+    if val["forwards"] != val_fwd or set(val["dataset_topk"]) != \
+            set(MH_DATASETS):
+        _fail(f"multi-head fine-tune: eval {val}")
+    want = {k: steps * v for k, v in
+            derived_counts(run.model, train=True).items()}
+    for k, v in derived_counts(run.model, train=False).items():
+        want[k] += val_fwd * v
+    if launches != want:
+        _fail(f"multi-head fine-tune: launches {launches} != {want}")
+    if seen != [LOOP_INPUT] * (steps + val_fwd):
+        _fail(f"multi-head fine-tune: the model's inputs {sorted(set(seen))}")
+    events = glob.glob(os.path.join(out, "runs-multi_dataset_seq",
+                                    "events.*"))
+    if has_tb:
+        if len(events) != 1:
+            _fail(f"multi-head fine-tune: TensorBoard wrote {events}")
+        tb = f"event file {os.path.basename(events[0])}"
+    else:
+        from aicity_action_tpu_torch.config import load_config, parse_args
+        from aicity_action_tpu_torch.visualization.tensorboard_vis import (
+            TensorboardWriter)
+
+        try:
+            TensorboardWriter(load_config(parse_args(
+                ["--cfg", LOOP_CFG, *opts])))
+        except ImportError as e:
+            if "tensorboardX" not in str(e):
+                raise
+            tb = f"the writer raises: {e}"
+        else:
+            _fail("the TensorBoard writer built without a package")
+    ms = epoch["wall_s"] * 1e3 / steps
+    print(f"# multi-head fine-tune ({card}): MViT-v2-B 16x4 @448, heads "
+          f"{dict(zip(MH_DATASETS, run.model.spec.multi_num_classes))}, "
+          f"cross projections and VICReg, batch 4; {steps} steps "
+          f"{ms:.2f} ms/step with data (epoch wall {epoch['wall_s']:.3f} s; "
+          f"step walls {epoch['iter_s']}, data waits {epoch['data_s']}); "
+          f"losses {epoch['losses']}; eval top-1 by dataset "
+          f"{ {k: v['top1_acc'] for k, v in val['dataset_topk'].items()} } "
+          f"({val['clips']} clips, {val['forwards']} forwards); "
+          f"TensorBoard: {probe}; {tb}; run {seconds:.1f} s; launches "
+          f"{launches}")
+    del res, run
+    torch.cuda.empty_cache()
+    from aicity_action_tpu_torch.config import load_config, parse_args
+
+    cfg = load_config(parse_args(["--cfg", LOOP_CFG, *opts]))
+    grads = multihead_grad_check(cfg, "MViT-v2-B @448 multi-head")
+    return {"ms_per_step": ms, "losses": epoch["losses"],
+            "val": val, "tensorboard": probe, "launches": launches,
+            "seconds": seconds, "grad_check": grads}
+
+
+def multihead_grad_check(cfg, label: str) -> dict:
+    """One batch-1 multi-head step's loss and gradients (no update): the
+    train step's loss (every head's masked loss, the cross projections
+    into the sample's dataset, VICReg) with the kernels against the same
+    model in its plain reference mode (:func:`_hold_grads`). The sample is
+    mmit's, whose class space every other head projects into, so that
+    every head and the projections into mmit carry gradients; the others
+    are exactly zero on both paths."""
+    import torch
+
+    from aicity_action_tpu_torch.engine.steps import (multihead_step_kwargs,
+                                                      step_generators)
+    from aicity_action_tpu_torch.models import losses as loss_lib
+    from aicity_action_tpu_torch.models.build import build_model
+    from aicity_action_tpu_torch.solver.optimizer import global_norm
+
+    kw = multihead_step_kwargs(cfg)
+    model = build_model(cfg, device=MH_DEVICE, seed=SEED)
+    dev = next(model.parameters()).device
+    T, S = cfg.DATA.NUM_FRAMES, cfg.DATA.TRAIN_CROP_SIZE
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    x = _normal(gen, (1, T, S, S, 3), device=dev)
+    ds = 1  # mmit
+    n_cls = dict(zip(kw["datasets"], kw["num_classes"]))
+    labels = {k: torch.zeros((1, n), device=dev) for k, n in n_cls.items()}
+    labels["mmit"][0, [3, 40]] = 1.0
+    masks = {k: torch.tensor([float(i == ds)], device=dev)
+             for i, k in enumerate(kw["datasets"])}
+    model.train()
+    params = list(model.parameters())
+
+    def run(xx=x):
+        g, _ = step_generators(SEED, 7, dev)
+        model.zero_grad(set_to_none=True)
+        preds, emb = model(xx, generator=g, run_cross_proj=True,
+                           return_emb=True)
+        loss = loss_lib.compute_multi_dataset_loss(
+            preds, labels, masks, kw["datasets"], kw["loss_funcs"],
+            dict(zip(kw["datasets"], kw["loss_weights"])),
+            add_cross_proj=True, proj_loss_func=kw["proj_loss_func"],
+            proj_loss_weight=kw["proj_loss_weight"])
+        loss = loss + kw["vicreg_weight"] * loss_lib.compute_vicreg_loss(
+            emb.float(), std_weight=1.0, cov_weight=1.0)
+        loss.backward()
+        return (loss.item(), global_norm(params).item(),
+                [torch.zeros_like(p, dtype=torch.float32) if p.grad is None
+                 else p.grad.detach().float().clone() for p in params])
+
+    names = [n for n, _ in model.named_parameters()]
+    head = [i for i, n in enumerate(names) if n.startswith("head.")]
+    out = _hold_grads(label, model, run, x, gen)
+    out["head_leaves"] = len(head)
+    return out
+
+
+# ---------------------------------------------------- classifier and export
+
+CLF_CFG = "mvitv2_b_16x4_448_cfg"  # the config factory of the phase
+CLF_DEVICE = "cuda"
+
+
+def classifier_checks(card: str, d: str) -> dict:
+    """``VideoActionClassifier`` at @448 batch 8 (seed-0 weights, bf16): its
+    eager ``inference`` on a short batch (padded) and a long one (split),
+    the launches of one batch-8 call held to ``derived_counts``; then
+    ``export`` (``torch.export``, the inference kernels as custom ops),
+    ``exported_path=`` and a rerun whose launches of rows 5, 8, 10 and 12
+    must equal one forward's ``derived_counts`` and whose scores must match
+    the eager ones within the batch-8 forward's 1e-2. Times the model's
+    eager forward and the exported program's on the same device batch."""
+    import torch
+
+    from aicity_action_tpu_torch import config as tconfig
+    from aicity_action_tpu_torch.pipeline.classifier import (
+        VideoActionClassifier)
+
+    cfg = getattr(tconfig, CLF_CFG)()
+    cfg.OUTPUT_DIR = os.path.join(d, "clf_out")
+    clf = VideoActionClassifier(cfg, batch_size=BATCH, device=CLF_DEVICE)
+    model = clf.scorer.model
+    T, S = cfg.DATA.NUM_FRAMES, cfg.DATA.TEST_CROP_SIZE
+    rng = np.random.default_rng(SEED + 7)
+    x = rng.standard_normal((BATCH + 3, T, S, S, 3), dtype=np.float32)
+    want = derived_counts(model, train=False)
+    reset_counts()
+    eager = clf.inference([x[:BATCH]])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts != want:
+        _fail(f"classifier: launches of one batch {counts} != {want}")
+    short = clf.inference([x[:3]])
+    longer = clf.inference([x])
+    if eager.shape != (BATCH, cfg.MODEL.NUM_CLASSES) or \
+            not np.isfinite(longer).all():
+        _fail("classifier: mis-shaped or non-finite scores")
+    pad_err = float(np.abs(short - eager[:3]).max())
+    split_err = float(np.abs(longer[:BATCH] - eager).max())
+    path = os.path.join(d, "mvitv2_b_448_b8.pt2")
+    t = time.perf_counter()
+    clf.export(path)
+    export_s = time.perf_counter() - t
+    t = time.perf_counter()
+    loaded = VideoActionClassifier(cfg, batch_size=BATCH,
+                                   exported_path=path, device=CLF_DEVICE)
+    load_s = time.perf_counter() - t
+    reset_counts()
+    exported = loaded.inference([x[:BATCH]])
+    torch.cuda.synchronize()
+    ex_counts = read_counts()
+    inference = {k: want[k] for k in KERNEL_FNS}
+    if {k: ex_counts[k] for k in KERNEL_FNS} != inference or \
+            sum(ex_counts.values()) != sum(want.values()):
+        _fail(f"exported program: launches {ex_counts} != one forward's "
+              f"{want}")
+    err = float(np.abs(exported - eager).max())
+    if not (err <= 1e-2 and pad_err <= 1e-2 and split_err <= 1e-2):
+        _fail(f"classifier: exported {err}, padded {pad_err}, split "
+              f"{split_err} from the eager scores (tol 1e-2)")
+    xd = torch.from_numpy(x[:BATCH]).to(clf.device)
+    program = loaded._fn
+    with torch.no_grad():
+        t_eager, t_prog = time_interleaved(
+            [lambda: clf.scorer(xd), lambda: program(xd)], 5, warmup=1)
+    size = os.path.getsize(path)
+    print(f"# classifier and export ({card}): MViT-v2-B 16x4 @448, batch "
+          f"{BATCH}; eager forward {t_eager['ms']:.2f} ms (iqr "
+          f"{t_eager['iqr'][0]:.2f}-{t_eager['iqr'][1]:.2f}), exported "
+          f"program {t_prog['ms']:.2f} ms (iqr {t_prog['iqr'][0]:.2f}-"
+          f"{t_prog['iqr'][1]:.2f}); export {export_s:.1f} s, load "
+          f"{load_s:.1f} s, {size / 2 ** 20:.1f} MiB; max |exported - "
+          f"eager| {err:.3e}, padded batch {pad_err:.3e}, split batch "
+          f"{split_err:.3e} (tol 1e-2); launches eager {counts}, exported "
+          f"{ex_counts}")
+    del clf, loaded, program, model, xd
+    torch.cuda.empty_cache()
+    return {"eager_ms": t_eager["ms"], "exported_ms": t_prog["ms"],
+            "export_s": export_s, "load_s": load_s, "file_bytes": size,
+            "exported_err": err, "pad_err": pad_err, "split_err": split_err,
+            "launches": counts, "exported_launches": ex_counts}
+
+
+# ------------------------------------------------------------ fire drill
+
+DRILL_DEVICE = "cuda"
+DRILL_CFG = CHAIN_CFG
+
+
+def fire_drill_checks(card: str, d: str) -> dict:
+    """``tools/fire_drill.py`` as a user runs it (a subprocess chaining
+    ``run_temporal_inf``, ``aicity_inf`` and ``aicity_inf_graph``) on a
+    seed-0 MViT-v2-B @448 ``.pyth`` written here, the AI City chain's two
+    short views, a threshold file and an annotation csv: a finite F1, a
+    clean load (0 mismatched, 0 missing), and a rerun that skips the
+    scoring stage. Also ``run_temporal_inf`` on the YAML's ``NUM_GPUS 8``
+    must refuse before spawning, naming the cards present."""
+    import torch
+
+    from aicity_action_tpu_torch.config import get_cfg
+    from aicity_action_tpu_torch.data.decoder import write_y4m
+    from aicity_action_tpu_torch.models.build import build_model
+    from aicity_action_tpu_torch.tools import run_temporal_inf
+
+    cfg = get_cfg()
+    cfg.merge_from_file(DRILL_CFG)
+    model = build_model(cfg, device=DRILL_DEVICE, seed=SEED)
+    pyth = os.path.join(d, "released.pyth")
+    torch.save({"model_state": model.state_dict(), "epoch": 1}, pyth)
+    n_tensors = len(model.state_dict())
+    del model
+    torch.cuda.empty_cache()
+    stems = []
+    for i, (view, n) in enumerate(CHAIN_VIEWS[1:]):
+        stem = f"{view}_user_id_{CHAIN_USER}_NoAudio_0"
+        write_y4m(os.path.join(d, f"{stem}.y4m"), _view_frames(n, SEED + 20
+                                                               + i))
+        stems.append(stem)
+    with open(os.path.join(d, "videos.lst"), "w") as f:
+        f.writelines(f"{s}.y4m\n" for s in stems)
+    with open(os.path.join(d, "vid.csv"), "w") as f:
+        f.write("video_id,view1,view2,view3\n1," + ",".join(
+            [stems[0], stems[1], stems[0]]) + "\n")
+    with open(os.path.join(d, "thres.txt"), "w") as f:
+        f.writelines(f"{c} 0.05\n" for c in range(1, 18))
+    with open(os.path.join(d, "anno.csv"), "w") as f:
+        f.writelines(f"{s}.{CHAIN_USER}.{t0}.{t1}.MP4 {c}\n" for s in stems
+                     for c, (t0, t1) in ((1, (0, 1)), (2, (1, 3))))
+    if DRILL_DEVICE == "cuda":
+        try:
+            run_temporal_inf.main([
+                "--cfg", DRILL_CFG, "--video_lst",
+                os.path.join(d, "videos.lst"), "--video_path", d,
+                "--out_dir", os.path.join(d, "refused")])
+        except RuntimeError as e:
+            if f"device_count() is {torch.cuda.device_count()}" not in \
+                    str(e):
+                raise
+            refused = str(e)
+        else:
+            _fail("run_temporal_inf spawned the YAML's NUM_GPUS 8 ranks")
+    else:
+        refused = "not checked (no card)"
+    argv = [sys.executable, "-m", "aicity_action_tpu_torch.tools.fire_drill",
+            "--pyth", pyth, "--cfg", DRILL_CFG, "--video_lst",
+            os.path.join(d, "videos.lst"), "--video_path", d, "--vid_csv",
+            os.path.join(d, "vid.csv"), "--thres_file",
+            os.path.join(d, "thres.txt"), "--out_dir",
+            os.path.join(d, "drill"), "--anno_csv",
+            os.path.join(d, "anno.csv"), "--device", DRILL_DEVICE,
+            "--frame_length", str(cfg.DATA.NUM_FRAMES), "--frame_size",
+            str(cfg.DATA.TEST_CROP_SIZE), "--batch_size", str(BATCH),
+            "--num_workers", "4", "NUM_GPUS", "1", "RNG_SEED", str(SEED)]
+    runs = []
+    for _ in range(2):
+        t = time.perf_counter()
+        r = subprocess.run(argv, cwd=_REPO, capture_output=True, text=True,
+                           timeout=900)
+        if r.returncode != 0:
+            _fail(f"fire drill rc {r.returncode}: {r.stdout[-3000:]}"
+                  f"{r.stderr[-3000:]}")
+        lines = [ln for ln in r.stdout.splitlines()
+                 if ln.startswith("[fire_drill] {")]
+        runs.append({"seconds": time.perf_counter() - t,
+                     "summary": json.loads(lines[-1].split(" ", 1)[1]),
+                     "skips": r.stdout.count("skipping")})
+    first, second = runs
+    s = first["summary"]
+    if not (s["load"] == {"loaded": n_tensors, "shape_mismatched": 0,
+                          "missing_in_ckpt": 0}
+            and s["preds"] == len(stems) and np.isfinite(s.get("f1", np.nan))
+            and second["skips"] == 1 and first["skips"] == 0
+            and second["summary"] == s):
+        _fail(f"fire drill: {runs}")
+    print(f"# fire drill ({card}): seed-0 MViT-v2-B @448 .pyth, "
+          f"{len(stems)} views; load {s['load']}, F1 {s['f1']:.6f} "
+          f"(precision {s['precision']:.6f}, recall {s['recall']:.6f}), "
+          f"{s['submission']['lines']} submission rows; first run "
+          f"{first['seconds']:.1f} s, rerun {second['seconds']:.1f} s "
+          f"(scoring skipped); NUM_GPUS 8 refused: {refused!r}")
+    return {"summary": s, "seconds": [r["seconds"] for r in runs],
+            "refused": refused}
+
+
+# ------------------------------------------------ loader and decode benchmarks
+
+def benchmark_checks(card: str, d: str) -> dict:
+    """``tools/benchmark.py`` (the train loader alone, no model) on the
+    train loop's views at batch 4 over 2 epochs, and
+    ``tools/benchmark_decode.py --seconds 10 60 --reps 3`` as a
+    subprocess; their numbers printed, no gate on them."""
+    from aicity_action_tpu_torch.tools import benchmark
+
+    stats = benchmark.main(["--cfg", LOOP_CFG, *_loop_opts(d, 1, "bench"),
+                            "BENCHMARK.NUM_EPOCHS", "2",
+                            "BENCHMARK.LOG_PERIOD", "1"])
+    if stats["total_clips"] != 2 * LOOP_VIEWS or stats["batch_size"] != 4:
+        _fail(f"loader benchmark: {stats}")
+    t = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "aicity_action_tpu_torch.tools."
+         "benchmark_decode", "--seconds", "10", "60", "--reps", "3"],
+        cwd=_REPO, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        _fail(f"benchmark_decode rc {r.returncode}: {r.stderr[-3000:]}")
+    lines = [json.loads(ln) for ln in r.stdout.splitlines()
+             if ln.startswith("{")]
+    decode_s = time.perf_counter() - t
+    print(f"# loader benchmark ({card}): {LOOP_VIEWS} views of "
+          f"{CHAIN_SIZE[0]}x{CHAIN_SIZE[1]} y4m, batch 4, 2 epochs, 4 "
+          f"workers: {stats['clips_per_sec']:.2f} clips/s, "
+          f"median {stats['med_iter_sec']:.4f} s/iter, p95 "
+          f"{stats['p95_iter_sec']:.4f}, {stats['total_clips']} clips in "
+          f"{stats['wall_sec']:.2f} s")
+    for line in lines:
+        print(f"# decode benchmark ({card}): {json.dumps(line)}")
+    print(f"# decode benchmark run {decode_s:.1f} s")
+    return {"loader": stats, "decode": lines, "decode_run_s": decode_s}
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -3608,6 +4050,26 @@ def main() -> int:
     launches["ActionCLIP loop"] = clip_stats["loop"]["launches"]
     launches["two ranks, one video"] = model_stats["aicity_chain"][
         "two_ranks"]["launches"]
+    with tempfile.TemporaryDirectory() as slice_dir:
+        t = time.perf_counter()
+        write_loop_views(slice_dir)
+        mh_stats = multihead_checks(card, slice_dir)
+        print(f"# multi-head fine-tune phase: {time.perf_counter() - t:.1f} s")
+        launches["v2 multi-head train loop"] = mh_stats["launches"]
+        t = time.perf_counter()
+        bench_stats = benchmark_checks(card, slice_dir)
+        print(f"# benchmarks phase: {time.perf_counter() - t:.1f} s")
+    with tempfile.TemporaryDirectory() as clf_dir:
+        t = time.perf_counter()
+        clf_stats = classifier_checks(card, clf_dir)
+        print(f"# classifier and export phase: {time.perf_counter() - t:.1f} "
+              f"s")
+    launches["v2 classifier"] = clf_stats["launches"]
+    launches["v2 exported program"] = clf_stats["exported_launches"]
+    with tempfile.TemporaryDirectory() as drill_dir:
+        t = time.perf_counter()
+        drill_stats = fire_drill_checks(card, drill_dir)
+        print(f"# fire drill phase: {time.perf_counter() - t:.1f} s")
 
     # launches of each kernel in the run of the path it serves: the AI City
     # chain's run_temporal_inf for the inference kernels, the timed train
@@ -3651,7 +4113,9 @@ def main() -> int:
                       "train_loop_ddp": ddp_stats,
                       "two_ranks": two_rank, "slowfast": sf_stats,
                       "detection": det_stats, "ava": ava_stats,
-                      "actionclip": clip_stats}))
+                      "actionclip": clip_stats, "multihead": mh_stats,
+                      "classifier": clf_stats, "fire_drill": drill_stats,
+                      "benchmarks": bench_stats}, default=str))
     print(json.dumps({"kernels": kernels_line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -303,8 +303,11 @@ def test_labels_and_unported_datasets(videos, tmp_path):
     assert [t.tolist() for t in got._tokens] == \
         [t.tolist() for t in want._tokens]
     assert got._tokens[0].shape == (cfg.CONTRA.CONTEXT_LENGTH,)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        tdatasets.build_dataset("multi_dataset_seq", cfg, "val")
+    # Multi_dataset_seq is ported: the two datasets one after another
+    cfg.MODEL.MULTI_DATASETS = ["mmit", "activitynet"]
+    cfg.MODEL.MULTI_NUM_CLASSES = [5, 4]
+    multi = tdatasets.build_dataset("multi_dataset_seq", cfg, "val")
+    assert type(multi).__name__ == "MultiDatasetSeq" and len(multi) == 4
 
 
 def test_decode_failures_retry_then_raise(videos, tmp_path):

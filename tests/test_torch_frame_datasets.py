@@ -201,6 +201,19 @@ def test_frame_dataset_items_equal_jax(lists, name, cls, mode):
 
 
 def test_multi_dataset_seq_still_raises(lists):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        build_dataset("multi_dataset_seq", _cfg(get_cfg, lists, "Ssv2"),
-                      "val")
+    """Multi_dataset_seq no longer raises: it is ported. Two Ssv2 datasets
+    of the frame lists, one after the other, equal the JAX package's."""
+    cfgs = [_cfg(get, lists, "Ssv2") for get in (get_cfg, jax_get_cfg)]
+    for cfg in cfgs:
+        cfg.MODEL.MULTI_DATASETS = ["ssv2", "ssv2"]
+        cfg.MODEL.MULTI_NUM_CLASSES = [5, 3]
+    ds = build_dataset("multi_dataset_seq", cfgs[0], "val")
+    ref = jfd.MultiDatasetSeq(cfgs[1], "val")
+    assert type(ds) is tfd.MultiDatasetSeq and len(ds) == len(ref) == 4
+    xs, y, i, meta = ds[3]
+    rxs, ry, ri, rmeta = ref[3]
+    assert len(xs) == len(rxs)
+    for x, rx in zip(xs, rxs):
+        np.testing.assert_allclose(x, rx, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(y, ry)
+    assert i == ri == 3 and meta == rmeta == {"dataset_idx": 1}

@@ -107,6 +107,37 @@ def test_the_walk_covers_the_host_pipeline_and_its_tools():
             "aicity_action_tpu_torch.tools.inference_zeroshot_cls"} <= mods
 
 
+def test_the_walk_covers_the_multi_head_deployment_and_benchmark_slice():
+    mods = set(_port_modules())
+    assert {"aicity_action_tpu_torch.utils.benchmark",
+            "aicity_action_tpu_torch.tools.benchmark",
+            "aicity_action_tpu_torch.tools.benchmark_decode",
+            "aicity_action_tpu_torch.visualization.tensorboard_vis",
+            "aicity_action_tpu_torch.pipeline.classifier",
+            "aicity_action_tpu_torch.tools.fire_drill"} <= mods
+
+
+def test_the_export_ops_register_without_building_the_kernels():
+    """Importing the ops registers the inference wrappers as the
+    ``aicity::*`` custom ops (for ``torch.export``); nothing is built or
+    loaded, and outside an export the wrappers do not go through them."""
+    code = (
+        "import torch\n"
+        "from aicity_action_tpu_torch.ops import kernels, fused_dense, "
+        "flash_attention, layer_norm\n"
+        "names = ['ln_qkv', 'ln_mlp', 'flash_attention_ln', "
+        "'flash_attention', 'layer_norm', 'pool_norm_rows']\n"
+        "assert all(hasattr(torch.ops.aicity, n) for n in names)\n"
+        "assert kernels._lib is None\n"
+        "assert not torch.compiler.is_exporting()\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", \
+        res.stdout + res.stderr
+
+
 def _imported_names(path):
     tree = ast.parse(open(path).read(), path)
     for node in ast.walk(tree):

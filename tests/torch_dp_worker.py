@@ -21,6 +21,15 @@ rank ``r`` writes what it saw to ``out/rank{r}.pkl``. Kinds:
   contrastive train steps under DDP on this rank's rows (its real ones
   first); each step's loss and temperature, the parameters and the
   momentum weights after.
+- ``"scoring"``: ``cases``, each ``(name, cfg, streaming)``, scored on the
+  view ``video`` by ``WindowScorer`` (:func:`score_cases`): every rank's
+  windows (the whole video's, after the gather), its model forwards and
+  the per-rank split.
+- ``"multihead"``: a multi-head MViT ``cfg``, its ``state``, an SGD ``lr``,
+  ``steps`` and a global ``batch`` of ``inputs``, one-hot ``labels``,
+  ``dataset_idx`` and ``n_valid`` real rows: the multi-head train steps
+  under DDP on this rank's rows; each step's loss, the gradients of the
+  last step and the parameters after.
 """
 
 import os
@@ -143,14 +152,80 @@ def _contrastive(rank, job):
     return out
 
 
-_KINDS = {"loop": _loop, "step": _step, "contrastive": _contrastive}
+def score_cases(cases, video: str, chunk: int) -> dict:
+    """Each ``(name, cfg, streaming)`` of ``cases``: the tiny model of
+    ``cfg`` (weights from ``RNG_SEED``) scores ``video`` (4-frame windows
+    at 32 px, batches of 3, ``chunk``-frame chunks) through
+    ``WindowScorer.score_video``; returns per case the windows, the model's
+    forward calls and ``last_timers``."""
+    from aicity_action_tpu_torch.models.build import build_model
+    from aicity_action_tpu_torch.pipeline.window_inference import (
+        WindowDataset, WindowScorer)
+
+    out = {}
+    for name, cfg, streaming in cases:
+        model = build_model(cfg, device="cpu")
+        calls = []
+        model.register_forward_hook(lambda *_: calls.append(1))
+        scorer = WindowScorer(model, batch_size=3, num_workers=0,
+                              chunk_frames=chunk,
+                              detection=cfg.DETECTION.ENABLE)
+        ds = WindowDataset(video, frame_length=4, frame_size=32)
+        preds = scorer.score_video(ds, streaming=streaming)
+        out[name] = {"preds": preds, "forwards": len(calls),
+                     "timers": scorer.last_timers}
+    return out
+
+
+def _scoring(rank, job):
+    return score_cases(job["cases"], job["video"], job["chunk"])
+
+
+def _multihead(rank, job):
+    from aicity_action_tpu_torch.engine.steps import (
+        make_multihead_train_step, multihead_step_kwargs)
+    from aicity_action_tpu_torch.engine.train_loop import wrap_ddp
+    from aicity_action_tpu_torch.models.build import build_model
+    from aicity_action_tpu_torch.solver.optimizer import TrainOptimizer
+
+    cfg, lr = job["cfg"], job["lr"]
+    model = build_model(cfg, device="cpu")
+    model.load_state_dict(job["state"])
+    opt = TrainOptimizer(torch.optim.SGD(model.parameters(), lr=lr),
+                         lambda step: lr)
+    step = make_multihead_train_step(wrap_ddp(model, torch.device("cpu")),
+                                     opt, **multihead_step_kwargs(cfg))
+    batch = job["batch"]
+    b = batch["labels"].shape[0] // job["world"]
+    rows = slice(rank * b, (rank + 1) * b)
+    n_valid = int(np.clip(batch["n_valid"] - rank * b, 0, b))
+    out = {"loss": []}
+    for _ in range(job["steps"]):
+        metrics, _ = step({
+            "inputs": torch.from_numpy(batch["inputs"][rows]),
+            "labels": torch.from_numpy(batch["labels"][rows]),
+            "dataset_idx": torch.from_numpy(batch["dataset_idx"][rows]),
+            "n_valid": n_valid})
+        out["loss"].append(float(metrics["loss"]))
+    out["grads"] = {n: p.grad.numpy().copy()
+                    for n, p in model.named_parameters()
+                    if p.grad is not None}
+    out["params"] = {n: p.detach().numpy().copy()
+                     for n, p in model.named_parameters()}
+    return out
+
+
+_KINDS = {"loop": _loop, "step": _step, "contrastive": _contrastive,
+          "scoring": _scoring, "multihead": _multihead}
 
 
 def _rank(rank, job):
     torch.set_num_threads(1)
     cfg = {"loop": lambda: job["runs"][0][1],
            "step": lambda: job["cases"][0]["cfg"],
-           "contrastive": lambda: job["cfg"]}[job["kind"]]()
+           "contrastive": lambda: job["cfg"],
+           "scoring": lambda: job["cases"][0][1],
+           "multihead": lambda: job["cfg"]}[job["kind"]]()
     cfg = cfg.clone()
     cfg.NUM_SHARDS, cfg.NUM_GPUS = 1, job["world"]
     cfg.DIST_BACKEND, cfg.INIT_METHOD = "gloo", job["init_method"]

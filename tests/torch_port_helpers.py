@@ -329,3 +329,49 @@ def write_merges(path) -> str:
     with open(path, "w", encoding="utf-8") as f:
         f.write("#version: 0.2\n" + "\n".join(merges) + "\n")
     return str(path)
+
+
+def multihead_cfg(get, use_mlp=False):
+    """The tiny MViT-v2 (``tiny_cfg``) with the multi-dataset heads of the
+    reference's default datasets at tiny class counts (7, 5, 4), the cross
+    projections and VICReg on, no dropout or DropPath, SGD. ``get`` is
+    either package's ``get_cfg``."""
+    cfg = tiny_cfg(get)
+    cfg.MODEL.ACT_CHECKPOINT = False
+    cfg.MODEL.USE_MULTI_HEAD = True
+    cfg.MODEL.MULTI_NUM_CLASSES = [7, 5, 4]
+    cfg.MODEL.MULTI_USE_MLP = use_mlp
+    cfg.MODEL.MULTI_ADD_CROSS_PROJ = True
+    cfg.MODEL.USE_VICREG_LOSS = True
+    cfg.MODEL.VICREG_LOSS_WEIGHT = 0.5
+    cfg.MODEL.DROPOUT_RATE = 0.0
+    cfg.MVIT.DROPPATH_RATE = 0.0
+    cfg.SOLVER.OPTIMIZING_METHOD = "sgd"
+    return cfg
+
+
+def multihead_params_to_jax(state_dict) -> dict:
+    """A port multi-head MViT's ``state_dict`` as JAX params (numpy
+    leaves): the trunk through the JAX package's own converter, the heads'
+    leaves (which it does not map) by the port's one-to-one names:
+    ``head.head_{ds}[.fcN].{weight,bias}`` -> ``head/head_{ds}[/fcN]/
+    {kernel,bias}``, ``head.cross_{src}_{dst}.weight`` -> ``head/
+    cross_{src}_{dst}/kernel``."""
+    from aicity_action_tpu.utils.convert import convert_mvit_state_dict
+
+    sd = {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
+    params, skipped = convert_mvit_state_dict(sd)
+    head = params.setdefault("head", {})
+    for name in skipped:
+        parts = name.split(".")
+        if parts[0] != "head":
+            raise ValueError(f"unconverted port parameter: {name}")
+        node = head
+        for p in parts[1:-1]:
+            node = node.setdefault(p, {})
+        w = sd[name]
+        if parts[-1] == "weight":
+            node["kernel"] = w.T
+        else:
+            node["bias"] = w
+    return params

@@ -522,6 +522,15 @@ def mvitv2_b_16x4_448_cfg() -> CfgNode:
     return cfg
 
 
+def mvitv2_b_16x4_448_moe_cfg() -> CfgNode:
+    """The AI City model with ``MVIT.MOE.ENABLE`` at the section's defaults:
+    every other block (1, 3, ..., 15) a bank of 8 experts, top-2, capacity
+    factor 1.25, the load-balance loss at weight 0.01."""
+    cfg = mvitv2_b_16x4_448_cfg()
+    cfg.MVIT.MOE.ENABLE = True
+    return cfg
+
+
 # PySlowFast's published Kinetics-400 MViT-B 16x4
 # (facebookresearch/SlowFast configs/Kinetics/MVIT_B_16x4_CONV.yaml; Fan et
 # al., Multiscale Vision Transformers, ICCV 2021): the MViT-v1 with a cls

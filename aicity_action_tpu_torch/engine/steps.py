@@ -38,25 +38,44 @@ from ..parallel import mesh
 from ..solver.optimizer import TrainOptimizer
 
 
-def step_generators(seed: int, step: int, device) -> tuple:
-    """``(torch.Generator on device, numpy Generator)`` for one step."""
+def step_generators(seed: int, step: int, device,
+                    data: mesh.DataRanks | None = None) -> tuple:
+    """``(torch.Generator on device, numpy Generator)`` for one step; the
+    torch one draws for the batch sharded over ``data``
+    (``parallel/mesh.py:RowGenerator``)."""
     state = np.random.SeedSequence([seed, step]).generate_state(2, np.uint32)
-    gen = torch.Generator(device=device)
+    gen = mesh.RowGenerator(device=device, data=data)
     gen.manual_seed(int(state[0]) << 32 | int(state[1]))
     return gen, np.random.default_rng([seed, step])
 
 
+def moe_aux_loss(model: torch.nn.Module) -> torch.Tensor | None:
+    """The mean of the MoE blocks' load-balance losses of ``model``'s last
+    forward (``DistributedDataParallel`` unwrapped), None without MoE
+    blocks (the JAX step's ``sum(aux_leaves) / len(aux_leaves)``)."""
+    aux = getattr(getattr(model, "module", model), "moe_aux", None)
+    return torch.stack(aux).mean() if aux else None
+
+
 def make_train_step(model: torch.nn.Module, optimizer: TrainOptimizer,
                     loss_name: str, *, mixup_fn: Callable | None = None,
-                    num_classes: int | None = None,
-                    seed: int = 0) -> Callable:
+                    num_classes: int | None = None, seed: int = 0,
+                    moe_aux_weight: float = 0.0,
+                    grad_sync: Callable | None = None,
+                    data: mesh.DataRanks | None = None) -> Callable:
     """Returns ``train_step(batch, mixup_draw=None) -> (metrics, preds)``.
 
     ``batch`` holds ``inputs`` (a ``[B, T, H, W, C]`` clip on the model's
     device), ``labels`` (int ``[B]`` or soft ``[B, C]``) and optionally
     ``n_valid``. ``metrics`` are device tensors: ``loss``, ``loss_is_nan``
     and ``grad_norm`` (the global L2 norm before clipping), plus the
-    step's ``lr`` as a float."""
+    step's ``lr`` as a float. ``moe_aux_weight`` (``MVIT.MOE.
+    AUX_LOSS_WEIGHT`` of an MoE model) adds that times the mean of the MoE
+    blocks' load-balance losses to the loss; ``grad_sync()`` runs between
+    the backward and the optimizer (expert parallelism's gradient
+    reductions, ``parallel/ep.py``). ``data`` names the ranks over which
+    the batch is sharded (every rank by default; ``parallel/tp.py``'s
+    data axis), for mixup's global batch and the dropout masks."""
     if mixup_fn is not None and loss_name == "cross_entropy":
         loss_name = "soft_cross_entropy"  # mixup makes soft targets
     loss_func = loss_lib.get_loss_func(loss_name)
@@ -64,19 +83,19 @@ def make_train_step(model: torch.nn.Module, optimizer: TrainOptimizer,
 
     def train_step(batch: dict, mixup_draw=None):
         step = optimizer.count
-        gen, rng = step_generators(seed, step, device)
+        gen, rng = step_generators(seed, step, device, data)
         inputs, labels = batch["inputs"], batch["labels"]
         if mixup_fn is not None:
             # every pathway of a multi-pathway input mixes with the same
             # draw (the JAX mixup.py:67-111)
             paths = isinstance(inputs, (list, tuple))
             xs, labels = mixup_fn(
-                [mesh.gather_rows(x) for x in inputs] if paths
-                else mesh.gather_rows(inputs),
-                mesh.gather_rows(labels), rng, mixup_draw)
-            inputs = ([mesh.local_rows(x) for x in xs] if paths
-                      else mesh.local_rows(xs))
-            labels = mesh.local_rows(labels)
+                [mesh.gather_rows(x, data) for x in inputs] if paths
+                else mesh.gather_rows(inputs, data),
+                mesh.gather_rows(labels, data), rng, mixup_draw)
+            inputs = ([mesh.local_rows(x, data) for x in xs] if paths
+                      else mesh.local_rows(xs, data))
+            labels = mesh.local_rows(labels, data)
         elif (loss_name in loss_lib._SOFT_TARGET_LOSSES
               and labels.dim() == 1 and num_classes is not None):
             labels = torch.nn.functional.one_hot(labels.long(),
@@ -92,7 +111,12 @@ def make_train_step(model: torch.nn.Module, optimizer: TrainOptimizer,
             mask = (torch.arange(per_sample.shape[0], device=device)
                     < n_valid).to(per_sample.dtype)
             loss = (per_sample * mask).sum() / float(n_valid)
+        aux = moe_aux_loss(model) if moe_aux_weight else None
+        if aux is not None:
+            loss = loss + moe_aux_weight * aux
         loss.backward()
+        if grad_sync is not None:
+            grad_sync()
         lr = optimizer.schedule(step)
         grad_norm = optimizer.step()
         loss = loss.detach()

@@ -41,8 +41,14 @@ head into the ``MultiDatasetValMeter`` (:func:`eval_epoch_multihead`).
 ``TENSORBOARD.ENABLE`` writes the train scalars on rank 0
 (``visualization/tensorboard_vis.py``).
 
-Not ported, raising with the ROADMAP Queue 1 item that brings it:
-multigrid (item 10).
+Multigrid (``MULTIGRID.LONG_CYCLE`` / ``SHORT_CYCLE``, the JAX ``train_loop.
+py:84-96, 211-217``): the schedule derives the solver's steps and epochs
+(``utils/multigrid.py``); under the long cycle each epoch takes its base
+(B, T, S), and where the shape changes :func:`_long_cycle_rebuild` builds
+the model, loader and optimizer anew with the weights carried over and the
+step count kept. Detection and multi-head models refuse it, as in the JAX
+package. MoE models (``MVIT.MOE.ENABLE``) add ``MVIT.MOE.AUX_LOSS_WEIGHT``
+times their load-balance loss to the train step's loss.
 """
 
 from __future__ import annotations
@@ -70,6 +76,7 @@ from ..utils.logging import get_logger, setup_logging
 from ..utils.convert import load_cross_proj_weight
 from ..utils.meters import (AVAMeter, EpochTimer, MultiDatasetValMeter,
                             TrainMeter, ValMeter)
+from ..utils.multigrid import MultigridSchedule
 from .detection import (flatten_boxes, make_detection_eval_step,
                         make_detection_train_step)
 from .precise_bn import calculate_and_update_precise_bn
@@ -127,11 +134,18 @@ def _errors(preds: np.ndarray, labels: np.ndarray, ks=(1, 5)):
     return out
 
 
+def moe_aux_weight(cfg) -> float:
+    """``MVIT.MOE.AUX_LOSS_WEIGHT`` where MoE is on, else 0."""
+    return cfg.MVIT.MOE.AUX_LOSS_WEIGHT if cfg.MVIT.MOE.ENABLE else 0.0
+
+
 def check_supported(cfg) -> None:
-    """Raise for the branches of the JAX loops that the port lacks."""
-    if cfg.MULTIGRID.LONG_CYCLE or cfg.MULTIGRID.SHORT_CYCLE:
+    """Raise for what the JAX loops refuse, and for a data-parallel config
+    outside its process group."""
+    if (cfg.MULTIGRID.LONG_CYCLE or cfg.MULTIGRID.SHORT_CYCLE) and (
+            cfg.DETECTION.ENABLE or cfg.MODEL.USE_MULTI_HEAD):
         raise NotImplementedError(
-            "multigrid training is not ported (ROADMAP Queue 1 item 10)")
+            "multigrid supports the standard classification path only")
     world = mesh.world_size(cfg)
     if world > 1 and mesh.get_world_size() != world:
         raise RuntimeError(
@@ -224,6 +238,15 @@ def train(cfg, device: str | torch.device = "cuda") -> TrainRun:
         logger.info("Train with config:")
         logger.info(pprint.pformat(cfg.to_dict()))
 
+    multigrid = None
+    if cfg.MULTIGRID.LONG_CYCLE or cfg.MULTIGRID.SHORT_CYCLE:
+        # the long-cycle driver (upstream slowfast train_net.py's
+        # build_trainer loop; dormant in the aicity fork)
+        multigrid = MultigridSchedule()
+        cfg = multigrid.init_multigrid(cfg)
+        if cfg.MULTIGRID.LONG_CYCLE:
+            cfg, _ = multigrid.update_long_cycle(cfg, cur_epoch=0)
+
     model = build_model(cfg, device=dev)
     train_loader = construct_loader(cfg, "train")
     val_loader = construct_loader(cfg, "val")
@@ -254,9 +277,7 @@ def train(cfg, device: str | torch.device = "cuda") -> TrainRun:
             ddp_model, optimizer, **multihead_step_kwargs(cfg))
         eval_step = make_multihead_eval_step(model)
     else:
-        train_step = make_train_step(
-            ddp_model, optimizer, cfg.MODEL.LOSS_FUNC, mixup_fn=mixup_fn,
-            num_classes=cfg.MODEL.NUM_CLASSES, seed=cfg.RNG_SEED)
+        train_step = _train_step(cfg, ddp_model, optimizer, mixup_fn)
         eval_step = make_eval_step(model)
     feed = DeviceFeed(dev, host_transfer_dtype(cfg))
 
@@ -286,6 +307,20 @@ def train(cfg, device: str | torch.device = "cuda") -> TrainRun:
 
     profiler = None
     for cur_epoch in range(start_epoch, cfg.SOLVER.MAX_EPOCH):
+        if multigrid is not None and cfg.MULTIGRID.LONG_CYCLE:
+            cfg, changed = multigrid.update_long_cycle(cfg, cur_epoch)
+            if changed:
+                model, optimizer, train_loader = _long_cycle_rebuild(
+                    cfg, model, optimizer, dev)
+                ddp_model = wrap_ddp(model, dev)
+                train_step = _train_step(cfg, ddp_model, optimizer, mixup_fn)
+                eval_step = make_eval_step(model)
+                precise_bn = cfg.BN.USE_PRECISE_STATS and any(
+                    is_bn(m) for m in model.modules())
+                steps_per_epoch = max(len(train_loader), 1)
+                per_host_batch = train_loader.batch_size
+                train_meter = TrainMeter(steps_per_epoch, cfg)
+                run.model, run.optimizer = model, optimizer
         shuffle_dataset(train_loader, cur_epoch)
         epoch_timer.epoch_tic()
         train_meter.iter_tic()
@@ -401,6 +436,33 @@ def train(cfg, device: str | torch.device = "cuda") -> TrainRun:
     mesh.barrier()  # rank 0's checkpoints are on disk for every rank
     logger.info("Training done.")
     return run
+
+
+def _train_step(cfg, ddp_model, optimizer, mixup_fn):
+    """The standard classification train step of ``cfg``."""
+    return make_train_step(
+        ddp_model, optimizer, cfg.MODEL.LOSS_FUNC, mixup_fn=mixup_fn,
+        num_classes=cfg.MODEL.NUM_CLASSES, seed=cfg.RNG_SEED,
+        moe_aux_weight=moe_aux_weight(cfg))
+
+
+def _long_cycle_rebuild(cfg, old_model, old_optimizer, dev):
+    """The model, optimizer and train loader for a long cycle's new (B, T,
+    S) (the JAX ``_long_cycle_rebuild``; upstream slowfast's
+    ``build_trainer``): the weights carry over by shape
+    (``utils/checkpoint.py:merge_state_dict``), a BatchNorm's ``[C]``
+    statistics broadcast into a SubBatchNorm's ``[splits, C]`` (the other
+    way the new model keeps its fresh statistics, which the next precise-BN
+    pass recomputes); the optimizer's moments restart, and its step count
+    carries over so that the stretched LR schedule stays monotone."""
+    model = build_model(cfg, device=dev)
+    loaded, _, _ = cu.merge_state_dict(model, old_model.state_dict())
+    logger.info("long-cycle weight transfer: %d of %d kept", len(loaded),
+                len(model.state_dict()))
+    train_loader = construct_loader(cfg, "train")
+    optimizer = construct_optimizer(cfg, model, max(len(train_loader), 1))
+    optimizer.count = old_optimizer.count
+    return model, optimizer, train_loader
 
 
 def _model_inputs(loader, feed: DeviceFeed):

@@ -20,13 +20,14 @@ _CONV_NETS = {"ResNet": ResNet, "SlowFast": SlowFast, "X3D": X3D}
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """The reference's initialization, drawn from ``generator``: linear
-    weights and position embeddings from a normal of std 0.02 truncated at
-    two deviations, conv weights LeCun-normal, biases 0, LN and BN scales 1
+    weights (an MoE router and expert banks too) and position embeddings
+    from a normal of std 0.02 truncated at two deviations, conv weights
+    LeCun-normal, biases 0, LN and BN scales 1
     (0 for a BatchNorm made with ``final_gamma_zero``)."""
     with torch.no_grad():
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
-            if leaf == "bias":
+            if leaf == "bias" or leaf.endswith("_bias"):  # expert banks'
                 p.zero_()
             elif p.dim() == 1:
                 p.fill_(1.0)

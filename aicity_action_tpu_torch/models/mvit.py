@@ -28,6 +28,10 @@ slowfast/models/attention.py).
   input width, the MLP changes the channels, and the residual of such a
   block is ``proj(norm2(x))``; the cls token bypasses pooling, rejoins
   before the pool norm, and its final-norm row feeds the head.
+- ``MVIT.MOE.ENABLE``: the blocks of ``MVIT.MOE.LAYERS`` (every other one
+  by default) take an expert bank in place of the LN+MLP kernel
+  (``models/moe.py``); the forward leaves their load-balance losses in
+  ``MViT.moe_aux`` for the train step.
 - DropPath masks are drawn from the caller's generator before each block,
   so that the recompute of ``MODEL.ACT_CHECKPOINT`` (per-block
   ``torch.utils.checkpoint``) applies the same masks.
@@ -55,23 +59,12 @@ from ..ops.layer_norm import (channel_major_applies, fused_layer_norm,
                               pool_norm_rows)
 from ..ops.pooling import attention_pool, pool3d_ncdhw
 from .common import FusedLayerNorm, drop_path, drop_path_mask, round_width
+from .moe import MoEMlp, MoESpec
 from .heads import (ContrastiveProjectionHead, TransformerBasicHead,
                     TransformerMultiHead)
 from .roi_head import ResNetRoIHead
 
 Triple = tuple[int, int, int]
-
-
-@dataclasses.dataclass(frozen=True)
-class MoESpec:
-    """Static MoE configuration; the port has no MoE blocks (a spec with
-    experts raises in :class:`MViT`), but the spec keeps the field so that
-    it stays equal to the JAX package's."""
-
-    num_experts: int = 0
-    top_k: int = 2
-    capacity_factor: float = 1.25
-    layers: tuple = ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -290,8 +283,9 @@ def dense_call_shapes(cfg, batch: int) -> list:
     ``batch``, from the block schedule (no model is built): ``("qkv", M,
     tokens, D, C)`` per block (x ``[M, D]`` -> q, k, v of C channels) and
     ``("mlp", M, C, H)`` per block whose MLP keeps its channels (the others
-    run a separate norm2 and plain products). The kernels' plan tests and
-    the profiling tools take their shapes from it."""
+    run a separate norm2 and plain products, an MoE block its expert bank).
+    The kernels' plan tests and the profiling tools take their shapes from
+    it."""
     sp = build_mvit_spec(cfg)
     thw, cls = list(sp.patch_dims), int(sp.cls_embed)
     calls = []
@@ -303,7 +297,7 @@ def dense_call_shapes(cfg, batch: int) -> list:
         if b.stride_q and b.kernel_q:  # the conv q pool, padding k // 2
             thw = [(n + 2 * (k // 2) - k) // s + 1
                    for n, k, s in zip(thw, b.kernel_q, b.stride_q)]
-        if att == b.dim_out:
+        if att == b.dim_out and not b.moe:  # an expert bank: no LN+MLP
             calls.append(("mlp", batch * (int(np.prod(thw)) + cls), att,
                           int(att * sp.mlp_ratio)))
     return calls
@@ -584,16 +578,17 @@ class MultiScaleBlock(nn.Module):
     front, ``proj_max_pool`` on the skip path; MViT-v1 changes them in the
     MLP, and the residual of such a block is ``proj(norm2(x))``. DropPath
     applies the per-sample masks the caller passes
-    (:meth:`drop_path_masks`), in training only."""
+    (:meth:`drop_path_masks`), in training only. A block of ``MVIT.MOE``'s
+    layers takes an expert bank (:class:`~aicity_action_tpu_torch.models.
+    moe.MoEMlp`, norm2 its pre-LN) in place of ``FusedMlp``; its forward
+    leaves the bank's load-balance loss in :attr:`aux`."""
 
     def __init__(self, spec: BlockSpec, mode: str, qkv_bias: bool,
                  has_cls: bool, q_pool_residual: bool,
-                 channel_expand_front: bool, mlp_ratio: float):
+                 channel_expand_front: bool, mlp_ratio: float,
+                 moe: MoESpec = MoESpec()):
         super().__init__()
         s = spec
-        if s.moe:
-            raise NotImplementedError(
-                "MoE blocks are not ported yet (ROADMAP Queue 1 item 10)")
         expand = channel_expand_front and s.dim != s.dim_out
         dim_att = s.dim_out if expand else s.dim
         self.has_cls = has_cls
@@ -602,7 +597,11 @@ class MultiScaleBlock(nn.Module):
             s.dim, dim_att, s.num_heads, s.kernel_q, s.kernel_kv, s.stride_q,
             s.stride_kv, mode, qkv_bias, has_cls, q_pool_residual)
         self.norm2 = FusedLayerNorm(dim_att, eps=1e-6)
-        self.mlp = FusedMlp(dim_att, int(dim_att * mlp_ratio), s.dim_out)
+        self.moe = s.moe
+        self.aux = None  # the bank's load-balance loss of the last forward
+        hidden = int(dim_att * mlp_ratio)
+        self.mlp = (MoEMlp(dim_att, hidden, s.dim_out, moe) if s.moe
+                    else FusedMlp(dim_att, hidden, s.dim_out))
         self.proj_max_pool = nn.Linear(s.dim, s.dim_out) if expand else None
         self.proj = (nn.Linear(dim_att, s.dim_out) if dim_att != s.dim_out
                      else None)
@@ -634,7 +633,9 @@ class MultiScaleBlock(nn.Module):
                                   stride=self.stride_skip,
                                   has_cls=self.has_cls)
         x = x + drop_path(x_block, m_attn, self.drop_rate)
-        if self.proj is None:
+        if self.moe:  # build_mvit_spec keeps the width here: no proj
+            x_mlp, self.aux = self.mlp(x, self.norm2)
+        elif self.proj is None:
             x_mlp = self.mlp(x, self.norm2)
         else:
             # the channel change of MViT-v1 (mvit.py:800-808): the MLP and
@@ -694,9 +695,6 @@ class MViT(nn.Module):
                  compute_dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         sp = spec
-        if sp.moe.num_experts > 0:
-            raise NotImplementedError(
-                "MoE MViT is not ported yet (ROADMAP Queue 1 item 10)")
         if sp.cls_embed and (sp.detection_enable
                              or sp.use_spatial_maxpool_before_proj):
             # the JAX package's reshape of the L + 1 final-norm rows into
@@ -730,8 +728,9 @@ class MViT(nn.Module):
         self.blocks = nn.ModuleList(
             MultiScaleBlock(bs, sp.mode, sp.qkv_bias, sp.cls_embed,
                             sp.q_pool_residual, sp.channel_expand_front,
-                            sp.mlp_ratio)
+                            sp.mlp_ratio, sp.moe)
             for bs in sp.blocks)
+        self.moe_aux: list = []  # the MoE blocks' losses of the last forward
         dim_out = sp.blocks[-1].dim_out
         self.norm = (None if sp.no_norm_before_avg
                      else FusedLayerNorm(dim_out, eps=1e-6))
@@ -769,10 +768,11 @@ class MViT(nn.Module):
             pos = torch.cat([self.pos_embed_class, pos], dim=1)
         return pos
 
-    def forward(self, x, bboxes: torch.Tensor | None = None,
-                generator: torch.Generator | None = None,
-                dataset_name: str | None = None,
-                run_cross_proj: bool = False, return_emb: bool = False):
+    def embed(self, x) -> tuple:
+        """The clip (or a one-pathway list of it) in the compute type
+        through the patch stem, the cls token in front where the model has
+        one, plus the position embeddings: ``(tokens [B, (1 +) L, D],
+        (T, H, W))``."""
         if isinstance(x, (list, tuple)):
             x = x[0]
         x = x.to(self.compute_dtype)
@@ -780,9 +780,20 @@ class MViT(nn.Module):
         if self.spec.cls_embed:
             cls = self.cls_token.to(x.dtype).expand(x.shape[0], -1, -1)
             x = torch.cat([cls, x], dim=1)
-        x = x + self._pos_embed().to(x.dtype)
+        return x + self._pos_embed().to(x.dtype), thw
+
+    def forward(self, x, bboxes: torch.Tensor | None = None,
+                generator: torch.Generator | None = None,
+                dataset_name: str | None = None,
+                run_cross_proj: bool = False, return_emb: bool = False):
+        x, thw = self.embed(x)
         remat = (self.training and self.spec.act_checkpoint
                  and torch.is_grad_enabled())
+        # each MoE block's loss as its first forward leaves it: a
+        # checkpointed block's recompute in the backward replaces the
+        # block's aux, not this list's, so the loss counts once, and its
+        # graph (the recompute restores its saved tensors) reaches the router
+        self.moe_aux = []
         for blk in self.blocks:
             masks = (blk.drop_path_masks(x.shape[0], generator, x.device,
                                          x.dtype) if self.training else None)
@@ -790,6 +801,8 @@ class MViT(nn.Module):
                 x, thw = checkpoint(blk, x, thw, masks, use_reentrant=False)
             else:
                 x, thw = blk(x, thw, masks)
+            if blk.moe:
+                self.moe_aux.append(blk.aux)
         if self.norm is not None:
             x = self.norm(x)
         sp = self.spec

@@ -19,11 +19,31 @@ each rank its slice of the host's batch and lets
   does not gather them).
 - :func:`process_allgather` is the JAX package's ragged host-side gather;
   :func:`allgather_objects` gathers any picklable object.
+
+Named axes (the JAX ``make_mesh``, :func:`make_mesh` from ``TPU.MESH_SHAPE``
+/ ``TPU.MESH_AXES``): :class:`Mesh` lays the ranks out row-major on the
+axes and makes one process group a line of each axis with
+``dist.new_group`` (not ``init_device_mesh``, which binds rank r to card r:
+two gloo ranks may share one card). By default every rank holds its own
+rows of a step's batch; a step whose batch is sharded over one axis alone
+(a tensor-parallel step: the model axis's ranks see the same rows) is
+given that axis's :func:`data_ranks` and hands them to :func:`gather_rows`
+and :func:`local_rows`, and to :func:`dp_rand` on its step's generator
+(:class:`RowGenerator`).
+
+The collectives along an axis (:func:`axis_all_gather`,
+:func:`axis_all_to_all`, :func:`halo_exchange`, :func:`axis_all_reduce`)
+are differentiable, and each is one all-reduce of a zero-padded buffer, in
+the forward and in the backward: gloo reduces CUDA tensors but neither
+gathers nor exchanges them, and NCCL refuses two ranks on one card, so
+this one form serves both backends on CPU and CUDA tensors. Its cost is
+the axis size times the bytes a gather or exchange would move.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -129,29 +149,57 @@ def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
     return all_reduce(x)
 
 
-def gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """The global batch ``[world * b, ...]`` from every rank's ``[b, ...]``
-    rows, rank-major (no gradient): one all-reduce of a zero-padded
-    buffer, which both gloo and NCCL take for CUDA tensors."""
-    world = get_world_size()
+class DataRanks(NamedTuple):
+    """The ranks over which a step's batch is sharded: their process group
+    (None: the whole group), their number and this rank's index."""
+
+    group: object
+    size: int
+    index: int
+
+
+def data_ranks(m: Optional["Mesh"] = None, axis: str = "data") -> DataRanks:
+    """The ranks of ``m``'s ``axis``; every rank of the group without a
+    mesh."""
+    if m is None:
+        return DataRanks(None, get_world_size(), get_rank())
+    return DataRanks(m.group(axis), m.size(axis), m.index(axis))
+
+
+class RowGenerator(torch.Generator):
+    """A ``torch.Generator`` that carries the :class:`DataRanks` of its
+    step's batch (None: every rank), for :func:`dp_rand`."""
+
+    def __new__(cls, device="cpu", data: Optional[DataRanks] = None):
+        self = super().__new__(cls, device=device)
+        self.data = data
+        return self
+
+
+def gather_rows(x: torch.Tensor,
+                data: Optional[DataRanks] = None) -> torch.Tensor:
+    """The global batch ``[size * b, ...]`` from the ``data`` ranks'
+    ``[b, ...]`` rows (every rank's by default), rank-major (no gradient):
+    one all-reduce of a zero-padded buffer, which both gloo and NCCL take
+    for CUDA tensors."""
+    group, world, r = data or data_ranks()
     if world == 1:
         return x
     b = x.shape[0]
     buf = torch.zeros((world * b, *x.shape[1:]), dtype=x.dtype,
                       device=x.device)
-    r = get_rank()
     buf[r * b:(r + 1) * b] = x
-    dist.all_reduce(buf)
+    dist.all_reduce(buf, group=group)
     return buf
 
 
-def local_rows(x: torch.Tensor) -> torch.Tensor:
-    """This rank's ``[b, ...]`` slice of a global ``[world * b, ...]``."""
-    world = get_world_size()
+def local_rows(x: torch.Tensor,
+               data: Optional[DataRanks] = None) -> torch.Tensor:
+    """This rank's ``[b, ...]`` slice of a global ``[size * b, ...]``."""
+    _, world, r = data or data_ranks()
     if world == 1:
         return x
     b = x.shape[0] // world
-    r = get_rank()
     return x[r * b:(r + 1) * b]
 
 
@@ -160,11 +208,13 @@ def dp_rand(shape: tuple, generator: Optional[torch.Generator],
     """Uniform draws for this rank's ``shape[0]`` rows of the global batch:
     every rank draws the whole global batch's values from ``generator``
     and keeps its own rows, so that a data-parallel step masks each row as
-    the one-process step on the global batch does."""
-    world = get_world_size()
-    full = torch.rand((shape[0] * world, *shape[1:]), generator=generator,
-                      device=device)
-    return local_rows(full)
+    the one-process step on the global batch does. The batch is sharded
+    over the generator's :attr:`RowGenerator.data` ranks, every rank's
+    without them."""
+    data = getattr(generator, "data", None) or data_ranks()
+    full = torch.rand((shape[0] * data.size, *shape[1:]),
+                      generator=generator, device=device)
+    return local_rows(full, data)
 
 
 def allgather_objects(obj) -> list:
@@ -188,3 +238,209 @@ def process_allgather(x) -> list:
     out: list = [None] * get_world_size()
     dist.all_gather_object(out, x)
     return [np.asarray(o) for o in out]
+
+
+class Mesh:
+    """The group's ranks on named axes (the JAX ``make_mesh``): rank ``r``
+    sits at ``np.unravel_index(r, shape)``; :meth:`group` is the process
+    group of this rank's line along an axis (None for an axis of size 1).
+    Every rank must build the mesh, in the same order as its other
+    groups (``dist.new_group`` is collective)."""
+
+    def __init__(self, shape, axes):
+        shape, axes = tuple(int(n) for n in shape), tuple(axes)
+        if len(shape) != len(axes):
+            raise ValueError(f"mesh shape {shape} and axes {axes}")
+        world, rank = get_world_size(), get_rank()
+        if math.prod(shape) != world:
+            raise ValueError(f"a mesh of {shape} needs {math.prod(shape)} "
+                             f"ranks; the group has {world}")
+        self.shape = dict(zip(axes, shape))
+        self.coords = dict(zip(axes, (int(c) for c in
+                                      np.unravel_index(rank, shape))))
+        self._groups: dict = {}
+        grid = np.arange(world).reshape(shape)
+        for i, a in enumerate(axes):
+            if shape[i] == 1:
+                self._groups[a] = None
+                continue
+            for line in np.moveaxis(grid, i, -1).reshape(-1, shape[i]):
+                g = dist.new_group([int(v) for v in line])
+                if rank in line:
+                    self._groups[a] = g
+
+    def size(self, axis: str) -> int:
+        return self.shape[axis]
+
+    def index(self, axis: str) -> int:
+        return self.coords[axis]
+
+    def group(self, axis: str):
+        return self._groups[axis]
+
+
+def make_mesh(cfg) -> Mesh:
+    """The mesh of ``cfg.TPU.MESH_SHAPE`` / ``MESH_AXES``; without a shape,
+    every rank on the first axis (``data``)."""
+    if cfg.TPU.MESH_SHAPE:
+        return Mesh(cfg.TPU.MESH_SHAPE, cfg.TPU.MESH_AXES)
+    return Mesh((get_world_size(),), tuple(cfg.TPU.MESH_AXES)[:1])
+
+
+def _reduce(buf: torch.Tensor, group) -> torch.Tensor:
+    """``buf`` summed over ``group`` in place. A bf16 or f16 buffer
+    travels as f32 (exact: every element sums one value and zeros), which
+    every gloo build reduces, so that one path serves both backends."""
+    if buf.dtype in (torch.bfloat16, torch.float16):
+        wide = buf.float()
+        dist.all_reduce(wide, group=group)
+        return buf.copy_(wide)
+    dist.all_reduce(buf, group=group)
+    return buf
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, n, r):
+        ctx.args = dim, group, n, r
+        c = x.shape[dim]
+        shape = list(x.shape)
+        shape[dim] = n * c
+        buf = x.new_zeros(shape)
+        buf.narrow(dim, r * c, c).copy_(x)
+        return _reduce(buf, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, group, n, r = ctx.args
+        c = g.shape[dim] // n
+        g = _reduce(g.contiguous().clone(), group)
+        return g.narrow(dim, r * c, c), None, None, None, None
+
+
+def axis_all_gather(x: torch.Tensor, m: Mesh, axis: str,
+                    dim: int) -> torch.Tensor:
+    """Every rank's ``x`` along ``axis`` concatenated on ``dim`` in rank
+    order (JAX ``all_gather(tiled=True)``); the backward sums the ranks'
+    gradients of each piece (``psum_scatter``)."""
+    n = m.size(axis)
+    if n == 1:
+        return x
+    return _AllGather.apply(x.contiguous(), dim, m.group(axis), n,
+                            m.index(axis))
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split, concat, group, n, r):
+        ctx.args = split, concat, group, n, r
+        return _all_to_all(x, split, concat, group, n, r)
+
+    @staticmethod
+    def backward(ctx, g):
+        split, concat, group, n, r = ctx.args
+        return (_all_to_all(g.contiguous(), concat, split, group, n, r),
+                None, None, None, None, None)
+
+
+def _all_to_all(x, split, concat, group, n, r):
+    """Piece ``j`` of ``x`` along ``split`` goes to rank ``j``, which
+    stacks what it gets on ``concat`` in rank order: the whole
+    ``[..., n * split piece, ..., n * concat piece, ...]`` tensor is
+    assembled by one all-reduce and each rank keeps its ``split`` piece."""
+    c = x.shape[concat]
+    shape = list(x.shape)
+    shape[concat] = n * c
+    buf = x.new_zeros(shape)
+    buf.narrow(concat, r * c, c).copy_(x)
+    s = x.shape[split] // n
+    return _reduce(buf, group).narrow(split, r * s, s).contiguous()
+
+
+def axis_all_to_all(x: torch.Tensor, m: Mesh, axis: str, split: int,
+                    concat: int) -> torch.Tensor:
+    """JAX ``all_to_all(split_axis=split, concat_axis=concat,
+    tiled=True)`` along ``axis``; its backward is the exchange back."""
+    n = m.size(axis)
+    if n == 1:
+        return x
+    if x.shape[split] % n:
+        raise ValueError(f"dimension {split} of {tuple(x.shape)} does not "
+                         f"split over {n} ranks")
+    return _AllToAll.apply(x.contiguous(), split, concat, m.group(axis), n,
+                           m.index(axis))
+
+
+class _Halo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, halo, fill, group, n, r):
+        ctx.args = x.shape, dim, halo, group, n, r
+        L = x.shape[dim]
+        buf = x.new_zeros((n, 2, *_halo_shape(x.shape, dim, halo)))
+        buf[r, 0] = x.narrow(dim, 0, halo)
+        buf[r, 1] = x.narrow(dim, L - halo, halo)
+        _reduce(buf, group)
+        above = buf[r - 1, 1] if r > 0 else torch.full_like(buf[r, 0], fill)
+        below = (buf[r + 1, 0] if r < n - 1
+                 else torch.full_like(buf[r, 0], fill))
+        return above.contiguous(), below.contiguous()
+
+    @staticmethod
+    def backward(ctx, g_above, g_below):
+        shape, dim, halo, group, n, r = ctx.args
+        buf = g_above.new_zeros((n, 2, *g_above.shape))
+        if r > 0:
+            buf[r - 1, 1] = g_above
+        if r < n - 1:
+            buf[r + 1, 0] = g_below
+        _reduce(buf, group)
+        dx = g_above.new_zeros(shape)
+        dx.narrow(dim, 0, halo).add_(buf[r, 0])
+        dx.narrow(dim, shape[dim] - halo, halo).add_(buf[r, 1])
+        return dx, None, None, None, None, None, None
+
+
+def _halo_shape(shape, dim, halo):
+    out = list(shape)
+    out[dim] = halo
+    return out
+
+
+def halo_exchange(x: torch.Tensor, m: Mesh, axis: str, dim: int,
+                  halo: int = 1, fill: float = 0.0) -> tuple:
+    """``(above, below)``: the ``halo`` slices on ``dim`` of the ranks
+    before and after this one along ``axis`` (its trailing and leading
+    ones), ``fill`` past the ends of the axis (0 for a convolution's zero
+    padding, ``-inf`` for a max pool's). The JAX ``sp.halo_exchange``."""
+    n = m.size(axis)
+    if x.shape[dim] < halo:
+        raise ValueError(f"a halo of {halo} from {x.shape[dim]} rows")
+    if n == 1:
+        edge = torch.full_like(x.narrow(dim, 0, halo), fill)
+        return edge, edge.clone()
+    return _Halo.apply(x.contiguous(), dim, halo, fill, m.group(axis), n,
+                       m.index(axis))
+
+
+def axis_all_reduce(x: torch.Tensor, m: Mesh, axis: str) -> torch.Tensor:
+    """``x`` summed along ``axis``, differentiably (JAX ``psum``)."""
+    if m.size(axis) == 1:
+        return x
+    from torch.distributed.nn.functional import all_reduce
+
+    return all_reduce(x, group=m.group(axis))
+
+
+def sharded_grad_norm(params, sharded: set, m: Mesh, axis: str):
+    """L2 norm over the gradients of ``params`` where the parameters whose
+    ``id`` is in ``sharded`` hold one piece each along ``axis`` (each piece
+    counted once) and the others are replicated (counted once)."""
+    own = [p.grad.float().pow(2).sum() for p in params
+           if p.grad is not None and id(p) in sharded]
+    rep = [p.grad.float().pow(2).sum() for p in params
+           if p.grad is not None and id(p) not in sharded]
+    zero = torch.zeros((), device=params[0].device)
+    sq = torch.stack(own).sum() if own else zero
+    if m.size(axis) > 1:
+        dist.all_reduce(sq, group=m.group(axis))
+    return torch.sqrt(sq + (torch.stack(rep).sum() if rep else zero))

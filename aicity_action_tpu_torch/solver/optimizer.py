@@ -113,7 +113,10 @@ def global_norm(params: Iterable[torch.Tensor]) -> torch.Tensor:
 class TrainOptimizer:
     """Clip, then a torch optimizer step at the scheduled LR.
 
-    :meth:`step` returns the gradients' global L2 norm before clipping."""
+    :meth:`step` returns the gradients' global L2 norm before clipping,
+    ``norm_fn(params)``: :func:`global_norm` unless a caller sets the
+    attribute (a model whose parameters are pieces on several ranks counts
+    each piece once, e.g. ``parallel/ep.py:ep_grad_norm``)."""
 
     def __init__(self, opt: torch.optim.Optimizer, schedule: Callable,
                  clip_val: float = 0.0, clip_l2norm: float = 0.0):
@@ -121,6 +124,7 @@ class TrainOptimizer:
         self.schedule = schedule
         self.clip_val = clip_val
         self.clip_l2norm = clip_l2norm
+        self.norm_fn: Callable = global_norm
         self.count = 0
 
     @property
@@ -147,7 +151,7 @@ class TrainOptimizer:
     @torch.no_grad()
     def step(self) -> torch.Tensor:
         params = [p for p in self.params if p.grad is not None]
-        norm = global_norm(params)
+        norm = self.norm_fn(params)
         if self.clip_val:
             for p in params:
                 p.grad.clamp_(-self.clip_val, self.clip_val)

@@ -1,14 +1,15 @@
 """Where the time of one MViT forward, or train step, goes on the card.
 
     python -m aicity_action_tpu_torch.tools.profile_forward [--batch 8]
-        [--config v2_448|v1_224] [--fuse-attn-ln auto|0|1] [--iters 3]
-        [--out FILE.json]
+        [--config v2_448|v1_224|moe_448] [--fuse-attn-ln auto|0|1]
+        [--iters 3] [--out FILE.json]
     python -m aicity_action_tpu_torch.tools.profile_forward --train
         [--batch 4] [--config ...] [--fuse-attn-ln ...] [--iters 3]
         [--out FILE.json]
 
-``--config`` picks MViT-v2-B 16x4 @ 448 (the default, the AI City model)
-or MViT-B 16x4 @ 224 with a cls token (PySlowFast's Kinetics-400 MViT-v1);
+``--config`` picks MViT-v2-B 16x4 @ 448 (the default, the AI City model),
+MViT-B 16x4 @ 224 with a cls token (PySlowFast's Kinetics-400 MViT-v1) or
+the 448 model with its MoE banks (``mvitv2_b_16x4_448_moe_cfg``);
 ``--fuse-attn-ln`` sets ``AICITY_TPU_FUSE_ATTN_LN`` for the run (``1``: the
 fused-LN attention in training too). Builds the model at full width and
 depth on weights from ``--seed``, warms
@@ -184,7 +185,8 @@ def _config(name: str):
     return getattr(config, CONFIGS[name])()
 
 
-CONFIGS = {"v2_448": "mvitv2_b_16x4_448_cfg", "v1_224": "mvit_b_16x4_224_cfg"}
+CONFIGS = {"v2_448": "mvitv2_b_16x4_448_cfg", "v1_224": "mvit_b_16x4_224_cfg",
+           "moe_448": "mvitv2_b_16x4_448_moe_cfg"}
 
 
 def forward_profile(args) -> dict:

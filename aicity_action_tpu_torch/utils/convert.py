@@ -14,6 +14,10 @@
   {kernel,bias}`` -> ``head.head_{ds}.{weight,bias}`` (its MLP variant's
   ``head/head_{ds}/fc{1,2}/...`` -> ``head.head_{ds}.fc{1,2}.*``) and
   ``head/cross_{src}_{dst}/kernel`` -> ``head.cross_{src}_{dst}.weight``.
+  An MoE block's bank: ``blocks_{i}/mlp/router [D, E]`` -> ``blocks.{i}.
+  mlp.router [E, D]``, ``fc1_kernel [E, D, H]`` / ``fc2_kernel [E, H, O]``
+  -> ``fc1_weight [E, H, D]`` / ``fc2_weight [E, O, H]``, the ``fc*_bias``
+  leaves unchanged.
 - :func:`load_cross_proj_weight` sets the cross-dataset projections from
   word-embedding similarity ``.npy`` files.
 - :func:`jax_actionclip_to_state_dict` / :func:`jax_actionclip_tree_to_named`
@@ -71,6 +75,10 @@ def jax_tree_to_named(tree: Mapping) -> dict[str, np.ndarray]:
             mods = ["patch_embed", "proj"]
         if leaf in _POOLS:
             mods, leaf, w = mods + [leaf], "weight", _conv_to_torch(w)
+        elif leaf == "router":
+            w = w.T
+        elif leaf in ("fc1_kernel", "fc2_kernel"):
+            leaf, w = leaf[:3] + "_weight", w.transpose(0, 2, 1)
         elif leaf == "kernel":
             leaf = "weight"
             w = w.T if w.ndim == 2 else _conv_to_torch(w)

@@ -159,7 +159,30 @@ NVIDIA card.
     subprocess on a seed-0 @448 ``.pyth`` and two written views: a finite
     F1, a clean load, a rerun that skips scoring; and the YAML's
     ``NUM_GPUS 8`` refused before spawning on this one-card host.
-22. Prints ``{"kernels": [...]}``, the card line, and last
+22. MoE MViT-v2-B 16x4 @448 (``moe_checks``; 8 experts, top-2, capacity
+    1.25, every other block a bank): the batch-8 scoring forward with its
+    launches held to ``derived_counts`` (no LN+MLP in the banks), its time
+    and peak memory, a batch-1 forward against the plain f32 forward
+    (head input within 5e-2) and a control with every bank's experts
+    rolled by one that the gate refuses, then
+    ``run_net`` (2 steps at batch 4 with the load-balance loss, an eval, a
+    checkpoint, the test) held as phase 10 holds its runs.
+23. Long-cycle multigrid (``multigrid_checks``): ``run_net`` on SlowOnly
+    R50 8x8 over the loop's views, batch 8 of 4 frames then batch 4 of 8
+    frames in turn, the model rebuilt at each change with its weights, no
+    kernel row launched.
+24. EP, SP and TP in one ``mp.spawn`` of two gloo ranks on the one card
+    (``parallel_checks``), at full width, each held to its one-process run
+    in this process: the MoE model's SGD step with 4 of the 8 experts a
+    rank, one clip scored with the T frames split over the ranks, the plain
+    model's SGD step with its big weights split over the ranks; each
+    rank's launches held to ``derived_counts``.
+25. ``MViTPipeline`` (``pp_checks``): 2 stages on the one card, 4
+    microbatches of a batch of 4, its gradients against the plain step,
+    its launches 4 microbatches of the train-step rows with each stage's
+    forward but the last run twice (the fill keeps the last stage's input
+    only; the drain runs every stage under autograd).
+26. Prints ``{"kernels": [...]}``, the card line, and last
     ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no result.
@@ -1312,7 +1335,8 @@ def _wrappers():
             "flash_attention_ln_bwd": fa.flash_attention_ln_bwd}
 
 
-def derived_counts(model, train: bool) -> dict:
+def derived_counts(model, train: bool, remat: int | None = None,
+                   blocks=None, final_norm: bool = True) -> dict:
     """Kernel launches of one forward (``train`` False) or one train step
     that the model's blocks and the fused-LN switch imply. Per block: one
     LN+qkv; the fused-LN attention where the block fuses (conv pools, no
@@ -1320,16 +1344,19 @@ def derived_counts(model, train: bool) -> dict:
     cls token) and one LN per conv-pooled q / k / v, the channel-major
     instance (``pool_norm_rows``, also counted on its own) where its length
     is a multiple of 8 and there is no cls token, else the rows instance;
-    one LN+MLP, or, where the MLP changes the channels, a separate norm2.
-    The final norm once. Training adds each backward once and, under
-    activation checkpointing, runs every block's forward kernels twice
-    (the recompute)."""
+    one LN+MLP, or, where the MLP changes the channels, a separate norm2;
+    an MoE block's expert bank none. The final norm once. Training adds
+    each backward once and, under activation checkpointing, runs every
+    block's forward kernels twice (the recompute; ``remat`` sets that
+    multiple). ``blocks`` (indices) and ``final_norm`` count a part of the
+    model."""
     from aicity_action_tpu_torch.models.mvit import (_fuse_attn_ln_enabled,
                                                     pool_norm_call_shapes)
     from aicity_action_tpu_torch.ops.layer_norm import channel_major_applies
 
     n = dict.fromkeys(ALL_FNS + tuple(_instance_counters()), 0)
-    remat = 2 if train and model.spec.act_checkpoint else 1
+    if remat is None:
+        remat = 2 if train and model.spec.act_checkpoint else 1
     pool_norms = {}  # block -> the lengths of its pool norms
     for i, _, _, _, _, L in pool_norm_call_shapes(model.spec, 1):
         pool_norms.setdefault(i, []).append(L)
@@ -1340,6 +1367,8 @@ def derived_counts(model, train: bool) -> dict:
             n[bwd] += times
 
     for i, blk in enumerate(model.blocks):
+        if blocks is not None and i not in blocks:
+            continue
         attn = blk.attn
         add("fused_ln_qkv", "fused_ln_qkv_bwd")
         if (attn.mode == "conv" and not attn.has_cls and attn.pooled
@@ -1354,11 +1383,13 @@ def derived_counts(model, train: bool) -> dict:
                 add("fused_layer_norm", "fused_layer_norm_bwd")
                 if channel_major_applies(L, attn.has_cls, attn.head_dim):
                     add("pool_norm_rows", "pool_norm_rows_bwd")
+        if blk.moe:  # the expert bank: plain products, no kernel row
+            continue
         if blk.proj is None:
             add("fused_ln_mlp", "fused_ln_mlp_bwd")
         else:
             add("fused_layer_norm", "fused_layer_norm_bwd")
-    if model.norm is not None:
+    if model.norm is not None and final_norm:
         n["fused_layer_norm"] += 1
         n["fused_layer_norm_bwd"] += int(train)
     return n
@@ -2540,6 +2571,16 @@ def _rel(a, b) -> float:
                  / max(float(torch.linalg.vector_norm(b)), 1e-30))
 
 
+def _leaf_rel(got: dict, want: dict, n: str) -> float:
+    """Relative L2 of a leaf's gradient; the k pool norm's bias (zero in
+    exact arithmetic, softmax ignoring a shift of every key) against its
+    scale's."""
+    if n.endswith("attn.norm_k.bias"):
+        scale = want[n[:-len("bias")] + "weight"]
+        return _rel(got[n] - want[n] + scale, scale)
+    return _rel(got[n], want[n])
+
+
 def two_rank_checks(card: str) -> dict:
     """Two gloo ranks on the one card, each with 2 of a 4-clip global
     batch, take two SGD steps of MViT-v2-B @448 and of SlowFast R50 8x8
@@ -2589,12 +2630,6 @@ def two_rank_checks(card: str) -> dict:
                   for r in range(2)] for i in range(len(refs))]
     spawn_s = time.perf_counter() - t
 
-    def rel(got, want, n):
-        if n.endswith("attn.norm_k.bias"):
-            scale = want[n[:-len("bias")] + "weight"]
-            return _rel(got[n] - want[n] + scale, scale)
-        return _rel(got[n], want[n])
-
     report = {}
     for (label, _), ref, draw, truth, skip, got in zip(
             cases, refs, draws, truths, skips, ranks):
@@ -2603,11 +2638,12 @@ def two_rank_checks(card: str) -> dict:
         for kind in [f"grad {i + 1}" for i in range(TWO_RANK_STEPS)] + [
                 "stats"]:
             for n in truth[kind]:
-                fl = max(rel(r[kind], truth[kind], n) for r in [ref, *draw])
-                err = max(rel(g[kind], truth[kind], n) for g in got)
+                fl = max(_leaf_rel(r[kind], truth[kind], n)
+                         for r in [ref, *draw])
+                err = max(_leaf_rel(g[kind], truth[kind], n) for g in got)
                 leaf[f"{kind} {n}"] = (
                     err, max(GATE_LEAF, F32_TRUTH_FACTOR * fl), fl,
-                    rel(skip[kind], truth[kind], n))
+                    _leaf_rel(skip[kind], truth[kind], n))
         for g in got:
             for key, gate in (("loss", GATE_LOSS), ("grad_norm", GATE_NORM)):
                 for a, b in zip(g[key], ref[key]):
@@ -3936,6 +3972,643 @@ def benchmark_checks(card: str, d: str) -> dict:
 
 # ------------------------------------------------------------------ main
 
+def _factory(name: str):
+    """The config factory ``name`` of this file or of the port's config."""
+    import aicity_action_tpu_torch.config as configs
+
+    return globals().get(name) or getattr(configs, name)
+
+
+# ------------------------------------------------ MoE MViT-v2-B 16x4 @448
+
+MOE_DEVICE = "cuda"
+# the config factory of the phase: the AI City model with MVIT.MOE on at the
+# section's defaults (8 experts, top-2, capacity 1.25, blocks 1, 3, ..., 15)
+MOE_CFG = "mvitv2_b_16x4_448_moe_cfg"
+
+
+def moe_checks(card: str, d: str) -> dict:
+    """The MoE model at full width (seed 0, bf16): the batch-8 scoring
+    forward through ``make_eval_step`` with its launches held to
+    ``derived_counts`` (no LN+MLP in the 8 banks), its time and peak
+    memory; a batch-1 forward's scores and head input against the same
+    weights' plain f32 forward, and a control (the plain forward with every
+    bank's experts rolled by one) that the head-input gate refuses; then ``run_net`` on the loop's views (MAX_
+    EPOCH 1: 2 steps at batch 4 with the load-balance loss, an eval, a
+    checkpoint, the test), held as the train loop phase holds its runs."""
+    import torch
+
+    from aicity_action_tpu_torch.engine.steps import make_eval_step
+    from aicity_action_tpu_torch.models.build import build_model
+    from aicity_action_tpu_torch.models.moe import BANK_LEAVES, MoEMlp
+    from aicity_action_tpu_torch.ops import kernels
+    from aicity_action_tpu_torch.tools import run_net
+
+    cfg = _factory(MOE_CFG)()
+    model = build_model(cfg, device=MOE_DEVICE, seed=SEED)
+    eval_step = make_eval_step(model)
+    T, S = cfg.DATA.NUM_FRAMES, cfg.DATA.TEST_CROP_SIZE
+    gen = torch.Generator(device=MOE_DEVICE).manual_seed(SEED + 80)
+    x = _normal(gen, (BATCH, T, S, S, 3), device=MOE_DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = eval_step({"inputs": x})
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = derived_counts(model, train=False)
+    if counts != want:
+        _fail(f"MoE @448: launches per forward {counts} != {want}")
+    banks = len(cfg.MVIT.MOE.LAYERS) or len(model.blocks) // 2
+    if out.shape != (BATCH, cfg.MODEL.NUM_CLASSES) or \
+            not torch.isfinite(out).all() or len(model.moe_aux) != banks:
+        _fail("MoE @448 batch-8 forward: wrong scores or banks")
+    ms = time_ms(lambda: eval_step({"inputs": x}), iters=5)
+
+    feats = []
+    hook = model.head.register_forward_hook(
+        lambda mod, inp, outp: feats.append(inp[0].float()))
+    out_k = eval_step({"inputs": x[:1]})
+    hook.remove()
+    f32 = cfg.clone()
+    f32.TPU.COMPUTE_DTYPE = "float32"
+    plain = build_model(f32, device=MOE_DEVICE, seed=SEED)
+    hook = plain.head.register_forward_hook(
+        lambda mod, inp, outp: feats.append(inp[0].float()))
+    with kernels.plain_reference(), torch.no_grad():
+        out_p = plain.eval()(x[:1].float())
+        # the control: every bank's experts rolled by one (each token
+        # routed as before, through its neighbour's weights), which the
+        # head-input gate must refuse
+        for blk in plain.blocks:
+            if isinstance(blk.mlp, MoEMlp):
+                for leaf in BANK_LEAVES:
+                    w = getattr(blk.mlp, leaf)
+                    w.copy_(w.roll(1, 0))
+        out_c = plain(x[:1].float())
+    hook.remove()
+    torch.cuda.synchronize()
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    feat_err, ctrl_err = rel(feats[0], feats[1]), rel(feats[2], feats[1])
+    score_err = (out_k.float() - out_p).abs().max().item()
+    ctrl_score = (out_c - out_p).abs().max().item()
+    del plain, hook
+    m = cfg.MVIT.MOE
+    print(f"# MoE MViT-v2-B 16x4 @448 ({card}; {m.NUM_EXPERTS} experts, "
+          f"top-{m.TOP_K}, capacity {m.CAPACITY_FACTOR}, blocks "
+          f"{list(model.spec.moe.layers)}): batch-{BATCH} forward "
+          f"{ms:.2f} ms, "
+          f"{BATCH / ms * 1e3:.2f} clips/s, peak memory "
+          f"{peak / 2 ** 30:.2f} GiB; launches {counts}; batch-1 kernels "
+          f"(bf16) vs the plain f32 forward: max |score error| "
+          f"{score_err:.3e} (tol 1e-2), head-input relative L2 "
+          f"{feat_err:.3e} (tol 5e-2); control (experts rolled, plain "
+          f"f32): head-input relative L2 {ctrl_err:.3e} (must exceed "
+          f"5e-2), max |score error| {ctrl_score:.3e}")
+    if not (score_err <= 1e-2 and feat_err <= 5e-2):
+        _fail("MoE @448: the kernel forward disagrees with the plain f32 "
+              "forward")
+    if not ctrl_err > 5e-2:
+        _fail("MoE @448: the head-input gate passes a forward through the "
+              "wrong experts")
+    del model, eval_step, out, x
+    torch.cuda.empty_cache()
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with model_inputs_seen() as seen:
+        res = run_net.main(["--cfg", LOOP_CFG, "--device", LOOP_DEVICE,
+                            *_loop_opts(d, 1, "moe_out"),
+                            "MVIT.MOE.ENABLE", "True"])
+        torch.cuda.synchronize()
+        run = _check_loop_run(res, read_counts(), list(seen), 1, d,
+                              "moe_out")
+    wall = time.perf_counter() - t
+    loop_peak = torch.cuda.max_memory_allocated()
+    if len(res["train"].model.moe_aux) != banks:
+        _fail("MoE run_net: the banks' load-balance losses are missing")
+    epoch = run["epochs"][0]
+    print(f"# MoE @448 run_net ({card}): MAX_EPOCH 1, batch 4 on the loop's "
+          f"8 views, load-balance weight {cfg.MVIT.MOE.AUX_LOSS_WEIGHT}: "
+          f"losses "
+          f"{epoch['losses']}, step walls {epoch['iter_s']}, epoch "
+          f"{epoch['wall_s']:.3f} s, peak memory {loop_peak / 2 ** 30:.2f} "
+          f"GiB, run {wall:.1f} s; launches {run['launches']}")
+    del res
+    torch.cuda.empty_cache()
+    return {"forward_ms": ms, "clips_per_s": BATCH / ms * 1e3,
+            "peak_mem_bytes": peak, "score_err_f32": score_err,
+            "feat_rel_err_f32": feat_err, "launches_per_forward": counts,
+            "loop": {"losses": epoch["losses"], "iter_s": epoch["iter_s"],
+                     "wall_s": epoch["wall_s"], "peak_mem_bytes": loop_peak,
+                     "seconds": wall},
+            "loop_launches": run["launches"]}
+
+
+# ---------------------------------------- EP, SP and TP: two ranks, one card
+
+PAR_DEVICE = "cuda"  # the one card both ranks share
+PAR_BACKEND = "gloo"
+PAR_BATCH = 2  # EP and TP global batch; SP scores one clip
+PAR_MOE_CFG = "mvitv2_b_16x4_448_moe_cfg"  # the phase's config factories
+PAR_CFG = "mvitv2_b_16x4_448_cfg"
+
+
+def _par_cfgs():
+    """``(MoE cfg, plain cfg)`` of the phase: SGD, no mixup; the MoE
+    model's banks at the defaults."""
+    out = []
+    for name in (PAR_MOE_CFG, PAR_CFG):
+        cfg = _factory(name)()
+        cfg.SOLVER.OPTIMIZING_METHOD = "sgd"
+        cfg.MIXUP.ENABLE = False
+        cfg.RNG_SEED = SEED
+        out.append(cfg)
+    return out
+
+
+def _par_batch(cfg, n: int, dev):
+    """``n`` clips and labels of the phase, made with numpy from the seed
+    (every process makes the same)."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 90)
+    T, S = cfg.DATA.NUM_FRAMES, cfg.DATA.TRAIN_CROP_SIZE
+    x = rng.standard_normal((n, T, S, S, 3), dtype=np.float32)
+    return (torch.from_numpy(x).to(dev),
+            torch.from_numpy(np.arange(n) % cfg.MODEL.NUM_CLASSES).to(dev))
+
+
+def _grads(named) -> dict:
+    return {n: p.grad.detach().float().cpu().clone() for n, p in named
+            if p.grad is not None}
+
+
+def _ep_run(cfg, dev, m=None) -> dict:
+    """The MoE model's SGD step: on the whole batch in one process
+    (``m`` None), or expert-parallel over ``m``'s ``ep`` axis on this
+    rank's clip."""
+    import torch
+
+    from aicity_action_tpu_torch.engine.steps import make_train_step
+    from aicity_action_tpu_torch.engine.train_loop import moe_aux_weight
+    from aicity_action_tpu_torch.models.build import build_model
+    from aicity_action_tpu_torch.parallel import ep
+    from aicity_action_tpu_torch.solver.optimizer import construct_optimizer
+
+    model = build_model(cfg, device=dev, seed=SEED)
+    x, y = _par_batch(cfg, PAR_BATCH, dev)
+    kw = {}
+    if m is not None:
+        sharded = ep.shard_experts(model, m, "ep")
+        kw["grad_sync"] = lambda: ep.ep_grad_sync(model, m, "ep", sharded)
+        r = m.index("ep")
+        x, y = x[r:r + 1], y[r:r + 1]
+    opt = construct_optimizer(cfg, model, 100)
+    if m is not None:
+        opt.norm_fn = ep.ep_grad_norm(m, "ep", sharded)
+    step = make_train_step(model, opt, cfg.MODEL.LOSS_FUNC,
+                           num_classes=cfg.MODEL.NUM_CLASSES, seed=SEED,
+                           moe_aux_weight=moe_aux_weight(cfg), **kw)
+    reset_counts()
+    t = time.perf_counter()
+    metrics, _ = step({"inputs": x, "labels": y})
+    torch.cuda.synchronize()
+    out = {"loss": float(metrics["loss"]),
+           "grad_norm": float(metrics["grad_norm"]),
+           "launches": read_counts(), "s": time.perf_counter() - t,
+           "grads": _grads(model.named_parameters())}
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_run(cfg, dev, m=None) -> dict:
+    """The plain model's SGD step on the whole batch: in one process
+    (``m`` None), or with its big weights split over ``m``'s ``model``
+    axis (each rank the whole batch; its pieces' gradients)."""
+    import torch
+
+    from aicity_action_tpu_torch.engine.steps import make_train_step
+    from aicity_action_tpu_torch.models.build import build_model
+    from aicity_action_tpu_torch.parallel import tp as ptp
+    from aicity_action_tpu_torch.solver.optimizer import construct_optimizer
+
+    model = build_model(cfg, device=dev, seed=SEED)
+    x, y = _par_batch(cfg, PAR_BATCH, dev)
+    kw = dict(num_classes=cfg.MODEL.NUM_CLASSES, seed=SEED)
+    if m is None:
+        owner = model
+        opt = construct_optimizer(cfg, model, 100)
+        step = make_train_step(model, opt, cfg.MODEL.LOSS_FUNC, **kw)
+    else:
+        owner = ptp.TensorParallel(model, m)
+        opt = construct_optimizer(cfg, owner, 100)
+        opt.norm_fn = owner.grad_norm
+        step = ptp.make_tp_train_step(owner, opt, cfg.MODEL.LOSS_FUNC, **kw)
+    reset_counts()
+    t = time.perf_counter()
+    metrics, _ = step({"inputs": x, "labels": y})
+    torch.cuda.synchronize()
+    out = {"loss": float(metrics["loss"]),
+           "grad_norm": float(metrics["grad_norm"]),
+           "launches": read_counts(), "s": time.perf_counter() - t,
+           "grads": _grads(owner.named_parameters())}
+    if m is not None:
+        out["split"] = dict(owner.dims)
+        out["at_rest"] = {n: p.numel() for n, p in owner.whole.items()}
+    del model, opt, step, owner
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sp_run(cfg, dev, m=None) -> dict:
+    """The plain model's batch-1 eval logits: dense (``m`` None) or with
+    the T frames sharded over ``m``'s ``sp`` axis."""
+    import torch
+
+    from aicity_action_tpu_torch.models.build import build_model
+    from aicity_action_tpu_torch.parallel import sp_model
+
+    model = build_model(cfg, device=dev, seed=SEED)
+    x, _ = _par_batch(cfg, 1, dev)
+    reset_counts()
+    t = time.perf_counter()
+    with torch.no_grad():
+        logits = (sp_model.sp_apply(model, x, m, "sp", shard_axis="t")
+                  if m is not None else
+                  sp_model.sp_forward(model, x, None, None))
+    torch.cuda.synchronize()
+    out = {"logits": logits.float().cpu(), "launches": read_counts(),
+           "s": time.perf_counter() - t, "depth": len(model.blocks),
+           "plan": sp_model.plan_sp_blocks(model.spec, 2, "t")}
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _par_worker(rank: int, init: str, d: str, device: str,
+                backend: str) -> None:
+    """One of the phase's two ranks (spawned), both on ``device``: EP, SP
+    and TP in turn, each on its own mesh, its launches counted alone."""
+    import torch
+
+    sys.path.insert(0, _REPO)
+    from aicity_action_tpu_torch.parallel import mesh
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", 0)
+    moe, plain = _par_cfgs()
+    cfg0 = plain.clone()
+    cfg0.NUM_GPUS, cfg0.DIST_BACKEND, cfg0.INIT_METHOD = 2, backend, init
+    mesh.init_distributed(cfg0, rank, device=dev)
+    out = {"ep": _ep_run(moe, dev, mesh.Mesh((2,), ("ep",))),
+           "sp": _sp_run(plain, dev, mesh.Mesh((2,), ("sp",))),
+           "tp": _tp_run(plain, dev, mesh.Mesh((1, 2), ("data", "model")))}
+    torch.save(out, os.path.join(d, f"rank{rank}.pt"))
+    mesh.destroy()
+
+
+def _hold_step(label: str, got: dict, ref: dict, pieces=None) -> dict:
+    """A parallel step against the one-process step: the loss (GATE_LOSS),
+    the gradient norm (GATE_NORM) and every leaf's gradient (GATE_LEAF
+    relative L2; ``pieces(name, want)`` gives the part of the
+    one-process gradient this rank holds)."""
+    for key, gate in (("loss", GATE_LOSS), ("grad_norm", GATE_NORM)):
+        err = abs(got[key] - ref[key]) / abs(ref[key])
+        if not (np.isfinite(got[key]) and err <= gate):
+            _fail(f"{label}: {key} {got[key]} vs one process {ref[key]}")
+    want = ref["grads"]
+    if pieces is not None:
+        want = {n: pieces(n, g) for n, g in want.items()}
+    if set(got["grads"]) != set(want):
+        _fail(f"{label}: leaves {sorted(set(got['grads']) ^ set(want))}")
+    errs = {n: _leaf_rel(got["grads"], want, n) for n in want}
+    worst = max(errs, key=errs.get)
+    if not errs[worst] <= GATE_LEAF:
+        _fail(f"{label}: {worst} off by {errs[worst]:.3e} relative L2 "
+              f"(gate {GATE_LEAF})")
+    return {"loss": got["loss"], "ref_loss": ref["loss"],
+            "grad_norm": got["grad_norm"], "ref_grad_norm": ref["grad_norm"],
+            "worst_leaf": worst, "worst_leaf_rel_l2": errs[worst],
+            "median_leaf": float(np.median(list(errs.values()))),
+            "leaves": len(errs)}
+
+
+def parallel_checks(card: str) -> dict:
+    """Two gloo ranks on the one card (one ``mp.spawn``) at full width,
+    each path held to its one-process run in this process: EP, the MoE
+    model's SGD step with each rank 4 of the 8 experts of every bank and 1
+    of 2 clips (loss, gradient norm and every leaf, a rank's expert slices
+    against the same rows of the one-process gradient; the train-step
+    rows on each rank); SP, one clip scored with the T frames split 2-way
+    through all 16 blocks (the logits against the dense forward's; the
+    eval rows on each rank's shard); TP, the plain model's SGD step on 2
+    clips with qkv / fc1 split on their outputs and the attention proj /
+    fc2 on their inputs (each rank's pieces' gradients against the
+    one-process gradient's; the train-step rows on the gathered weights).
+    Gates of the two-rank phase: loss 1e-2, gradient norm 2e-2, each leaf
+    5e-2 relative L2; logits 5e-2 relative L2 and 1e-2 on the
+    softmax."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from aicity_action_tpu_torch.models.mvit import MViT, build_mvit_spec
+
+    moe, plain = _par_cfgs()
+    dev = torch.device(PAR_DEVICE)
+    refs = {"ep": _ep_run(moe, dev), "sp": _sp_run(plain, dev),
+            "tp": _tp_run(plain, dev)}
+    with torch.device("meta"):  # the blocks the counts derive from
+        shapes = {name: MViT(build_mvit_spec(cfg))
+                  for name, cfg in (("ep", moe), ("tp", plain))}
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        mp.spawn(_par_worker, args=(f"tcp://localhost:{_free_port()}", d,
+                                    PAR_DEVICE, PAR_BACKEND),
+                 nprocs=2, join=True)
+        ranks = [torch.load(os.path.join(d, f"rank{r}.pt"))
+                 for r in range(2)]
+    spawn_s = time.perf_counter() - t
+    report = {"spawn_s": spawn_s}
+    train_want = {k: derived_counts(shapes[k], train=True)
+                  for k in ("ep", "tp")}
+    eval_want = derived_counts(shapes["tp"], train=False)
+    for r, res in enumerate(ranks):
+        for path, want in (("ep", train_want["ep"]),
+                           ("tp", train_want["tp"]), ("sp", eval_want)):
+            if res[path]["launches"] != want:
+                _fail(f"{path.upper()} rank {r}: launches "
+                      f"{res[path]['launches']} != {want}")
+
+        def expert_rows(n, g, r=r):
+            bank = n.rsplit(".", 1)[-1] in ("fc1_weight", "fc1_bias",
+                                            "fc2_weight", "fc2_bias")
+            return g.chunk(2, 0)[r] if bank else g
+
+        def tp_piece(n, g, r=r, split=res["tp"]["split"]):
+            return g.chunk(2, split[n])[r] if n in split else g
+
+        report[f"ep rank {r}"] = _hold_step(
+            f"EP rank {r}", res["ep"], refs["ep"], expert_rows)
+        report[f"tp rank {r}"] = _hold_step(
+            f"TP rank {r}", res["tp"], refs["tp"], tp_piece)
+        lg, lw = res["sp"]["logits"], refs["sp"]["logits"]
+        rel = _rel(lg, lw)
+        soft = (lg.softmax(-1) - lw.softmax(-1)).abs().max().item()
+        if not (rel <= GATE_LEAF and soft <= 1e-2):
+            _fail(f"SP rank {r}: logits {rel:.3e} relative L2, softmax "
+                  f"{soft:.3e} from the dense forward's")
+        report[f"sp rank {r}"] = {"logits_rel_l2": rel,
+                                  "softmax_max_err": soft,
+                                  "plan": res["sp"]["plan"]}
+        depth = res["sp"]["depth"]
+        if res["sp"]["plan"] != depth or \
+                len(res["tp"]["at_rest"]) != 4 * depth or \
+                any(res["tp"]["at_rest"].values()):
+            _fail(f"rank {r}: SP planned {res['sp']['plan']} sharded "
+                  f"blocks; TP split {len(res['tp']['at_rest'])} weights")
+    report["launches"] = {path: {k: sum(rk[path]["launches"][k]
+                                        for rk in ranks)
+                                 for k in ranks[0][path]["launches"]}
+                          for path in ("ep", "sp", "tp")}
+    for path in ("ep", "tp"):
+        a, b = report[f"{path} rank 0"], report[f"{path} rank 1"]
+        print(f"# {path.upper()}, two gloo ranks on one card ({card}): loss "
+              f"{a['loss']:.6f} / {b['loss']:.6f} vs one process "
+              f"{a['ref_loss']:.6f}, grad norm {a['grad_norm']:.6f} / "
+              f"{b['grad_norm']:.6f} vs {a['ref_grad_norm']:.6f}; worst "
+              f"leaf {a['worst_leaf']} {a['worst_leaf_rel_l2']:.3e} / "
+              f"{b['worst_leaf']} {b['worst_leaf_rel_l2']:.3e} (gate "
+              f"{GATE_LEAF}), median {a['median_leaf']:.3e}; step "
+              f"{ranks[0][path]['s']:.2f} / {ranks[1][path]['s']:.2f} s "
+              f"(one process {refs[path]['s']:.2f} s); launches a rank "
+              f"{ranks[0][path]['launches']}")
+    print(f"# SP, T frames 2-way, two gloo ranks ({card}): logits "
+          f"{report['sp rank 0']['logits_rel_l2']:.3e} / "
+          f"{report['sp rank 1']['logits_rel_l2']:.3e} relative L2, softmax "
+          f"{report['sp rank 0']['softmax_max_err']:.3e} from the dense "
+          f"forward; {ranks[0]['sp']['plan']} of {ranks[0]['sp']['depth']} "
+          f"blocks sharded; forward "
+          f"{ranks[0]['sp']['s']:.2f} / {ranks[1]['sp']['s']:.2f} s (dense "
+          f"{refs['sp']['s']:.2f} s); launches a rank "
+          f"{ranks[0]['sp']['launches']}; spawned ranks {spawn_s:.1f} s")
+    return report
+
+
+# ------------------------------------------------------ pipeline, one card
+
+PP_DEVICE = "cuda"
+PP_CFG = "mvitv2_b_16x4_448_cfg"  # the config factory of the phase
+PP_BATCH, PP_MICROBATCHES = 4, 4
+
+
+def pipeline_counts(model, ranges, microbatches: int) -> dict:
+    """Launches of one ``MViTPipeline.loss_and_grads`` over the stages'
+    block ``ranges``: each microbatch runs every forward and backward of
+    the train step once (the drain), and the forwards of every stage but
+    the last once more (the fill, whose last stage's input is all it
+    keeps)."""
+    once = derived_counts(model, True, remat=1)
+    fill = derived_counts(model, True, remat=1,
+                          blocks=range(ranges[-1][0]), final_norm=False)
+    return {k: microbatches * (v + (0 if k.endswith("_bwd") else fill[k]))
+            for k, v in once.items()}
+
+
+def pp_checks(card: str) -> dict:
+    """``MViTPipeline`` at full width: MViT-v2-B @448 (seed 0, bf16, no
+    DropPath or dropout, which the plain step draws otherwise) in 2
+    FLOP-balanced stages on the one card, 4 microbatches of a batch of 4:
+    the loss, gradient norm and every leaf's gradient against the plain
+    forward and backward on the whole batch (the two-rank phase's gates);
+    its launches equal 4 microbatches of the train-step rows with every
+    stage's forward but the last run twice (the fill, then the recompute
+    under autograd; the last stage runs in the drain alone)."""
+    import torch
+    import torch.nn.functional as F
+
+    from aicity_action_tpu_torch.models.build import build_model
+    from aicity_action_tpu_torch.parallel import pp
+    from aicity_action_tpu_torch.solver.optimizer import global_norm
+
+    cfg = _factory(PP_CFG)()
+    cfg.MVIT.DROPPATH_RATE = 0.0
+    cfg.MODEL.DROPOUT_RATE = 0.0
+    dev = torch.device(PP_DEVICE)
+    x, y = _par_batch(cfg, PP_BATCH, dev)
+    plain = build_model(cfg, device=dev, seed=SEED).train()
+    loss = F.cross_entropy(plain(x).float(), y.long())
+    loss.backward()
+    params = list(plain.parameters())
+    ref = {"loss": loss.item(), "grad_norm": global_norm(params).item(),
+           "grads": _grads(plain.named_parameters())}
+    del plain, params, loss
+    torch.cuda.empty_cache()
+    model = build_model(cfg, device=dev, seed=SEED)
+    pipe = pp.MViTPipeline(model, [dev, dev])
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t = time.perf_counter()
+    loss = pipe.loss_and_grads(x, y, PP_MICROBATCHES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = pipeline_counts(model, pipe.ranges, PP_MICROBATCHES)
+    if launches != want:
+        _fail(f"PP: launches {launches} != {want}")
+    got = {"loss": float(loss),
+           "grad_norm": float(global_norm(list(model.parameters()))),
+           "grads": _grads(model.named_parameters())}
+    report = _hold_step("PP", got, ref)
+    report.update(ranges=pipe.ranges, seconds=wall, peak_mem_bytes=peak,
+                  launches=launches)
+    print(f"# PP, 2 stages {pipe.ranges} on one card, {PP_MICROBATCHES} "
+          f"microbatches of a batch of {PP_BATCH} ({card}): loss "
+          f"{got['loss']:.6f} vs plain {ref['loss']:.6f}, grad norm "
+          f"{got['grad_norm']:.6f} vs {ref['grad_norm']:.6f}; worst leaf "
+          f"{report['worst_leaf']} {report['worst_leaf_rel_l2']:.3e} (gate "
+          f"{GATE_LEAF}), median {report['median_leaf']:.3e}; "
+          f"loss_and_grads {wall:.2f} s, peak memory "
+          f"{peak / 2 ** 30:.2f} GiB; launches {launches}")
+    del model, pipe
+    torch.cuda.empty_cache()
+    return report
+
+
+# ------------------------------------------- long-cycle multigrid, SlowOnly
+
+MG_DEVICE = "cuda"
+MG_CFG = "slow_8x8_r50_cfg"  # the config factory of the phase
+
+
+def slow_8x8_r50_cfg():
+    """SlowOnly R50 8x8 (PySlowFast's Kinetics-400 ``SLOW_8x8_R50.yaml``):
+    the slow pathway alone, 8 frames at sampling rate 8, crop 224, DEPTH
+    50, WIDTH_PER_GROUP 64, dropout 0.5, bf16."""
+    from aicity_action_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.MODEL.MODEL_NAME, cfg.MODEL.ARCH = "ResNet", "slow"
+    cfg.MODEL.NUM_CLASSES = 400
+    cfg.MODEL.LOSS_FUNC = "cross_entropy"
+    cfg.MODEL.DROPOUT_RATE = 0.5
+    cfg.DATA.NUM_FRAMES, cfg.DATA.SAMPLING_RATE = 8, 8
+    cfg.DATA.TRAIN_JITTER_SCALES = [256, 320]
+    cfg.DATA.TRAIN_CROP_SIZE, cfg.DATA.TEST_CROP_SIZE = 224, 256
+    cfg.DATA.INPUT_CHANNEL_NUM = [3]
+    cfg.RESNET.DEPTH, cfg.RESNET.WIDTH_PER_GROUP = 50, 64
+    cfg.RESNET.ZERO_INIT_FINAL_BN = True
+    cfg.RESNET.NUM_BLOCK_TEMP_KERNEL = [[3], [4], [6], [3]]
+    cfg.TPU.COMPUTE_DTYPE = "bfloat16"
+    return cfg
+
+
+def multigrid_checks(card: str, d: str) -> dict:
+    """Long-cycle multigrid through ``run_net`` on SlowOnly R50 8x8 over
+    the loop's views, the factors of the JAX package's driver test
+    ((T/2, S) then (T, S) a step, BN_BASE_SIZE 4): batch 8 of 4 frames
+    (sub-BatchNorm of 2 splits) then batch 4 of 8 frames (BatchNorm), the
+    model rebuilt at the change with its weights carried and the step
+    count kept; finite losses, no kernel row launched."""
+    import torch
+
+    from aicity_action_tpu_torch.engine import train_loop
+    from aicity_action_tpu_torch.tools import run_net
+    from aicity_action_tpu_torch.utils.multigrid import MultigridSchedule
+
+    cfg = _factory(MG_CFG)()
+    cfg.NUM_GPUS = 1
+    cfg.TRAIN.BATCH_SIZE, cfg.TEST.BATCH_SIZE = 4, 8
+    cfg.DATA.PATH_TO_DATA_DIR = cfg.DATA.PATH_PREFIX = d
+    cfg.OUTPUT_DIR = os.path.join(d, "mg_out")
+    cfg.TRAIN.EVAL_PERIOD = cfg.TRAIN.CHECKPOINT_PERIOD = 100
+    cfg.TRAIN.AUTO_RESUME, cfg.TEST.ENABLE = False, False
+    cfg.BN.USE_PRECISE_STATS = False
+    cfg.DATA_LOADER.NUM_WORKERS = 4
+    cfg.SOLVER.OPTIMIZING_METHOD, cfg.SOLVER.MOMENTUM = "sgd", 0.9
+    cfg.SOLVER.BASE_LR, cfg.SOLVER.LR_POLICY = 0.01, "steps_with_relative_lrs"
+    cfg.SOLVER.STEPS, cfg.SOLVER.LRS = [0, 2, 4], [1.0, 0.1]
+    cfg.SOLVER.GAMMA = 0.1
+    cfg.SOLVER.MAX_EPOCH, cfg.SOLVER.WARMUP_EPOCHS = 4, 0.0
+    cfg.MULTIGRID.LONG_CYCLE, cfg.MULTIGRID.EPOCH_FACTOR = True, 1.0
+    cfg.MULTIGRID.LONG_CYCLE_FACTORS = [[0.5, 1.0], [1.0, 1.0]]
+    cfg.MULTIGRID.BN_BASE_SIZE = 4
+    cfg.RNG_SEED, cfg.LOG_CFG = SEED, False
+    path = os.path.join(d, "slow_8x8_r50_multigrid.yaml")
+    with open(path, "w") as f:
+        f.write(cfg.dump())
+    sched, c = MultigridSchedule(), cfg.clone()
+    c = sched.init_multigrid(c)
+    c, _ = sched.update_long_cycle(c, 0)
+    first = (c.TRAIN.BATCH_SIZE, c.DATA.NUM_FRAMES, c.BN.NORM_TYPE)
+    want = []  # the schedule's shape changes
+    for epoch in range(c.SOLVER.MAX_EPOCH):
+        c, changed = sched.update_long_cycle(c, epoch)
+        if changed:
+            want.append((c.TRAIN.BATCH_SIZE, c.DATA.NUM_FRAMES,
+                         c.BN.NORM_TYPE))
+    shapes = []
+    real = train_loop._long_cycle_rebuild
+
+    def rebuild(c, old_model, old_opt, dev):
+        before = {k: v.float().clone() for k, v in
+                  old_model.state_dict().items()}
+        count = old_opt.count
+        model, opt, loader = real(c, old_model, old_opt, dev)
+        after = model.state_dict()
+        kept = sum(1 for k, v in before.items() if k in after and
+                   after[k].shape == v.shape and
+                   torch.equal(after[k].float(), v))
+        shapes.append({"batch": loader.batch_size,
+                       "frames": c.DATA.NUM_FRAMES, "norm": c.BN.NORM_TYPE,
+                       "splits": c.BN.NUM_SPLITS,
+                       "steps": (count, opt.count), "kept": kept,
+                       "params": len(list(model.parameters()))})
+        return model, opt, loader
+
+    train_loop._long_cycle_rebuild = rebuild
+    reset_counts()
+    t = time.perf_counter()
+    try:
+        res = run_net.main(["--cfg", path, "--device", MG_DEVICE])
+    finally:
+        train_loop._long_cycle_rebuild = real
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = read_counts()
+    run = res["train"]
+    losses = [e["losses"] for e in run.epochs]
+    steps = [len(e) for e in losses]
+    if any(launches.values()):
+        _fail(f"multigrid: a kernel row launched on SlowOnly: {launches}")
+    if [(s["batch"], s["frames"], s["norm"]) for s in shapes] != want or \
+            len({(s["batch"], s["frames"]) for s in shapes} | {first[:2]}) \
+            != 2 or any(s["steps"][0] != s["steps"][1] or
+                        s["kept"] < s["params"] for s in shapes) or \
+            not np.isfinite(sum(losses, [])).all() or \
+            len(steps) != c.SOLVER.MAX_EPOCH or \
+            run.optimizer.count != sum(steps):
+        _fail(f"multigrid: shape changes {shapes} (the schedule's {want}), "
+              f"steps {steps}, losses {losses}")
+    print(f"# long-cycle multigrid, SlowOnly R50 8x8 via run_net ({card}): "
+          f"epochs {len(run.epochs)} (MAX_EPOCH from the schedule), steps "
+          f"per epoch {steps}, start {first}, rebuilds {shapes}; losses "
+          f"{losses}; epoch walls "
+          f"{[round(e['wall_s'], 3) for e in run.epochs]} s; run "
+          f"{wall:.1f} s; no kernel row launched")
+    del res, run
+    torch.cuda.empty_cache()
+    return {"steps_per_epoch": steps, "rebuilds": shapes, "losses": losses,
+            "seconds": wall}
+
+
 def main() -> int:
     try:
         import torch
@@ -4070,6 +4743,25 @@ def main() -> int:
         t = time.perf_counter()
         drill_stats = fire_drill_checks(card, drill_dir)
         print(f"# fire drill phase: {time.perf_counter() - t:.1f} s")
+    with tempfile.TemporaryDirectory() as moe_dir:
+        write_loop_views(moe_dir)
+        t = time.perf_counter()
+        moe_stats = moe_checks(card, moe_dir)
+        print(f"# MoE phase: {time.perf_counter() - t:.1f} s")
+        launches["v2 MoE eval"] = moe_stats["launches_per_forward"]
+        launches["v2 MoE train loop"] = moe_stats["loop_launches"]
+        t = time.perf_counter()
+        mg_stats = multigrid_checks(card, moe_dir)
+        print(f"# multigrid phase: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    par_stats = parallel_checks(card)
+    print(f"# EP / SP / TP phase: {time.perf_counter() - t:.1f} s")
+    for path in ("ep", "sp", "tp"):
+        launches[f"{path.upper()}, two ranks"] = par_stats["launches"][path]
+    t = time.perf_counter()
+    pp_stats = pp_checks(card)
+    print(f"# PP phase: {time.perf_counter() - t:.1f} s")
+    launches["PP, 4 microbatches"] = pp_stats["launches"]
 
     # launches of each kernel in the run of the path it serves: the AI City
     # chain's run_temporal_inf for the inference kernels, the timed train
@@ -4115,7 +4807,9 @@ def main() -> int:
                       "detection": det_stats, "ava": ava_stats,
                       "actionclip": clip_stats, "multihead": mh_stats,
                       "classifier": clf_stats, "fire_drill": drill_stats,
-                      "benchmarks": bench_stats}, default=str))
+                      "benchmarks": bench_stats, "moe": moe_stats,
+                      "multigrid": mg_stats, "parallel": par_stats,
+                      "pp": pp_stats}, default=str))
     print(json.dumps({"kernels": kernels_line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -117,6 +117,17 @@ def test_the_walk_covers_the_multi_head_deployment_and_benchmark_slice():
             "aicity_action_tpu_torch.tools.fire_drill"} <= mods
 
 
+def test_the_walk_covers_moe_and_the_parallel_modules():
+    mods = set(_port_modules())
+    assert {"aicity_action_tpu_torch.models.moe",
+            "aicity_action_tpu_torch.parallel.ep",
+            "aicity_action_tpu_torch.parallel.tp",
+            "aicity_action_tpu_torch.parallel.sp",
+            "aicity_action_tpu_torch.parallel.sp_model",
+            "aicity_action_tpu_torch.parallel.pp",
+            "aicity_action_tpu_torch.utils.multigrid"} <= mods
+
+
 def test_the_export_ops_register_without_building_the_kernels():
     """Importing the ops registers the inference wrappers as the
     ``aicity::*`` custom ops (for ``torch.export``); nothing is built or

@@ -194,8 +194,8 @@ def test_unported_branches_raise():
     cfg.MODEL.USE_MULTI_HEAD = True  # ported: the multi-dataset heads
     assert type(build_model(cfg, device="cpu").head).__name__ == \
         "TransformerMultiHead"
-    # what stays unported names the ROADMAP item that brings it
     cfg = tiny_cfg(get_cfg)
-    cfg.MVIT.MOE.ENABLE = True
-    with pytest.raises(NotImplementedError, match="item 10"):
-        build_model(cfg, device="cpu")
+    cfg.MVIT.MOE.ENABLE = True  # ported: every other block an expert bank
+    model = build_model(cfg, device="cpu")
+    assert [type(b.mlp).__name__ for b in model.blocks] == [
+        "FusedMlp", "MoEMlp", "FusedMlp", "MoEMlp"]

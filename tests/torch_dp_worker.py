@@ -25,6 +25,21 @@ rank ``r`` writes what it saw to ``out/rank{r}.pkl``. Kinds:
   view ``video`` by ``WindowScorer`` (:func:`score_cases`): every rank's
   windows (the whole video's, after the gather), its model forwards and
   the per-rank split.
+- ``"ep_tp"``: expert and tensor parallelism on a ``Mesh``: ``moe``, one
+  MoE layer's ``params`` and a global ``x`` and cotangent ``cot`` through
+  ``ep_moe_mlp`` (this rank's output, load-balance loss and gradients of
+  ``sum(y cot) + aux``); ``ep_step``, an MoE ``cfg`` and ``state`` (f64)
+  taking one SGD step with its experts sharded (its loss, gradients and
+  the optimizer's placements); ``tp_step``, a ``cfg`` and ``state`` taking
+  one AdamW step with the weights split over ``model`` on a ``(1,
+  world)`` mesh (loss, gradient norm, the parameters after, the
+  placements of the parameters and moments); ``half``, bf16 rows through
+  the gather, the all-to-all and the halo exchange.
+- ``"sp"``: sequence parallelism on a ``(world,)`` mesh: ``pools``, each
+  ``(mode, kernel, stride, shard_dim, x, weight)`` of a channel-major
+  volume pooled from this rank's shard (its output shard); ``attention``,
+  ``sp_pooled_attention`` on this rank's H shard; ``models``, each ``(name,
+  cfg, state, clip, shard_axis)`` scored by ``sp_apply`` (the logits).
 - ``"multihead"``: a multi-head MViT ``cfg``, its ``state``, an SGD ``lr``,
   ``steps`` and a global ``batch`` of ``inputs``, one-hot ``labels``,
   ``dataset_idx`` and ``n_valid`` real rows: the multi-head train steps
@@ -215,8 +230,139 @@ def _multihead(rank, job):
     return out
 
 
+def _ep_moe(rank, case):
+    from aicity_action_tpu_torch.parallel import ep
+
+    m = mesh.Mesh((case["world"],), ("ep",))
+    params = {k: torch.from_numpy(v).requires_grad_()
+              for k, v in case["params"].items()}
+    x = torch.from_numpy(case["x"]).requires_grad_()
+    y, aux = ep.ep_moe_mlp(m, "ep", params, x, top_k=case["top_k"],
+                           capacity_factor=case["cf"])
+    n, b = case["world"], case["x"].shape[0] // case["world"]
+    cot = torch.from_numpy(case["cot"][rank * b:(rank + 1) * b])
+    ((y * cot).sum() + aux).backward()
+    return {"y": y.detach().numpy(), "aux": float(aux),
+            "dx": x.grad.numpy()[rank * b:(rank + 1) * b],
+            "grads": {k: v.grad.numpy() for k, v in params.items()}}
+
+
+def _ep_step(rank, case):
+    from aicity_action_tpu_torch.engine.steps import make_train_step
+    from aicity_action_tpu_torch.models.build import build_model
+    from aicity_action_tpu_torch.parallel import ep
+    from aicity_action_tpu_torch.solver.optimizer import TrainOptimizer
+
+    cfg, lr = case["cfg"], case["lr"]
+    model = build_model(cfg, device="cpu").double()
+    model.compute_dtype = torch.float64
+    model.load_state_dict(case["state"])
+    m = mesh.Mesh((case["world"],), ("ep",))
+    sharded = ep.shard_experts(model, m, "ep")
+    opt = TrainOptimizer(torch.optim.SGD(model.parameters(), lr=lr,
+                                         momentum=0.9),
+                         lambda step: lr, clip_l2norm=case["clip"])
+    opt.norm_fn = ep.ep_grad_norm(m, "ep", sharded)
+    step = make_train_step(
+        model, opt, "cross_entropy", moe_aux_weight=case["aux_weight"],
+        grad_sync=lambda: ep.ep_grad_sync(model, m, "ep", sharded))
+    inputs, labels = case["batch"]
+    b = labels.shape[0] // case["world"]
+    rows = slice(rank * b, (rank + 1) * b)
+    metrics, _ = step({"inputs": torch.from_numpy(inputs[rows]),
+                       "labels": torch.from_numpy(labels[rows])})
+    return {"loss": float(metrics["loss"]),
+            "grad_norm": float(metrics["grad_norm"]),
+            "grads": {n: p.grad.numpy().copy()
+                      for n, p in model.named_parameters()},
+            "params": _numpy_state(model),
+            "placements": ep.moe_param_placements(model, 1),
+            "state": ep.ep_state_placements(opt.opt, model, sharded)}
+
+
+def _tp_step(rank, case):
+    from aicity_action_tpu_torch.models.build import build_model
+    from aicity_action_tpu_torch.parallel import tp as ptp
+    from aicity_action_tpu_torch.solver.optimizer import construct_optimizer
+
+    cfg = case["cfg"]
+    model = build_model(cfg, device="cpu")
+    model.load_state_dict(case["state"])
+    mcfg = cfg.clone()
+    mcfg.TPU.MESH_SHAPE, mcfg.TPU.MESH_AXES = [1, case["world"]], [
+        "data", "model"]
+    m = mesh.make_mesh(mcfg)
+    tp = ptp.TensorParallel(model, m)
+    opt = construct_optimizer(cfg, tp, case["steps_per_epoch"])
+    opt.norm_fn = tp.grad_norm
+    step = ptp.make_tp_train_step(tp, opt, cfg.MODEL.LOSS_FUNC,
+                                  num_classes=cfg.MODEL.NUM_CLASSES)
+    inputs, labels = case["batch"]
+    metrics, _ = step({"inputs": torch.from_numpy(inputs),
+                       "labels": torch.from_numpy(labels)})
+    return {"loss": float(metrics["loss"]),
+            "grad_norm": float(metrics["grad_norm"]),
+            "params": {n: p.detach().numpy().copy()
+                       for n, p in tp.named_parameters()},
+            "grads": {n: p.grad.numpy().copy()
+                      for n, p in tp.named_parameters()},
+            "whole_at_rest": {n: tuple(p.shape) for n, p in tp.whole.items()},
+            "state": ptp.state_placements(opt.opt, tp)}
+
+
+def _half(rank, case):
+    """bf16 through the collectives (they reduce it as f32): this rank's
+    gather, exchange and halos of ``x``'s rows ``[rank::world]``."""
+    n = case["world"]
+    m = mesh.Mesh((n,), ("ax",))
+    x = torch.from_numpy(case["x"][rank::n]).to(torch.bfloat16)
+    above, below = mesh.halo_exchange(x, m, "ax", 0, 1, float("-inf"))
+    return {k: v.float().numpy() for k, v in (
+        ("gather", mesh.axis_all_gather(x, m, "ax", 0)),
+        ("all_to_all", mesh.axis_all_to_all(x, m, "ax", 1, 0)),
+        ("above", above), ("below", below))}
+
+
+def _ep_tp(rank, job):
+    out = {}
+    for kind, fn in (("moe", _ep_moe), ("ep_step", _ep_step),
+                     ("tp_step", _tp_step), ("half", _half)):
+        if kind in job:
+            out[kind] = fn(rank, dict(job[kind], world=job["world"]))
+    return out
+
+
+def _sp(rank, job):
+    from aicity_action_tpu_torch.models.build import build_model
+    from aicity_action_tpu_torch.parallel import sp, sp_model
+
+    n = job["world"]
+    m = mesh.Mesh((n,), ("sp",))
+    out = {"pools": [], "models": {}}
+    for mode, kernel, stride, dim, x, w in job["pools"]:
+        local = torch.from_numpy(x).chunk(n, dim)[rank]
+        out["pools"].append(sp.sp_pool_volume(
+            local, m, "sp", mode=mode, kernel=kernel, stride=stride,
+            conv_weight=None if w is None else torch.from_numpy(w),
+            shard_dim=dim).numpy())
+    x, params = job["attention"]
+    local = torch.from_numpy(x).chunk(n, 2)[rank]
+    out["attention"] = sp.sp_pooled_attention(
+        local, {k: torch.from_numpy(v) for k, v in params.items()}, m, "sp",
+        stride_q=1, stride_kv=4).numpy()
+    for name, cfg, state, clip, shard_axis in job["models"]:
+        model = build_model(cfg, device="cpu")
+        model.load_state_dict(state)
+        with torch.no_grad():
+            out["models"][name] = sp_model.sp_apply(
+                model, torch.from_numpy(clip), m, "sp",
+                shard_axis=shard_axis).numpy()
+    return out
+
+
 _KINDS = {"loop": _loop, "step": _step, "contrastive": _contrastive,
-          "scoring": _scoring, "multihead": _multihead}
+          "scoring": _scoring, "multihead": _multihead, "ep_tp": _ep_tp,
+          "sp": _sp}
 
 
 def _rank(rank, job):
@@ -225,7 +371,9 @@ def _rank(rank, job):
            "step": lambda: job["cases"][0]["cfg"],
            "contrastive": lambda: job["cfg"],
            "scoring": lambda: job["cases"][0][1],
-           "multihead": lambda: job["cfg"]}[job["kind"]]()
+           "multihead": lambda: job["cfg"],
+           "ep_tp": lambda: job["cfg"],
+           "sp": lambda: job["models"][0][1]}[job["kind"]]()
     cfg = cfg.clone()
     cfg.NUM_SHARDS, cfg.NUM_GPUS = 1, job["world"]
     cfg.DIST_BACKEND, cfg.INIT_METHOD = "gloo", job["init_method"]

@@ -375,3 +375,38 @@ def multihead_params_to_jax(state_dict) -> dict:
         else:
             node["bias"] = w
     return params
+
+
+def moe_cfg(get, num_experts=4, top_k=2, capacity_factor=1.25):
+    """:func:`tiny_cfg` with ``MVIT.MOE`` on (every other block an expert
+    bank: blocks 1 and 3), no activation checkpointing."""
+    cfg = tiny_cfg(get)
+    cfg.MODEL.ACT_CHECKPOINT = False
+    m = cfg.MVIT.MOE
+    m.ENABLE, m.NUM_EXPERTS, m.TOP_K = True, num_experts, top_k
+    m.CAPACITY_FACTOR = capacity_factor
+    return cfg
+
+
+def moe_params_to_jax(state_dict) -> dict:
+    """A port MoE MViT's ``state_dict`` as the JAX package's params: the
+    JAX converter for every dense leaf, the expert banks by hand
+    (``router [E, D]`` -> ``[D, E]``, ``fc*_weight [E, out, in]`` ->
+    ``fc*_kernel [E, in, out]``). Numpy leaves."""
+    from aicity_action_tpu.utils.convert import convert_mvit_state_dict
+
+    sd = {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
+    bank = {k: v for k, v in sd.items() if ".mlp.router" in k
+            or ".mlp.fc1_" in k or ".mlp.fc2_" in k}
+    params, skipped = convert_mvit_state_dict(
+        {k: v for k, v in sd.items() if k not in bank})
+    if skipped:
+        raise ValueError(f"unconverted port parameters: {skipped}")
+    for k, v in bank.items():
+        _, i, _, leaf = k.split(".")
+        if leaf == "router":
+            v = v.T
+        elif leaf.endswith("_weight"):
+            leaf, v = leaf[:3] + "_kernel", v.transpose(0, 2, 1)
+        params[f"blocks_{i}"].setdefault("mlp", {})[leaf] = np.array(v)
+    return params

@@ -522,6 +522,39 @@ def mvitv2_b_16x4_448_cfg() -> CfgNode:
     return cfg
 
 
+# The MViT-v2-L trunk (PySlowFast configs/Kinetics/MVITv2_L_40x3_test.yaml;
+# Li et al., MViTv2, CVPR 2022): the widths and depth that set the kernels'
+# shapes (head dim 72, 144-1152 channels). Every other key stays the AI
+# City recipe's.
+MVITV2_L_TRUNK = {
+    "EMBED_DIM": 144, "NUM_HEADS": 2, "DEPTH": 48,
+    "DIM_MUL": [[2, 2.0], [8, 2.0], [44, 2.0]],
+    "HEAD_MUL": [[2, 2.0], [8, 2.0], [44, 2.0]],
+    "POOL_Q_STRIDE": [[2, 1, 2, 2], [8, 1, 2, 2], [44, 1, 2, 2]],
+}
+
+
+def mvitv2_l_16x4_448_cfg() -> CfgNode:
+    """The AI City model with the MViT-v2-L trunk: ``EMBED_DIM`` 144,
+    ``NUM_HEADS`` 2, ``DEPTH`` 48, the channels, heads and query stride
+    doubling at blocks 2, 8 and 44 (PySlowFast
+    ``configs/Kinetics/MVITv2_L_40x3_test.yaml``, whose ``POOL_Q_STRIDE``
+    lists every block: its stride-1 entries are what ``Q_POOL_ALL`` gives
+    here). The rest is the AI City recipe of
+    :func:`mvitv2_b_16x4_448_cfg`: 16 frames every 4 at a 448 crop, no cls
+    token, ``Q_POOL_ALL``, ``Q_POOL_RESIDUAL``, ``CHANNEL_EXPAND_FRONT``,
+    18 classes, bf16. Not taken from the L config: its 40x3 sampling at a
+    312 crop (the recipe's clips are 16x4 @448) and its relative position
+    tables (``REL_POS_SPATIAL`` / ``REL_POS_TEMPORAL``), which neither
+    package implements; its absolute position embedding is off
+    (``USE_ABS_POS False``), where this model keeps the recipe's separable
+    one. No L weights exist for this recipe: weights come from a seed."""
+    cfg = mvitv2_b_16x4_448_cfg()
+    for key, value in MVITV2_L_TRUNK.items():
+        setattr(cfg.MVIT, key, value)
+    return cfg
+
+
 def mvitv2_b_16x4_448_moe_cfg() -> CfgNode:
     """The AI City model with ``MVIT.MOE.ENABLE`` at the section's defaults:
     every other block (1, 3, ..., 15) a bank of 8 experts, top-2, capacity

@@ -53,7 +53,8 @@
 // [G, L, 96]. The training path pays one transpose of each pooled tensor
 // from the pool convolutions' [B, h*d, L] into these rows (and one back for
 // their gradients) so that the pool norms, this kernel and its backward
-// share one layout.
+// share one layout. The forward without its logsumexp also takes head dim
+// 72 (MViT-v2-L's unfused eval path; flash_fwd.cuh).
 #include <math.h>
 
 #include "common.cuh"
@@ -63,12 +64,12 @@
 namespace aicity {
 
 // The forward of 128 query rows of group blockIdx.y (flash_fwd.cuh): the
-// producer warp loads K and V through kmap / vmap ([G][Lk][96] token
-// rows); each consumer reads its 64 rows of q ([G][Lq][96], rows past Lq as
+// producer warp loads K and V through kmap / vmap ([G][Lk][D] token
+// rows); each consumer reads its 64 rows of q ([G][Lq][D], rows past Lq as
 // zeros) into A fragments of bf16(q * s), runs the K/V loop and stores out
 // (and lse when given). LAST: the last key tile's product width
-// (fwd_last_width).
-template <int LAST>
+// (fwd_last_width); D: the head dim (FwdDim).
+template <int LAST, int D>
 __global__ void __launch_bounds__(FW_THREADS, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap kmap,
                      const __grid_constant__ CUtensorMap vmap,
@@ -88,14 +89,22 @@ __global__ void __launch_bounds__(FW_THREADS, 1)
   const int row0 = q0 + 64 * cw;  // this consumer's first row
   const int r0 = row0 + 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
   uint32_t qa[6][4];
-  rows_to_a(q + (size_t)grp * Lq * BW_D, r0, Lq, lane & 3, qa);
+  rows_to_a<D>(q + (size_t)grp * Lq * D, r0, Lq, lane & 3, qa);
   scale_a(qa, scale);
   float acc[48], m[2], l[2];
   fwd_tile_loop<LAST>(qa, ring, Lk, acc, m, l);
   bf16* st = ring.staging(cw);
-  const FwdOut out{o + (size_t)grp * Lq * BW_D, nullptr,
+  const FwdOut out{o + (size_t)grp * Lq * D, nullptr,
                    lse == nullptr ? nullptr : lse + (size_t)grp * Lq, false};
-  fwd_epilogue(acc, m, l, st, row0, Lq, cw, out);
+  fwd_epilogue<D>(acc, m, l, st, row0, Lq, cw, out);
+}
+
+// The forward's instance for head dim D and the last key tile's width.
+template <int D>
+auto flash_fwd_for(int last) {
+  return last == 16   ? flash_fwd_kernel<16, D>
+         : last == 32 ? flash_fwd_kernel<32, D>
+                      : flash_fwd_kernel<BW_T, D>;
 }
 
 // The backward's pre-pass: qs = bf16(q * s) token rows (the logits' and
@@ -258,24 +267,24 @@ __global__ void __launch_bounds__(BW_THREADS)
 
 }  // namespace aicity
 
-// q [G, Lq, d], k / v [G, Lk, d], o [G, Lq, d] bf16 token rows; lse [G, Lq]
-// f32, or null to skip it.
+// q [G, Lq, d], k / v [G, Lk, d], o [G, Lq, d] bf16 token rows (d 96 or
+// 72); lse [G, Lq] f32, or null to skip it (at d 96 only: the training
+// kernels are built for 96).
 extern "C" int aicity_flash_attention(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       int G, int Lq, int Lk, int d,
                                       float scale, void* stream) {
   using namespace aicity;
-  if (d != BW_D) return (int)cudaErrorInvalidValue;
+  if (d != BW_D && (d != 72 || lse != nullptr))
+    return (int)cudaErrorInvalidValue;
   if (G <= 0 || Lq <= 0 || Lk <= 0) return (int)cudaSuccess;
   const int last = fwd_last_width(Lk);
-  auto kernel = last == 16   ? flash_fwd_kernel<16>
-                : last == 32 ? flash_fwd_kernel<32>
-                             : flash_fwd_kernel<BW_T>;
+  auto kernel = d == 72 ? flash_fwd_for<72>(last) : flash_fwd_for<96>(last);
   cudaError_t err = set_smem(kernel, fwd_smem_bytes());
   if (err != cudaSuccess) return (int)err;
   CUtensorMap mk, mv;
-  if (make_tmap3_sw64(&mk, k, G, Lk, BW_D, BW_T) ||
-      make_tmap3_sw64(&mv, v, G, Lk, BW_D, BW_T))
+  if (make_tmap3_sw64(&mk, k, G, Lk, d, BW_T) ||
+      make_tmap3_sw64(&mv, v, G, Lk, d, BW_T))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((Lq + FW_ROWS - 1) / FW_ROWS, G);
   kernel<<<grid, FW_THREADS, fwd_smem_bytes(), (cudaStream_t)stream>>>(

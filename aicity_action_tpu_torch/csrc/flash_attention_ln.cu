@@ -13,9 +13,12 @@
 // costs a rounding of O + LN(q), with LN(q) of order 1: noise in gradients
 // that cancel, such as the k norm's bias gradient, exactly zero). At
 // 448 it sees q [B*h, Lq, 96] and k, v [B*h, Lk, 96] with Lq up to 100352
-// and Lk in {1568, 6272}: 4*Lq*Lk*d flops against 2*(Lq + 2*Lk)*d
-// bytes, far above the ridge, so it is bound by the tensor cores (and by the
-// CUDA-core work of the softmax).
+// and Lk in {1568, 6272} (MViT-v2-B), and head dim 72 (MViT-v2-L, the
+// inference forward: q [B*h, Lq, 72] from [16, 100352] to [128, 1568] at
+// batch 8; flash_fwd.cuh says how 72 rides the products of 96):
+// 4*Lq*Lk*d flops against 2*(Lq + 2*Lk)*d bytes, far above the ridge, so
+// it is bound by the tensor cores (and by the CUDA-core work of the
+// softmax).
 //
 // Translation from the TPU design:
 // - Pallas keeps one group's whole K/V resident in VMEM (up to 1.2 MB each)
@@ -47,37 +50,42 @@
 namespace aicity {
 
 // Consumer cw's query rows of the fused-LN forward: its 64 tokens' raw
-// d-major tile (raw: [96 channels][64 tokens], loaded by the producer's TMA
-// on qfull, tokens past Lq as zeros), LayerNormed over the 96 channels in
+// d-major tile (raw: [D channels][64 tokens], loaded by the producer's TMA
+// on qfull, tokens past Lq as zeros), LayerNormed over the D channels in
 // f32 where fq (norm_cols_to_rows, two lanes a token), as bf16 token rows
-// in st (64 x FW_LDS); then the A fragments of bf16(row * s). wt: the
-// thread's index in its warpgroup.
+// in st (64 x FwdDim<D>::LDS); then the A fragments of bf16(row * s)
+// over the 96 columns of the products, zeros past D. wt: the thread's
+// index in its warpgroup.
+template <int D>
 __device__ __forceinline__ void ln_query_rows(
     uint64_t* qfull, const bf16* __restrict__ gq, const bf16* __restrict__ bq,
     float eps, int fq, float scale, const bf16* raw, bf16* st, int cw, int wt,
     uint32_t (&qa)[6][4]) {
+  constexpr int LDS = FwdDim<D>::LDS;
   mbar_wait(qfull, 0);
-  norm_cols_to_rows<BW_D>(raw, 64, st, FW_LDS, 64, gq, bq, eps, fq, wt, 128);
+  norm_cols_to_rows<D>(raw, 64, st, LDS, 64, gq, bq, eps, fq, wt, 128);
   named_sync(3 + cw, 128);
   const int lane = wt & 31, t = lane & 3;
-  const bf16* a0 = st + (16 * (wt >> 5) + (lane >> 2)) * FW_LDS + 2 * t;
+  const bf16* a0 = st + (16 * (wt >> 5) + (lane >> 2)) * LDS + 2 * t;
 #pragma unroll
   for (int kk = 0; kk < 6; ++kk)
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      qa[kk][i] = *reinterpret_cast<const uint32_t*>(
-          a0 + (i & 1) * 8 * FW_LDS + 16 * kk + 8 * (i >> 1));
+      qa[kk][i] = 16 * kk + 8 * (i >> 1) < D
+                      ? *reinterpret_cast<const uint32_t*>(
+                            a0 + (i & 1) * 8 * LDS + 16 * kk + 8 * (i >> 1))
+                      : 0u;
   scale_a(qa, scale);
 }
 
 // The fused-LN forward of 128 query rows of group blockIdx.y: the producer
-// warp loads each consumer's raw q tile through qmap ([G][96][Lq] d-major)
-// and LN(k) / LN(v) token rows through kmap / vmap ([G][Lk][96],
+// warp loads each consumer's raw q tile through qmap ([G][D][Lq] d-major)
+// and LN(k) / LN(v) token rows through kmap / vmap ([G][Lk][D],
 // kv_rows_kernel's output); each consumer normalizes its 64 query tokens
 // (ln_query_rows), runs the K/V loop and stores out [+ LN(q)], and in
 // training lse and oa, the output before the residual. LAST: the last key
-// tile's product width (fwd_last_width).
-template <int LAST>
+// tile's product width (fwd_last_width); D: the head dim (FwdDim).
+template <int LAST, int D>
 __global__ void __launch_bounds__(FW_THREADS, 1)
     flash_ln_kernel(const __grid_constant__ CUtensorMap kmap,
                     const __grid_constant__ CUtensorMap vmap,
@@ -94,7 +102,7 @@ __global__ void __launch_bounds__(FW_THREADS, 1)
   __syncthreads();
   if (threadIdx.x >= 256) {  // the producer warp: q, then K and V
     if (threadIdx.x == 256) {
-      mbar_arrive_expect_tx(ring.qfull, 2 * FW_QRAW);
+      mbar_arrive_expect_tx(ring.qfull, 2 * D * 64 * 2);
       for (int c = 0; c < 2; ++c)
         tma_load3(ring.raw_q(c), &qmap, ring.qfull, q0 + 64 * c, 0, grp);
       ring.produce();
@@ -106,14 +114,47 @@ __global__ void __launch_bounds__(FW_THREADS, 1)
   bf16* st = ring.staging(cw);
   bf16* raw = ring.raw_q(cw);
   uint32_t qa[6][4];
-  ln_query_rows(ring.qfull, gq, bq, eps, fq, scale, raw, st, cw, wt, qa);
+  ln_query_rows<D>(ring.qfull, gq, bq, eps, fq, scale, raw, st, cw, wt, qa);
   float acc[48], m[2], l[2];
   fwd_tile_loop<LAST>(qa, ring, Lk, acc, m, l);
-  const size_t rows = (size_t)grp * Lq * BW_D;
+  const size_t rows = (size_t)grp * Lq * D;
   const FwdOut out{o + rows, oa == nullptr ? nullptr : oa + rows,
                    lse == nullptr ? nullptr : lse + (size_t)grp * Lq,
                    add_qn != 0};
-  fwd_epilogue(acc, m, l, st, row0, Lq, cw, out);
+  fwd_epilogue<D>(acc, m, l, st, row0, Lq, cw, out);
+}
+
+// The LN(k) / LN(v) pass and the attention at head dim D.
+template <int D>
+int launch_flash_ln(const void* q, const void* k, const void* v,
+                    const void* gq, const void* bq, const void* gk,
+                    const void* bk, const void* gv, const void* bv, void* o,
+                    void* lse, void* oa, void* kn, void* vn, int G, int Lq,
+                    int Lk, float scale, float eps, int fq, int fk, int fv,
+                    int add_qn, cudaStream_t s) {
+  const dim3 kv_grid((Lk + 127) / 128, G);
+  kv_rows_kernel<D><<<kv_grid, 128, 0, s>>>(
+      (const bf16*)k, (const bf16*)gk, (const bf16*)bk, (bf16*)kn, Lk, eps, fk);
+  kv_rows_kernel<D><<<kv_grid, 128, 0, s>>>(
+      (const bf16*)v, (const bf16*)gv, (const bf16*)bv, (bf16*)vn, Lk, eps, fv);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int last = fwd_last_width(Lk);
+  auto kernel = last == 16   ? flash_ln_kernel<16, D>
+                : last == 32 ? flash_ln_kernel<32, D>
+                             : flash_ln_kernel<BW_T, D>;
+  err = set_smem(kernel, fwd_smem_bytes());
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap mk, mv, mq;
+  if (make_tmap3_sw64(&mk, kn, G, Lk, D, BW_T) ||
+      make_tmap3_sw64(&mv, vn, G, Lk, D, BW_T) ||
+      make_tmap3_cols(&mq, q, G, D, Lq, 64))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((Lq + FW_ROWS - 1) / FW_ROWS, G);
+  kernel<<<grid, FW_THREADS, fwd_smem_bytes(), s>>>(
+      mk, mv, mq, (const bf16*)gq, (const bf16*)bq, (bf16*)o,
+      (float*)lse, (bf16*)oa, Lq, Lk, scale, eps, fq, add_qn);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace aicity
@@ -123,7 +164,8 @@ __global__ void __launch_bounds__(FW_THREADS, 1)
 // LN(k) / LN(v) (of k / v where fk / fv is off). The output is [G, Lq, d].
 // The training forward also stores lse [G, Lq] f32 (the logsumexp) and oa
 // [G, Lq, d], the attention output before the residual, for the backward's
-// delta; either may be null.
+// delta; either may be null, and both must be at d 72 (MViT-v2-L: the
+// inference forward only; the backward is built for d 96).
 extern "C" int aicity_flash_attention_ln(
     const void* q, const void* k, const void* v, const void* gq,
     const void* bq, const void* gk, const void* bk, const void* gv,
@@ -132,29 +174,13 @@ extern "C" int aicity_flash_attention_ln(
     int add_qn, void* stream) {
   using namespace aicity;
   cudaStream_t s = (cudaStream_t)stream;
-  if (d != 96) return (int)cudaErrorInvalidValue;
-  if (G <= 0 || Lq <= 0 || Lk <= 0) return (int)cudaSuccess;
-  const dim3 kv_grid((Lk + 127) / 128, G);
-  kv_rows_kernel<96><<<kv_grid, 128, 0, s>>>(
-      (const bf16*)k, (const bf16*)gk, (const bf16*)bk, (bf16*)kn, Lk, eps, fk);
-  kv_rows_kernel<96><<<kv_grid, 128, 0, s>>>(
-      (const bf16*)v, (const bf16*)gv, (const bf16*)bv, (bf16*)vn, Lk, eps, fv);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int last = fwd_last_width(Lk);
-  auto kernel = last == 16   ? flash_ln_kernel<16>
-                : last == 32 ? flash_ln_kernel<32>
-                             : flash_ln_kernel<BW_T>;
-  err = set_smem(kernel, fwd_smem_bytes());
-  if (err != cudaSuccess) return (int)err;
-  CUtensorMap mk, mv, mq;
-  if (make_tmap3_sw64(&mk, kn, G, Lk, BW_D, BW_T) ||
-      make_tmap3_sw64(&mv, vn, G, Lk, BW_D, BW_T) ||
-      make_tmap3_cols(&mq, q, G, BW_D, Lq, 64))
+  if (d != 96 && (d != 72 || lse != nullptr || oa != nullptr))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((Lq + FW_ROWS - 1) / FW_ROWS, G);
-  kernel<<<grid, FW_THREADS, fwd_smem_bytes(), s>>>(
-      mk, mv, mq, (const bf16*)gq, (const bf16*)bq, (bf16*)o,
-      (float*)lse, (bf16*)oa, Lq, Lk, scale, eps, fq, add_qn);
-  return (int)cudaGetLastError();
+  if (G <= 0 || Lq <= 0 || Lk <= 0) return (int)cudaSuccess;
+  return d == 72 ? launch_flash_ln<72>(q, k, v, gq, bq, gk, bk, gv, bv, o,
+                                       lse, oa, kn, vn, G, Lq, Lk, scale,
+                                       eps, fq, fk, fv, add_qn, s)
+                 : launch_flash_ln<96>(q, k, v, gq, bq, gk, bk, gv, bv, o,
+                                       lse, oa, kn, vn, G, Lq, Lk, scale,
+                                       eps, fq, fk, fv, add_qn, s);
 }

@@ -100,19 +100,21 @@ __device__ __forceinline__ void acc_to_a(const float* d, int kk,
                                                d[8 * kk + 2 * i + 1]);
 }
 
-// The A fragments of the 16 rows [r0 - g, r0 - g + 16) of a [rows][96]
+// The A fragments of the 16 rows [r0 - g, r0 - g + 16) of a [rows][D]
 // bf16 token-row matrix x (this lane's rows r0 and r0 + 8, columns 2t,
-// 2t + 1 and 2t + 8, 2t + 9 of every 16), read from global memory; rows
-// at or past `rows` as zeros.
+// 2t + 1 and 2t + 8, 2t + 9 of every 16 of the 96), read from global
+// memory; rows at or past `rows`, and columns past D (the forward's head
+// dim 72, flash_fwd.cuh), as zeros.
+template <int D = BW_D>
 __device__ __forceinline__ void rows_to_a(const bf16* x, int r0, int rows,
                                           int t, uint32_t (&a)[6][4]) {
-  const bf16* p0 = x + (size_t)r0 * BW_D + 2 * t;
-  const bf16* p1 = p0 + 8 * BW_D;
+  const bf16* p0 = x + (size_t)r0 * D + 2 * t;
+  const bf16* p1 = p0 + 8 * D;
 #pragma unroll
   for (int kk = 0; kk < 6; ++kk)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const bool ok = r0 + 8 * (i & 1) < rows;
+      const bool ok = r0 + 8 * (i & 1) < rows && 16 * kk + 8 * (i >> 1) < D;
       a[kk][i] = ok ? *reinterpret_cast<const uint32_t*>(
                           ((i & 1) ? p1 : p0) + 16 * kk + 8 * (i >> 1))
                     : 0u;

@@ -49,13 +49,23 @@
 //
 // Layout: a K or V tile is flash_bwd.cuh's: 64 token rows of the head dim
 // 96 in three TMA boxes of [64 rows][32 columns] in the 64-byte swizzle,
-// loaded through 3-D maps [G][Lk][96] (make_tmap3_sw64) so that keys past
+// loaded through 3-D maps [G][Lk][d] (make_tmap3_sw64) so that keys past
 // Lk load as zero (and are masked to -inf in the last tile) and never come
 // from the next group. K is read K-major for S = qs K^T (wgmma m64n64k16,
 // A from registers, tile_k), V MN-major through the transpose bit for O +=
 // P V (m64n96k16, tile_mn). The epilogue stages each consumer's 64 output
 // rows in shared memory and stores them with 16-byte vectors (the rows are
-// 12 KB contiguous in global memory).
+// d * 2 bytes contiguous in global memory).
+//
+// Head dim 72 (MViT-v2-L; FwdDim): the tensor maps' inner extent is 72, so
+// TMA fills columns 72-95 of each tile's third box with zeros, the query
+// fragments past column 72 are zeros, and the d 96 products run as they
+// are, no padded copy made; only the loads, the fused LN and the stores
+// see 72. Timed on an H100 against the tightest products (logits over 80
+// columns, P V at m64n72k16) and over 80 / 96 (PERF.md, PR 18): the same
+// times to 1%, while ptxas serialized the wgmma of the narrow products'
+// last-tile instances (C7511). Forward only: the logsumexp and backward
+// kernels keep d 96.
 #pragma once
 
 #include <math.h>
@@ -74,9 +84,21 @@ constexpr int FW_QRAW = 96 * 64 * 2;  // the fused LN's raw q tile: [96
                                       // channels][64 tokens], a TMA box
 constexpr float FW_LOG2E = 1.4426950408889634f;
 
+// What the head dim D (96 or 72) sets: the staging tile's row stride (LDS:
+// 16-byte rows whose fragment pairs fall in distinct banks; 88 at 72, where
+// 80 puts rows g and g + 4 on one bank) and the 16-byte vectors of a
+// stored row (VEC). The products run over 96 columns either way.
+template <int D>
+struct FwdDim {
+  static_assert(D == 96 || D == 72, "the forward is built for d 96 and 72");
+  static constexpr int LDS = D == 96 ? FW_LDS : 88;
+  static constexpr int VEC = D / 8;
+};
+
 // Dynamic shared memory of a forward block: alignment slack, the K/V ring,
 // each consumer's staging tile and raw d-major q tile (the fused LN's; the
 // plain kernel leaves it unused), the ring's barriers and the raw q's.
+// Sized for d 96; d 72 uses the first part of each slot.
 __host__ __device__ constexpr int fwd_smem_bytes() {
   return 1024 + FW_STAGES * 2 * BW_TILE + 2 * FW_STAGE + 2 * FW_QRAW +
          (2 * FW_STAGES + 1) * 8;
@@ -105,8 +127,8 @@ struct FwdRing {
         grp(group),
         ntiles((Lk + BW_T - 1) / BW_T) {}
 
-  // Consumer cw's staging tile (64 x FW_LDS bf16) and raw q tile ([96][64]
-  // bf16, 1024-byte aligned).
+  // Consumer cw's staging slot (64 rows of up to FW_LDS bf16) and raw q
+  // slot ([d][64] bf16, 1024-byte aligned).
   __device__ __forceinline__ bf16* staging(int cw) const {
     return reinterpret_cast<bf16*>(tiles + FW_STAGES * 2 * BW_TILE) +
            cw * 64 * FW_LDS;
@@ -134,7 +156,8 @@ struct FwdRing {
   }
 
   // The producer warp's first thread: every K/V tile, each into the stage
-  // that the consumers freed FW_STAGES tiles before.
+  // that the consumers freed FW_STAGES tiles before (three whole boxes a
+  // tile, whatever d: TMA counts the zeros it fills past d).
   __device__ __forceinline__ void produce() const {
     for (int j = 0; j < ntiles; ++j) {
       const int s = j % FW_STAGES, round = j / FW_STAGES;
@@ -328,22 +351,24 @@ inline int fwd_last_width(int Lk) {
   return Lk <= BW_T || r == 0 || r > 32 ? BW_T : r <= 16 ? 16 : 32;
 }
 
-// Rows [row0, row0 + 64) of a group's [L][96] bf16 output from a
-// consumer's staging tile, 16 bytes a thread at a time (the rows are 12 KB
+// Rows [row0, row0 + 64) of a group's [L][D] bf16 output from a
+// consumer's staging tile, 16 bytes a thread at a time (the rows are
 // contiguous in global memory); rows at or past L are not written. wt: the
 // thread's index in its warpgroup; the caller syncs the warpgroup before.
+template <int D>
 __device__ __forceinline__ void fwd_store_rows(bf16* out, int row0, int L,
                                                const bf16* st, int wt) {
-  for (int c = wt; c < 64 * 12; c += 128) {
-    const int r = c / 12, c8 = (c - r * 12) * 8;
+  constexpr int VEC = FwdDim<D>::VEC, LDS = FwdDim<D>::LDS;
+  for (int c = wt; c < 64 * VEC; c += 128) {
+    const int r = c / VEC, c8 = (c - r * VEC) * 8;
     if (row0 + r < L)
-      *reinterpret_cast<uint4*>(out + (size_t)(row0 + r) * BW_D + c8) =
-          *reinterpret_cast<const uint4*>(st + r * FW_LDS + c8);
+      *reinterpret_cast<uint4*>(out + (size_t)(row0 + r) * D + c8) =
+          *reinterpret_cast<const uint4*>(st + r * LDS + c8);
   }
 }
 
-// Where a consumer's epilogue writes, per group: out [L][96]; oa, the
-// output before the residual, [L][96] or null; lse [L] f32 or null; with
+// Where a consumer's epilogue writes, per group: out [L][D]; oa, the
+// output before the residual, [L][D] or null; lse [L] f32 or null; with
 // add_rows, out = bf16(bf16(acc / l) + the rows the staging tile holds).
 struct FwdOut {
   bf16* out;
@@ -354,12 +379,15 @@ struct FwdOut {
 
 // The end of consumer cw's rows [row0, row0 + 64): l summed over each
 // row's four lanes, lse = m + log l, y = bf16(acc / l) (and the residual)
-// staged in st (its 64 x FW_LDS bf16 tile) and stored by fwd_store_rows.
+// staged in st (its 64 x FwdDim<D>::LDS bf16 tile; the first D of the 96
+// columns of acc) and stored by fwd_store_rows.
+template <int D>
 __device__ __forceinline__ void fwd_epilogue(const float (&acc)[48],
                                              const float (&m)[2],
                                              float (&l)[2], bf16* st,
                                              int row0, int L, int cw,
                                              const FwdOut& o) {
+  constexpr int NJ = D / 8, LDS = FwdDim<D>::LDS;
   const int wt = threadIdx.x & 127, warp = wt >> 5, lane = wt & 31;
   const int g = lane >> 2, t = lane & 3;
   const int r = 16 * warp + g;  // this lane's rows r and r + 8
@@ -372,17 +400,17 @@ __device__ __forceinline__ void fwd_epilogue(const float (&acc)[48],
 #pragma unroll
     for (int h = 0; h < 2; ++h)
       if (row0 + r + 8 * h < L) o.lse[row0 + r + 8 * h] = m[h] + logf(l[h]);
-  uint32_t y[12][2], z[12][2];
+  uint32_t y[NJ][2], z[NJ][2];
 #pragma unroll
-  for (int j = 0; j < 12; ++j)
+  for (int j = 0; j < NJ; ++j)
 #pragma unroll
     for (int h = 0; h < 2; ++h)
       y[j][h] = pack_bf16(acc[4 * j + 2 * h] / l[h],
                           acc[4 * j + 2 * h + 1] / l[h]);
-  uint32_t* p[2] = {reinterpret_cast<uint32_t*>(st + r * FW_LDS + 2 * t),
-                    reinterpret_cast<uint32_t*>(st + (r + 8) * FW_LDS + 2 * t)};
+  uint32_t* p[2] = {reinterpret_cast<uint32_t*>(st + r * LDS + 2 * t),
+                    reinterpret_cast<uint32_t*>(st + (r + 8) * LDS + 2 * t)};
 #pragma unroll
-  for (int j = 0; j < 12; ++j)
+  for (int j = 0; j < NJ; ++j)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       z[j][h] = y[j][h];
@@ -394,19 +422,19 @@ __device__ __forceinline__ void fwd_epilogue(const float (&acc)[48],
     }
   if (o.oa != nullptr) {
 #pragma unroll
-    for (int j = 0; j < 12; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int h = 0; h < 2; ++h) p[h][4 * j] = y[j][h];
     named_sync(3 + cw, 128);
-    fwd_store_rows(o.oa, row0, L, st, wt);
+    fwd_store_rows<D>(o.oa, row0, L, st, wt);
     named_sync(3 + cw, 128);
   }
 #pragma unroll
-  for (int j = 0; j < 12; ++j)
+  for (int j = 0; j < NJ; ++j)
 #pragma unroll
     for (int h = 0; h < 2; ++h) p[h][4 * j] = z[j][h];
   named_sync(3 + cw, 128);
-  fwd_store_rows(o.out, row0, L, st, wt);
+  fwd_store_rows<D>(o.out, row0, L, st, wt);
 }
 
 }  // namespace aicity

@@ -2,14 +2,16 @@
 //
 // Replaces aicity_action_tpu/ops/pallas/fused_dense.py:_ln_mlp_kernel (reached
 // through fused_ln_mlp), MViT's norm2 + mlp. It sees x [B*Lq, C], hidden
-// H = 4C, C in {96, 192, 384, 768}: 16*C*C flops per row against 4*C bytes
+// H = 4C, C in {96, 192, 384, 768} (MViT-v2-B) and {144, 288, 576, 1152}
+// (MViT-v2-L): 16*C*C flops per row against 4*C bytes
 // of activations, 4C flops/byte, above the H100's ridge, so the tensor cores
 // bound it, and with them how often the weights are re-read from L2.
 //
 // The Pallas kernel holds both weights (9.4 MB at C=768) in VMEM. Here the
 // output accumulator sets the design, and the plan (ops/fused_dense.py:
 // _mlp_plan) picks one of two by width:
-// - C <= 192, one fused kernel (ln_mlp_kernel_fused): persistent blocks of
+// - C <= 192 (96, 144 or 192), one fused kernel (ln_mlp_kernel_fused):
+//   persistent blocks of
 //   128 rows. The producer warp loads the block's raw x rows once by TMA,
 //   the consumers normalize them in place (f32 statistics, rounded to bf16),
 //   and the hidden dim streams through a ring in 64-wide chunks (W1 rows and
@@ -19,9 +21,13 @@
 //   accumulator, which is rounded to bf16 A fragments of fc2's wgmma (the
 //   accumulator layout is the register-A layout: FlashAttention 3's P.V),
 //   so the hidden activation never leaves registers. Each warpgroup's
-//   output accumulator is 64 x C (48 or 96 f32 a thread); the weights are
-//   re-read once per 128 rows.
-// - C >= 384, the LN statistics pre-pass and two launches of the dense
+//   output accumulator is 64 x C (48, 72 or 96 f32 a thread); the weights
+//   are re-read once per 128 rows. C = 144 (MViT-v2-L's blocks 0 and 1,
+//   802816 rows at batch 8) takes this kernel rather than the two launches
+//   below: their h round trip would move 1.8 GB a call there.
+// - C >= 288 (up to 1152, MViT-v2-L's last four blocks, where the JAX
+//   package runs XLA: the port keeps one branch for every block), the LN
+//   statistics pre-pass and two launches of the dense
 //   mainloop of hopper.cuh in the one wrapper call: the 128 x C f32 output
 //   accumulator (192 or 384 registers a thread over two warpgroups) cannot
 //   stay on chip. Launch 1 (ln_mlp_kernel_fc1): LN + fc1 + b1 + GELU ->
@@ -66,7 +72,8 @@ StatsKernel ln_mlp_kernel_stats_for(int vpl) {
     case 3: return ln_mlp_kernel_stats<3>;
     case 6: return ln_mlp_kernel_stats<6>;
     case 12: return ln_mlp_kernel_stats<12>;
-    default: return ln_mlp_kernel_stats<24>;
+    case 24: return ln_mlp_kernel_stats<24>;
+    default: return ln_mlp_kernel_stats<36>;
   }
 }
 
@@ -283,8 +290,8 @@ extern "C" int aicity_ln_mlp_smem_bytes(int variant, int C, int H, int tn,
 // x [M, D], w1 [H, D], w2 [C, H], out [M, C]; h [M, H] and stats
 // [ceil(M / 128) * 128][2] f32 are the wrapper's scratch for the two-launch
 // variant (null for the fused one). The plan (ops/fused_dense.py:
-// _mlp_plan): fused (C in {96, 192}: stages1, grid1) or two launches after
-// the statistics pre-pass (fc1: tn1, stages1, grid1; fc2: tn2, stages2,
+// _mlp_plan): fused (C in {96, 144, 192}: stages1, grid1) or two launches
+// after the statistics pre-pass (fc1: tn1, stages1, grid1; fc2: tn2, stages2,
 // grid2).
 extern "C" int aicity_ln_mlp(const void* x, const void* gamma, const void* beta,
                              const void* w1, const void* b1, const void* w2,
@@ -294,7 +301,8 @@ extern "C" int aicity_ln_mlp(const void* x, const void* gamma, const void* beta,
                              int stages2, int grid2, void* stream) {
   using namespace aicity;
   cudaStream_t s = (cudaStream_t)stream;
-  if (D != C || H % 64 || C % 16 || C > 768 || grid1 < 1 || stages1 < 3 ||
+  if (D != C || H % 64 || C % 16 || C > DENSE_MAX_LN_K || grid1 < 1 ||
+      stages1 < 3 ||
       stages1 > DENSE_MAX_STAGES)
     return (int)cudaErrorInvalidValue;
   if (M == 0) return 0;
@@ -303,6 +311,9 @@ extern "C" int aicity_ln_mlp(const void* x, const void* gamma, const void* beta,
       case 96:
         return launch_fused<96>(x, gamma, beta, w1, b1, w2, b2, out, M, H,
                                 eps, stages1, grid1, s);
+      case 144:
+        return launch_fused<144>(x, gamma, beta, w1, b1, w2, b2, out, M, H,
+                                 eps, stages1, grid1, s);
       case 192:
         return launch_fused<192>(x, gamma, beta, w1, b1, w2, b2, out, M, H,
                                  eps, stages1, grid1, s);

@@ -2,18 +2,22 @@
 //
 // Replaces aicity_action_tpu/ops/pallas/fused_dense.py:_ln_qkv_kernel (reached
 // through fused_ln_qkv), MViT's norm1 + attn.qkv. It sees x [B*L, D] with D
-// in {96, 192, 384, 768} and 3C in {288, 576, 1152, 2304}: 2*D*3C flops per
-// row against 2*(D + 3C) bytes, 64-400 flops/byte, so the narrow blocks are
-// bound by memory (x read once, q/k/v written once) and the wide ones by the
-// tensor cores and by how often a block re-reads the weight from L2.
+// in {96, 192, 384, 768} and 3C in {288, 576, 1152, 2304} (MViT-v2-B), D in
+// {144, 288, 576, 1152} and 3C in {432, 864, 1728, 3456} (MViT-v2-L): 2*D*3C
+// flops per row against 2*(D + 3C) bytes, 64-800 flops/byte, so the narrow
+// blocks are bound by memory (x read once, q/k/v written once) and the wide
+// ones by the tensor cores and by how often a block re-reads the weight from
+// L2.
 //
 // The Pallas kernel keeps the whole [D, 3C] weight in VMEM (3.5 MB at
 // D=768, more than shared memory). Design (the mainloop of hopper.cuh): a
 // pre-pass writes each row's LN statistics (f32, two passes; one read of
 // x); then a 2-D queue of 128-row x TN-column tiles (TN from the plan in
-// ops/fused_dense.py: 96 or 192, dividing C, so 1176 tiles at block 15
-// where a row-tile grid had 98 blocks) is walked by persistent blocks of
-// one producer warp (TMA loads of raw x and weight chunks, 64 deep, through
+// ops/fused_dense.py: 96, 144 or 192, dividing C, so 1176 tiles at block
+// 15 where a row-tile grid had 98 blocks; 144 for MViT-v2-L's C = 144, which
+// neither 96 nor 192 divides) is walked by persistent blocks of
+// one producer warp (TMA loads of raw x and weight chunks, 64 deep, over
+// all of D: a K loop whose chunks past D load as zeros, through
 // a ring of at least 3 mbarrier stages, the tile's statistics copied in
 // with its first chunk) and two consumer warpgroups (64 rows each), which
 // normalize each A fragment in registers as they load it (ldmatrix from the
@@ -51,7 +55,8 @@ StatsKernel ln_qkv_kernel_stats_for(int vpl) {
     case 3: return ln_qkv_kernel_stats<3>;
     case 6: return ln_qkv_kernel_stats<6>;
     case 12: return ln_qkv_kernel_stats<12>;
-    default: return ln_qkv_kernel_stats<24>;
+    case 24: return ln_qkv_kernel_stats<24>;
+    default: return ln_qkv_kernel_stats<36>;
   }
 }
 
@@ -87,7 +92,7 @@ extern "C" int aicity_ln_qkv(const void* x, const void* gamma, const void* beta,
                              int grid, void* stream) {
   using namespace aicity;
   const int N = 3 * C;
-  if (tokens <= 0 || M % tokens || D % 16 || D > 768 || C % tn ||
+  if (tokens <= 0 || M % tokens || D % 16 || D > DENSE_MAX_LN_K || C % tn ||
       stages < 3 || stages > DENSE_MAX_STAGES || grid < 1 || !stats)
     return (int)cudaErrorInvalidValue;
   if (M == 0) return 0;
@@ -115,6 +120,7 @@ extern "C" int aicity_ln_qkv(const void* x, const void* gamma, const void* beta,
                    tma_out ? maps.m : nullptr, C, tokens};
   switch (tn) {
     case 96: return launch_ln_qkv<96>(mx, mw, maps, a, o, grid, s);
+    case 144: return launch_ln_qkv<144>(mx, mw, maps, a, o, grid, s);
     case 192: return launch_ln_qkv<192>(mx, mw, maps, a, o, grid, s);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -599,14 +599,18 @@ __device__ __forceinline__ void ln_stats_rows(const bf16* __restrict__ x,
 typedef void (*StatsKernel)(const bf16*, float2*, int, int, float);
 
 // Launch of the pre-pass kernel pick(VPL) for the fewest vectors per lane
-// that cover D (D <= 768: VPL 3, 6, 12 or 24), so that registers, and
+// that cover D (D <= 1152: VPL 3, 6, 12, 24 or 36), so that registers, and
 // with them occupancy, follow D.
 template <class Pick>
 inline cudaError_t launch_stats(Pick pick, const void* x, void* stats, int M,
                                 int D, float eps, cudaStream_t stream) {
   const int mpad = (M + 127) / 128 * 128, vpl = (D / 8 + 3) / 4;
   const StatsKernel kernel =
-      pick(vpl <= 3 ? 3 : vpl <= 6 ? 6 : vpl <= 12 ? 12 : 24);
+      pick(vpl <= 3    ? 3
+           : vpl <= 6  ? 6
+           : vpl <= 12 ? 12
+           : vpl <= 24 ? 24
+                       : 36);
   kernel<<<mpad / 64, 256, 0, stream>>>((const bf16*)x, (float2*)stats, M,
                                         D, eps);
   return cudaGetLastError();
@@ -761,6 +765,41 @@ struct WgmmaRS<128> {
   }
 };
 
+// m64n144k16: the LN+qkv forward's 144-column tile (a third of C = 144's
+// q, k, v) and the fused LN+MLP's output at C = 144.
+template <>
+struct WgmmaRS<144> {
+  __device__ __forceinline__ static void mma(float* d, const uint32_t* a,
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %77, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n144k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55,"
+        "%56, %57, %58, %59, %60, %61, %62, %63,"
+        "%64, %65, %66, %67, %68, %69, %70, %71"
+        "}, {%72, %73, %74, %75}, %76, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+          "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
 template <>
 struct WgmmaRS<192> {
   __device__ __forceinline__ static void mma(float* d, const uint32_t* a,
@@ -905,6 +944,9 @@ struct WgmmaSS<192> {
 constexpr int DENSE_BM = 128;      // rows of a block tile (two warpgroups)
 constexpr int DENSE_THREADS = 384;  // producer + two consumer warpgroups
 constexpr int DENSE_MAX_STAGES = 8;
+// the widest LayerNorm'd A the forwards take (gamma and beta in f32 in
+// shared memory, the statistics pre-pass's 36 vectors a lane)
+constexpr int DENSE_MAX_LN_K = 1152;
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 
 // A ring stage: A [128][64] + B [tn][64] (bf16), and with a LayerNorm the

@@ -12,10 +12,12 @@
 // moves each byte once.
 //
 // The rows instance ([M, C], groups of dg = C / groups channels, contiguous
-// segments of dg): the final norm [B*1568, 768], the cls-token models' pool
-// norms (odd lengths 1 + L') and MViT-v1's separate norm2. A segment is
-// held in registers by the fewest lanes that cover it with three 16-byte
-// vectors each (4 lanes for dg = 96, a warp for 768): one read of x, one
+// segments of dg): the final norm [B*1568, 768] (MViT-v2-L's [B*1568,
+// 1152]), the cls-token models' pool norms (odd lengths 1 + L'), the pool
+// norms of head dim 72 and MViT-v1's separate norm2. A segment is held in
+// registers by the fewest lanes that cover it with three 16-byte vectors
+// each (4 lanes for dg = 96, a warp for 768; past 768 the forward's wide
+// instance gives a warp's lanes five each): one read of x, one
 // write of y, statistics as every row LayerNorm of the port computes them
 // (hopper.cuh:row_stats, ln_vec8). The forward launches one group of lanes a
 // segment (no loop: registers stay few and blocks many, ~96 KB a SM in
@@ -56,6 +58,7 @@ namespace aicity {
 constexpr int LN_THREADS = 256;      // rows forward
 constexpr int LN_BWD_THREADS = 384;  // rows backward: one block an SM
 constexpr int LN_VPL = 3;            // 16-byte vectors a lane
+constexpr int LN_WIDE_VPL = 5;       // the forward's wide instance's
 constexpr int COL_D = 96;            // channel-major: channels a group
 constexpr int COL_LANES = 4;         // lanes a token
 constexpr int COL_THREADS = 256;
@@ -196,9 +199,11 @@ __device__ __forceinline__ void sum_slab_tree(const float* part,
 
 // ------------------------------------------------------------- rows forward
 
-// LANES lanes a segment of dg = 8 nv channels (nv <= 3 LANES), lane q
+// LANES lanes a segment of dg = 8 nv channels (nv <= VPL LANES), lane q
 // holding vectors q + LANES i; every lane of the warp reaches the shuffles.
-template <int LANES>
+// VPL: LN_VPL, or LN_WIDE_VPL for segments past 768 channels (a warp of
+// five vectors a lane: MViT-v2-L's final norm over 1152).
+template <int LANES, int VPL = LN_VPL>
 __global__ void __launch_bounds__(LN_THREADS)
     ln_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
                    const bf16* __restrict__ beta, bf16* __restrict__ y,
@@ -207,17 +212,17 @@ __global__ void __launch_bounds__(LN_THREADS)
   const long seg = ((long)blockIdx.x * LN_THREADS + threadIdx.x) / LANES;
   const bool live = seg < segments;
   const size_t off = (size_t)(live ? seg : 0) * dg;
-  uint4 v[LN_VPL];
+  uint4 v[VPL];
 #pragma unroll
-  for (int i = 0; i < LN_VPL; ++i) {
+  for (int i = 0; i < VPL; ++i) {
     const int c = q + LANES * i;
     v[i] = live && c < nv ? load16(x + off + 8 * c)
                           : make_uint4(0u, 0u, 0u, 0u);
   }
-  const float2 st = row_stats<LANES, LN_VPL>(v, q, nv, dg, eps);
+  const float2 st = row_stats<LANES, VPL>(v, q, nv, dg, eps);
   if (!live) return;
 #pragma unroll
-  for (int i = 0; i < LN_VPL; ++i) {
+  for (int i = 0; i < VPL; ++i) {
     const int c = q + LANES * i;
     if (c < nv)
       *reinterpret_cast<uint4*>(y + off + 8 * c) = ln_vec8(
@@ -663,8 +668,9 @@ extern "C" int aicity_layer_norm_smem_bytes(int kind, int dg, int tile,
 }
 
 // The rows forward: y = LN(x) over groups of dg = cols / groups channels,
-// `lanes` lanes a segment (4, 8, 16 or 32, with dg <= 24 lanes * 8), in
-// `blocks` blocks of 256 threads (plan: ops/layer_norm.py:_ln_plan).
+// `lanes` lanes a segment (4, 8, 16 or 32, with dg <= 24 lanes * 8; or 32
+// lanes of LN_WIDE_VPL vectors for dg up to 1280), in `blocks` blocks of
+// 256 threads (plan: ops/layer_norm.py:_ln_plan).
 extern "C" int aicity_layer_norm(const void* x, const void* gamma,
                                  const void* beta, void* y, long rows,
                                  int cols, int groups, int lanes, int blocks,
@@ -673,14 +679,16 @@ extern "C" int aicity_layer_norm(const void* x, const void* gamma,
   if (groups < 1 || cols % groups) return (int)cudaErrorInvalidValue;
   const int dg = cols / groups;
   const long segments = rows * groups;
-  if (dg % 8 || dg > 8 * LN_VPL * lanes || blocks < 1 ||
-      (long)blocks * (LN_THREADS / lanes) < segments)
+  const bool wide = lanes == 32 && dg > 8 * LN_VPL * lanes;
+  if (dg % 8 || dg > 8 * (wide ? LN_WIDE_VPL : LN_VPL) * lanes ||
+      blocks < 1 || (long)blocks * (LN_THREADS / lanes) < segments)
     return (int)cudaErrorInvalidValue;
-#define AICITY_LN_ROWS(N)                                                    \
-  ln_rows_kernel<N><<<blocks, LN_THREADS, 0, s>>>(                           \
+#define AICITY_LN_ROWS(...)                                                  \
+  ln_rows_kernel<__VA_ARGS__><<<blocks, LN_THREADS, 0, s>>>(                 \
       (const bf16*)x, (const bf16*)gamma, (const bf16*)beta, (bf16*)y,       \
       segments, dg, eps)
-  switch (lanes) {
+  switch (wide ? 0 : lanes) {
+    case 0: AICITY_LN_ROWS(32, LN_WIDE_VPL); break;
     case 4: AICITY_LN_ROWS(4); break;
     case 8: AICITY_LN_ROWS(8); break;
     case 16: AICITY_LN_ROWS(16); break;

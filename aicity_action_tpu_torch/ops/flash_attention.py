@@ -23,7 +23,8 @@ per-head LayerNorms and the MViT-v2 query residual fused in. It replaces
 kernels of ``_flash_ln_bwd`` under autograd), which every MViT block runs
 at inference, and in training under ``AICITY_TPU_FUSE_ATTN_LN=1``. At 448
 it sees head-major ``q [B*h, Lq, 96]`` and ``k, v [B*h, Lk, 96]`` with Lq up
-to 100352 and Lk in {1568, 6272}: 4*Lq*Lk*d flops against 2*(Lq + 2*Lk)*d
+to 100352 and Lk in {1568, 6272} (MViT-v2-L: head dim 72, the inference
+forward only; ``FWD_HEAD_DIMS``): 4*Lq*Lk*d flops against 2*(Lq + 2*Lk)*d
 bytes, so the tensor cores (and the softmax's exponentials) bound it. The
 Pallas kernel keeps a group's whole K/V in VMEM and normalizes it once per
 group; GPU blocks share nothing, so ``csrc/flash_attention_ln.cu``
@@ -45,11 +46,17 @@ import torch
 from . import kernels
 from .layer_norm import layer_norm_plain
 
-# the head dim the kernel is instantiated for (every MViT-v2 block's)
+# the head dim the kernels are instantiated for (every MViT-v2-B block's),
+# and the head dims of the forwards without a logsumexp (inference): also
+# MViT-v2-L's 72 (csrc/flash_fwd.cuh:FwdDim)
 KERNEL_HEAD_DIM = 96
+FWD_HEAD_DIMS = (96, 72)
 # logits the plain version materializes at once (f32 elements)
 _PLAIN_CHUNK = 1 << 28
 
+# the forwards' query rows a block and keys a tile (csrc/flash_fwd.cuh:
+# FW_ROWS, BW_T)
+FWD_ROWS, FWD_KEYS = 128, 64
 # the backward's tiles (query rows or keys a block, csrc/flash_bwd.cuh:BW_T)
 BWD_TILE = 64
 # backward blocks an SM holds at once (__launch_bounds__(128, 2): registers
@@ -81,6 +88,32 @@ def _bwd_smem() -> dict:
             "ln_dq": 1024 + _DQ_LN_STAGES * ring + ln_rows
             + 4 * (3 * t + 8 * d),
             "dkv": 1024 + _DKV_STAGES * (2 * _BWD_TILE_BYTES + t * 8 + 8)}
+
+
+@functools.lru_cache(maxsize=256)
+def _attn_fwd_plan(G: int, Lq: int, Lk: int, d: int, with_lse: bool) -> dict:
+    """The launch of an attention forward (rows 1, 2 and 4's forward:
+    ``csrc/flash_attention.cu``; rows 5 and 6: ``csrc/flash_attention_ln.
+    cu``), which its C entry point makes; this says what it takes and
+    launches: ``grid`` (query tiles of FWD_ROWS, groups), ``last``, the
+    last key tile's product width (``csrc/flash_fwd.cuh:fwd_last_width``),
+    ``tiles``, the key tiles a block walks. Raises ValueError for what no
+    kernel takes: a head dim other than 96, or 72 with the logsumexp
+    (training); more groups than the grid's 65535; no rows or keys."""
+    dims = (KERNEL_HEAD_DIM,) if with_lse else FWD_HEAD_DIMS
+    if d not in dims:
+        raise ValueError(f"flash attention forward: the kernel takes head "
+                         f"dim {' or '.join(map(str, dims))}"
+                         f"{' with the logsumexp' if with_lse else ''}, "
+                         f"got {d}")
+    if not 0 < G <= 65535 or Lq <= 0 or Lk <= 0:
+        raise ValueError(f"flash attention forward: no kernel takes G {G}, "
+                         f"Lq {Lq}, Lk {Lk}")
+    r = Lk % FWD_KEYS
+    last = (FWD_KEYS if Lk <= FWD_KEYS or r == 0 or r > 32 else
+            16 if r <= 16 else 32)
+    return {"grid": (-(-Lq // FWD_ROWS), G), "last": last,
+            "tiles": -(-Lk // FWD_KEYS)}
 
 
 def _attn_bwd_plan(G: int, Lq: int, Lk: int, d: int, sms: int) -> dict:
@@ -203,16 +236,11 @@ _FLASH_LN_OP = kernels.export_op(
 
 
 def _ln_operands(name, q, k, v, params):
-    """The fused-LN kernels' input rules. Returns ``(G, Lq, Lk, d)`` and
-    q, k, v as the contiguous ``[G, d, L]`` tensors their d-major views
-    show."""
+    """The fused-LN kernels' input rules (their head dim and groups are
+    the plans' to check). Returns ``(G, Lq, Lk, d)`` and q, k, v as the
+    contiguous ``[G, d, L]`` tensors their d-major views show."""
     G, Lq, d = q.shape
     Lk = k.shape[1]
-    if d != KERNEL_HEAD_DIM:
-        raise ValueError(f"{name}: the kernel takes head dim "
-                         f"{KERNEL_HEAD_DIM}, got {d}")
-    if G > 65535:
-        raise ValueError(f"{name}: {G} groups exceed the grid")
     if not all(_is_dmajor(t) for t in (q, k, v)) or Lq % 8:
         raise ValueError(f"{name}: the kernel takes q, k, v as d-major "
                          "views of [G, d, L] tensors, Lq % 8 == 0")
@@ -234,6 +262,7 @@ def _flash_ln_fwd(q, k, v, gq, bq, gk, bk, gv, bv, scale, eps, flags,
     ``add_qn``)."""
     (G, Lq, Lk, d), (q, k, v) = _ln_operands(
         "flash_attention_ln", q, k, v, (gq, bq, gk, bk, gv, bv))
+    _attn_fwd_plan(G, Lq, Lk, d, with_lse)
     dev = q.device
     out = torch.empty((G, Lq, d), dtype=q.dtype, device=dev)
     lse = (torch.empty((G, Lq), dtype=torch.float32, device=dev)
@@ -386,28 +415,25 @@ def flash_attention_lse_plain(q, k, v, scale):
     return _attention_plain(q, k, v, scale, True)
 
 
-def _require_rows(name, G, d, *named):
+def _require_rows(*named):
     """Checks ``(tensor name, tensor, length)`` triples against the
-    kernels' contiguous bf16 ``[G, length, 96]`` token rows."""
-    if d != KERNEL_HEAD_DIM:
-        raise ValueError(f"{name}: the kernel takes head dim "
-                         f"{KERNEL_HEAD_DIM}, got {d}")
-    if G > 65535:
-        raise ValueError(f"{name}: {G} groups exceed the grid")
+    kernels' contiguous bf16 ``[G, length, d]`` token rows (their head
+    dim and groups are the plans' to check)."""
+    G, _, d = named[0][1].shape
     dev = named[0][1].device
     for tname, t, L in named:
         kernels.require(t, tname, (G, L, d), dev)
 
 
 def _attention_fwd(q, k, v, scale: float, with_lse: bool):
-    """The forward kernel on contiguous token rows ``q [G, Lq, 96]``,
-    ``k, v [G, Lk, 96]`` of any lengths: ``out`` and, with ``with_lse``, the
-    f32 ``lse [G, Lq]`` (one kernel; the lse store is skipped without
-    it)."""
+    """The forward kernel on contiguous token rows ``q [G, Lq, d]``,
+    ``k, v [G, Lk, d]`` of any lengths: ``out`` and, with ``with_lse``, the
+    f32 ``lse [G, Lq]`` (one kernel; the lse store is skipped without it).
+    d is 96, or 72 without ``with_lse``."""
     G, Lq, d = q.shape
     Lk = k.shape[1]
-    _require_rows("flash_attention", G, d, ("q", q, Lq), ("k", k, Lk),
-                  ("v", v, Lk))
+    _attn_fwd_plan(G, Lq, Lk, d, with_lse)
+    _require_rows(("q", q, Lq), ("k", k, Lk), ("v", v, Lk))
     out = torch.empty_like(q)
     lse = (torch.empty((G, Lq), dtype=torch.float32, device=q.device)
            if with_lse else None)
@@ -428,10 +454,10 @@ def _attention_bwd(q, k, v, out, lse, dout, scale: float):
     partials over query splits, and their sums."""
     G, Lq, d = q.shape
     Lk = k.shape[1]
-    _require_rows("flash_attention_bwd", G, d, ("q", q, Lq), ("k", k, Lk),
-                  ("v", v, Lk), ("out", out, Lq), ("dout", dout, Lq))
-    kernels.require(lse, "lse", (G, Lq), q.device, torch.float32)
     plan = _checked_attn_bwd_plan(G, Lq, Lk, d, q.device)
+    _require_rows(("q", q, Lq), ("k", k, Lk), ("v", v, Lk), ("out", out, Lq),
+                  ("dout", dout, Lq))
+    kernels.require(lse, "lse", (G, Lq), q.device, torch.float32)
     f32 = dict(dtype=torch.float32, device=q.device)
     dq, dk, dv, qs = (torch.empty_like(t) for t in (q, k, v, q))
     ld = torch.empty((G, plan["lqp"], 2), **f32)
@@ -509,7 +535,8 @@ def flash_attention(q, k, v, scale: float):
     """``softmax(bf16(q * scale) . k^T) . v`` over ``q [G, Lq, d]``, ``k,
     v [G, Lk, d]``. A CPU tensor runs the plain version (autograd
     differentiates it); a CUDA tensor the kernels, which take contiguous
-    bf16 token rows with d = 96, forward and backward."""
+    bf16 token rows with d = 96, forward and backward, and d = 72 where no
+    gradient is asked for (the forward alone)."""
     if torch.compiler.is_exporting():
         return _FLASH_OP(q, k, v, scale)
     if not kernels.use_kernel(q):

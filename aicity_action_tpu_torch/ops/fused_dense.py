@@ -4,8 +4,10 @@ and their plain versions.
 - :func:`fused_ln_qkv` replaces ``aicity_action_tpu/ops/pallas/
   fused_dense.py:fused_ln_qkv`` (``_ln_qkv_kernel``): MViT's norm1 + qkv.
   At 448 it sees ``x [B*L, D]``, D in {96, 192, 384, 768}, 3C in {288, 576,
-  1152, 2304}: 64-400 flops per byte, around the H100's ridge, so the narrow
-  blocks are bound by memory and the wide ones by the tensor cores and the
+  1152, 2304} (MViT-v2-B; MViT-v2-L: D in {144, 288, 576, 1152}, 3C in
+  {432, 864, 1728, 3456}, the 144-wide q, k, v on a 144-column tile):
+  64-400 flops per byte, around the H100's ridge, so the narrow blocks
+  are bound by memory and the wide ones by the tensor cores and the
   weight's re-reads from L2. The Pallas kernel keeps the whole ``[D, 3C]``
   weight in VMEM (3.5 MB at D=768, more than shared memory);
   ``csrc/fused_ln_qkv.cu`` runs a pre-pass for the LN statistics, then the
@@ -15,16 +17,18 @@ and their plain versions.
   with A from registers, q, k, v written channel-major for the pool convs
   (TMA stores where a tile's rows lie in one clip).
 - :func:`fused_ln_mlp` replaces ``fused_dense.py:fused_ln_mlp``
-  (``_ln_mlp_kernel``): norm2 + fc1 + GELU + fc2, x ``[B*L, C]``, H = 4C.
+  (``_ln_mlp_kernel``): norm2 + fc1 + GELU + fc2, x ``[B*L, C]``, H = 4C,
+  C from 96 to 1152 (MViT-v2-L's last four blocks, which the JAX package
+  leaves to XLA, take the two-launch path: one branch for every block).
   About 4C flops per byte, so the tensor cores bound it, and the weights'
   re-reads. Pallas holds both weights in VMEM (9.4 MB at C=768). The output
-  accumulator sets the design: for C <= 192 one fused kernel keeps the
-  hidden activation in registers (fc1's accumulator becomes fc2's A
-  operand); for C >= 384 the statistics pre-pass and two launches of the
-  same mainloop, LN + fc1 + GELU into a bf16 ``h [M, 4C]`` and ``h W2^T +
-  b2``. GELU is the exact-erf form; the kernels take erf by the Pallas
-  kernel's Abramowitz-Stegun formula (1.5e-7 from erf), the plain version
-  by ``torch.erf``.
+  accumulator sets the design: for C in {96, 144, 192} one fused kernel
+  keeps the hidden activation in registers (fc1's accumulator becomes
+  fc2's A operand); for C >= 288 the statistics pre-pass and two launches
+  of the same mainloop, LN + fc1 + GELU into a bf16 ``h [M, 4C]`` and
+  ``h W2^T + b2``. GELU is the exact-erf form; the kernels take erf by
+  the Pallas kernel's Abramowitz-Stegun formula (1.5e-7 from erf), the
+  plain version by ``torch.erf``.
 
 Tile widths, ring depths and grids are plans computed here
 (:func:`_qkv_plan`, :func:`_mlp_plan`) and passed to the kernels as launch
@@ -63,9 +67,12 @@ from .layer_norm import layer_norm_plain
 # wgmma widths of csrc/hopper.cuh), the ring depth (at least 3, at most
 # MAX_STAGES of the 8 barriers) and the hidden chunk of the fused MLP.
 ROW_TILE = 128
-QKV_TILES = (192, 96)
+QKV_TILES = (192, 144, 96)
 FC_TILES = (192, 128)
-FUSED_MLP_WIDTHS = (96, 192)
+FUSED_MLP_WIDTHS = (96, 144, 192)
+# the widest LayerNorm'd input of the forwards (csrc/hopper.cuh:
+# DENSE_MAX_LN_K): MViT-v2-L's 1152
+MAX_LN_WIDTH = 1152
 MIN_STAGES, MAX_STAGES = 3, 4
 MLP_HC = 64
 # a tile's fixed cost (statistics, epilogue, its A rows) in units of one
@@ -157,9 +164,10 @@ def _qkv_plan(M: int, D: int, C: int, tokens: int, sms: int) -> dict:
     consumer's 64 rows lie in one clip (tokens % 64 == 0), else 16-byte
     stores where every run of tokens is 16-byte aligned (tokens % 8 == 0),
     else 2-byte stores. A tile writes one of q, k, v: tn divides C."""
-    if D % 16 or C % 8 or not 0 < D <= 768:
+    if D % 16 or C % 8 or not 0 < D <= MAX_LN_WIDTH:
         raise ValueError(f"fused_ln_qkv: the kernel takes D % 16 == 0, "
-                         f"D <= 768 and C % 8 == 0, got D={D}, C={C}")
+                         f"D <= {MAX_LN_WIDTH} and C % 8 == 0, got D={D}, "
+                         f"C={C}")
     if tokens < 1 or M % tokens:
         raise ValueError(f"fused_ln_qkv: {M} rows are not clips of {tokens} "
                          "tokens")
@@ -179,14 +187,16 @@ def _qkv_plan(M: int, D: int, C: int, tokens: int, sms: int) -> dict:
 @functools.lru_cache(maxsize=256)
 def _mlp_plan(M: int, D: int, H: int, C: int, sms: int) -> dict:
     """Launch plan of ``csrc/fused_ln_mlp.cu``: for C <= 192 the fused
-    kernel (``fused``: ring ``stages``, persistent ``grid`` over 128-row
-    tiles, ``smem``), else the LN statistics pre-pass and two launches of
-    the dense mainloop, ``fc1`` (LN + fc1 + GELU -> h) and ``fc2`` (h W2^T
-    + b2), each a plan as :func:`_qkv_plan`'s."""
-    if D != C or H % MLP_HC or C % 16 or not 0 < C <= 768:
+    kernel (``fused``, C in FUSED_MLP_WIDTHS: ring ``stages``, persistent
+    ``grid`` over 128-row tiles, ``smem``), else (C up to MAX_LN_WIDTH) the
+    LN statistics pre-pass and two launches of the dense mainloop, ``fc1``
+    (LN + fc1 + GELU -> h) and ``fc2`` (h W2^T + b2), each a plan as
+    :func:`_qkv_plan`'s."""
+    if D != C or H % MLP_HC or C % 16 or not 0 < C <= MAX_LN_WIDTH:
         raise ValueError(
-            f"fused_ln_mlp: the kernels take D == C, C % 16 == 0, C <= 768 "
-            f"and H a multiple of {MLP_HC}, got D={D}, H={H}, C={C}")
+            f"fused_ln_mlp: the kernels take D == C, C % 16 == 0, C <= "
+            f"{MAX_LN_WIDTH} and H a multiple of {MLP_HC}, got D={D}, H={H}, "
+            f"C={C}")
     tma = [_tma("x", C, ROW_TILE)]
     if C <= 192:
         if C not in FUSED_MLP_WIDTHS:

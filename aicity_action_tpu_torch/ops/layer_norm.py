@@ -11,8 +11,10 @@ bandwidth, and the kernels (``csrc/layer_norm.cu``) move each byte once.
 
 - The rows instance, :func:`fused_layer_norm` (``[..., C]`` rows, groups of
   ``C // groups`` channels): MViT's final norm ``[B*1568, 768]`` (eps
-  1e-6), the cls-token MViT-v1's pool norms (odd lengths ``1 + L'``) and
-  its separate norm2.
+  1e-6; MViT-v2-L's ``[B*1568, 1152]`` through the forward's wide
+  instance), the cls-token MViT-v1's pool norms (odd lengths ``1 + L'``),
+  the pool norms of head dim 72 (MViT-v2-L's unfused path) and MViT-v1's
+  separate norm2.
 - The channel-major instance, :func:`pool_norm_rows`: the MViT-v2 pool
   norms (eps 1e-5 over head_dim 96, per head). It reads the pool
   convolution's ``[B, h*d, L]`` as it lies and writes the head-major rows
@@ -41,8 +43,9 @@ import torch
 
 from . import kernels
 
-# the rows kernels: threads a block, 16-byte vectors a lane
-LN_THREADS, LN_BWD_THREADS, LN_VPL = 256, 384, 3
+# the rows kernels: threads a block, 16-byte vectors a lane, and the
+# forward's wide instance's (a warp a segment past 768 channels)
+LN_THREADS, LN_BWD_THREADS, LN_VPL, LN_WIDE_VPL = 256, 384, 3, 5
 # the backwards' slab tree: slabs a group (csrc/layer_norm.cu:SLAB_GROUP),
 # and the ticket counters a stream keeps (one, then one a group)
 SLAB_GROUP, TICKETS = 16, 64
@@ -85,19 +88,21 @@ def _col_smem(bwd: bool, tile: int, stages: int) -> int:
 
 def _rows_lanes(dg: int) -> int:
     """The fewest lanes (4, 8, 16 or 32) whose three 16-byte vectors each
-    cover ``dg`` channels."""
+    cover ``dg`` channels; 32 past that (the forward's wide instance)."""
     need = _cdiv(dg // 8, LN_VPL)
-    return next(n for n in (4, 8, 16, 32) if n >= need)
+    return next((n for n in (4, 8, 16, 32) if n >= need), 32)
 
 
 @functools.lru_cache(maxsize=256)
 def _ln_plan(kind: str, shape: tuple, sms: int) -> dict:
     """Launch plan of a ``csrc/layer_norm.cu`` kernel on a card of ``sms``
     SMs. ``kind`` "rows" / "rows_bwd" take ``shape = (rows, C, groups)``:
-    ``lanes`` a segment of ``C // groups`` channels and ``blocks`` (the
-    forward one group of lanes a segment; the backward persistent, one
-    block of LN_BWD_THREADS an SM). "cols" / "cols_bwd" take ``shape =
-    (groups, d, L)`` (the channel-major ``[groups * d, L]``): ``tile``
+    ``lanes`` a segment of ``C // groups`` channels, ``vpl`` its 16-byte
+    vectors a lane (LN_WIDE_VPL for the forward past 768 channels) and
+    ``blocks`` (the forward one group of lanes a segment; the backward
+    persistent, one block of LN_BWD_THREADS an SM). "cols" / "cols_bwd"
+    take ``shape = (groups, d, L)`` (the channel-major ``[groups * d,
+    L]``): ``tile``
     tokens a tile, ``stages``, ``blocks`` (persistent, as many an SM as
     shared memory, threads and registers allow) and ``tma``, the row stride
     and box of the x (and dx) descriptor and of the backward's dy one. Every plan has ``slabs``, the f32
@@ -110,18 +115,20 @@ def _ln_plan(kind: str, shape: tuple, sms: int) -> dict:
             raise ValueError(f"fused_layer_norm: {C} channels in {groups} "
                              "groups")
         dg = C // groups
-        if dg % 8 or not 0 < dg <= 8 * LN_VPL * 32 or rows < 1:
-            raise ValueError(f"fused_layer_norm: the kernels take groups of "
-                             f"a multiple of 8 channels, at most 768, got "
-                             f"{dg} over {rows} rows")
+        most = 8 * (LN_WIDE_VPL if kind == "rows" else LN_VPL) * 32
+        if dg % 8 or not 0 < dg <= most or rows < 1:
+            raise ValueError(f"fused_layer_norm: the {kind} kernels take "
+                             f"groups of a multiple of 8 channels, at most "
+                             f"{most}, got {dg} over {rows} rows")
         lanes = _rows_lanes(dg)
+        vpl = LN_VPL if dg <= 8 * LN_VPL * lanes else LN_WIDE_VPL
         segments = rows * groups
         if kind == "rows":
-            return {"lanes": lanes, "threads": LN_THREADS, "smem": 0,
-                    "blocks": _cdiv(segments, LN_THREADS // lanes),
+            return {"lanes": lanes, "vpl": vpl, "threads": LN_THREADS,
+                    "smem": 0, "blocks": _cdiv(segments, LN_THREADS // lanes),
                     "slabs": 0, "slab_groups": 0}
         blocks = min(sms, _cdiv(segments, LN_BWD_THREADS // lanes))
-        return {"lanes": lanes, "threads": LN_BWD_THREADS,
+        return {"lanes": lanes, "vpl": vpl, "threads": LN_BWD_THREADS,
                 "smem": (LN_BWD_THREADS // 32) * 2 * dg * 4,
                 "blocks": blocks, "slabs": blocks,
                 "slab_groups": _cdiv(blocks, SLAB_GROUP)}

@@ -1,15 +1,18 @@
 """Where the time of one MViT forward, or train step, goes on the card.
 
     python -m aicity_action_tpu_torch.tools.profile_forward [--batch 8]
-        [--config v2_448|v1_224|moe_448] [--fuse-attn-ln auto|0|1]
+        [--config v2_448|v1_224|moe_448|l_448] [--fuse-attn-ln auto|0|1]
         [--iters 3] [--out FILE.json]
     python -m aicity_action_tpu_torch.tools.profile_forward --train
         [--batch 4] [--config ...] [--fuse-attn-ln ...] [--iters 3]
         [--out FILE.json]
 
 ``--config`` picks MViT-v2-B 16x4 @ 448 (the default, the AI City model),
-MViT-B 16x4 @ 224 with a cls token (PySlowFast's Kinetics-400 MViT-v1) or
-the 448 model with its MoE banks (``mvitv2_b_16x4_448_moe_cfg``);
+MViT-B 16x4 @ 224 with a cls token (PySlowFast's Kinetics-400 MViT-v1),
+the 448 model with its MoE banks (``mvitv2_b_16x4_448_moe_cfg``) or with
+the MViT-v2-L trunk (``mvitv2_l_16x4_448_cfg``: 48 blocks, head dim 72;
+its training kernels are still built for head dim 96, so not with
+``--train``);
 ``--fuse-attn-ln`` sets ``AICITY_TPU_FUSE_ATTN_LN`` for the run (``1``: the
 fused-LN attention in training too). Builds the model at full width and
 depth on weights from ``--seed``, warms
@@ -186,7 +189,8 @@ def _config(name: str):
 
 
 CONFIGS = {"v2_448": "mvitv2_b_16x4_448_cfg", "v1_224": "mvit_b_16x4_224_cfg",
-           "moe_448": "mvitv2_b_16x4_448_moe_cfg"}
+           "moe_448": "mvitv2_b_16x4_448_moe_cfg",
+           "l_448": "mvitv2_l_16x4_448_cfg"}
 
 
 def forward_profile(args) -> dict:

@@ -4,11 +4,11 @@ but does not ship, recovered from its call sites: ``TensorboardWriter(cfg)``,
 ``add_scalars(dict, step)``, ``plot_eval(preds, labels, step)``,
 ``close()``).
 
-Where neither ``torch.utils.tensorboard`` nor ``tensorboardX`` imports, the
-JAX writer drops the scalars with a warning; the port raises at
-construction, naming both packages, since the run asked for
-``TENSORBOARD.ENABLE``. matplotlib (the confusion matrix of
-:meth:`plot_eval`) is imported where it is drawn.
+Where neither ``torch.utils.tensorboard`` nor ``tensorboardX`` imports,
+the writer warns once, naming both packages, and drops what it is given,
+as the JAX writer does: a run with ``TENSORBOARD.ENABLE`` trains on.
+matplotlib (the confusion matrix of :meth:`plot_eval`) is imported where
+it is drawn.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ logger = get_logger(__name__)
 
 def _summary_writer_class():
     """``SummaryWriter`` of ``torch.utils.tensorboard``, else of
-    ``tensorboardX``; raises ImportError naming both where neither
+    ``tensorboardX``; None, with a warning naming both, where neither
     imports."""
     try:
         from torch.utils.tensorboard import SummaryWriter
@@ -35,21 +35,26 @@ def _summary_writer_class():
             from tensorboardX import SummaryWriter
             return SummaryWriter
         except ImportError:
-            raise ImportError(
-                "TENSORBOARD.ENABLE needs torch.utils.tensorboard (the "
-                "tensorboard package) or tensorboardX, and neither imports "
-                f"({first}); set TENSORBOARD.ENABLE False") from first
+            logger.warning(
+                "TENSORBOARD.ENABLE: neither torch.utils.tensorboard (the "
+                "tensorboard package) nor tensorboardX imports (%s); "
+                "scalars will be dropped", first)
+            return None
 
 
 class TensorboardWriter:
     """Scalars (and the eval's confusion matrix) into an event file under
-    ``TENSORBOARD.LOG_DIR``, or ``OUTPUT_DIR/runs-{TRAIN.DATASET}``."""
+    ``TENSORBOARD.LOG_DIR``, or ``OUTPUT_DIR/runs-{TRAIN.DATASET}``;
+    ``writer`` is None, and every call a no-op, where no TensorBoard
+    package imports."""
 
     def __init__(self, cfg):
         self.cfg = cfg
         self.log_dir = cfg.TENSORBOARD.LOG_DIR or os.path.join(
             cfg.OUTPUT_DIR, f"runs-{cfg.TRAIN.DATASET}")
-        self.writer = _summary_writer_class()(log_dir=self.log_dir)
+        summary_writer = _summary_writer_class()
+        self.writer = (None if summary_writer is None
+                       else summary_writer(log_dir=self.log_dir))
         self.class_names = None
         if cfg.TENSORBOARD.CLASS_NAMES_PATH:
             with open(cfg.TENSORBOARD.CLASS_NAMES_PATH) as f:
@@ -57,6 +62,8 @@ class TensorboardWriter:
         logger.info("Tensorboard logging to %s", self.log_dir)
 
     def add_scalars(self, data_dict: dict, global_step: int | None = None):
+        if self.writer is None:
+            return
         for key, item in data_dict.items():
             self.writer.add_scalar(key, float(item), global_step)
 
@@ -65,7 +72,8 @@ class TensorboardWriter:
         ``labels`` as a figure, where ``TENSORBOARD.CONFUSION_MATRIX.
         ENABLE``."""
         preds = np.asarray(preds)
-        if not (self.cfg.TENSORBOARD.CONFUSION_MATRIX.ENABLE
+        if self.writer is None or not (
+                self.cfg.TENSORBOARD.CONFUSION_MATRIX.ENABLE
                 and preds.ndim == 2):
             return
         import matplotlib
@@ -87,11 +95,15 @@ class TensorboardWriter:
         plt.close(fig)
 
     def add_video(self, tensor, tag="video", global_step=None, fps=4):
-        self.writer.add_video(tag, tensor, global_step=global_step, fps=fps)
+        if self.writer is not None:
+            self.writer.add_video(tag, tensor, global_step=global_step,
+                                  fps=fps)
 
     def flush(self):
-        self.writer.flush()
+        if self.writer is not None:
+            self.writer.flush()
 
     def close(self):
-        self.writer.flush()
-        self.writer.close()
+        if self.writer is not None:
+            self.writer.flush()
+            self.writer.close()

@@ -142,8 +142,9 @@ NVIDIA card.
     in process with MViT-v2-B 16x4 @448 and the reference's default
     multi-dataset heads (kinetics 700, mmit 292, activitynet 200), the
     cross projections and VICReg, batch 4 on clips of the loop's views,
-    3 steps and an eval with TensorBoard where it imports (else the
-    writer's named error); launches held to ``derived_counts``, finite
+    3 steps and an eval with TensorBoard where it imports (else a writer
+    that warns and drops the scalars); launches held to
+    ``derived_counts``, finite
     losses, and a batch-1 step's gradients (heads and cross projections
     included) against the plain reference. Prints whether TensorBoard
     imports.
@@ -182,8 +183,25 @@ NVIDIA card.
     its launches 4 microbatches of the train-step rows with each stage's
     forward but the last run twice (the fill keeps the last stage's input
     only; the drain runs every stage under autograd).
-26. Prints ``{"kernels": [...]}``, the card line, and last
-    ``{"ok": true, "device": {...}}``.
+26. MViT-v2-L widths @448 (``l_kernel_checks``, ``l_model_checks``;
+    ``mvitv2_l_16x4_448_cfg``: 48 blocks, head dim 72, 144-1152
+    channels, seed 0, bf16): each widened kernel at the L path's batch-8
+    shapes of blocks 0, 2, 8, 44 and 47 (LN+qkv, the fused-LN attention,
+    the lse-free flash attention, LN+MLP) and the rows LayerNorm at the
+    final norm [B*1568, 1152] and a head-dim-72 pool norm, against its
+    plain version, timed beside its bound and library call; the b8 eval
+    forward with its launches held to ``derived_counts`` (rows 8 / 5 / 10
+    / 12 at 48 / 48 / 48 / 1) and its scores and head input against the
+    plain f32 forward; the same forward under ``AICITY_TPU_FUSE_ATTN_LN=0``
+    (row 1 and the rows LayerNorm at head dim 72); ``run_temporal_inf``
+    with the L widths as command-line overrides on a written view, its
+    launches held to ``derived_counts`` times its forwards and its pickle
+    to ``WindowScorer.score_video``. The SASS check of phase 1 holds the
+    new instances (the attention forwards at head dim 72, the 144-column
+    LN+qkv and LN+MLP) to no spills.
+27. Prints ``{"kernels": [...]}`` (the widened rows with their L shapes
+    and launches), the card line, and last ``{"ok": true, "device":
+    {...}}``.
 
 Any failed check raises, so the run exits non-zero and prints no result.
 With no CUDA card, or without the package beside this file, it exits 2.
@@ -330,13 +348,29 @@ HOPPER_KERNELS = {"fused_ln_qkv": ("ln_qkv_kernel",),
                   "flash_attention_ln_bwd": ("flash_ln_bwd_dq_kernel",)}
 HOPPER_REGISTERS = 168
 # kernels that must not spill: (registers, whether exactly that many or at
-# most)
+# most[, the instances it holds: substrings of their mangled names; else
+# every instance]). The attention forwards' rows take their head-dim-72
+# instances (MViT-v2-L) too; the LN+qkv and fused LN+MLP forwards hold their
+# 144-column instances (MViT-v2-L's C = 144).
 NO_SPILL_KERNELS = {"fused_ln_qkv_bwd": (HOPPER_REGISTERS, True),
                     "fused_ln_mlp_bwd": (HOPPER_REGISTERS, True),
                     "flash_attention": (HOPPER_REGISTERS, False),
                     "flash_attention_ln": (HOPPER_REGISTERS, False),
                     "flash_attention_bwd": (255, False),
-                    "flash_attention_ln_bwd": (255, False)}
+                    "flash_attention_ln_bwd": (255, False),
+                    "fused_ln_qkv": (HOPPER_REGISTERS, True,
+                                     ("ln_qkv_kernelILi144E",)),
+                    "fused_ln_mlp": (HOPPER_REGISTERS, True,
+                                     ("ln_mlp_kernel_fusedILi144E",))}
+# the head-dim-72 instances of the attention forwards, which the SASS check
+# must find
+L_ATTN_INSTANCES = {"flash_attention": "flash_fwd_kernelILi64ELi72E",
+                    "flash_attention_ln": "flash_ln_kernelILi64ELi72E"}
+# the plain helper kernels that the L widths added to a row (the statistics
+# pre-passes at 1152 channels, the K/V LN pass at head dim 72): found in the
+# build log and held to no spills
+NO_SPILL_HELPERS = ("ln_qkv_kernel_statsILi36E", "ln_mlp_kernel_statsILi36E",
+                    "kv_rows_kernelILi72E")
 
 
 # the LayerNorm kernels (rows 12-13): no tensor-core work, so no HGMMA;
@@ -379,8 +413,17 @@ def hopper_sass_checks() -> dict:
     for line in log.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
-        elif entry in counts and ("spill" in line or "registers" in line):
+        elif entry and ("spill" in line or "registers" in line):
             usage.setdefault(entry, []).append(line.strip())
+    for key in NO_SPILL_HELPERS:
+        fns = [f for f in usage if key in f]
+        if not fns:
+            _fail(f"no {key} function in the build log")
+        for f in fns:
+            text = " / ".join(usage[f])
+            print(f"# build {key}: {text}")
+            if " 0 bytes spill stores, 0 bytes spill loads" not in text:
+                _fail(f"{f} spills: {text}")
     # ptxas's C7511: it serialized a kernel's wgmma (too few registers for
     # the pipeline), which loses the overlap of its products
     for line in log.splitlines():
@@ -389,7 +432,12 @@ def hopper_sass_checks() -> dict:
             _fail(f"ptxas serialized a Hopper kernel's wgmma: {line.strip()}")
     for name, keys in HOPPER_KERNELS.items():
         fns = [f for f in counts if any(k in f for k in keys)]
-        missing = [k for k in keys if not any(k in f for f in fns)]
+        wanted = list(keys)
+        if len(NO_SPILL_KERNELS.get(name, ())) > 2:
+            wanted += NO_SPILL_KERNELS[name][2]
+        if name in L_ATTN_INSTANCES:
+            wanted.append(L_ATTN_INSTANCES[name])
+        missing = [k for k in wanted if not any(k in f for f in fns)]
         if missing:
             _fail(f"{name}: no {missing} function in the library's SASS")
         for f in fns:
@@ -401,7 +449,9 @@ def hopper_sass_checks() -> dict:
             text = " ".join(lines)
             if name not in NO_SPILL_KERNELS:
                 continue
-            regs, exact = NO_SPILL_KERNELS[name]
+            regs, exact, *only = NO_SPILL_KERNELS[name]
+            if only and not any(k in f for k in only[0]):
+                continue
             used = re.search(r"Used (\d+) registers", text)
             used = int(used.group(1)) if used else None
             ok_regs = used is not None and (
@@ -460,10 +510,12 @@ def descriptor_checks() -> None:
 
 # ------------------------------------------------------------------ kernels
 
-def _normal(gen, shape, std=1.0, dtype=None, device="cuda"):
+def _normal(gen, shape, std=1.0, dtype=None, device=None):
+    """Normal draws of ``std`` from ``gen``, on its device unless given."""
     import torch
 
-    t = torch.randn(shape, generator=gen, device=device) * std
+    t = torch.randn(shape, generator=gen,
+                    device=gen.device if device is None else device) * std
     return t.to(dtype) if dtype is not None else t
 
 
@@ -574,15 +626,81 @@ def _mlp_case(gen, shape, M, C):
     return r
 
 
-def kernel_checks():
-    """Each kernel at its main-path shapes (batch 8 unless stated)."""
+def _qkv_case(gen, shape, M, L, D, C):
+    """fused_ln_qkv on x [M, D] of clips of L tokens (q, k, v of C channels
+    each, written channel-major [B, C, L]) against its plain version and
+    LN + linear."""
+    import torch
+    import torch.nn.functional as F
+
+    from aicity_action_tpu_torch.ops import fused_dense as fd
+
+    bf = torch.bfloat16
+    x = _normal(gen, (M, D), 1.0, bf)
+    g = _normal(gen, (D,), 0.1, bf) + 1
+    bb = _normal(gen, (D,), 0.1, bf)
+    w = _normal(gen, (3 * C, D), D ** -0.5, bf)
+    bias = _normal(gen, (3 * C,), 0.1, bf)
+    args = (x, g, bb, w, bias, 1e-6)
+
+    def library():
+        return F.linear(F.layer_norm(x, (D,), g, bb, 1e-6), w, bias)
+
+    r = _check_case(
+        "fused_ln_qkv", lambda: fd.fused_ln_qkv(*args, tokens=L),
+        lambda: fd.ln_qkv_plain(*args, tokens=L), library,
+        flops=2 * M * D * 3 * C,
+        nbytes=2 * (M * D + 3 * M * C + 3 * C * D + 3 * C + 2 * D),
+        peak=PEAK_BF16, iters=20)
+    r["shape"] = shape
+    return r
+
+
+def _attn_ln_case(gen, shape, G, Lq, Lk, d):
+    """flash_attention_ln over G groups of Lq queries and Lk keys of head
+    dim d, all three LNs and the q-residual, q, k, v the d-major views the
+    main path passes (pool outputs [G, d, L]), against its plain version
+    and LN + SDPA; then the attention alone (no residual) against its
+    plain version."""
     import torch
     import torch.nn.functional as F
 
     from aicity_action_tpu_torch.ops import flash_attention as fa
-    from aicity_action_tpu_torch.ops import fused_dense as fd
 
     bf = torch.bfloat16
+    q, k, v = (_normal(gen, (G, d, n), 1.0, bf).transpose(1, 2)
+               for n in (Lq, Lk, Lk))
+    lnp = [t for _ in range(3) for t in (
+        _normal(gen, (d,), 0.1, bf) + 1, _normal(gen, (d,), 0.1, bf))]
+    args = (q, k, v, *lnp, d ** -0.5, 1e-5, (True, True, True), True)
+
+    def library():
+        qn, kn, vn = (F.layer_norm(t, (d,), lnp[2 * i], lnp[2 * i + 1],
+                                   1e-5) for i, t in enumerate((q, k, v)))
+        return _sdpa(qn, kn, vn) + qn
+
+    r = _check_case(
+        "flash_attention_ln", lambda: fa.flash_attention_ln(*args),
+        lambda: fa.flash_attention_ln_plain(*args), library,
+        flops=4 * G * Lq * Lk * d,
+        nbytes=2 * (2 * G * Lq * d + 2 * G * Lk * d + 6 * d),
+        peak=PEAK_BF16, iters=5)
+    r["shape"] = shape
+    # the attention alone: without the residual, whose LN(q) (of order 1)
+    # sets the tolerance above, the output is held within 2% of its own
+    # largest magnitude
+    pre = args[:-1] + (False,)
+    r["pre_residual"] = dict(zip(
+        ("max_abs_err", "tol", "max_rel_err"), check_outputs(
+            f"flash_attention_ln {shape} before the residual",
+            fa.flash_attention_ln(*pre), fa.flash_attention_ln_plain(*pre))))
+    return _mark_fwd(r, G, Lq, Lk, d)
+
+
+def kernel_checks():
+    """Each kernel at its main-path shapes (batch 8 unless stated)."""
+    import torch
+
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     results = {}
 
@@ -600,29 +718,9 @@ def kernel_checks():
                             (14, BATCH, 6272, 384, 768),
                             (15, BATCH, 1568, 768, 768),
                             (0, 1, 100352, 96, 96), (15, 1, 1568, 768, 768)):
-        M = b * L
-        x = _normal(gen, (M, D), 1.0, bf)
-        g = _normal(gen, (D,), 0.1, bf) + 1
-        bb = _normal(gen, (D,), 0.1, bf)
-        w = _normal(gen, (3 * C, D), D ** -0.5, bf)
-        bias = _normal(gen, (3 * C,), 0.1, bf)
-        args = (x, g, bb, w, bias, 1e-6)
-
-        def library(x=x, g=g, bb=bb, w=w, bias=bias, D=D):
-            return F.linear(F.layer_norm(x, (D,), g, bb, 1e-6), w, bias)
-
-        r = _check_case(
-            "fused_ln_qkv",
-            lambda args=args, L=L: fd.fused_ln_qkv(*args, tokens=L),
-            lambda args=args, L=L: fd.ln_qkv_plain(*args, tokens=L),
-            library,
-            flops=2 * M * D * 3 * C,
-            nbytes=2 * (M * D + 3 * M * C + 3 * C * D + 3 * C + 2 * D),
-            peak=PEAK_BF16, iters=20)
-        r["shape"] = (f"block {blk} x[{M},{D}] w[{3 * C},{D}] -> [B,C,L]"
-                      + ("" if b == BATCH else f" (batch {b})"))
-        cases.append(r)
-        del x, w, args
+        cases.append(_qkv_case(
+            gen, f"block {blk} x[{b * L},{D}] w[{3 * C},{D}] -> [B,C,L]"
+            + ("" if b == BATCH else f" (batch {b})"), b * L, L, D, C))
     results["fused_ln_qkv"] = cases
 
     # fused_ln_mlp at each width: block 0 (C 96 over 100352 tokens) and
@@ -644,43 +742,14 @@ def kernel_checks():
     # LNs and the q-residual; q, k, v are the d-major views the main path
     # passes (pool outputs [G, d, L])
     cases = []
-    d = 96
     for blk, h, Lq, Lk in ((0, 1, 100352, 1568), (1, 2, 25088, 6272),
                            ("4-13", 4, 6272, 1568), (15, 8, 1568, 1568)):
         G = BATCH * h
-        q, k, v = (_normal(gen, (G, d, n), 1.0, bf).transpose(1, 2)
-                   for n in (Lq, Lk, Lk))
-        lnp = [t for _ in range(3) for t in (
-            _normal(gen, (d,), 0.1, bf) + 1, _normal(gen, (d,), 0.1, bf))]
-        args = (q, k, v, *lnp, d ** -0.5, 1e-5, (True, True, True), True)
-
-        def library(q=q, k=k, v=v, lnp=lnp):
-            qn, kn, vn = (F.layer_norm(t, (d,), lnp[2 * i], lnp[2 * i + 1],
-                                       1e-5) for i, t in enumerate((q, k, v)))
-            return _sdpa(qn, kn, vn) + qn
-
-        r = _check_case(
-            "flash_attention_ln",
-            lambda args=args: fa.flash_attention_ln(*args),
-            lambda args=args: fa.flash_attention_ln_plain(*args),
-            library,
-            flops=4 * G * Lq * Lk * d,
-            nbytes=2 * (2 * G * Lq * d + 2 * G * Lk * d + 6 * d),
-            peak=PEAK_BF16, iters=5)
-        r["shape"] = (f"block{'s' if blk == '4-13' else ''} {blk} "
-                      f"q[{G},{Lq},{d}] k,v[{G},{Lk},{d}] d-major"
-                      + (" (10 calls a forward)" if blk == "4-13" else ""))
-        # the attention alone: without the residual, whose LN(q) (of order
-        # 1) sets the tolerance above, the output is held within 2% of its
-        # own largest magnitude
-        pre = args[:-1] + (False,)
-        r["pre_residual"] = dict(zip(
-            ("max_abs_err", "tol", "max_rel_err"), check_outputs(
-                f"flash_attention_ln {r['shape']} before the residual",
-                fa.flash_attention_ln(*pre),
-                fa.flash_attention_ln_plain(*pre))))
-        cases.append(_mark_fwd(r, G, Lq, Lk))
-        del q, k, v, args, pre
+        cases.append(_attn_ln_case(
+            gen, f"block{'s' if blk == '4-13' else ''} {blk} "
+            f"q[{G},{Lq},96] k,v[{G},{Lk},96] d-major"
+            + (" (10 calls a forward)" if blk == "4-13" else ""),
+            G, Lq, Lk, 96))
     results["flash_attention_ln"] = cases
     torch.cuda.empty_cache()
     return results
@@ -815,11 +884,11 @@ ATTN_TRAIN_SHAPES = ((0, 1, 100352, 1568), (1, 2, 25088, 6272),
 ATTN_FWD_BLOCKS = (0, 1, 15, "4-13")
 
 
-def _mark_fwd(r, G, Lq, Lk):
+def _mark_fwd(r, G, Lq, Lk, d=96):
     """Marks case ``r`` as an attention forward over ``G`` groups of ``Lq``
-    queries and ``Lk`` keys, for its comment line (:func:`_fwd_note`); the
-    mark stays off the JSON lines."""
-    r["_fwd"] = (G, Lq, Lk)
+    queries and ``Lk`` keys of head dim ``d``, for its comment line
+    (:func:`_fwd_note`); the mark stays off the JSON lines."""
+    r["_fwd"] = (G, Lq, Lk, d)
     return r
 
 
@@ -829,7 +898,7 @@ def _public(case: dict) -> dict:
     return {k: v for k, v in case.items() if not k.startswith("_")}
 
 
-def _fwd_note(G, Lq, Lk) -> str:
+def _fwd_note(G, Lq, Lk, d=96) -> str:
     """An attention forward's figures computed from its shape, not read:
     its exponential floor (G Lq Lk over PEAK_EX2), the K/V bytes its blocks
     would read from L2 if each read its group's K and V once (a model) and
@@ -839,7 +908,7 @@ def _fwd_note(G, Lq, Lk) -> str:
     blocks = -(-Lq // FWD_ROWS) * G
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return (f"; computed: exp floor {G * Lq * Lk / PEAK_EX2 * 1e3:.4f} ms, "
-            f"K/V at one read a block {blocks * 2 * Lk * 96 * 2 / 1e9:.3f} "
+            f"K/V at one read a block {blocks * 2 * Lk * d * 2 / 1e9:.3f} "
             f"GB (model), {blocks / sms:.2f} waves")
 
 
@@ -3608,7 +3677,8 @@ def multihead_checks(card: str, d: str) -> dict:
     eval), with TensorBoard on where it imports. Launches held to
     ``derived_counts`` times the steps and eval forwards (the heads launch
     none), finite losses, each dataset's eval top-k, the event file (or,
-    where TensorBoard does not import, the writer's named error); then a
+    where TensorBoard does not import, a writer that drops the scalars);
+    then a
     batch-1 step's gradients, the heads' and cross projections' leaves
     included, against the plain reference (:func:`_hold_grads`)."""
     import glob
@@ -3661,15 +3731,11 @@ def multihead_checks(card: str, d: str) -> dict:
         from aicity_action_tpu_torch.visualization.tensorboard_vis import (
             TensorboardWriter)
 
-        try:
-            TensorboardWriter(load_config(parse_args(
-                ["--cfg", LOOP_CFG, *opts])))
-        except ImportError as e:
-            if "tensorboardX" not in str(e):
-                raise
-            tb = f"the writer raises: {e}"
-        else:
-            _fail("the TensorBoard writer built without a package")
+        w = TensorboardWriter(load_config(parse_args(
+            ["--cfg", LOOP_CFG, *opts])))
+        if w.writer is not None:
+            _fail("the TensorBoard writer built a writer without a package")
+        tb = "the writer warns and drops the scalars"
     ms = epoch["wall_s"] * 1e3 / steps
     print(f"# multi-head fine-tune ({card}): MViT-v2-B 16x4 @448, heads "
           f"{dict(zip(MH_DATASETS, run.model.spec.multi_num_classes))}, "
@@ -4609,6 +4675,290 @@ def multigrid_checks(card: str, d: str) -> dict:
             "seconds": wall}
 
 
+# ------------------------------------------------ MViT-v2-L widths @448
+
+L_CFG = "mvitv2_l_16x4_448_cfg"  # the config factory of the phase
+L_DEVICE = "cuda"
+# the blocks whose calls the kernel checks take: the first, the three where
+# the widths double and the last
+L_BLOCKS = (0, 2, 8, 44, 47)
+L_VIEW_FRAMES = 96  # the phase's written view: three windows, one forward
+# the wrappers whose kernels this phase widens (PERF.md rows 8, 5, 10, 12
+# and 1)
+L_FNS = ("fused_ln_qkv", "flash_attention_ln", "fused_ln_mlp",
+         "fused_layer_norm", "flash_attention")
+
+
+def l_overrides() -> list:
+    """The command-line overrides that make the AI City YAML the L config
+    (``config.defaults.MVITV2_L_TRUNK``)."""
+    from aicity_action_tpu_torch.config.defaults import MVITV2_L_TRUNK
+
+    return [a for key, value in MVITV2_L_TRUNK.items()
+            for a in (f"MVIT.{key}", str(value))]
+
+
+def _l_block_calls(cfg, batch: int) -> dict:
+    """Block -> (its fused_ln_qkv call, its attention call, its LN+MLP call
+    or None), from the call-shape functions, for each of L_BLOCKS."""
+    from aicity_action_tpu_torch.models.mvit import (attention_call_shapes,
+                                                    dense_call_shapes)
+
+    per_block = []
+    for call in dense_call_shapes(cfg, batch):
+        if call[0] == "qkv":
+            per_block.append([call, None])
+        else:
+            per_block[-1][1] = call
+    att = attention_call_shapes(cfg, batch)
+    return {i: (per_block[i][0], att[i], per_block[i][1]) for i in L_BLOCKS}
+
+
+def l_kernel_checks(cfg) -> dict:
+    """The widened kernels at the L path's batch-8 shapes, each against its
+    plain version and timed beside its library yardstick: at the blocks of
+    L_BLOCKS, LN+qkv (row 8; each distinct shape once), the fused-LN
+    attention (row 5, head dim 72), the lse-free flash attention of the
+    unfused path (row 1, token rows, the plain version in f32) and LN+MLP
+    (row 10; each width once); the rows LayerNorm (row 12) at the final
+    norm [B*1568, 1152] and at block 0's q pool norm of the unfused path
+    (head dim 72)."""
+    import torch
+    import torch.nn.functional as F
+
+    from aicity_action_tpu_torch.ops import flash_attention as fa
+    from aicity_action_tpu_torch.ops import layer_norm as ln
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=L_DEVICE).manual_seed(SEED + 90)
+    res = {name: [] for name in L_FNS}
+    seen = set()
+    for blk, (qkv, (G, Lq, Lk, d), mlp) in _l_block_calls(
+            cfg, BATCH).items():
+        _, M, L, D, C = qkv
+        if qkv not in seen:
+            seen.add(qkv)
+            res["fused_ln_qkv"].append(_qkv_case(
+                gen, f"L block {blk} x[{M},{D}] w[{3 * C},{D}] -> [B,C,L]",
+                M, L, D, C))
+        shape = f"L block {blk} q[{G},{Lq},{d}] k,v[{G},{Lk},{d}]"
+        res["flash_attention_ln"].append(_attn_ln_case(
+            gen, shape + " d-major", G, Lq, Lk, d))
+        q, k, v = (_normal(gen, (G, n, d), 1.0, bf) for n in (Lq, Lk, Lk))
+        scale = d ** -0.5
+        r = _check_case(
+            "flash_attention",
+            lambda: fa.flash_attention_fwd(q, k, v, scale, False)[0],
+            lambda: fa.flash_attention_plain(q.float(), k.float(),
+                                             v.float(), scale),
+            lambda: _sdpa(q, k, v),
+            flops=4 * G * Lq * Lk * d,
+            nbytes=2 * (2 * G * Lq * d + 2 * G * Lk * d),
+            peak=PEAK_BF16, iters=3)
+        r["shape"] = shape + " (no lse)"
+        res["flash_attention"].append(_mark_fwd(r, G, Lq, Lk, d))
+        del q, k, v
+        if mlp is not None and mlp not in seen:
+            seen.add(mlp)
+            _, Mm, Cm, H = mlp
+            res["fused_ln_mlp"].append(_mlp_case(
+                gen, f"L block {blk} x[{Mm},{Cm}] H {H}", Mm, Cm))
+        torch.cuda.empty_cache()
+    h0, L0 = cfg.MVIT.NUM_HEADS, _l_block_calls(cfg, 1)[0][1][1]
+    for what, M, C, eps in (
+            ("L final norm (batch 8)", BATCH * 1568, 1152, 1e-6),
+            ("L block 0 q pool norm, head dim 72 (unfused path)",
+             BATCH * h0 * L0, 72, 1e-5)):
+        x = _normal(gen, (M, C), 2.0, bf)
+        g = _normal(gen, (C,), 0.1, bf) + 1
+        bb = _normal(gen, (C,), 0.1, bf)
+        r = _check_case(
+            "fused_layer_norm",
+            lambda: ln.fused_layer_norm(x, g, bb, eps, 1),
+            lambda: ln.layer_norm_plain(x, g, bb, eps, 1),
+            lambda: F.layer_norm(x, (C,), g, bb, eps),
+            flops=8 * M * C, nbytes=2 * (2 * M * C + 2 * C),
+            peak=PEAK_F32, iters=50)
+        r["shape"] = f"{what} x[{M},{C}] (rows)"
+        res["fused_layer_norm"].append(r)
+        del x
+    torch.cuda.empty_cache()
+    return res
+
+
+def l_model_checks(card: str, d: str) -> dict:
+    """The L model at full width and depth (48 blocks, seed 0, bf16): the
+    batch-8 eval forward through ``make_eval_step`` with its launches held
+    to ``derived_counts`` (rows 8, 5 and 10 once a block, row 12 once), its
+    time and peak memory, its scores and head input against the same
+    weights' plain f32 forward on the card (batch 8); the same forward
+    with ``AICITY_TPU_FUSE_ATTN_LN=0`` (row 1 and the head-dim-72 pool
+    norms) with its launches and its scores against the fused path's;
+    then ``run_temporal_inf`` with the L overrides on the command line on
+    a short written view, its launches held to ``derived_counts`` times
+    its forwards and its pickle to ``WindowScorer.score_video`` of the
+    same weights."""
+    import torch
+
+    from aicity_action_tpu_torch.data.decoder import write_y4m
+    from aicity_action_tpu_torch.engine.steps import make_eval_step
+    from aicity_action_tpu_torch.models.build import build_model
+    from aicity_action_tpu_torch.ops import kernels
+    from aicity_action_tpu_torch.pipeline.window_inference import (
+        WindowDataset, WindowScorer, load_window_predictions)
+    from aicity_action_tpu_torch.tools import run_temporal_inf
+
+    cfg = _factory(L_CFG)()
+    model = build_model(cfg, device=L_DEVICE, seed=SEED)
+    params = sum(p.numel() for p in model.parameters())
+    depth = len(model.blocks)
+    eval_step = make_eval_step(model)
+    T, S = cfg.DATA.NUM_FRAMES, cfg.DATA.TEST_CROP_SIZE
+    gen = torch.Generator(device=L_DEVICE).manual_seed(SEED + 91)
+    x = _normal(gen, (BATCH, T, S, S, 3), device=L_DEVICE)
+    feats = []
+    hook = model.head.register_forward_hook(
+        lambda mod, inp, outp: feats.append(inp[0].float()))
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = eval_step({"inputs": x})
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hook.remove()
+    want = derived_counts(model, train=False)
+    rows = {"fused_ln_qkv": depth, "flash_attention_ln": depth,
+            "fused_ln_mlp": depth, "fused_layer_norm": 1}
+    if counts != want or any(want[k] != n for k, n in rows.items()):
+        _fail(f"MViT-v2-L @448: launches per forward {counts} != {want} "
+              f"(rows 8 / 5 / 10 / 12 must be {rows})")
+    if out.shape != (BATCH, cfg.MODEL.NUM_CLASSES) or \
+            not torch.isfinite(out).all():
+        _fail("MViT-v2-L @448 batch-8 forward: non-finite or mis-shaped "
+              "scores")
+    ms = time_ms(lambda: eval_step({"inputs": x}), iters=5)
+
+    f32 = cfg.clone()
+    f32.TPU.COMPUTE_DTYPE = "float32"
+    plain = build_model(f32, device=L_DEVICE, seed=SEED)
+    hook = plain.head.register_forward_hook(
+        lambda mod, inp, outp: feats.append(inp[0].float()))
+    t = time.perf_counter()
+    with kernels.plain_reference(), torch.no_grad():
+        out_p = plain.eval()(x.float())
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t
+    hook.remove()
+    del plain
+    feat_err = ((feats[0] - feats[1]).norm() / feats[1].norm()).item()
+    score_err = (out.float() - out_p).abs().max().item()
+    print(f"# MViT-v2-L 16x4 @448 ({card}; {depth} blocks, {params} "
+          f"parameters, seed {SEED}): batch-{BATCH} forward {ms:.2f} ms, "
+          f"{BATCH / ms * 1e3:.2f} clips/s, peak memory "
+          f"{peak / 2 ** 30:.2f} GiB; launches {counts}; kernels (bf16) vs "
+          f"the plain f32 forward (batch {BATCH}, {plain_s:.1f} s): max "
+          f"|score error| {score_err:.3e} (tol 1e-2), head-input relative "
+          f"L2 {feat_err:.3e} (tol 5e-2)")
+    if not (score_err <= 1e-2 and feat_err <= 5e-2):
+        _fail("MViT-v2-L @448: the kernel forward disagrees with the plain "
+              "f32 forward")
+
+    with fuse_switch("0"):
+        reset_counts()
+        out0 = eval_step({"inputs": x})
+        torch.cuda.synchronize()
+        counts0 = read_counts()
+        want0 = derived_counts(model, train=False)
+        if counts0 != want0 or want0["flash_attention"] != depth:
+            _fail(f"MViT-v2-L unfused: launches per forward {counts0} != "
+                  f"{want0}")
+        ms0 = time_ms(lambda: eval_step({"inputs": x}), iters=3)
+    err0 = (out0 - out).abs().max().item()
+    print(f"# MViT-v2-L 16x4 @448 with AICITY_TPU_FUSE_ATTN_LN=0 ({card}): "
+          f"batch-{BATCH} forward {ms0:.2f} ms, "
+          f"{BATCH / ms0 * 1e3:.2f} clips/s; max |score - fused path's| "
+          f"{err0:.3e} (tol 1e-2); launches {counts0}")
+    if not err0 <= 1e-2:
+        _fail("MViT-v2-L: the unfused eval disagrees with the fused one")
+    del x, out, out0, out_p, feats
+    torch.cuda.empty_cache()
+
+    stem = f"Dashboard_user_id_{CHAIN_USER}_NoAudio_0"
+    path = os.path.join(d, f"{stem}.y4m")
+    write_y4m(path, _view_frames(L_VIEW_FRAMES, SEED + 92))
+    lst = os.path.join(d, "videos.txt")
+    with open(lst, "w") as f:
+        f.write(f"{stem}.y4m\n")
+    pkl = os.path.join(d, "pkl")
+    argv = ["--cfg", CHAIN_CFG, "--video_lst", lst, "--video_path", d,
+            "--out_dir", pkl, "--frame_length", str(T), "--frame_size",
+            str(S), "--batch_size", str(BATCH), "--num_workers", "2",
+            "--device", L_DEVICE, "RNG_SEED", str(SEED), "NUM_GPUS", "1",
+            *l_overrides()]
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    run = run_temporal_inf.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = read_counts()
+    forwards = sum(r["timers"]["calls"] for r in run.values())
+    want = {k: v * forwards for k, v in derived_counts(model, False).items()}
+    if not forwards or launches != want:
+        _fail(f"MViT-v2-L run_temporal_inf: launches {launches} != "
+              f"derived_counts x {forwards} forwards {want}")
+    kw = dict(frame_length=T, frame_stride=4, proposal_stride=16,
+              frame_size=S, target_fps=cfg.DATA.TARGET_FPS,
+              mean=cfg.DATA.MEAN, std=cfg.DATA.STD)
+    preds = load_window_predictions(os.path.join(pkl, f"{stem}.pkl"))
+    ds = WindowDataset(path, **kw)
+    ref = WindowScorer(model, batch_size=BATCH,
+                       num_workers=2).score_video(ds)
+    scores = np.stack([p[2] for p in preds])
+    if [p[:2] for p in preds] != [p[:2] for p in ref] or \
+            not np.isfinite(scores).all() or \
+            scores.shape != (len(ds.windows), cfg.MODEL.NUM_CLASSES):
+        _fail("MViT-v2-L run_temporal_inf: wrong windows or scores")
+    pickle_err = float(np.abs(scores - np.stack([p[2] for p in ref])).max())
+    print(f"# MViT-v2-L run_temporal_inf ({card}): {len(preds)} windows of "
+          f"a {L_VIEW_FRAMES}-frame 960x540 view in {wall:.2f} s "
+          f"({forwards} forwards), pickle vs score_video max error "
+          f"{pickle_err:.2e} (tol 1e-6); launches {launches}")
+    if not pickle_err <= 1e-6:
+        _fail(f"MViT-v2-L: the CLI's pickle differs from score_video: "
+              f"{pickle_err}")
+    del model, eval_step
+    torch.cuda.empty_cache()
+    return {"params": params, "forward_ms": ms,
+            "clips_per_s": BATCH / ms * 1e3, "peak_mem_bytes": peak,
+            "score_err_f32": score_err, "feat_rel_err_f32": feat_err,
+            "plain_f32_s": plain_s, "launches_per_forward": counts,
+            "unfused": {"forward_ms": ms0, "clips_per_s": BATCH / ms0 * 1e3,
+                        "score_err_vs_fused": err0,
+                        "launches_per_forward": counts0},
+            "run_temporal_inf": {"windows": len(preds), "seconds": wall,
+                                 "forwards": forwards,
+                                 "pickle_err": pickle_err,
+                                 "launches": launches}}
+
+
+def _print_case(name: str, c: dict) -> None:
+    """A kernel case's comment line: error and tolerance, the kernel's,
+    plain version's and library call's times, the bound."""
+    print(f"# {name} {c['shape']}: err {c['max_abs_err']:.3e} "
+          f"(tol {c['tol']:.3e}), {c['ms']:.4f} ms (n {c['n']}, "
+          f"iqr {c['ms_iqr'][0]:.4f}-{c['ms_iqr'][1]:.4f}), plain "
+          f"{c['plain_ms']:.4f} ms, library {c['library_ms']:.4f} "
+          f"ms (iqr {c['library_iqr'][0]:.4f}-"
+          f"{c['library_iqr'][1]:.4f}), bound {c['bound_ms']:.4f} "
+          f"ms ({c['bound_by']})"
+          + (f"; before the residual err "
+             f"{c['pre_residual']['max_abs_err']:.3e} (tol "
+             f"{c['pre_residual']['tol']:.3e})"
+             if "pre_residual" in c else "")
+          + (_fwd_note(*c["_fwd"]) if "_fwd" in c else ""))
+
+
 def main() -> int:
     try:
         import torch
@@ -4643,18 +4993,7 @@ def main() -> int:
     checks.update(v1_kernel_checks())
     for name, cases in checks.items():
         for c in cases:
-            print(f"# {name} {c['shape']}: err {c['max_abs_err']:.3e} "
-                  f"(tol {c['tol']:.3e}), {c['ms']:.4f} ms (n {c['n']}, "
-                  f"iqr {c['ms_iqr'][0]:.4f}-{c['ms_iqr'][1]:.4f}), plain "
-                  f"{c['plain_ms']:.4f} ms, library {c['library_ms']:.4f} "
-                  f"ms (iqr {c['library_iqr'][0]:.4f}-"
-                  f"{c['library_iqr'][1]:.4f}), bound {c['bound_ms']:.4f} "
-                  f"ms ({c['bound_by']})"
-                  + (f"; before the residual err "
-                     f"{c['pre_residual']['max_abs_err']:.3e} (tol "
-                     f"{c['pre_residual']['tol']:.3e})"
-                     if "pre_residual" in c else "")
-                  + (_fwd_note(*c["_fwd"]) if "_fwd" in c else ""))
+            _print_case(name, c)
     # each path runs with the counts set to 0 just before it and read just
     # after; the default switch (auto) unless stated
     cfg = mvitv2_b_16x4_448_cfg()
@@ -4762,6 +5101,17 @@ def main() -> int:
     pp_stats = pp_checks(card)
     print(f"# PP phase: {time.perf_counter() - t:.1f} s")
     launches["PP, 4 microbatches"] = pp_stats["launches"]
+    t = time.perf_counter()
+    l_checks = l_kernel_checks(_factory(L_CFG)())
+    for name, cases in l_checks.items():
+        for c in cases:
+            _print_case(name, c)
+    with tempfile.TemporaryDirectory() as l_dir:
+        l_stats = l_model_checks(card, l_dir)
+    print(f"# MViT-v2-L phase: {time.perf_counter() - t:.1f} s")
+    launches["L eval"] = l_stats["launches_per_forward"]
+    launches["L unfused eval"] = l_stats["unfused"]["launches_per_forward"]
+    launches["L run_temporal_inf"] = l_stats["run_temporal_inf"]["launches"]
 
     # launches of each kernel in the run of the path it serves: the AI City
     # chain's run_temporal_inf for the inference kernels, the timed train
@@ -4786,6 +5136,14 @@ def main() -> int:
                                  for path, n in launches.items()},
             "other_shapes": [_public(c) for c in checks[name][1:]],
         })
+        if name in L_FNS:
+            # the L path's shapes and launches (flash_attention's on the
+            # unfused eval, the others' on run_temporal_inf)
+            l_path = ("L unfused eval" if name == "flash_attention"
+                      else "L run_temporal_inf")
+            kernels_line[-1].update(
+                l_shapes=[_public(c) for c in l_checks[name]],
+                l_launches=launches[l_path][name], l_launches_on=l_path)
         if name in ("fused_layer_norm", "fused_layer_norm_bwd"):
             cm = ("pool_norm_rows" if name == "fused_layer_norm"
                   else "pool_norm_rows_bwd")
@@ -4809,7 +5167,7 @@ def main() -> int:
                       "classifier": clf_stats, "fire_drill": drill_stats,
                       "benchmarks": bench_stats, "moe": moe_stats,
                       "multigrid": mg_stats, "parallel": par_stats,
-                      "pp": pp_stats}, default=str))
+                      "pp": pp_stats, "mvit_l": l_stats}, default=str))
     print(json.dumps({"kernels": kernels_line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

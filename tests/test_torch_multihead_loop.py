@@ -171,8 +171,24 @@ def test_multidataset_epoch_driver(workdir):
     assert "top1_acc" in stats and stats["clips"] == 16
 
 
-def test_tensorboard_writer_names_both_packages(workdir, monkeypatch):
+def test_tensorboard_writer_names_both_packages(workdir, tmp_path,
+                                                monkeypatch):
+    """Where neither package imports, the writer warns once, naming both,
+    and drops what it is given (the JAX writer's behaviour): no event
+    file, and the run is not stopped."""
     monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
     monkeypatch.setitem(sys.modules, "tensorboardX", None)
-    with pytest.raises(ImportError, match="tensorboardX"):
-        tensorboard_vis.TensorboardWriter(_multi_cfg(get_cfg, workdir))
+    warned = []
+    monkeypatch.setattr(tensorboard_vis.logger, "warning",
+                        lambda msg, *args: warned.append(msg % args))
+    cfg = _multi_cfg(get_cfg, workdir)
+    cfg.TENSORBOARD.LOG_DIR = str(tmp_path / "tb")
+    w = tensorboard_vis.TensorboardWriter(cfg)
+    assert w.writer is None
+    assert len(warned) == 1
+    assert "tensorboardX" in warned[0]
+    assert "torch.utils.tensorboard" in warned[0]
+    w.add_scalars({"Train/loss": 1.0}, 0)
+    w.plot_eval(np.eye(3), np.arange(3), 0)
+    w.close()
+    assert not glob.glob(os.path.join(w.log_dir, "events.*"))

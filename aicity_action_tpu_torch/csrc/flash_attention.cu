@@ -53,8 +53,10 @@
 // [G, L, 96]. The training path pays one transpose of each pooled tensor
 // from the pool convolutions' [B, h*d, L] into these rows (and one back for
 // their gradients) so that the pool norms, this kernel and its backward
-// share one layout. The forward without its logsumexp also takes head dim
-// 72 (MViT-v2-L's unfused eval path; flash_fwd.cuh).
+// share one layout. Every kernel also takes head dim 72 (MViT-v2-L's
+// unfused path, forward with or without the logsumexp and backward): the
+// tiles' columns past 72 load as zeros (flash_fwd.cuh, flash_bwd.cuh) and
+// only the loads and stores see 72.
 #include <math.h>
 
 #include "common.cuh"
@@ -110,7 +112,9 @@ auto flash_fwd_for(int last) {
 // The backward's pre-pass: qs = bf16(q * s) token rows (the logits' and
 // dk's operand), and ld[row] = (lse, delta = rowsum(dO * O)) for every row
 // of the 64-row tiles covering Lq, (+inf, 0) past it. Four lanes a row,
-// three 16-byte vectors each; 64 rows a block, grid (Lqp / 64, G).
+// three 16-byte vectors each (at head dim D 72 the row's nine: lanes past
+// them idle); 64 rows a block, grid (Lqp / 64, G).
+template <int D>
 __global__ void __launch_bounds__(256)
     flash_bwd_prep_kernel(const bf16* __restrict__ q,
                           const bf16* __restrict__ o,
@@ -122,10 +126,11 @@ __global__ void __launch_bounds__(256)
   const int r = blockIdx.x * BW_T + (threadIdx.x >> 2);
   float dsum = 0.f;
   if (r < Lq) {
-    const size_t base = ((size_t)grp * Lq + r) * BW_D;
+    const size_t base = ((size_t)grp * Lq + r) * D;
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
       const int c = 8 * (q4 + 4 * i);
+      if (D != BW_D && c >= D) continue;
       const uint4 x = *reinterpret_cast<const uint4*>(q + base + c);
       const uint4 a = *reinterpret_cast<const uint4*>(o + base + c);
       const uint4 b = *reinterpret_cast<const uint4*>(dout + base + c);
@@ -152,8 +157,10 @@ __global__ void __launch_bounds__(256)
 }
 
 // dq of a 64-row tile, one warpgroup: the A fragments of qs and dO from
-// global memory (rows past Lq as zeros), the K/V tiles through a TMA ring
-// (dq_tile_loop), dq = s * sum dS k rounded to bf16.
+// global memory (rows past Lq, and columns past D, as zeros), the K/V tiles
+// through a TMA ring (dq_tile_loop), dq = s * sum dS k rounded to bf16 (its
+// first D columns).
+template <int D>
 __global__ void __launch_bounds__(BW_THREADS, 2)
     flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap kmap,
                         const __grid_constant__ CUtensorMap vmap,
@@ -170,8 +177,8 @@ __global__ void __launch_bounds__(BW_THREADS, 2)
   const int g = lane >> 2, t = lane & 3;
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
   uint32_t qa[6][4], da[6][4];
-  rows_to_a(qs + (size_t)grp * Lq * BW_D, r0, Lq, t, qa);
-  rows_to_a(dout + (size_t)grp * Lq * BW_D, r0, Lq, t, da);
+  rows_to_a<D>(qs + (size_t)grp * Lq * D, r0, Lq, t, qa);
+  rows_to_a<D>(dout + (size_t)grp * Lq * D, r0, Lq, t, da);
   const float2 l0 = ld[(size_t)grp * Lqp + r0], l1 = ld[(size_t)grp * Lqp + r1];
   float acc[12][4];
 #pragma unroll
@@ -182,20 +189,20 @@ __global__ void __launch_bounds__(BW_THREADS, 2)
 
   dq_tile_loop(qa, da, ring, Lk, l0.x, l1.x, l0.y, l1.y, acc);
 
-  bf16* dqg = dq + (size_t)grp * Lq * BW_D;
+  bf16* dqg = dq + (size_t)grp * Lq * D;
 #pragma unroll
-  for (int j = 0; j < 12; ++j) {
+  for (int j = 0; j < D / 8; ++j) {
     const int col = 8 * j + 2 * t;
     if (r0 < Lq)
-      *reinterpret_cast<uint32_t*>(dqg + (size_t)r0 * BW_D + col) =
+      *reinterpret_cast<uint32_t*>(dqg + (size_t)r0 * D + col) =
           pack_bf16(acc[j][0] * scale, acc[j][1] * scale);
     if (r1 < Lq)
-      *reinterpret_cast<uint32_t*>(dqg + (size_t)r1 * BW_D + col) =
+      *reinterpret_cast<uint32_t*>(dqg + (size_t)r1 * D + col) =
           pack_bf16(acc[j][2] * scale, acc[j][3] * scale);
   }
 }
 
-// dk and dv from their f32 partials [nsplit][G * Lk * 96], summed in a
+// dk and dv from their f32 partials [nsplit][G * Lk * d], summed in a
 // fixed order (ln_bwd.cuh:sum_partials, two jobs), rounded to bf16.
 __global__ void __launch_bounds__(256)
     flash_bwd_sum_kernel(const PartialSums p) {
@@ -203,12 +210,14 @@ __global__ void __launch_bounds__(256)
 }
 
 // A one-tile check of the 64-byte-swizzle descriptors the backward builds
-// on: a, b [64][96] bf16 token rows, b loaded by TMA as the backward loads
-// its tiles; c1 = a b^T [64][64] f32 with A from registers and B K-major
-// (the logits of the dq loop and of the dk/dv kernel), c2 = bf16(c1) b
-// [64][96] f32 with B MN-major (dq, dk, dv). A wrong leading or stride
-// byte offset gives plausible numbers, not a fault, so chip_smoke.py holds
-// these against torch before it runs the backward.
+// on: a, b [64][D] bf16 token rows (D 96 or 72), b loaded by TMA as the
+// backward loads its tiles (columns past D as zeros); c1 = a b^T [64][64]
+// f32 with A from registers and B K-major (the logits of the dq loop and of
+// the dk/dv kernel), c2 = bf16(c1) b [64][96] f32 with B MN-major (dq, dk,
+// dv; columns past D zero). A wrong leading or stride byte offset gives
+// plausible numbers, not a fault, so chip_smoke.py holds these against
+// torch before it runs the backward.
+template <int D>
 __global__ void __launch_bounds__(BW_THREADS)
     wgmma_sw64_probe_kernel(const __grid_constant__ CUtensorMap bmap,
                             const bf16* __restrict__ a, float* __restrict__ c1,
@@ -226,7 +235,7 @@ __global__ void __launch_bounds__(BW_THREADS)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   uint32_t qa[6][4];
-  rows_to_a(a, warp * 16 + g, BW_T, t, qa);
+  rows_to_a<D>(a, warp * 16 + g, BW_T, t, qa);
   float s1[32], s2[48];
 #pragma unroll
   for (int i = 0; i < 32; ++i) s1[i] = 0.f;
@@ -268,15 +277,13 @@ __global__ void __launch_bounds__(BW_THREADS)
 }  // namespace aicity
 
 // q [G, Lq, d], k / v [G, Lk, d], o [G, Lq, d] bf16 token rows (d 96 or
-// 72); lse [G, Lq] f32, or null to skip it (at d 96 only: the training
-// kernels are built for 96).
+// 72); lse [G, Lq] f32, or null to skip it.
 extern "C" int aicity_flash_attention(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       int G, int Lq, int Lk, int d,
                                       float scale, void* stream) {
   using namespace aicity;
-  if (d != BW_D && (d != 72 || lse != nullptr))
-    return (int)cudaErrorInvalidValue;
+  if (d != BW_D && d != 72) return (int)cudaErrorInvalidValue;
   if (G <= 0 || Lq <= 0 || Lk <= 0) return (int)cudaSuccess;
   const int last = fwd_last_width(Lk);
   auto kernel = d == 72 ? flash_fwd_for<72>(last) : flash_fwd_for<96>(last);
@@ -300,45 +307,40 @@ extern "C" int aicity_flash_bwd_smem_bytes(int which) {
                     : dkv_smem_bytes();
 }
 
-// The backward. out, dout [G, Lq, d]; lse [G, Lq] f32; dq, dk, dv bf16 like
-// q, k, v. Scratch: qs [G, Lq, d] bf16, ld [G, Lqp] float2 (Lqp = Lq
-// rounded up to 64), dk_part / dv_part [nsplit, G, Lk, d] f32, nsplit =
-// ceil(Lq / qps) query splits of qps rows (a multiple of 64). Four kernels:
-// the pre-pass (qs, ld), dq, dk/dv partials, their sums.
-extern "C" int aicity_flash_attention_bwd(
-    const void* q, const void* k, const void* v, const void* out,
-    const void* dout, const void* lse, void* qs, void* ld, void* dq,
-    void* dk, void* dv, void* dk_part, void* dv_part, int G, int Lq, int Lk,
-    int d, float scale, int qps, void* stream) {
-  using namespace aicity;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (d != BW_D || qps <= 0 || qps % BW_T) return (int)cudaErrorInvalidValue;
-  if (G <= 0 || Lq <= 0 || Lk <= 0) return (int)cudaSuccess;
+namespace aicity {
+
+// The backward's four launches at head dim D (aicity_flash_attention_bwd).
+template <int D>
+int flash_bwd_launches(const void* q, const void* k, const void* v,
+                       const void* out, const void* dout, const void* lse,
+                       void* qs, void* ld, void* dq, void* dk, void* dv,
+                       void* dk_part, void* dv_part, int G, int Lq, int Lk,
+                       float scale, int qps, cudaStream_t s) {
   const int lqp = (Lq + BW_T - 1) / BW_T * BW_T;
-  flash_bwd_prep_kernel<<<dim3(lqp / BW_T, G), 256, 0, s>>>(
+  flash_bwd_prep_kernel<D><<<dim3(lqp / BW_T, G), 256, 0, s>>>(
       (const bf16*)q, (const bf16*)out, (const bf16*)dout, (const float*)lse,
       (bf16*)qs, (float2*)ld, Lq, lqp, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   CUtensorMap mk, mv;
-  if (make_tmap3_sw64(&mk, k, G, Lk, BW_D, BW_T) ||
-      make_tmap3_sw64(&mv, v, G, Lk, BW_D, BW_T))
+  if (make_tmap3_sw64(&mk, k, G, Lk, D, BW_T) ||
+      make_tmap3_sw64(&mv, v, G, Lk, D, BW_T))
     return (int)cudaErrorInvalidValue;
-  const int smem_dq = aicity_flash_bwd_smem_bytes(0);
-  err = set_smem(flash_bwd_dq_kernel, smem_dq);
+  const int smem_dq = 1024 + KvRing<DQ_STAGES>::ring_bytes();
+  err = set_smem(flash_bwd_dq_kernel<D>, smem_dq);
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_kernel<<<dim3(lqp / BW_T, G), BW_THREADS, smem_dq, s>>>(
+  flash_bwd_dq_kernel<D><<<dim3(lqp / BW_T, G), BW_THREADS, smem_dq, s>>>(
       mk, mv, (const bf16*)qs, (const bf16*)dout, (const float2*)ld,
       (bf16*)dq, Lq, Lk, lqp, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  err = launch_dkv(qs, dout, k, v, (const float2*)ld, (float*)dk_part,
-                   (float*)dv_part, G, Lq, Lk, lqp, qps, s);
+  err = launch_dkv<D>(qs, dout, k, v, (const float2*)ld, (float*)dk_part,
+                      (float*)dv_part, G, Lq, Lk, lqp, qps, s);
   if (err != cudaSuccess) return (int)err;
   const int nsplit = (Lq + qps - 1) / qps;
-  const long n = (long)G * Lk * d;
+  const long n = (long)G * Lk * D;
   PartialSums sums;
   int jobs = 0;
   add_sum(sums, jobs, (const float*)dk_part, (bf16*)dk, nsplit, n);
@@ -347,16 +349,44 @@ extern "C" int aicity_flash_attention_bwd(
   return (int)cudaGetLastError();
 }
 
-// The descriptor check (wgmma_sw64_probe_kernel): a, b [64, 96] bf16; c1
-// [64, 64] and c2 [64, 96] f32.
-extern "C" int aicity_wgmma_sw64_probe(const void* a, const void* b, void* c1,
-                                       void* c2, void* stream) {
+}  // namespace aicity
+
+// The backward. out, dout [G, Lq, d]; lse [G, Lq] f32; dq, dk, dv bf16 like
+// q, k, v (d 96 or 72). Scratch: qs [G, Lq, d] bf16, ld [G, Lqp] float2
+// (Lqp = Lq rounded up to 64), dk_part / dv_part [nsplit, G, Lk, d] f32,
+// nsplit = ceil(Lq / qps) query splits of qps rows (a multiple of 64). Four
+// kernels: the pre-pass (qs, ld), dq, dk/dv partials, their sums.
+extern "C" int aicity_flash_attention_bwd(
+    const void* q, const void* k, const void* v, const void* out,
+    const void* dout, const void* lse, void* qs, void* ld, void* dq,
+    void* dk, void* dv, void* dk_part, void* dv_part, int G, int Lq, int Lk,
+    int d, float scale, int qps, void* stream) {
   using namespace aicity;
+  cudaStream_t s = (cudaStream_t)stream;
+  if ((d != BW_D && d != 72) || qps <= 0 || qps % BW_T)
+    return (int)cudaErrorInvalidValue;
+  if (G <= 0 || Lq <= 0 || Lk <= 0) return (int)cudaSuccess;
+  return d == 72 ? flash_bwd_launches<72>(q, k, v, out, dout, lse, qs, ld,
+                                          dq, dk, dv, dk_part, dv_part, G,
+                                          Lq, Lk, scale, qps, s)
+                 : flash_bwd_launches<96>(q, k, v, out, dout, lse, qs, ld,
+                                          dq, dk, dv, dk_part, dv_part, G,
+                                          Lq, Lk, scale, qps, s);
+}
+
+// The descriptor check (wgmma_sw64_probe_kernel): a, b [64, d] bf16 (d 96
+// or 72); c1 [64, 64] and c2 [64, 96] f32.
+extern "C" int aicity_wgmma_sw64_probe(const void* a, const void* b, void* c1,
+                                       void* c2, int d, void* stream) {
+  using namespace aicity;
+  if (d != BW_D && d != 72) return (int)cudaErrorInvalidValue;
   CUtensorMap mb;
-  if (make_tmap3_sw64(&mb, b, 1, BW_T, BW_D, BW_T))
+  if (make_tmap3_sw64(&mb, b, 1, BW_T, d, BW_T))
     return (int)cudaErrorInvalidValue;
   const int smem = 1024 + BW_TILE + 8;
-  wgmma_sw64_probe_kernel<<<1, BW_THREADS, smem, (cudaStream_t)stream>>>(
+  auto kernel = d == 72 ? wgmma_sw64_probe_kernel<72>
+                        : wgmma_sw64_probe_kernel<96>;
+  kernel<<<1, BW_THREADS, smem, (cudaStream_t)stream>>>(
       mb, (const bf16*)a, (float*)c1, (float*)c2);
   return (int)cudaGetLastError();
 }

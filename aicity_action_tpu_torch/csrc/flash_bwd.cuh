@@ -27,6 +27,20 @@
 // [G][L][96] (make_tmap3_sw64), so rows past L load as zero and never come
 // from the next group.
 //
+// Head dim 72 (MViT-v2-L's training path; the D of the dq and dk/dv
+// kernels): the tensor maps' inner extent is 72, so TMA fills columns
+// 72-95 of every tile's third box with zeros, and the register fragments of
+// rows read from global memory (rows_to_a<72>) are zeros there too. Every
+// d-96 product then runs as it is: the logits and dP sum zeros past 72, and
+// dq, dk, dv get zero columns past 72, which the kernels do not store.
+// delta = rowsum(dO * O) reads 72 columns. The forward's note
+// (flash_fwd.cuh) says why the narrower products are not used. The d-72
+// kernels give the d-96 kernels' results on zero-padded inputs bit for bit
+// (NVIDIA H100 80GB HBM3, PERF.md PR 19). Giving dk dS^T as hi + lo too
+// (one more product a tile) did not move the L step's k pool norm scale
+// gradients, the ones farthest from f32, and ptxas wrapped its products in
+// warpgroup waits (C7517 / C7519): not kept.
+//
 // Blocks: one warpgroup (128 threads, one m64 tile of rows) a block, and
 // two blocks an SM (__launch_bounds__(128, 2): up to 255 registers a
 // thread, shared memory under half the SM's), so one block's exponentials
@@ -249,10 +263,10 @@ __host__ __device__ constexpr int dkv_smem_bytes() {
 // dP^T = v dO^T (wgmma m64n64k16, A from registers, B K-major), P^T =
 // exp(S^T - lse), dS^T = P^T (dP^T - delta) in f32, then dv += bf16(P^T) dO
 // and dk += bf16(dS^T) qs (m64n96k16, A from registers, B MN-major). Writes
-// f32 partials [split][G][Lk][96]; rows past Lk are not written. (A
-// template, on the ring's depth, so that both backwards' sources may
-// instantiate it.)
-template <int STAGES>
+// f32 partials [split][G][Lk][D] (D: the head dim, 96 or 72); rows past Lk
+// are not written. (A template, on the ring's depth, so that both
+// backwards' sources may instantiate it.)
+template <int STAGES, int D = BW_D>
 __global__ void __launch_bounds__(BW_THREADS, 2)
     flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
                          const __grid_constant__ CUtensorMap dmap,
@@ -288,8 +302,8 @@ __global__ void __launch_bounds__(BW_THREADS, 2)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   uint32_t ka[6][4], va[6][4];
-  rows_to_a(k + (size_t)grp * Lk * BW_D, k0 + warp * 16 + g, Lk, t, ka);
-  rows_to_a(v + (size_t)grp * Lk * BW_D, k0 + warp * 16 + g, Lk, t, va);
+  rows_to_a<D>(k + (size_t)grp * Lk * D, k0 + warp * 16 + g, Lk, t, ka);
+  rows_to_a<D>(v + (size_t)grp * Lk * D, k0 + warp * 16 + g, Lk, t, va);
   float dka[48], dva[48];
 #pragma unroll
   for (int i = 0; i < 48; ++i) dka[i] = dva[i] = 0.f;
@@ -352,33 +366,34 @@ __global__ void __launch_bounds__(BW_THREADS, 2)
     const int key = k0 + warp * 16 + g + 8 * h;
     if (key >= Lk) continue;
 #pragma unroll
-    for (int j = 0; j < 12; ++j) {
+    for (int j = 0; j < D / 8; ++j) {
       const int col = 8 * j + 2 * t;
-      *reinterpret_cast<float2*>(dk_part + (base + key) * BW_D + col) =
+      *reinterpret_cast<float2*>(dk_part + (base + key) * D + col) =
           make_float2(dka[4 * j + 2 * h], dka[4 * j + 2 * h + 1]);
-      *reinterpret_cast<float2*>(dv_part + (base + key) * BW_D + col) =
+      *reinterpret_cast<float2*>(dv_part + (base + key) * D + col) =
           make_float2(dva[4 * j + 2 * h], dva[4 * j + 2 * h + 1]);
     }
   }
 }
 
 // The dk/dv kernel's launch on a grid of (key tiles, G, query splits):
-// the tensor maps of qs and dO ([G][Lq][96] token rows), K and V as token
-// rows [G][Lk][96], ld with lqp rows a group.
+// the tensor maps of qs and dO ([G][Lq][D] token rows), K and V as token
+// rows [G][Lk][D], ld with lqp rows a group.
+template <int D = BW_D>
 inline cudaError_t launch_dkv(const void* qs, const void* dout,
                               const void* k, const void* v, const float2* ld,
                               float* dk_part, float* dv_part, int G, int Lq,
                               int Lk, int lqp, int qps, cudaStream_t stream) {
   CUtensorMap mq, md;
-  if (make_tmap3_sw64(&mq, qs, G, Lq, BW_D, BW_T) ||
-      make_tmap3_sw64(&md, dout, G, Lq, BW_D, BW_T))
+  if (make_tmap3_sw64(&mq, qs, G, Lq, D, BW_T) ||
+      make_tmap3_sw64(&md, dout, G, Lq, D, BW_T))
     return cudaErrorInvalidValue;
   const int nsplit = (Lq + qps - 1) / qps;
   const cudaError_t err =
-      set_smem(flash_bwd_dkv_kernel<DKV_STAGES>, dkv_smem_bytes());
+      set_smem(flash_bwd_dkv_kernel<DKV_STAGES, D>, dkv_smem_bytes());
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_kernel<DKV_STAGES><<<dim3((Lk + BW_T - 1) / BW_T, G, nsplit),
-                                     BW_THREADS, dkv_smem_bytes(), stream>>>(
+  flash_bwd_dkv_kernel<DKV_STAGES, D><<<dim3((Lk + BW_T - 1) / BW_T, G, nsplit),
+                                        BW_THREADS, dkv_smem_bytes(), stream>>>(
       mq, md, (const bf16*)k, (const bf16*)v, ld, dk_part, dv_part, G, Lk,
       lqp, qps);
   return cudaGetLastError();

@@ -64,8 +64,9 @@
 // see 72. Timed on an H100 against the tightest products (logits over 80
 // columns, P V at m64n72k16) and over 80 / 96 (PERF.md, PR 18): the same
 // times to 1%, while ptxas serialized the wgmma of the narrow products'
-// last-tile instances (C7511). Forward only: the logsumexp and backward
-// kernels keep d 96.
+// last-tile instances (C7511). flash_attention.cu's training forward
+// writes the logsumexp at 72 as at 96, and its backward takes 72 the same
+// way (flash_bwd.cuh); the fused-LN training kernels keep d 96.
 #pragma once
 
 #include <math.h>

@@ -5,9 +5,11 @@
 // (:414) and _ln_mlp_bwd_hsplit_kernel (:533) (reached through
 // fused_ln_mlp's custom VJP, :694), which every MViT block runs in
 // training: x [M, C] with M from 401408 (block 0, batch 4) down to 6272,
-// C in {96, 192, 384, 768}, H = 4C. 10*M*C*H flops against 2*M*3C bytes of
-// activations and the weights: the tensor cores bound it, and at the narrow
-// widths the hidden activations this design stores.
+// C in {96, 192, 384, 768}, H = 4C (MViT-v2-L: C in {144, 288, 576,
+// 1152}; the JAX package leaves C 1152 to XLA, the port runs this).
+// 10*M*C*H flops against 2*M*3C bytes of activations and the weights: the
+// tensor cores bound it, and at the narrow widths the hidden activations
+// this design stores.
 //
 // The Pallas kernel recomputes LN -> fc1 -> GELU per row tile and adds the
 // weight gradients into resident blocks across a sequential grid. GPU
@@ -21,7 +23,8 @@
 //     xn = bf16(LN(x)) row-major, and xn^T and dOut^T channel-major
 //     ([C][ld], ld = M rounded up to 8 so that TMA's strides are whole 16
 //     bytes), transposed through shared memory.
-//  2. mlp_bwd_dual_kernel: per (128-row tile, 128-wide hidden tile), two
+//  2. mlp_bwd_dual_kernel: per (128-row tile, 128-wide hidden tile; 64-wide
+//     where 128 does not divide H, MViT-v2-L's H = 576), two
 //     accumulators over K = C, h_pre = xn W1[tile]^T and dh = dOut
 //     W2t[tile]^T (W2t = W2^T, a contiguous copy). The epilogue adds b1,
 //     forms h = bf16(gelu(h_pre)) and dh_pre = dh * gelu'(h_pre) in f32,
@@ -136,7 +139,10 @@ __global__ void __launch_bounds__(DENSE_THREADS, 1)
       ((uintptr_t)dual_smem_raw + 1023) & ~(uintptr_t)1023);
   constexpr int A_BYTES = DENSE_BM * 128;
   constexpr int STAGE = 2 * A_BYTES + 2 * TN * 128;
-  static_assert(TN == 128, "a consumer thread per column of the tile");
+  // a consumer thread per column of the tile (TN 128), or of its first TN
+  // threads (TN 64; the guards below fold away at 128)
+  static_assert(TN == 128 || TN == 64, "the dual GEMM's hidden tiles");
+  constexpr bool HALF = TN < 128;
   unsigned char* stg = ring + p.stages * STAGE;
   float* bsm = reinterpret_cast<float*>(stg + 2 * TN * 128);  // [2][TN]
   uint64_t* full = reinterpret_cast<uint64_t*>(bsm + 2 * TN);
@@ -208,7 +214,9 @@ __global__ void __launch_bounds__(DENSE_THREADS, 1)
     const int row0 = (tile / n_tiles) * DENSE_BM;
     const int n0 = (tile % n_tiles) * TN;
     const int r0 = row0 + cw * 64;  // this warpgroup's first row
-    const float b1v = __bfloat162float(p.b1[n0 + ctid]);  // under the loop
+    const float b1v = !HALF || ctid < TN
+                          ? __bfloat162float(p.b1[n0 + ctid])  // under the loop
+                          : 0.f;
     float acc_h[TN / 2], acc_d[TN / 2];
 #pragma unroll
     for (int i = 0; i < TN / 2; ++i) acc_h[i] = acc_d[i] = 0.f;
@@ -239,7 +247,7 @@ __global__ void __launch_bounds__(DENSE_THREADS, 1)
     // the tile's b1 published; the box free (the last tile's stores have
     // read it) for the db1 sums
     if (ctid == 0) bulk_wait_read();
-    bias[ctid] = b1v;
+    if (!HALF || ctid < TN) bias[ctid] = b1v;
     named_sync(2 + cw, 128);
 
     // b1 and the GELU backward in f32: acc_h becomes gelu(h_pre), acc_d
@@ -282,8 +290,9 @@ __global__ void __launch_bounds__(DENSE_THREADS, 1)
                                    acc_d[4 * j + 2 * h + 1]);
       }
     named_sync(2 + cw, 128);
-    mydb[n0 + ctid] +=
-        red[ctid] + red[TN + ctid] + red[2 * TN + ctid] + red[3 * TN + ctid];
+    if (!HALF || ctid < TN)
+      mydb[n0 + ctid] += red[ctid] + red[TN + ctid] + red[2 * TN + ctid] +
+                         red[3 * TN + ctid];
 
     // h^T and dhp^T channel-major, then dhp row-major, through the one box
     stage_cm(hpk);
@@ -376,7 +385,8 @@ inline cudaError_t launch_prep(const void* x, const void* gamma,
           case 3: return mlp_bwd_prep_kernel<3>;
           case 6: return mlp_bwd_prep_kernel<6>;
           case 12: return mlp_bwd_prep_kernel<12>;
-          default: return mlp_bwd_prep_kernel<24>;
+          case 24: return mlp_bwd_prep_kernel<24>;
+          default: return mlp_bwd_prep_kernel<36>;
         }
       },
       C);
@@ -390,15 +400,21 @@ inline cudaError_t launch_prep(const void* x, const void* gamma,
   return cudaGetLastError();
 }
 
+// the dual GEMM's hidden tile: 128, or 64 where 128 does not divide H
 constexpr int DUAL_TN = 128;
 
+__host__ __device__ inline int dual_tn(int H) {
+  return H % DUAL_TN ? DUAL_TN / 2 : DUAL_TN;
+}
+
+template <int TN>
 inline cudaError_t launch_dual(const CUtensorMap* maps, const DualArgs& a,
                                int grid, cudaStream_t s) {
-  auto kernel = mlp_bwd_dual_kernel<DUAL_TN>;
+  auto kernel = mlp_bwd_dual_kernel<TN>;
   static bool ready = false;
   cudaError_t err = prepare_dense(kernel, ready);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, DENSE_THREADS, dual_smem_bytes(DUAL_TN, a.stages), s>>>(maps[0], maps[1], maps[2], maps[3], maps[4], maps[5],
+  kernel<<<grid, DENSE_THREADS, dual_smem_bytes(TN, a.stages), s>>>(maps[0], maps[1], maps[2], maps[3], maps[4], maps[5],
                 maps[6], a);
   return cudaGetLastError();
 }
@@ -436,7 +452,8 @@ inline cudaError_t launch_ln(const void* x, const void* stats,
           case 1: return mlp_bwd_ln_kernel<1>;
           case 2: return mlp_bwd_ln_kernel<2>;
           case 3: return mlp_bwd_ln_kernel<3>;
-          default: return mlp_bwd_ln_kernel<6>;
+          case 6: return mlp_bwd_ln_kernel<6>;
+          default: return mlp_bwd_ln_kernel<9>;
         }
       },
       x, stats, dxn, gamma, gout, dx, part, M, C, rpb, blocks, s);
@@ -464,7 +481,8 @@ extern "C" int aicity_ln_mlp_bwd_smem_bytes(int variant, int C, int H, int tn,
 // [M, C], xnT and goutT [C][ld], hT and dhpT [H][ld], dhp [M, H] (bf16),
 // dxn [M, C] f32, and the f32 partials db1 [2 * grid2][H], dgb
 // [blocks4][3][C], dw1 [splits1][H][C], dw2 [splits2][C][H].
-// plan[]: ld (M rounded up to 8), stages2, grid2 (the dual GEMM, tile 128),
+// plan[]: ld (M rounded up to 8), stages2, grid2 (the dual GEMM, hidden
+// tile dual_tn(H)),
 // tn3, stages3, grid3 (dxn), blocks4, rows4 (the LN backward), then for dW1
 // and dW2 each tn, stages, grid, splits, split_chunks (64-deep K chunks a
 // split).
@@ -473,8 +491,9 @@ extern "C" int aicity_ln_mlp_bwd(const void* const* ptr, const int* plan,
                                  void* stream) {
   using namespace aicity;
   cudaStream_t s = (cudaStream_t)stream;
-  if (M <= 0 || C % 8 || C > 768 || H % DUAL_TN)
+  if (M <= 0 || C % 8 || C > DENSE_MAX_LN_K || H % (DUAL_TN / 2))
     return (int)cudaErrorInvalidValue;
+  const int tn1 = dual_tn(H);
   const void *x = ptr[0], *gamma = ptr[1], *beta = ptr[2], *w1 = ptr[3],
              *b1 = ptr[4], *w2 = ptr[5], *gout = ptr[6];
   void *dx = (void*)ptr[7], *dw1 = (void*)ptr[8], *db1 = (void*)ptr[9],
@@ -499,10 +518,10 @@ extern "C" int aicity_ln_mlp_bwd(const void* const* ptr, const int* plan,
   CUtensorMap dual[7], m_dhp, m_w1t, m_dhpt, m_xnt, m_dot, m_ht;
   int err = make_tmap(&dual[0], xn, M, C, C, DENSE_BM);
   if (!err) err = make_tmap(&dual[1], gout, M, C, C, DENSE_BM);
-  if (!err) err = weight_tmap(&dual[2], w1, H, C, C, DUAL_TN);
-  if (!err) err = make_tmap(&dual[3], w2t, H, C, C, DUAL_TN);
-  if (!err) err = make_tmap(&dual[4], hT, H, M, ld, DUAL_TN);
-  if (!err) err = make_tmap(&dual[5], dhpT, H, M, ld, DUAL_TN);
+  if (!err) err = weight_tmap(&dual[2], w1, H, C, C, tn1);
+  if (!err) err = make_tmap(&dual[3], w2t, H, C, C, tn1);
+  if (!err) err = make_tmap(&dual[4], hT, H, M, ld, tn1);
+  if (!err) err = make_tmap(&dual[5], dhpT, H, M, ld, tn1);
   if (!err) err = make_tmap(&dual[6], dhp, M, H, H, 64);
   if (!err) err = make_tmap(&m_dhp, dhp, M, H, H, DENSE_BM);
   if (!err) err = make_tmap(&m_w1t, w1t, C, H, H, tn3);
@@ -520,7 +539,8 @@ extern "C" int aicity_ln_mlp_bwd(const void* const* ptr, const int* plan,
                     eps, s);
   if (e == cudaSuccess) {
     const DualArgs a{(const bf16*)b1, db1_part, M, H, C, stages2};
-    e = launch_dual(dual, a, grid2, s);
+    e = tn1 == DUAL_TN ? launch_dual<DUAL_TN>(dual, a, grid2, s)
+                       : launch_dual<DUAL_TN / 2>(dual, a, grid2, s);
   }
   if (e == cudaSuccess) {  // dxn [M, C] = dhp W1t^T
     const DenseArgs a{nullptr, nullptr, nullptr, nullptr, M, C, H, stages3,

@@ -5,7 +5,8 @@
 // (:175, reached through fused_ln_qkv's custom VJP, :285), which every MViT
 // block runs in training. At 448 and batch 4 it sees x [M, D] with M from
 // 401408 (blocks 0-1) down to 6272, D in {96, 192, 384, 768} and 3C in
-// {288, ..., 2304}; the cls-token MViT-v1 adds odd token counts (1 + T*H*W).
+// {288, ..., 2304} (MViT-v2-L: D in {144, 288, 576, 1152}, 3C in {432,
+// ..., 3456}); the cls-token MViT-v1 adds odd token counts (1 + T*H*W).
 // dxn = G W and dW = G^T xn are 4*M*D*3C flops against 2*M*(2D + 3C)
 // bytes: the narrow blocks are bound by memory, the wide ones by the tensor
 // cores.
@@ -78,10 +79,12 @@ typedef void (*QkvPrepKernel)(const bf16*, const bf16*, const bf16*,
                               float2*, bf16*, const Transpose, int, int, int,
                               float);
 
-// The gradients' pass: a block owns QKV_GC channels of the 3C (blockIdx.y;
-// 3C is a multiple of 96) and walks 128-token tiles with a stride of
-// gridDim.x. A tile lands in shared memory as [channel][token] (rows of 65
-// words: the token-major reads below are free of bank conflicts), is
+// The gradients' pass: a block owns QKV_GC channels of the 3C (blockIdx.y)
+// and walks 128-token tiles with a stride of gridDim.x. Where 3C is no
+// multiple of 96 (RAGGED: MViT-v2-L's 3C = 432), the last chunk's channels
+// past 3C read as zeros and are neither stored (TMA clips the box) nor
+// summed into db. A tile lands in shared memory as [channel][token] (rows
+// of 65 words: the token-major reads below are free of bank conflicts), is
 // transposed into a dense [token][channel] box and leaves by one TMA store:
 // whole lines of g, where 16-byte stores to 128 rows ran at a third of the
 // card's bandwidth. Every load of a tile is issued before its first store.
@@ -131,6 +134,7 @@ struct GradRow {
 // of QKV_GT rows x QKV_GC columns) and, unless gT is null, gT [3C][ld] (the
 // clips side by side); and db's partials, db_part [gridDim.x][3C]: this
 // block's column sums over its tiles, in order.
+template <bool RAGGED>
 __global__ void __launch_bounds__(QKV_GRAD_THREADS)
     qkv_bwd_grad_kernel(const __grid_constant__ CUtensorMap map_g,
                         const bf16* __restrict__ dq,
@@ -163,7 +167,7 @@ __global__ void __launch_bounds__(QKV_GRAD_THREADS)
 #pragma unroll
       for (int k = 0; k < NV; ++k) {  // (faster here than GradRow's steps)
         const int n = n0 + (tid >> 4) + 16 * k, which = n / C;
-        v[k] = r < M ? *reinterpret_cast<const uint4*>(
+        v[k] = r < M && (!RAGGED || n < N3) ? *reinterpret_cast<const uint4*>(
                            (which == 0 ? dq : which == 1 ? dk : dv) + off +
                            (size_t)(n - which * C) * L)
                      : make_uint4(0u, 0u, 0u, 0u);
@@ -171,7 +175,7 @@ __global__ void __launch_bounds__(QKV_GRAD_THREADS)
 #pragma unroll
       for (int k = 0; k < NV; ++k) {
         const int ch = (tid >> 4) + 16 * k;
-        if (gTu != nullptr && r < M)
+        if (gTu != nullptr && r < M && (!RAGGED || n0 + ch < N3))
           *reinterpret_cast<uint4*>(gTu + (size_t)(n0 + ch) * ld + r) = v[k];
         uint32_t* d = tw + ch * (QKV_GLD / 2) + 4 * run;
         d[0] = v[k].x;
@@ -187,13 +191,15 @@ __global__ void __launch_bounds__(QKV_GRAD_THREADS)
       unsigned short v[NE];
 #pragma unroll
       for (int k = 0; k < NE; ++k, src.next(2)) {
-        v[k] = r < M ? *reinterpret_cast<const unsigned short*>(src.p)
-                     : (unsigned short)0;
+        const bool in = !RAGGED || n0 + (tid >> 7) + 2 * k < N3;
+        v[k] = r < M && in ? *reinterpret_cast<const unsigned short*>(src.p)
+                           : (unsigned short)0;
       }
 #pragma unroll
       for (int k = 0; k < NE; ++k) {
         const int ch = (tid >> 7) + 2 * k;
-        if (gTu != nullptr && r < M) gTu[(size_t)(n0 + ch) * ld + r] = v[k];
+        if (gTu != nullptr && r < M && (!RAGGED || n0 + ch < N3))
+          gTu[(size_t)(n0 + ch) * ld + r] = v[k];
         tile[ch * QKV_GLD + (tid & 127)] = v[k];
       }
     }
@@ -232,7 +238,8 @@ __global__ void __launch_bounds__(QKV_GRAD_THREADS)
     }
   }
   if (tid == 0) bulk_wait_done();
-  if (tid < 2 * QKV_GC && (tid & 1) == 0)
+  if (tid < 2 * QKV_GC && (tid & 1) == 0 &&
+      (!RAGGED || n0 + (tid >> 1) < N3))
     db_part[(size_t)blockIdx.x * N3 + n0 + (tid >> 1)] = dbacc;
 }
 
@@ -319,7 +326,8 @@ inline cudaError_t launch_qkv_prep(const void* const* ptr, void* stats,
           case 3: return qkv_bwd_prep_kernel<3>;
           case 6: return qkv_bwd_prep_kernel<6>;
           case 12: return qkv_bwd_prep_kernel<12>;
-          default: return qkv_bwd_prep_kernel<24>;
+          case 24: return qkv_bwd_prep_kernel<24>;
+          default: return qkv_bwd_prep_kernel<36>;
         }
       },
       D);
@@ -393,18 +401,19 @@ extern "C" int aicity_ln_qkv_bwd_smem_bytes(int variant, int D, int tn,
 // dW then reads dq, dk, dv in place), dxn [M, D] f32, and the f32 partials
 // db [blocks1][3C], dgb [blocks3][2][D], dw [splits4][3C][D].
 // plan[]: ld (M rounded up to 8), blocks1 (the gradients' pass: blocks over
-// the tokens, each for every 96-channel chunk), tn2, stages2,
+// the tokens, each for every 96-channel chunk, the last ragged where 3C is
+// no multiple of 96), tn2, stages2,
 // grid2 (dxn), blocks3, rows3 (the LN backward), then for dW tn, stages,
 // grid, splits, split_chunks (64-deep K chunks a split) and box: the rows
-// of a box of its A read in place from dq, dk, dv (a divisor of C; tokens %
-// 64 == 0), or 0 for A from gT.
+// of a box of its A read in place from dq, dk, dv (a multiple of 8 that
+// divides C and 128; tokens % 64 == 0), or 0 for A from gT.
 extern "C" int aicity_ln_qkv_bwd(const void* const* ptr, const int* plan,
                                  int M, int D, int C, int tokens, float eps,
                                  void* stream) {
   using namespace aicity;
   cudaStream_t s = (cudaStream_t)stream;
-  if (M <= 0 || D % 8 || D > 768 || C <= 0 || C % 32 || tokens <= 0 ||
-      M % tokens)
+  if (M <= 0 || D % 8 || D > DENSE_MAX_LN_K || C <= 0 || C % 8 ||
+      tokens <= 0 || M % tokens)
     return (int)cudaErrorInvalidValue;
   const int N3 = 3 * C;
   const void* w = ptr[3];
@@ -420,7 +429,7 @@ extern "C" int aicity_ln_qkv_bwd(const void* const* ptr, const int* plan,
   const int box = plan[12];
   const bool in_place = box > 0;
   if (ld < M || ld % 8 || blocks1 < 1 || (long)blocks3 * rows3 < M ||
-      (in_place && (tokens % 64 || C % box || box % 32)))
+      (in_place && (tokens % 64 || C % box || box % 8 || DENSE_BM % box)))
     return (int)cudaErrorInvalidValue;
 
   // descriptors: g's stores, then dxn's operands and dW's (K-major;
@@ -441,11 +450,13 @@ extern "C" int aicity_ln_qkv_bwd(const void* const* ptr, const int* plan,
   cudaError_t e = launch_qkv_prep(
       ptr, stats, xnT, Transpose{(const bf16*)w, (bf16*)wt, N3, D}, M, D, ld,
       eps, s);
-  if (e == cudaSuccess)
-    e = set_smem(qkv_bwd_grad_kernel, qkv_grad_smem_bytes());
+  const bool ragged = N3 % QKV_GC != 0;
+  auto grad_kernel = ragged ? qkv_bwd_grad_kernel<true>
+                            : qkv_bwd_grad_kernel<false>;
+  if (e == cudaSuccess) e = set_smem(grad_kernel, qkv_grad_smem_bytes());
   if (e == cudaSuccess) {
-    qkv_bwd_grad_kernel<<<dim3(blocks1, N3 / QKV_GC), QKV_GRAD_THREADS,
-                          qkv_grad_smem_bytes(), s>>>(
+    grad_kernel<<<dim3(blocks1, (N3 + QKV_GC - 1) / QKV_GC), QKV_GRAD_THREADS,
+                  qkv_grad_smem_bytes(), s>>>(
         m_gs, (const bf16*)ptr[4], (const bf16*)ptr[5], (const bf16*)ptr[6],
         in_place ? nullptr : (bf16*)gT, db_part, M, C, tokens, ld);
     e = cudaGetLastError();
@@ -462,7 +473,8 @@ extern "C" int aicity_ln_qkv_bwd(const void* const* ptr, const int* plan,
             case 1: return qkv_bwd_ln_kernel<1>;
             case 2: return qkv_bwd_ln_kernel<2>;
             case 3: return qkv_bwd_ln_kernel<3>;
-            default: return qkv_bwd_ln_kernel<6>;
+            case 6: return qkv_bwd_ln_kernel<6>;
+            default: return qkv_bwd_ln_kernel<9>;
           }
         },
         ptr[0], stats, dxn, ptr[1], nullptr, dx, dgb_part, M, D, rows3,

@@ -16,15 +16,15 @@
 // 1152]), the cls-token models' pool norms (odd lengths 1 + L'), the pool
 // norms of head dim 72 and MViT-v1's separate norm2. A segment is held in
 // registers by the fewest lanes that cover it with three 16-byte vectors
-// each (4 lanes for dg = 96, a warp for 768; past 768 the forward's wide
-// instance gives a warp's lanes five each): one read of x, one
+// each (4 lanes for dg = 96, a warp for 768; past 768 the wide instances
+// give a warp's lanes five each): one read of x, one
 // write of y, statistics as every row LayerNorm of the port computes them
 // (hopper.cuh:row_stats, ln_vec8). The forward launches one group of lanes a
 // segment (no loop: registers stay few and blocks many, ~96 KB a SM in
 // flight); the backward walks the segments with a persistent grid (one
 // block of 12 warps an SM), keeps each lane's dgamma / dbeta sums in
-// registers, joins them per block in a fixed order and writes one f32 slab
-// a block.
+// registers (the wide instance: in its warp's shared memory), joins them
+// per block in a fixed order and writes one f32 slab a block.
 //
 // The channel-major instance (the v2 pool norms): the pool convolution
 // leaves t [B, h*d, L] (d = 96, L % 8 == 0, no cls token), and the attention
@@ -58,7 +58,8 @@ namespace aicity {
 constexpr int LN_THREADS = 256;      // rows forward
 constexpr int LN_BWD_THREADS = 384;  // rows backward: one block an SM
 constexpr int LN_VPL = 3;            // 16-byte vectors a lane
-constexpr int LN_WIDE_VPL = 5;       // the forward's wide instance's
+constexpr int LN_WIDE_VPL = 5;       // the wide instances' (a warp a
+                                     // segment past 768 channels)
 constexpr int COL_D = 96;            // channel-major: channels a group
 constexpr int COL_LANES = 4;         // lanes a token
 constexpr int COL_THREADS = 256;
@@ -235,8 +236,12 @@ __global__ void __launch_bounds__(LN_THREADS)
 // The backward over segments, grid-stride from this warp's first group of
 // lanes (a loop that every lane of a warp runs alike); part [gridDim.x][2]
 // [dg]: the block's dgamma, then dbeta sums, which the slab tree sums into
-// dgb [2][dg].
-template <int LANES>
+// dgb [2][dg]. VPL: LN_VPL, or LN_WIDE_VPL past 768 channels (MViT-v2-L's
+// final norm over 1152), a warp a segment: there each lane adds its
+// columns' dgamma / dbeta straight into its warp's sums in shared memory
+// (no lane shares a column), where LN_VPL keeps them in registers (80 of
+// them at five vectors would pass the 168 a thread of 384 gets).
+template <int LANES, int VPL = LN_VPL>
 __global__ void __launch_bounds__(LN_BWD_THREADS, 1)
     ln_rows_bwd_kernel(const bf16* __restrict__ x,
                        const bf16* __restrict__ gamma,
@@ -245,38 +250,52 @@ __global__ void __launch_bounds__(LN_BWD_THREADS, 1)
                        bf16* __restrict__ dgb, unsigned* __restrict__ tickets,
                        long segments, int dg, float eps) {
   extern __shared__ __align__(16) float warp_sums[];  // [warps][2][dg]
+  constexpr bool WIDE = VPL != LN_VPL;
+  static_assert(!WIDE || LANES == 32, "the wide instance: a warp a segment");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int q = lane & (LANES - 1), nv = dg / 8;
   const long groups = (long)gridDim.x * LN_BWD_THREADS / LANES;
-  uint4 gv[LN_VPL];
-  float ag[LN_VPL][8], ab[LN_VPL][8];
+  float* mine = warp_sums + warp * 2 * dg;
+  uint4 gv[VPL];
+  float ag[WIDE ? 1 : VPL][8], ab[WIDE ? 1 : VPL][8];
 #pragma unroll
-  for (int i = 0; i < LN_VPL; ++i) {
+  for (int i = 0; i < VPL; ++i) {
     const int c = q + LANES * i;
     gv[i] = c < nv ? load16(gamma + 8 * c) : make_uint4(0u, 0u, 0u, 0u);
+    if constexpr (WIDE) {
+      if (c < nv)
 #pragma unroll
-    for (int k = 0; k < 8; ++k) ag[i][k] = ab[i][k] = 0.f;
+        for (int k = 0; k < 8; k += 4) {
+          *reinterpret_cast<float4*>(mine + 8 * c + k) =
+              make_float4(0.f, 0.f, 0.f, 0.f);
+          *reinterpret_cast<float4*>(mine + dg + 8 * c + k) =
+              make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) ag[i][k] = ab[i][k] = 0.f;
+    }
   }
   for (long first = ((long)blockIdx.x * LN_BWD_THREADS + warp * 32) / LANES;
        first < segments; first += groups) {
     const long seg = first + lane / LANES;
     const bool live = seg < segments;
     const size_t off = (size_t)(live ? seg : 0) * dg;
-    uint4 xv[LN_VPL], dv[LN_VPL];
+    uint4 xv[VPL], dv[VPL];
 #pragma unroll
-    for (int i = 0; i < LN_VPL; ++i) {
+    for (int i = 0; i < VPL; ++i) {
       const int c = q + LANES * i;
       const bool in = live && c < nv;
       xv[i] = in ? load16(x + off + 8 * c) : make_uint4(0u, 0u, 0u, 0u);
       dv[i] = in ? load16(dy + off + 8 * c) : make_uint4(0u, 0u, 0u, 0u);
     }
-    const float2 st = row_stats<LANES, LN_VPL>(xv, q, nv, dg, eps);
+    const float2 st = row_stats<LANES, VPL>(xv, q, nv, dg, eps);
     // xhat = (x - mean) rstd, e = dy gamma: the sums of e and e xhat, as
     // ln_bwd.cuh:ln_bwd_rows (the second pass recomputes both from the
     // packed registers rather than keep them)
     float p1 = 0.f, p2 = 0.f;
 #pragma unroll
-    for (int i = 0; i < LN_VPL; ++i) {
+    for (int i = 0; i < VPL; ++i) {
       const uint32_t w[4] = {xv[i].x, xv[i].y, xv[i].z, xv[i].w};
       const uint32_t d[4] = {dv[i].x, dv[i].y, dv[i].z, dv[i].w};
       const uint32_t g[4] = {gv[i].x, gv[i].y, gv[i].z, gv[i].w};
@@ -298,12 +317,13 @@ __global__ void __launch_bounds__(LN_BWD_THREADS, 1)
     const float m1 = p1 / dg, m2 = p2 / dg;
     // dx, and the lane's dgamma / dbeta (dy is zero where not live)
 #pragma unroll
-    for (int i = 0; i < LN_VPL; ++i) {
+    for (int i = 0; i < VPL; ++i) {
       const int c = q + LANES * i;
       const uint32_t w[4] = {xv[i].x, xv[i].y, xv[i].z, xv[i].w};
       const uint32_t d[4] = {dv[i].x, dv[i].y, dv[i].z, dv[i].w};
       const uint32_t g[4] = {gv[i].x, gv[i].y, gv[i].z, gv[i].w};
       uint32_t o[4];
+      float sg[WIDE ? 8 : 1], sb[WIDE ? 8 : 1];  // the wide instance's adds
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float r[2];
@@ -314,37 +334,56 @@ __global__ void __launch_bounds__(LN_BWD_THREADS, 1)
           const float gs = h ? bf16_hi(g[e]) : bf16_lo(g[e]);
           const float xh = (xs - st.x) * st.y;
           r[h] = st.y * (ds * gs - m1 - xh * m2);
-          ag[i][2 * e + h] += ds * xh;
-          ab[i][2 * e + h] += ds;
+          if constexpr (WIDE) {
+            sg[2 * e + h] = ds * xh;
+            sb[2 * e + h] = ds;
+          } else {
+            ag[i][2 * e + h] += ds * xh;
+            ab[i][2 * e + h] += ds;
+          }
         }
         o[e] = pack_bf16(r[0], r[1]);
+      }
+      if constexpr (WIDE) {
+        if (c < nv)
+#pragma unroll
+          for (int k = 0; k < 8; k += 4) {
+            float4* pg = reinterpret_cast<float4*>(mine + 8 * c + k);
+            float4* pb = reinterpret_cast<float4*>(mine + dg + 8 * c + k);
+            const float4 a = *pg, b = *pb;
+            *pg = make_float4(a.x + sg[k], a.y + sg[k + 1], a.z + sg[k + 2],
+                              a.w + sg[k + 3]);
+            *pb = make_float4(b.x + sb[k], b.y + sb[k + 1], b.z + sb[k + 2],
+                              b.w + sb[k + 3]);
+          }
       }
       if (live && c < nv)
         *reinterpret_cast<uint4*>(dx + off + 8 * c) =
             make_uint4(o[0], o[1], o[2], o[3]);
     }
   }
-  // the warp's groups of lanes in order of their bits, then the block's
-  // warps in order: a fixed order
+  if constexpr (!WIDE) {
+    // the warp's groups of lanes in order of their bits, then the block's
+    // warps in order: a fixed order
 #pragma unroll
-  for (int i = 0; i < LN_VPL; ++i)
+    for (int i = 0; i < VPL; ++i)
 #pragma unroll
-    for (int k = 0; k < 8; ++k)
+      for (int k = 0; k < 8; ++k)
 #pragma unroll
-      for (int o = LANES; o < 32; o <<= 1) {
-        ag[i][k] += __shfl_xor_sync(~0u, ag[i][k], o);
-        ab[i][k] += __shfl_xor_sync(~0u, ab[i][k], o);
-      }
-  if (lane < LANES) {
-    float* mine = warp_sums + warp * 2 * dg;
+        for (int o = LANES; o < 32; o <<= 1) {
+          ag[i][k] += __shfl_xor_sync(~0u, ag[i][k], o);
+          ab[i][k] += __shfl_xor_sync(~0u, ab[i][k], o);
+        }
+    if (lane < LANES) {
 #pragma unroll
-    for (int i = 0; i < LN_VPL; ++i) {
-      const int c = q + LANES * i;
-      if (c >= nv) continue;
+      for (int i = 0; i < VPL; ++i) {
+        const int c = q + LANES * i;
+        if (c >= nv) continue;
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        mine[8 * c + k] = ag[i][k];
-        mine[dg + 8 * c + k] = ab[i][k];
+        for (int k = 0; k < 8; ++k) {
+          mine[8 * c + k] = ag[i][k];
+          mine[dg + 8 * c + k] = ab[i][k];
+        }
       }
     }
   }
@@ -703,7 +742,8 @@ extern "C" int aicity_layer_norm(const void* x, const void* gamma,
 // part [blocks + ceil(blocks / 16)][2][dg] f32 scratch; tickets: 1 +
 // ceil(blocks / 16) unsigned counters at 0 that no other launch uses at the
 // same time (the launch leaves them at 0); `blocks` persistent blocks of
-// 384 threads.
+// 384 threads; `lanes` as the forward's (32 lanes of LN_WIDE_VPL vectors
+// for dg up to 1280).
 extern "C" int aicity_layer_norm_bwd(const void* x, const void* gamma,
                                      const void* dy, void* dx, void* dgb,
                                      void* part, void* tickets, long rows,
@@ -712,21 +752,23 @@ extern "C" int aicity_layer_norm_bwd(const void* x, const void* gamma,
   cudaStream_t s = (cudaStream_t)stream;
   if (groups < 1 || cols % groups) return (int)cudaErrorInvalidValue;
   const int dg = cols / groups;
-  if (dg % 8 || dg > 8 * LN_VPL * lanes || blocks < 1)
+  const bool wide = lanes == 32 && dg > 8 * LN_VPL * lanes;
+  if (dg % 8 || dg > 8 * (wide ? LN_WIDE_VPL : LN_VPL) * lanes || blocks < 1)
     return (int)cudaErrorInvalidValue;
   const long segments = rows * groups;
   const int smem = rows_bwd_smem_bytes(dg);
   cudaError_t err = cudaSuccess;
-#define AICITY_LN_ROWS_BWD(N)                                                \
-  err = set_smem(ln_rows_bwd_kernel<N>, smem);                               \
+#define AICITY_LN_ROWS_BWD(...)                                              \
+  err = set_smem(ln_rows_bwd_kernel<__VA_ARGS__>, smem);                     \
   if (err == cudaSuccess) {                                                  \
-    ln_rows_bwd_kernel<N><<<blocks, LN_BWD_THREADS, smem, s>>>(              \
+    ln_rows_bwd_kernel<__VA_ARGS__><<<blocks, LN_BWD_THREADS, smem, s>>>(    \
         (const bf16*)x, (const bf16*)gamma, (const bf16*)dy, (bf16*)dx,      \
         (float*)part, (float*)part + (size_t)blocks * 2 * dg, (bf16*)dgb,     \
         (unsigned*)tickets, segments, dg, eps);                              \
     err = cudaGetLastError();                                                \
   }
-  switch (lanes) {
+  switch (wide ? 0 : lanes) {
+    case 0: AICITY_LN_ROWS_BWD(32, LN_WIDE_VPL); break;
     case 4: AICITY_LN_ROWS_BWD(4); break;
     case 8: AICITY_LN_ROWS_BWD(8); break;
     case 16: AICITY_LN_ROWS_BWD(16); break;

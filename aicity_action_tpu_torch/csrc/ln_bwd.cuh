@@ -87,13 +87,17 @@ __device__ __forceinline__ void store_transposed(const bf16* tile, int C,
   }
 }
 
-// The pre-pass kernel of the fewest vectors per lane that cover C (C <= 768:
-// VPL 3, 6, 12 or 24), pick(VPL), so that registers follow C.
+// The pre-pass kernel of the fewest vectors per lane that cover C (C <=
+// 1152: VPL 3, 6, 12, 24 or 36, the last for MViT-v2-L's 1152 channels),
+// pick(VPL), so that registers follow C.
 template <class Pick>
 inline auto prep_kernel_for(Pick pick, int C) {
   const int vpl = (C / 8 + 3) / 4;
-  return vpl <= 3 ? pick(3) : vpl <= 6 ? pick(6) : vpl <= 12 ? pick(12)
-                                                             : pick(24);
+  return vpl <= 3    ? pick(3)
+         : vpl <= 6  ? pick(6)
+         : vpl <= 12 ? pick(12)
+         : vpl <= 24 ? pick(24)
+                     : pick(36);
 }
 
 // --------------------------------------------------- the LN backward over rows
@@ -209,7 +213,8 @@ typedef void (*LnBwdKernel)(const bf16*, const float2*, const float*,
                             int);
 
 // Launch of the LN-backward kernel pick(NI) for the fewest 4-column groups
-// a lane that cover C (NI 1, 2, 3 or 6: C <= 768).
+// a lane that cover C (NI 1, 2, 3, 6 or 9: C <= 1152, the last for
+// MViT-v2-L's 1152 channels).
 template <int SUMS, class Pick>
 inline cudaError_t launch_ln_bwd(Pick pick, const void* x, const void* stats,
                                  const void* dxn, const void* gamma,
@@ -219,7 +224,8 @@ inline cudaError_t launch_ln_bwd(Pick pick, const void* x, const void* stats,
   const LnBwdKernel k = ni <= 1   ? pick(1)
                         : ni <= 2 ? pick(2)
                         : ni <= 3 ? pick(3)
-                                  : pick(6);
+                        : ni <= 6 ? pick(6)
+                                  : pick(9);
   const int smem = ln_bwd_smem_bytes(C, SUMS);
   cudaError_t err = set_smem(k, smem);
   if (err != cudaSuccess) return err;

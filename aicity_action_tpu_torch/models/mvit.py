@@ -52,8 +52,10 @@ from torch import nn
 
 from torch.utils.checkpoint import checkpoint
 
+from ..ops import kernels
 from ..ops.flash_attention import (flash_attention, flash_attention_ln,
-                                   flash_attention_padded)
+                                   flash_attention_padded,
+                                   require_ln_training_head_dim)
 from ..ops.fused_dense import exact_gelu, fused_ln_mlp, fused_ln_qkv
 from ..ops.layer_norm import (channel_major_applies, fused_layer_norm,
                               pool_norm_rows)
@@ -451,6 +453,12 @@ class MultiScaleAttention(nn.Module):
     def forward(self, x: torch.Tensor, thw: Triple, norm1: FusedLayerNorm):
         B, L, D = x.shape
         dt = x.dtype
+        fuse = (self.mode == "conv" and not self.has_cls and self.pooled
+                and _fuse_attn_ln_enabled(self.training))
+        if fuse and torch.is_grad_enabled() and kernels.use_kernel(x):
+            # the fused-LN training kernels' head dim, checked before this
+            # block launches anything
+            require_ln_training_head_dim(self.head_dim)
         # q, k, v come channel-major, [B, C, L]: the NCDHW layout the pool
         # convolutions take and the d-major one the fused attention kernel
         # reads, so on the fused path none of the three is transposed in
@@ -467,8 +475,7 @@ class MultiScaleAttention(nn.Module):
         # the JAX package fuses where its switch says so, for conv pools
         # without a cls token and with at least one pool norm (mvit.py:
         # 543-548, 597)
-        if (self.mode == "conv" and not self.has_cls and self.pooled
-                and _fuse_attn_ln_enabled(self.training)):
+        if fuse:
             out = self._fused(t3, B, dt, x.device)
         else:
             out = self._unfused(t3, B)

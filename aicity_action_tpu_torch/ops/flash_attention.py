@@ -4,8 +4,9 @@
 training and the pool modes without norms; ``csrc/flash_attention.cu``
 replaces ``aicity_action_tpu/ops/pallas/flash_attention.py:flash_attention``
 (``_flash_kernel``, ``_flash_fwd_lse_kernel`` and the backward kernels of
-``_flash_bwd``). It takes contiguous head-major token rows ``[G, L, 96]``;
-its note says how the backward is split across blocks.
+``_flash_bwd``). It takes contiguous head-major token rows ``[G, L, d]``, d
+96 (MViT-v2-B) or 72 (MViT-v2-L), forward and backward; its note says how
+the backward is split across blocks.
 
 :func:`flash_attention_padded` is the same function at any lengths: the
 attention of a cls-token MViT, whose lengths ``1 + T*H*W`` no tile
@@ -46,9 +47,11 @@ import torch
 from . import kernels
 from .layer_norm import layer_norm_plain
 
-# the head dim the kernels are instantiated for (every MViT-v2-B block's),
-# and the head dims of the forwards without a logsumexp (inference): also
-# MViT-v2-L's 72 (csrc/flash_fwd.cuh:FwdDim)
+# the head dim the kernels' tiles are sized for (every MViT-v2-B block's),
+# and the head dims they take: also MViT-v2-L's 72, whose tiles TMA fills
+# with zeros past column 72 (csrc/flash_fwd.cuh:FwdDim, csrc/flash_bwd.cuh);
+# the fused-LN training kernels (the logsumexp forward and the backward of
+# flash_attention_ln) take 96 only
 KERNEL_HEAD_DIM = 96
 FWD_HEAD_DIMS = (96, 72)
 # logits the plain version materializes at once (f32 elements)
@@ -98,13 +101,12 @@ def _attn_fwd_plan(G: int, Lq: int, Lk: int, d: int, with_lse: bool) -> dict:
     launches: ``grid`` (query tiles of FWD_ROWS, groups), ``last``, the
     last key tile's product width (``csrc/flash_fwd.cuh:fwd_last_width``),
     ``tiles``, the key tiles a block walks. Raises ValueError for what no
-    kernel takes: a head dim other than 96, or 72 with the logsumexp
-    (training); more groups than the grid's 65535; no rows or keys."""
-    dims = (KERNEL_HEAD_DIM,) if with_lse else FWD_HEAD_DIMS
-    if d not in dims:
+    kernel takes: a head dim other than 96 or 72; more groups than the
+    grid's 65535; no rows or keys. (``with_lse``: the launch is the same;
+    the fused-LN wrapper refuses 72 with it itself.)"""
+    if d not in FWD_HEAD_DIMS:
         raise ValueError(f"flash attention forward: the kernel takes head "
-                         f"dim {' or '.join(map(str, dims))}"
-                         f"{' with the logsumexp' if with_lse else ''}, "
+                         f"dim {' or '.join(map(str, FWD_HEAD_DIMS))}, "
                          f"got {d}")
     if not 0 < G <= 65535 or Lq <= 0 or Lk <= 0:
         raise ValueError(f"flash attention forward: no kernel takes G {G}, "
@@ -125,10 +127,13 @@ def _attn_bwd_plan(G: int, Lq: int, Lk: int, d: int, sms: int) -> dict:
     the count takes the fewest waves x tiles a block over the slots, plus
     the bytes each split's f32 partials add to the sums, counted in tile
     steps. ``lqp``: Lq rounded up to whole tiles, the rows of the padded
-    (lse, delta) scratch. The dq kernel's grid is one block a tile."""
-    if d != KERNEL_HEAD_DIM:
+    (lse, delta) scratch. The dq kernel's grid is one block a tile. Head
+    dim 72 runs on the tiles of 96 (zeros past 72), so the plan, its split
+    cost and shared memory are 96's."""
+    if d not in FWD_HEAD_DIMS:
         raise ValueError(f"flash attention backward: the kernel takes head "
-                         f"dim {KERNEL_HEAD_DIM}, got {d}")
+                         f"dim {' or '.join(map(str, FWD_HEAD_DIMS))}, "
+                         f"got {d}")
     if not 0 < G <= 65535 or Lq <= 0 or Lk <= 0:
         raise ValueError(f"flash attention backward: no kernel takes "
                          f"G {G}, Lq {Lq}, Lk {Lk}")
@@ -254,6 +259,18 @@ def _ln_operands(name, q, k, v, params):
     return (G, Lq, Lk, d), (q, k, v)
 
 
+def require_ln_training_head_dim(d: int) -> None:
+    """Raises ValueError unless the fused-LN training kernels (the
+    logsumexp forward, :func:`flash_attention_ln_lse`, and
+    :func:`flash_attention_ln_bwd`) take head dim ``d``: 96 only, so
+    MViT-v2-L (72) trains on the unfused path, the default."""
+    if d != KERNEL_HEAD_DIM:
+        raise ValueError(
+            f"flash_attention_ln: the logsumexp forward and the backward "
+            f"(training under AICITY_TPU_FUSE_ATTN_LN=1) take head dim "
+            f"{KERNEL_HEAD_DIM}, got {d}")
+
+
 def _flash_ln_fwd(q, k, v, gq, bq, gk, bk, gv, bv, scale, eps, flags,
                   add_qn, with_lse):
     """The forward kernel: ``(out [G, Lq, d], lse [G, Lq] f32, o_attn)``
@@ -262,6 +279,8 @@ def _flash_ln_fwd(q, k, v, gq, bq, gk, bk, gv, bv, scale, eps, flags,
     ``add_qn``)."""
     (G, Lq, Lk, d), (q, k, v) = _ln_operands(
         "flash_attention_ln", q, k, v, (gq, bq, gk, bk, gv, bv))
+    if with_lse:
+        require_ln_training_head_dim(d)
     _attn_fwd_plan(G, Lq, Lk, d, with_lse)
     dev = q.device
     out = torch.empty((G, Lq, d), dtype=q.dtype, device=dev)
@@ -320,6 +339,7 @@ def flash_attention_ln_bwd(q, k, v, gq, bq, gk, bk, gv, bv, o_attn, lse,
     f32 partials (:func:`_attn_bwd_plan`) before their LN backward."""
     (G, Lq, Lk, d), (q, k, v) = _ln_operands(
         "flash_attention_ln_bwd", q, k, v, (gq, bq, gk, bk, gv, bv))
+    require_ln_training_head_dim(d)
     dev = q.device
     kernels.require(o_attn, "o_attn", (G, Lq, d), dev)
     kernels.require(dout, "dout", (G, Lq, d), dev)
@@ -429,7 +449,7 @@ def _attention_fwd(q, k, v, scale: float, with_lse: bool):
     """The forward kernel on contiguous token rows ``q [G, Lq, d]``,
     ``k, v [G, Lk, d]`` of any lengths: ``out`` and, with ``with_lse``, the
     f32 ``lse [G, Lq]`` (one kernel; the lse store is skipped without it).
-    d is 96, or 72 without ``with_lse``."""
+    d is 96 or 72."""
     G, Lq, d = q.shape
     Lk = k.shape[1]
     _attn_fwd_plan(G, Lq, Lk, d, with_lse)
@@ -535,8 +555,7 @@ def flash_attention(q, k, v, scale: float):
     """``softmax(bf16(q * scale) . k^T) . v`` over ``q [G, Lq, d]``, ``k,
     v [G, Lk, d]``. A CPU tensor runs the plain version (autograd
     differentiates it); a CUDA tensor the kernels, which take contiguous
-    bf16 token rows with d = 96, forward and backward, and d = 72 where no
-    gradient is asked for (the forward alone)."""
+    bf16 token rows with d = 96 or 72, forward and backward."""
     if torch.compiler.is_exporting():
         return _FLASH_OP(q, k, v, scale)
     if not kernels.use_kernel(q):

@@ -217,12 +217,13 @@ def _mlp_plan(M: int, D: int, H: int, C: int, sms: int) -> dict:
 
 
 # The LN+MLP backward's plan (csrc/fused_ln_mlp_bwd.cu). The dual GEMM's
-# hidden tile (two f32 accumulators of 64 x 128 a consumer) and its least
-# ring (three stages of 64 KB fit beside the staging boxes); rows of a
-# pre-pass block; LN-backward blocks per SM (each warp at least one row);
-# the split-K weight gradients' least rows a split (eight 64-deep chunks,
-# so a split's f32 store stays a small share of its loads).
-MLP_BWD_TN = 128
+# hidden tile (two f32 accumulators of 64 x 128 a consumer; 64 where 128
+# does not divide H, MViT-v2-L's H = 576) and its least ring (three stages
+# of 64 KB fit beside the staging boxes); rows of a pre-pass block;
+# LN-backward blocks per SM (each warp at least one row); the split-K
+# weight gradients' least rows a split (eight 64-deep chunks, so a split's
+# f32 store stays a small share of its loads).
+MLP_BWD_TN, MLP_BWD_NARROW_TN = 128, 64
 MLP_BWD_MIN_STAGES = 3
 PREP_ROWS = 32
 LN_BWD_WARPS = 8
@@ -298,17 +299,20 @@ def _mlp_bwd_plan(M: int, C: int, H: int, sms: int) -> dict:
     """Launch plan of ``csrc/fused_ln_mlp_bwd.cu`` for ``x [M, C]``, hidden
     H: ``ld``, the row stride of the channel-major copies (M rounded up to
     8: TMA strides are whole 16 bytes); ``prep`` (32-row blocks), ``dual``
-    (the dual GEMM: tile, ring, persistent grid over 128-row x 128-hidden
-    tiles), ``dxn`` (a dense plan, K = H), ``ln`` (blocks of ``rows``
+    (the dual GEMM: tile, ring, persistent grid over 128-row x ``tn``-hidden
+    tiles, ``tn`` 128, or 64 where 128 does not divide H), ``dxn`` (a dense
+    plan, K = H), ``ln`` (blocks of ``rows``
     rows), ``dw1`` and ``dw2`` (split-K plans, K = M), and every TMA
     descriptor; ``scratch``, the byte offsets of the scratch tensors in
     one workspace, and ``ints``, the plan as the C entry point reads it."""
-    if M < 1 or C % 8 or not 0 < C <= 768 or H % MLP_BWD_TN:
+    if (M < 1 or C % 8 or not 0 < C <= MAX_LN_WIDTH
+            or H % MLP_BWD_NARROW_TN):
         raise ValueError(
-            f"fused_ln_mlp_bwd: the kernels take M >= 1, C % 8 == 0, C <= 768 "
-            f"and H a multiple of {MLP_BWD_TN}, got M={M}, C={C}, H={H}")
+            f"fused_ln_mlp_bwd: the kernels take M >= 1, C % 8 == 0, C <= "
+            f"{MAX_LN_WIDTH} and H a multiple of {MLP_BWD_NARROW_TN}, got "
+            f"M={M}, C={C}, H={H}")
     ld = _cdiv(M, 8) * 8
-    tn = MLP_BWD_TN
+    tn = MLP_BWD_TN if H % MLP_BWD_TN == 0 else MLP_BWD_NARROW_TN
     stages = next((s for s in range(MAX_STAGES, MLP_BWD_MIN_STAGES - 1, -1)
                    if _dual_smem(tn, s) <= kernels.MAX_SMEM_BYTES), None)
     if stages is None:
@@ -352,9 +356,10 @@ def _mlp_bwd_plan(M: int, C: int, H: int, sms: int) -> dict:
 
 
 # The LN+qkv backward's plan (csrc/fused_ln_qkv_bwd.cu): the gradients'
-# pass takes 96-channel chunks of the 3C, each over 128-token tiles, and
-# aims at this many blocks a SM (persistent blocks over the tiles, so that
-# db has few partials)
+# pass takes 96-channel chunks of the 3C (the last one ragged where 96 does
+# not divide 3C, MViT-v2-L's 432), each over 128-token tiles, and aims at
+# this many blocks a SM (persistent blocks over the tiles, so that db has
+# few partials)
 QKV_GRAD_GC, QKV_GRAD_TOKENS = 96, 128
 QKV_GRAD_BLOCKS_PER_SM = 8
 
@@ -373,21 +378,22 @@ def _qkv_bwd_plan(M: int, D: int, C: int, tokens: int, sms: int) -> dict:
     stride of the channel-major copies (M rounded up to 8: TMA strides are
     whole 16 bytes); ``prep`` (the x pre-pass, 32-row blocks), ``grad``
     (the gradients' pass: ``blocks`` over the tokens for each of the
-    ``chunks`` of 96 channels), ``dxn`` (a dense plan, K = 3C), ``ln``
+    ``chunks`` of 96 channels, the last partial where 96 does not divide
+    3C), ``dxn`` (a dense plan, K = 3C), ``ln``
     (blocks of ``rows`` rows), ``dw`` (a split-K plan, K = M; its A read in
     place from q, k, v where tokens % 64 == 0, else from a packed copy),
     and every TMA descriptor; ``scratch``, the byte offsets of the scratch
     tensors in one workspace, and ``ints``, the plan as the C entry point
     reads it."""
-    if (M < 1 or D % 8 or not 0 < D <= 768 or C < 1 or C % 32 or tokens < 1
-            or M % tokens):
+    if (M < 1 or D % 8 or not 0 < D <= MAX_LN_WIDTH or C < 1 or C % 8
+            or tokens < 1 or M % tokens):
         raise ValueError(
-            f"fused_ln_qkv_bwd: the kernels take D % 8 == 0, D <= 768, "
-            f"C % 32 == 0 and whole clips, got D={D}, C={C}, {M} rows of "
-            f"{tokens} tokens")
+            f"fused_ln_qkv_bwd: the kernels take D % 8 == 0, D <= "
+            f"{MAX_LN_WIDTH}, C % 8 == 0 and whole clips, got D={D}, C={C}, "
+            f"{M} rows of {tokens} tokens")
     ld = _cdiv(M, 8) * 8
     N3 = 3 * C
-    chunks = N3 // QKV_GRAD_GC
+    chunks = _cdiv(N3, QKV_GRAD_GC)
     grad_blocks = max(1, min(_cdiv(M, QKV_GRAD_TOKENS),
                              QKV_GRAD_BLOCKS_PER_SM * sms // chunks))
     plan = {
@@ -401,10 +407,12 @@ def _qkv_bwd_plan(M: int, D: int, C: int, tokens: int, sms: int) -> dict:
         "dw": _split_plan(N3, D, M, sms),  # G^T xn
     }
     # dW reads q, k, v in place where a 64-token chunk lies in one clip, in
-    # boxes of the most rows (of 128, 64, 32) that divide C (a box lies in
-    # one of q, k, v)
+    # boxes of the most rows (of 128, 64, 32, 16, 8: whole 1024-byte swizzle
+    # atoms that tile a 128-row box) that divide C (a box lies in one of q,
+    # k, v; MViT-v2-L's C = 144 takes 16)
     in_place = tokens % 64 == 0
-    box = next(b for b in (128, 64, 32) if C % b == 0) if in_place else 0
+    box = (next(b for b in (128, 64, 32, 16, 8) if C % b == 0) if in_place
+           else 0)
     # one workspace of scratch, in the C entry point's order: W^T, the
     # statistics, xn^T, g, g^T (none where dW reads q, k, v in place), dxn
     # (f32), the partials of db, of (dgamma, dbeta), of dW (f32)

@@ -11,9 +11,9 @@ bandwidth, and the kernels (``csrc/layer_norm.cu``) move each byte once.
 
 - The rows instance, :func:`fused_layer_norm` (``[..., C]`` rows, groups of
   ``C // groups`` channels): MViT's final norm ``[B*1568, 768]`` (eps
-  1e-6; MViT-v2-L's ``[B*1568, 1152]`` through the forward's wide
-  instance), the cls-token MViT-v1's pool norms (odd lengths ``1 + L'``),
-  the pool norms of head dim 72 (MViT-v2-L's unfused path) and MViT-v1's
+  1e-6; MViT-v2-L's ``[B*1568, 1152]`` through the wide instances), the
+  cls-token MViT-v1's pool norms (odd lengths ``1 + L'``), the pool norms
+  of head dim 72 (MViT-v2-L's unfused path) and MViT-v1's
   separate norm2.
 - The channel-major instance, :func:`pool_norm_rows`: the MViT-v2 pool
   norms (eps 1e-5 over head_dim 96, per head). It reads the pool
@@ -43,8 +43,8 @@ import torch
 
 from . import kernels
 
-# the rows kernels: threads a block, 16-byte vectors a lane, and the
-# forward's wide instance's (a warp a segment past 768 channels)
+# the rows kernels: threads a block, 16-byte vectors a lane, and the wide
+# instances' (a warp a segment past 768 channels, forward and backward)
 LN_THREADS, LN_BWD_THREADS, LN_VPL, LN_WIDE_VPL = 256, 384, 3, 5
 # the backwards' slab tree: slabs a group (csrc/layer_norm.cu:SLAB_GROUP),
 # and the ticket counters a stream keeps (one, then one a group)
@@ -88,7 +88,7 @@ def _col_smem(bwd: bool, tile: int, stages: int) -> int:
 
 def _rows_lanes(dg: int) -> int:
     """The fewest lanes (4, 8, 16 or 32) whose three 16-byte vectors each
-    cover ``dg`` channels; 32 past that (the forward's wide instance)."""
+    cover ``dg`` channels; 32 past that (the wide instances)."""
     need = _cdiv(dg // 8, LN_VPL)
     return next((n for n in (4, 8, 16, 32) if n >= need), 32)
 
@@ -98,7 +98,7 @@ def _ln_plan(kind: str, shape: tuple, sms: int) -> dict:
     """Launch plan of a ``csrc/layer_norm.cu`` kernel on a card of ``sms``
     SMs. ``kind`` "rows" / "rows_bwd" take ``shape = (rows, C, groups)``:
     ``lanes`` a segment of ``C // groups`` channels, ``vpl`` its 16-byte
-    vectors a lane (LN_WIDE_VPL for the forward past 768 channels) and
+    vectors a lane (LN_WIDE_VPL past 768 channels) and
     ``blocks`` (the forward one group of lanes a segment; the backward
     persistent, one block of LN_BWD_THREADS an SM). "cols" / "cols_bwd"
     take ``shape = (groups, d, L)`` (the channel-major ``[groups * d,
@@ -115,7 +115,7 @@ def _ln_plan(kind: str, shape: tuple, sms: int) -> dict:
             raise ValueError(f"fused_layer_norm: {C} channels in {groups} "
                              "groups")
         dg = C // groups
-        most = 8 * (LN_WIDE_VPL if kind == "rows" else LN_VPL) * 32
+        most = 8 * LN_WIDE_VPL * 32
         if dg % 8 or not 0 < dg <= most or rows < 1:
             raise ValueError(f"fused_layer_norm: the {kind} kernels take "
                              f"groups of a multiple of 8 channels, at most "

@@ -3,11 +3,12 @@ default) or of the LN+qkv backward (``fused_ln_qkv_bwd``, ``--kernel qkv``)
 goes on the card, launch by launch, at the shapes a train step gives it.
 
     python -m aicity_action_tpu_torch.tools.profile_mlp_bwd
-        [--kernel mlp|qkv] [--config v2_448|v1_224] [--batch N]
+        [--kernel mlp|qkv] [--config v2_448|v1_224|l_448] [--batch N]
         [--shapes M,C,H ... | M,tokens,D,C ...] [--iters 11] [--out FILE.json]
 
 For every distinct call of the kernel in the config's train step at
-``--batch`` (4 for v2_448, 8 for v1_224 by default; from the model's block
+``--batch`` (4 for v2_448 and l_448, MViT-v2-L's trunk, 8 for v1_224 by
+default; from the model's block
 schedule, no model is built), or for each ``--shapes`` tuple (``M,C,H`` for
 the MLP, ``M,tokens,D,C`` for the qkv), it draws bf16 inputs from
 ``--seed``, times the call's device work with CUDA events (median and
@@ -29,7 +30,7 @@ from __future__ import annotations
 import argparse
 import json
 
-from aicity_action_tpu_torch.tools.profile_forward import (_card,
+from aicity_action_tpu_torch.tools.profile_forward import (_card, _config,
                                                            _device_kernels)
 
 # a spin kernel (~1 ms) ahead of each timed call, so that its events time
@@ -82,12 +83,9 @@ def _label_launches(kernel: str, kernels: list, calls: int) -> dict:
 def _shapes(kernel: str, config: str, batch: int) -> list:
     """``[(shape, calls a step)]`` of the config's calls of the kernel:
     ``(M, C, H)`` for the MLP, ``(M, tokens, D, C)`` for the qkv."""
-    from aicity_action_tpu_torch.config import (mvit_b_16x4_224_cfg,
-                                                mvitv2_b_16x4_448_cfg)
     from aicity_action_tpu_torch.models.mvit import dense_call_shapes
 
-    cfg = (mvitv2_b_16x4_448_cfg() if config == "v2_448"
-           else mvit_b_16x4_224_cfg())
+    cfg = _config(config)
     counts: dict = {}
     for call in dense_call_shapes(cfg, batch):
         if call[0] == kernel:
@@ -160,7 +158,7 @@ def profile_shape(kernel: str, shape: tuple, iters: int, seed: int) -> dict:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--kernel", choices=sorted(LAUNCHES), default="mlp")
-    p.add_argument("--config", choices=("v2_448", "v1_224"),
+    p.add_argument("--config", choices=("v2_448", "v1_224", "l_448"),
                    default="v2_448")
     p.add_argument("--batch", type=int, default=None)
     p.add_argument("--shapes", nargs="*", default=None,
@@ -174,7 +172,7 @@ def main(argv=None) -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_mlp_bwd: needs a CUDA card")
-    batch = args.batch or (4 if args.config == "v2_448" else 8)
+    batch = args.batch or (8 if args.config == "v1_224" else 4)
     shapes = ([(tuple(int(v) for v in t.split(",")), 1) for t in args.shapes]
               if args.shapes else _shapes(args.kernel, args.config, batch))
     names = {"mlp": ("LN+MLP", "x[{0},{1}] H {2}"),

@@ -275,3 +275,10 @@ def test_plain_reference_mode_is_scoped():
     with kernels.plain_reference():
         assert kernels._force_plain is True
     assert kernels._force_plain is False
+
+
+def test_the_walk_covers_the_kernel_timing_tools():
+    mods = set(_port_modules())
+    assert {"aicity_action_tpu_torch.tools.time_training_rows",
+            "aicity_action_tpu_torch.tools.time_serving_rows",
+            "aicity_action_tpu_torch.tools.profile_mlp_bwd"} <= mods

@@ -1014,9 +1014,9 @@ def test_mlp_backward_plan_refuses_what_no_kernel_takes():
     with pytest.raises(ValueError):
         tfd._mlp_bwd_plan(64, 100, 400, 132)  # C % 8
     with pytest.raises(ValueError):
-        tfd._mlp_bwd_plan(64, 96, 320, 132)  # H not whole hidden tiles
+        tfd._mlp_bwd_plan(64, 96, 352, 132)  # H not whole hidden tiles
     with pytest.raises(ValueError):
-        tfd._mlp_bwd_plan(64, 1024, 4096, 132)  # C > 768
+        tfd._mlp_bwd_plan(64, 1280, 5120, 132)  # C > 1152
     with pytest.raises(ValueError):
         tfd._mlp_bwd_plan(0, 96, 384, 132)  # no rows
 
@@ -1096,9 +1096,9 @@ def test_qkv_backward_plan_refuses_what_no_kernel_takes():
     with pytest.raises(ValueError):
         tfd._qkv_bwd_plan(64, 100, 96, 64, 132)  # D % 8
     with pytest.raises(ValueError):
-        tfd._qkv_bwd_plan(64, 1024, 96, 64, 132)  # D > 768
+        tfd._qkv_bwd_plan(64, 1280, 96, 64, 132)  # D > 1152
     with pytest.raises(ValueError):
-        tfd._qkv_bwd_plan(64, 96, 48, 64, 132)  # C % 32
+        tfd._qkv_bwd_plan(64, 96, 44, 64, 132)  # C % 8
     with pytest.raises(ValueError):
         tfd._qkv_bwd_plan(64, 96, 96, 48, 132)  # rows not whole clips
     with pytest.raises(ValueError):

@@ -21,18 +21,10 @@ from aicity_action_tpu.ops.pallas import flash_attention as jfa
 from aicity_action_tpu_torch.config import get_cfg
 from aicity_action_tpu_torch.models.build import build_model
 from aicity_action_tpu_torch.utils.convert import jax_params_to_state_dict
-from torch_port_helpers import perturb, tiny_cfg
+from torch_port_helpers import l_tiny_cfg, perturb
 from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 2e-5
-
-
-def l_tiny_cfg(get):
-    """``tiny_cfg`` at the L trunk's embedding and heads."""
-    cfg = tiny_cfg(get)
-    cfg.MVIT.EMBED_DIM = 144
-    cfg.MVIT.NUM_HEADS = 2
-    return cfg
 
 
 @pytest.fixture(scope="module")

@@ -1,7 +1,8 @@
 """The kernels widened to MViT-v2-L's widths (head dim 72, 144-1152
 channels), on the CPU, where each wrapper runs its plain version, against
 the JAX package's Pallas kernels in interpret mode; and their launch plans
-at every call of the L model's forward.
+at every call of the L model's forward and, for the backwards, of its
+batch-4 train step.
 
 Inputs are made with numpy from a seed and fed to both in f32. Tolerance:
 max abs error 2e-5, as ``test_torch_kernels.py`` holds the B widths (f32
@@ -132,16 +133,18 @@ def test_fused_layer_norm_at_l_widths_matches_pallas(rows, channels, groups):
 
 # ------------------------------------------------- plans of the L forward
 
-def _l_calls():
-    """Every distinct kernel call of the MViT-v2-L @448 forward at batch 8
-    and 1: LN+qkv and LN+MLP (``dense_call_shapes``), the attention of
-    both paths (``attention_call_shapes``), the unfused path's pool norms
+def _l_calls(batches=(8, 1)):
+    """Every distinct kernel call of the MViT-v2-L @448 forward at
+    ``batches`` (8 and 1: the eval paths; 4: the train step, whose
+    backwards take the same shapes): LN+qkv and LN+MLP
+    (``dense_call_shapes``), the attention of both paths
+    (``attention_call_shapes``), the unfused path's pool norms
     (``pool_norm_call_shapes``, the rows instance over head dim 72) and the
     final norm."""
     cfg = mvitv2_l_16x4_448_cfg()
     sp = build_mvit_spec(cfg)
     calls = {}
-    for batch in (8, 1):
+    for batch in batches:
         for call in dense_call_shapes(cfg, batch):
             calls.setdefault(call, batch)
         for G, Lq, Lk, d in attention_call_shapes(cfg, batch):
@@ -194,21 +197,67 @@ def test_every_l_call_has_a_launch_plan(call):
     assert jax_pallas == (call[:1] + call[2:3] != ("mlp", 1152))
 
 
+@pytest.mark.parametrize("call", _l_calls((4,)))
+def test_every_l_train_call_has_a_backward_plan(call):
+    """Every kernel-row call of the L batch-4 train step (the default
+    switch: the unfused attention) gets a backward launch plan on an H100
+    (132 SMs) that fits a block's shared memory: the attention with its
+    logsumexp forward and backward at head dim 72, the LN+qkv backward at
+    D 144-1152 (its gradients' pass ragged where 96 does not divide 3C),
+    the LN+MLP backward at C 144-1152 (a 64-wide dual-GEMM tile where 128
+    does not divide H) and the rows LayerNorm backward (the pool norms over
+    72, the final norm over 1152: the wide instance)."""
+    kind = call[0]
+    smem = kernels.MAX_SMEM_BYTES
+    if kind == "qkv":
+        _, M, tokens, D, C = call
+        p = tfd._qkv_bwd_plan(M, D, C, tokens, H100_SMS)
+        assert p["grad"]["chunks"] == -(-3 * C // 96)
+        for sub in (p["dxn"], p["dw"]):
+            assert sub["smem"] <= smem
+        assert p["prep"]["smem"] <= smem and p["grad"]["smem"] <= smem
+        box = p["ints"][-1]  # dW's A in place where tokens % 64 == 0
+        assert bool(box) == (tokens % 64 == 0)
+        assert not box or (C % box == 0 and 128 % box == 0 and box % 8 == 0)
+    elif kind == "mlp":
+        _, M, C, H = call
+        p = tfd._mlp_bwd_plan(M, C, H, H100_SMS)
+        assert p["dual"]["tn"] == (128 if H % 128 == 0 else 64)
+        assert H % p["dual"]["tn"] == 0
+        for sub in (p["dual"], p["dxn"], p["dw1"], p["dw2"]):
+            assert sub["smem"] <= smem
+        assert p["prep"]["smem"] <= smem
+    elif kind == "attn":
+        _, G, Lq, Lk, d = call
+        assert d == D_L
+        tfa._attn_fwd_plan(G, Lq, Lk, d, True)
+        p = tfa._attn_bwd_plan(G, Lq, Lk, d, H100_SMS)
+        assert p["qps"] % tfa.BWD_TILE == 0 and p["lqp"] >= Lq
+        assert max(tfa._bwd_smem().values()) <= smem
+    else:
+        _, B, L, C, groups = call
+        p = tln._ln_plan("rows_bwd", (B * L, C, groups), H100_SMS)
+        dg = C // groups
+        assert p["lanes"] * p["vpl"] * 8 >= dg and p["smem"] <= smem
+        assert p["vpl"] == (tln.LN_WIDE_VPL if dg > 768 else tln.LN_VPL)
+
+
 def test_l_width_training_kernels_still_raise():
-    """The logsumexp forwards and the backwards stay at head dim 96 until
-    the training slice: their plans refuse 72, and the LN backwards 1152
-    channels."""
-    with pytest.raises(ValueError):
-        tfa._attn_fwd_plan(16, 100352, 1568, D_L, True)
-    with pytest.raises(ValueError):
-        tfa._attn_bwd_plan(16, 100352, 1568, D_L, H100_SMS)
-    with pytest.raises(ValueError):
-        tln._ln_plan("rows_bwd", (12544, 1152, 1), H100_SMS)
-    with pytest.raises(ValueError):
-        tfd._mlp_bwd_plan(12544, 1152, 4608, H100_SMS)
+    """What the L training slice leaves refusing: head dims other than 96
+    and 72 in every attention plan, and the fused-LN training rows 6 and 7
+    (the logsumexp forward and the backward of ``flash_attention_ln``,
+    ``AICITY_TPU_FUSE_ATTN_LN=1``) at 72, which raise before any launch."""
     for d in (64, 80, 128):
+        for with_lse in (False, True):
+            with pytest.raises(ValueError):
+                tfa._attn_fwd_plan(16, 1568, 1568, d, with_lse)
         with pytest.raises(ValueError):
-            tfa._attn_fwd_plan(16, 1568, 1568, d, False)
+            tfa._attn_bwd_plan(16, 1568, 1568, d, H100_SMS)
+    with pytest.raises(ValueError, match="flash_attention_ln"):
+        tfa.require_ln_training_head_dim(D_L)
+    tfa.require_ln_training_head_dim(96)
+    with pytest.raises(ValueError):
+        tln._ln_plan("rows_bwd", (12544, 1288, 1), H100_SMS)
 
 
 @pytest.mark.parametrize("dg,lanes,vpl", [(72, 4, 3), (768, 32, 3),

@@ -49,6 +49,15 @@ def tiny_cfg(get):
     return cfg
 
 
+def l_tiny_cfg(get):
+    """``tiny_cfg`` at the MViT-v2-L trunk's embedding and heads (EMBED_DIM
+    144, NUM_HEADS 2: head dim 72, channels 144 -> 288 -> 576)."""
+    cfg = tiny_cfg(get)
+    cfg.MVIT.EMBED_DIM = 144
+    cfg.MVIT.NUM_HEADS = 2
+    return cfg
+
+
 def perturb(params, seed, std=0.05):
     """Every leaf of a JAX param tree plus numpy noise of ``std``, as numpy
     (so that LN scales and biases, initialized to 1 and 0, matter)."""

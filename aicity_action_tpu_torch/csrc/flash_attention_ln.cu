@@ -13,9 +13,10 @@
 // costs a rounding of O + LN(q), with LN(q) of order 1: noise in gradients
 // that cancel, such as the k norm's bias gradient, exactly zero). At
 // 448 it sees q [B*h, Lq, 96] and k, v [B*h, Lk, 96] with Lq up to 100352
-// and Lk in {1568, 6272} (MViT-v2-B), and head dim 72 (MViT-v2-L, the
-// inference forward: q [B*h, Lq, 72] from [16, 100352] to [128, 1568] at
-// batch 8; flash_fwd.cuh says how 72 rides the products of 96):
+// and Lk in {1568, 6272} (MViT-v2-B), and head dim 72 (MViT-v2-L: q [B*h,
+// Lq, 72] from [16, 100352] to [128, 1568] at inference batch 8, and in
+// training from [8, 100352] to [64, 1568] at batch 4, with lse and oa
+// stored as at 96; flash_fwd.cuh says how 72 rides the products of 96):
 // 4*Lq*Lk*d flops against 2*(Lq + 2*Lk)*d bytes, far above the ridge, so
 // it is bound by the tensor cores (and by the CUDA-core work of the
 // softmax).
@@ -164,8 +165,8 @@ int launch_flash_ln(const void* q, const void* k, const void* v,
 // LN(k) / LN(v) (of k / v where fk / fv is off). The output is [G, Lq, d].
 // The training forward also stores lse [G, Lq] f32 (the logsumexp) and oa
 // [G, Lq, d], the attention output before the residual, for the backward's
-// delta; either may be null, and both must be at d 72 (MViT-v2-L: the
-// inference forward only; the backward is built for d 96).
+// delta; either may be null. d is 96 or 72 (MViT-v2-L), forward and
+// backward (flash_attention_ln_bwd.cu).
 extern "C" int aicity_flash_attention_ln(
     const void* q, const void* k, const void* v, const void* gq,
     const void* bq, const void* gk, const void* bk, const void* gv,
@@ -174,8 +175,7 @@ extern "C" int aicity_flash_attention_ln(
     int add_qn, void* stream) {
   using namespace aicity;
   cudaStream_t s = (cudaStream_t)stream;
-  if (d != 96 && (d != 72 || lse != nullptr || oa != nullptr))
-    return (int)cudaErrorInvalidValue;
+  if (d != 96 && d != 72) return (int)cudaErrorInvalidValue;
   if (G <= 0 || Lq <= 0 || Lk <= 0) return (int)cudaSuccess;
   return d == 72 ? launch_flash_ln<72>(q, k, v, gq, bq, gk, bk, gv, bv, o,
                                        lse, oa, kn, vn, G, Lq, Lk, scale,

@@ -9,10 +9,12 @@
 // ONE design for every shape. Training with AICITY_TPU_FUSE_ATTN_LN=1 runs
 // it in every MViT block; at 448 and batch 4 it sees G = B*h groups of
 // q [G, Lq, 96] against k, v [G, Lk, 96], from (4, 100352, 1568) at block 0
-// to (32, 1568, 1568). Like the plain attention backward it is bound by the
-// tensor cores (10 products per (q, k) pair and d, 16 as executed: the
-// logits recomputed in both kernels, dq's product twice for dS's hi + lo)
-// and the softmax's exponentials; the LN work is O((Lq + Lk) * d).
+// to (32, 1568, 1568) (MViT-v2-B), and of head dim 72 from (8, 100352,
+// 1568) to (64, 1568, 1568) (MViT-v2-L). Like the plain attention backward
+// it is bound by the tensor cores (10 products per (q, k) pair and d, 16 as
+// executed: the logits recomputed in both kernels, dq's product twice for
+// dS's hi + lo) and the softmax's exponentials; the LN work is O((Lq + Lk)
+// * d).
 //
 // Translation from the TPU design: the Pallas kernels add dk / dv and the
 // dgamma / dbeta rows into blocks resident across a sequential grid and
@@ -30,8 +32,8 @@
 //    more), and writes (lse, delta) per row padded to whole 64-row tiles;
 //    then it runs the dq loop of the plain backward (flash_bwd.cuh: wgmma,
 //    the normalized K/V tiles through a TMA ring), adds dO for the
-//    residual, and applies the row-LN VJP in its epilogue (a row of 96 lies
-//    in one quad of lanes). It writes dq channel-major and per-block
+//    residual, and applies the row-LN VJP in its epilogue (a row's columns
+//    lie in one quad of lanes). It writes dq channel-major and per-block
 //    dgamma_q / dbeta_q partials.
 // 3. flash_bwd_dkv_kernel (flash_bwd.cuh) on the scaled LN(q) rows: f32
 //    partial d(LN k) / d(LN v) per query split.
@@ -39,9 +41,19 @@
 //    one thread per key row, writing dk / dv channel-major and per-block
 //    dgamma / dbeta partials.
 // 5. reduce_splits sums the dgamma / dbeta partials.
-// Layout: q, k, v come d-major ([G][96][L], the pool convolutions' NCDHW
+// Layout: q, k, v come d-major ([G][d][L], the pool convolutions' NCDHW
 // output) and dq, dk, dv go back the same way, so the training path pays no
-// transposes around the attention; O and dO are token rows [G][L][96].
+// transposes around the attention; O and dO are token rows [G][L][d].
+//
+// Head dim 72 (MViT-v2-L; the kernels' D): as in flash_bwd.cuh, the
+// products keep the tiles of 96. The TMA maps of LN(k), LN(v), the scaled
+// LN(q) rows and dO have inner extent 72, so TMA fills columns 72-95 of
+// every streamed tile with zeros; the dq kernel's A fragments of its LN(q)
+// and dO rows are zeros past 72 (its shared-memory rows keep the stride of
+// 96 and are never read past 72). So the logits, dP and dq's product run
+// as at 96 and give dq zero columns past 72, which are not stored. Only
+// loads, the LayerNorms and their VJPs (means over 72 columns, gamma and
+// beta read at 72), delta, the column sums and the stores see 72.
 #include <math.h>
 
 #include "common.cuh"
@@ -51,19 +63,22 @@
 namespace aicity {
 
 constexpr int KV_BWD_ROWS = 128;
+// the row stride (bf16) of the dq kernel's LN(q), dO and O rows: the 96
+// columns of the products and 8 of padding, at either head dim
+constexpr int LN_DQ_LD = BW_D + 8;
 
 template <int D>
 __host__ __device__ constexpr int ln_dq_xs_elems() {
-  return D * (BW_T + 8) > BW_T * (D + 8) ? D * (BW_T + 8) : BW_T * (D + 8);
+  return D * (BW_T + 8) > BW_T * LN_DQ_LD ? D * (BW_T + 8) : BW_T * LN_DQ_LD;
 }
 
 // Dynamic shared memory of the dq kernel: alignment slack, the K/V ring,
-// the LN(q) and dO rows, the raw q tile, the O rows / dq staging, the row
-// statistics, delta and the column sums.
+// the LN(q) and dO rows, the raw q tile (D rows), the O rows / dq staging,
+// the row statistics, delta and the column sums.
 template <int D>
 __host__ __device__ constexpr int ln_dq_smem_bytes() {
   return 1024 + KvRing<DQ_LN_STAGES>::ring_bytes() +
-         (2 * BW_T * (D + 8) + D * (BW_T + 8) + ln_dq_xs_elems<D>()) *
+         (2 * BW_T * LN_DQ_LD + D * (BW_T + 8) + ln_dq_xs_elems<D>()) *
              (int)sizeof(bf16) +
          (3 * BW_T + 8 * D) * (int)sizeof(float);
 }
@@ -72,7 +87,8 @@ __host__ __device__ constexpr int ln_dq_smem_bytes() {
 // 8). q is d-major [G][D][Lq] (Lq % 8 == 0); oa (the attention output
 // before the residual) and dout are token rows; the LN(k) / LN(v) rows come
 // through the TMA maps kmap / vmap. Writes the scaled LN(q) rows qn and
-// ld [G][Lqp] = (lse, delta), (+inf, 0) past Lq.
+// ld [G][Lqp] = (lse, delta), (+inf, 0) past Lq. D: the head dim, 96 or 72
+// (the products over 96 columns either way).
 template <int D>
 __global__ void __launch_bounds__(BW_THREADS, 2)
     flash_ln_bwd_dq_kernel(const __grid_constant__ CUtensorMap kmap,
@@ -86,8 +102,10 @@ __global__ void __launch_bounds__(BW_THREADS, 2)
                            float2* __restrict__ ld, bf16* __restrict__ dq,
                            float* __restrict__ part, int Lq, int Lk, int Lqp,
                            float scale, float eps, int fq, int add_qn) {
-  constexpr int LD = D + 8, LDT = BW_T + 8;
-  constexpr int KS = D / 16, ND = D / 8;
+  constexpr int LD = LN_DQ_LD, LDT = BW_T + 8;
+  // k16 steps and n8 column blocks of the products (96 columns); the
+  // column blocks the head dim fills
+  constexpr int KS = BW_D / 16, NA = BW_D / 8, ND = D / 8;
   constexpr int TILE = BW_T * LD;
   extern __shared__ unsigned char bw_smem_raw[];
   unsigned char* ring_base = align1024(bw_smem_raw);
@@ -156,25 +174,32 @@ __global__ void __launch_bounds__(BW_THREADS, 2)
   }
   __syncthreads();
 
+  // the A fragments of the LN(q) s and dO rows (load_a_frag's layout),
+  // zeros past column D
   uint32_t qa[KS][4], da[KS][4];
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    load_a_frag(qa[kk], qs, LD, wr, kk * 16, lane);
-    load_a_frag(da[kk], dos, LD, wr, kk * 16, lane);
-  }
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int col = 16 * kk + 8 * (i >> 1);
+      const int off = (wr + g + 8 * (i & 1)) * LD + col + 2 * t;
+      qa[kk][i] = col < D ? *reinterpret_cast<const uint32_t*>(qs + off) : 0u;
+      da[kk][i] = col < D ? *reinterpret_cast<const uint32_t*>(dos + off) : 0u;
+    }
   // rows past Lq get lse = +inf: P = 0 there
   const int r0 = q0 + wr + g, r1 = r0 + 8;
   const float lse0 = r0 < Lq ? lse[(size_t)grp * Lq + r0] : INFINITY;
   const float lse1 = r1 < Lq ? lse[(size_t)grp * Lq + r1] : INFINITY;
-  float acc[ND][4];
+  float acc[NA][4];
 #pragma unroll
-  for (int nd = 0; nd < ND; ++nd)
+  for (int nd = 0; nd < NA; ++nd)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
   dq_tile_loop(qa, da, ring, Lk, lse0, lse1, s_delta[wr + g],
                s_delta[wr + g + 8], acc);
 
-  // epilogue: d(LN q) = s * dS k (+ dO), then the row-LN VJP of q
+  // epilogue: d(LN q) = s * dS k (+ dO), then the row-LN VJP of q over the
+  // first D columns (acc is zero past them)
   float cg[ND][2], cb[ND][2];  // this thread's column sums over its rows
 #pragma unroll
   for (int nd = 0; nd < ND; ++nd)
@@ -198,7 +223,7 @@ __global__ void __launch_bounds__(BW_THREADS, 2)
         p1 += yg;
         p2 += yg * xh[nd][e];
       }
-    // the row's 96 columns lie in the quad of lanes sharing g
+    // the row's D columns lie in the quad of lanes sharing g
 #pragma unroll
     for (int off = 1; off <= 2; off <<= 1) {
       p1 += __shfl_xor_sync(0xffffffffu, p1, off);
@@ -345,17 +370,78 @@ __global__ void __launch_bounds__(KV_BWD_ROWS)
   }
 }
 
-}  // namespace aicity
+// The five passes at head dim D (the entry point's arguments).
+template <int D>
+int launch_flash_ln_bwd(const void* q, const void* k, const void* v,
+                        const void* gq, const void* bq, const void* gk,
+                        const void* bk, const void* gv, const void* bv,
+                        const void* oa, const void* lse, const void* dout,
+                        void* dq, void* dk, void* dv, void* dgb, void* qn,
+                        void* kn, void* vn, void* ld, void* part_q,
+                        void* dk_part, void* dv_part, void* part_kv, int G,
+                        int Lq, int Lk, float scale, float eps, int fq,
+                        int fk, int fv, int add_qn, int qps,
+                        cudaStream_t s) {
+  const dim3 kv_grid((Lk + 127) / 128, G);
+  kv_rows_kernel<D><<<kv_grid, 128, 0, s>>>(
+      (const bf16*)k, (const bf16*)gk, (const bf16*)bk, (bf16*)kn, Lk, eps, fk);
+  kv_rows_kernel<D><<<kv_grid, 128, 0, s>>>(
+      (const bf16*)v, (const bf16*)gv, (const bf16*)bv, (bf16*)vn, Lk, eps, fv);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
 
-// Shared memory of the dq kernel, for the wrapper's plan to check its own
-// against.
-extern "C" int aicity_flash_ln_bwd_dq_smem_bytes() {
-  return aicity::ln_dq_smem_bytes<96>();
+  CUtensorMap mk, mv;
+  if (make_tmap3_sw64(&mk, kn, G, Lk, D, BW_T) ||
+      make_tmap3_sw64(&mv, vn, G, Lk, D, BW_T))
+    return (int)cudaErrorInvalidValue;
+  const int nqt = (Lq + BW_T - 1) / BW_T;
+  constexpr int smem_dq = ln_dq_smem_bytes<D>();
+  err = set_smem(flash_ln_bwd_dq_kernel<D>, smem_dq);
+  if (err != cudaSuccess) return (int)err;
+  flash_ln_bwd_dq_kernel<D><<<dim3(nqt, G), BW_THREADS, smem_dq, s>>>(
+      mk, mv, (const bf16*)q, (const bf16*)oa, (const bf16*)dout,
+      (const float*)lse, (const bf16*)gq, (const bf16*)bq, (bf16*)qn,
+      (float2*)ld, (bf16*)dq, (float*)part_q, Lq, Lk, nqt * BW_T, scale, eps,
+      fq, add_qn);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  err = launch_dkv<D>(qn, dout, kn, vn, (const float2*)ld, (float*)dk_part,
+                      (float*)dv_part, G, Lq, Lk, nqt * BW_T, qps, s);
+  if (err != cudaSuccess) return (int)err;
+
+  const int nsplit = (Lq + qps - 1) / qps;
+  const int nkb = (Lk + KV_BWD_ROWS - 1) / KV_BWD_ROWS;
+  kv_ln_bwd_kernel<D><<<dim3(nkb, G, 2), KV_BWD_ROWS, 0, s>>>(
+      (const float*)dk_part, (const float*)dv_part, (const bf16*)k,
+      (const bf16*)v, (const bf16*)gk, (const bf16*)gv, (bf16*)dk, (bf16*)dv,
+      (float*)part_kv, G, Lk, nsplit, eps, fk, fv);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  bf16* g6 = (bf16*)dgb;
+  const float* pkv = (const float*)part_kv;
+  err = reduce_splits((const float*)part_q, g6, G * nqt, 2L * D, s);
+  if (err != cudaSuccess) return (int)err;
+  err = reduce_splits(pkv, g6 + 2 * D, G * nkb, 2L * D, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)reduce_splits(pkv + (size_t)G * nkb * 2 * D, g6 + 4 * D,
+                            G * nkb, 2L * D, s);
 }
 
-// q, k, v d-major [G, d, L] (Lq % 8 == 0), gamma / beta [d] each; oa (the
-// forward's attention output before the residual) and dout [G, Lq, d] token
-// rows; lse [G, Lq] f32. Outputs: dq, dk, dv d-major like
+}  // namespace aicity
+
+// Shared memory of the dq kernel at head dim d (96 or 72; else -1), for
+// the wrapper's plan to check its own against.
+extern "C" int aicity_flash_ln_bwd_dq_smem_bytes(int d) {
+  return d == 96   ? aicity::ln_dq_smem_bytes<96>()
+         : d == 72 ? aicity::ln_dq_smem_bytes<72>()
+                   : -1;
+}
+
+// q, k, v d-major [G, d, L] (d 96 or 72, Lq % 8 == 0), gamma / beta [d]
+// each; oa (the forward's attention output before the residual) and dout
+// [G, Lq, d] token rows; lse [G, Lq] f32. Outputs: dq, dk, dv d-major like
 // q, k, v; dgb [6, d] (dgamma, dbeta of q, k, v) bf16. Scratch: qn
 // [G, Lq, d], kn, vn [G, Lk, d] bf16; ld [G, Lqp] float2 (Lqp = Lq rounded
 // up to 64), part_q [G * ceil(Lq / 64), 2, d], dk_part / dv_part [nsplit, G,
@@ -371,52 +457,12 @@ extern "C" int aicity_flash_attention_ln_bwd(
     int fv, int add_qn, int qps, void* stream) {
   using namespace aicity;
   cudaStream_t s = (cudaStream_t)stream;
-  if (d != BW_D || Lq % 8 || qps <= 0 || qps % BW_T)
+  if ((d != BW_D && d != 72) || Lq % 8 || qps <= 0 || qps % BW_T)
     return (int)cudaErrorInvalidValue;
   if (G <= 0 || Lq <= 0 || Lk <= 0) return (int)cudaSuccess;
-  const dim3 kv_grid((Lk + 127) / 128, G);
-  kv_rows_kernel<96><<<kv_grid, 128, 0, s>>>(
-      (const bf16*)k, (const bf16*)gk, (const bf16*)bk, (bf16*)kn, Lk, eps, fk);
-  kv_rows_kernel<96><<<kv_grid, 128, 0, s>>>(
-      (const bf16*)v, (const bf16*)gv, (const bf16*)bv, (bf16*)vn, Lk, eps, fv);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  CUtensorMap mk, mv;
-  if (make_tmap3_sw64(&mk, kn, G, Lk, BW_D, BW_T) ||
-      make_tmap3_sw64(&mv, vn, G, Lk, BW_D, BW_T))
-    return (int)cudaErrorInvalidValue;
-  const int nqt = (Lq + BW_T - 1) / BW_T;
-  const int smem_dq = ln_dq_smem_bytes<96>();
-  err = set_smem(flash_ln_bwd_dq_kernel<96>, smem_dq);
-  if (err != cudaSuccess) return (int)err;
-  flash_ln_bwd_dq_kernel<96><<<dim3(nqt, G), BW_THREADS, smem_dq, s>>>(
-      mk, mv, (const bf16*)q, (const bf16*)oa, (const bf16*)dout,
-      (const float*)lse, (const bf16*)gq, (const bf16*)bq, (bf16*)qn,
-      (float2*)ld, (bf16*)dq, (float*)part_q, Lq, Lk, nqt * BW_T, scale, eps,
-      fq, add_qn);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  err = launch_dkv(qn, dout, kn, vn, (const float2*)ld, (float*)dk_part,
-                   (float*)dv_part, G, Lq, Lk, nqt * BW_T, qps, s);
-  if (err != cudaSuccess) return (int)err;
-
-  const int nsplit = (Lq + qps - 1) / qps;
-  const int nkb = (Lk + KV_BWD_ROWS - 1) / KV_BWD_ROWS;
-  kv_ln_bwd_kernel<96><<<dim3(nkb, G, 2), KV_BWD_ROWS, 0, s>>>(
-      (const float*)dk_part, (const float*)dv_part, (const bf16*)k,
-      (const bf16*)v, (const bf16*)gk, (const bf16*)gv, (bf16*)dk, (bf16*)dv,
-      (float*)part_kv, G, Lk, nsplit, eps, fk, fv);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  bf16* g6 = (bf16*)dgb;
-  const float* pkv = (const float*)part_kv;
-  err = reduce_splits((const float*)part_q, g6, G * nqt, 2L * d, s);
-  if (err != cudaSuccess) return (int)err;
-  err = reduce_splits(pkv, g6 + 2 * d, G * nkb, 2L * d, s);
-  if (err != cudaSuccess) return (int)err;
-  return (int)reduce_splits(pkv + (size_t)G * nkb * 2 * d, g6 + 4 * d,
-                            G * nkb, 2L * d, s);
+  const auto launch =
+      d == 72 ? launch_flash_ln_bwd<72> : launch_flash_ln_bwd<96>;
+  return launch(q, k, v, gq, bq, gk, bk, gv, bv, oa, lse, dout, dq, dk, dv,
+                dgb, qn, kn, vn, ld, part_q, dk_part, dv_part, part_kv, G, Lq,
+                Lk, scale, eps, fq, fk, fv, add_qn, qps, s);
 }

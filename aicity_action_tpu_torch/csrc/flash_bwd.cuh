@@ -27,10 +27,12 @@
 // [G][L][96] (make_tmap3_sw64), so rows past L load as zero and never come
 // from the next group.
 //
-// Head dim 72 (MViT-v2-L's training path; the D of the dq and dk/dv
-// kernels): the tensor maps' inner extent is 72, so TMA fills columns
-// 72-95 of every tile's third box with zeros, and the register fragments of
-// rows read from global memory (rows_to_a<72>) are zeros there too. Every
+// Head dim 72 (MViT-v2-L's training path, on either switch; the D of the
+// dq and dk/dv kernels, and of the fused-LN dq kernel,
+// flash_attention_ln_bwd.cu): the tensor maps' inner extent is 72, so TMA
+// fills columns 72-95 of every tile's third box with zeros, and the
+// register fragments of rows read from global memory (rows_to_a<72>) or
+// shared memory (the fused-LN dq kernel's) are zeros there too. Every
 // d-96 product then runs as it is: the logits and dP sum zeros past 72, and
 // dq, dk, dv get zero columns past 72, which the kernels do not store.
 // delta = rowsum(dO * O) reads 72 columns. The forward's note

@@ -66,7 +66,8 @@
 // times to 1%, while ptxas serialized the wgmma of the narrow products'
 // last-tile instances (C7511). flash_attention.cu's training forward
 // writes the logsumexp at 72 as at 96, and its backward takes 72 the same
-// way (flash_bwd.cuh); the fused-LN training kernels keep d 96.
+// way (flash_bwd.cuh); so do the fused-LN training forward (flash_ln_kernel
+// with lse and oa) and its backward (flash_attention_ln_bwd.cu).
 #pragma once
 
 #include <math.h>

@@ -456,8 +456,8 @@ class MultiScaleAttention(nn.Module):
         fuse = (self.mode == "conv" and not self.has_cls and self.pooled
                 and _fuse_attn_ln_enabled(self.training))
         if fuse and torch.is_grad_enabled() and kernels.use_kernel(x):
-            # the fused-LN training kernels' head dim, checked before this
-            # block launches anything
+            # the fused-LN training kernels' head dim (96 or 72), checked
+            # before this block launches anything
             require_ln_training_head_dim(self.head_dim)
         # q, k, v come channel-major, [B, C, L]: the NCDHW layout the pool
         # convolutions take and the d-major one the fused attention kernel

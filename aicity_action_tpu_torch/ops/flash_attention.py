@@ -24,8 +24,8 @@ per-head LayerNorms and the MViT-v2 query residual fused in. It replaces
 kernels of ``_flash_ln_bwd`` under autograd), which every MViT block runs
 at inference, and in training under ``AICITY_TPU_FUSE_ATTN_LN=1``. At 448
 it sees head-major ``q [B*h, Lq, 96]`` and ``k, v [B*h, Lk, 96]`` with Lq up
-to 100352 and Lk in {1568, 6272} (MViT-v2-L: head dim 72, the inference
-forward only; ``FWD_HEAD_DIMS``): 4*Lq*Lk*d flops against 2*(Lq + 2*Lk)*d
+to 100352 and Lk in {1568, 6272} (MViT-v2-L: head dim 72, forward and
+backward; ``FWD_HEAD_DIMS``): 4*Lq*Lk*d flops against 2*(Lq + 2*Lk)*d
 bytes, so the tensor cores (and the softmax's exponentials) bound it. The
 Pallas kernel keeps a group's whole K/V in VMEM and normalizes it once per
 group; GPU blocks share nothing, so ``csrc/flash_attention_ln.cu``
@@ -49,9 +49,10 @@ from .layer_norm import layer_norm_plain
 
 # the head dim the kernels' tiles are sized for (every MViT-v2-B block's),
 # and the head dims they take: also MViT-v2-L's 72, whose tiles TMA fills
-# with zeros past column 72 (csrc/flash_fwd.cuh:FwdDim, csrc/flash_bwd.cuh);
-# the fused-LN training kernels (the logsumexp forward and the backward of
-# flash_attention_ln) take 96 only
+# with zeros past column 72 (csrc/flash_fwd.cuh:FwdDim, csrc/flash_bwd.cuh,
+# csrc/flash_attention_ln_bwd.cu), in every attention kernel, the fused-LN
+# training ones (the logsumexp forward and the backward of
+# flash_attention_ln) included
 KERNEL_HEAD_DIM = 96
 FWD_HEAD_DIMS = (96, 72)
 # logits the plain version materializes at once (f32 elements)
@@ -74,19 +75,20 @@ _DQ_STAGES, _DQ_LN_STAGES, _DKV_STAGES = 3, 2, 3
 _MAX_SPLITS = 64
 
 
-def _bwd_smem() -> dict:
-    """Dynamic shared memory of the backward's kernels (bytes), as
-    ``csrc/flash_bwd.cuh`` and ``csrc/flash_attention_ln_bwd.cu`` lay it
-    out: 1 KB of alignment slack; the dq kernels' K/V ring (a K and a V
-    tile and a barrier a stage), the fused-LN one also its LN(q) and dO
-    rows, the raw q tile, the O rows / dq staging (each padded by 8 bf16 a
-    row) and its f32 statistics and column sums; the dk/dv kernel's ring of
-    (qs, dO) tiles with their (lse, delta) rows and a barrier a stage (its
-    K and V stay in registers)."""
-    d, t = KERNEL_HEAD_DIM, BWD_TILE
+def _bwd_smem(d: int = KERNEL_HEAD_DIM) -> dict:
+    """Dynamic shared memory of the backward's kernels (bytes) at head dim
+    ``d``, as ``csrc/flash_bwd.cuh`` and ``csrc/flash_attention_ln_bwd.cu``
+    lay it out: 1 KB of alignment slack; the dq kernels' K/V ring (a K and
+    a V tile and a barrier a stage), the fused-LN one also its LN(q) and dO
+    rows (the 96 columns of the products and 8 of padding at either head
+    dim), the raw q tile (d rows of a tile and 8), the O rows / dq staging
+    and its f32 statistics and column sums over d; the dk/dv kernel's ring
+    of (qs, dO) tiles with their (lse, delta) rows and a barrier a stage
+    (its K and V stay in registers). Only the fused-LN dq kernel's depends
+    on d."""
+    t, w = BWD_TILE, KERNEL_HEAD_DIM + 8
     ring = 2 * _BWD_TILE_BYTES + 8
-    ln_rows = 2 * (2 * t * (d + 8) + d * (t + 8) + max(d * (t + 8),
-                                                       t * (d + 8)))
+    ln_rows = 2 * (2 * t * w + d * (t + 8) + max(d * (t + 8), t * w))
     return {"dq": 1024 + _DQ_STAGES * ring,
             "ln_dq": 1024 + _DQ_LN_STAGES * ring + ln_rows
             + 4 * (3 * t + 8 * d),
@@ -102,8 +104,8 @@ def _attn_fwd_plan(G: int, Lq: int, Lk: int, d: int, with_lse: bool) -> dict:
     last key tile's product width (``csrc/flash_fwd.cuh:fwd_last_width``),
     ``tiles``, the key tiles a block walks. Raises ValueError for what no
     kernel takes: a head dim other than 96 or 72; more groups than the
-    grid's 65535; no rows or keys. (``with_lse``: the launch is the same;
-    the fused-LN wrapper refuses 72 with it itself.)"""
+    grid's 65535; no rows or keys. (``with_lse``: the launch is the
+    same.)"""
     if d not in FWD_HEAD_DIMS:
         raise ValueError(f"flash attention forward: the kernel takes head "
                          f"dim {' or '.join(map(str, FWD_HEAD_DIMS))}, "
@@ -128,8 +130,9 @@ def _attn_bwd_plan(G: int, Lq: int, Lk: int, d: int, sms: int) -> dict:
     the bytes each split's f32 partials add to the sums, counted in tile
     steps. ``lqp``: Lq rounded up to whole tiles, the rows of the padded
     (lse, delta) scratch. The dq kernel's grid is one block a tile. Head
-    dim 72 runs on the tiles of 96 (zeros past 72), so the plan, its split
-    cost and shared memory are 96's."""
+    dim 72 runs on the tiles of 96 (zeros past 72), so the plan and its
+    split cost are 96's (and the shared memory, but for the fused-LN dq
+    kernel's, :func:`_bwd_smem`)."""
     if d not in FWD_HEAD_DIMS:
         raise ValueError(f"flash attention backward: the kernel takes head "
                          f"dim {' or '.join(map(str, FWD_HEAD_DIMS))}, "
@@ -157,12 +160,13 @@ def _check_kernel_smem() -> None:
     """Holds :func:`_bwd_smem` against the kernels' own shared memory, once
     a process."""
     lib = kernels.lib()
-    theirs = (lib.aicity_flash_bwd_smem_bytes(0),
-              lib.aicity_flash_ln_bwd_dq_smem_bytes(),
-              lib.aicity_flash_bwd_smem_bytes(1))
-    if theirs != tuple(_bwd_smem().values()):
-        raise RuntimeError("flash attention backward: _bwd_smem differs from "
-                           "the kernels' shared memory")
+    for d in FWD_HEAD_DIMS:
+        theirs = (lib.aicity_flash_bwd_smem_bytes(0),
+                  lib.aicity_flash_ln_bwd_dq_smem_bytes(d),
+                  lib.aicity_flash_bwd_smem_bytes(1))
+        if theirs != tuple(_bwd_smem(d).values()):
+            raise RuntimeError(f"flash attention backward: _bwd_smem({d}) "
+                               "differs from the kernels' shared memory")
 
 
 def _checked_attn_bwd_plan(G: int, Lq: int, Lk: int, d: int,
@@ -262,13 +266,13 @@ def _ln_operands(name, q, k, v, params):
 def require_ln_training_head_dim(d: int) -> None:
     """Raises ValueError unless the fused-LN training kernels (the
     logsumexp forward, :func:`flash_attention_ln_lse`, and
-    :func:`flash_attention_ln_bwd`) take head dim ``d``: 96 only, so
-    MViT-v2-L (72) trains on the unfused path, the default."""
-    if d != KERNEL_HEAD_DIM:
+    :func:`flash_attention_ln_bwd`) take head dim ``d``: 96 (MViT-v2-B)
+    or 72 (MViT-v2-L), ``FWD_HEAD_DIMS``."""
+    if d not in FWD_HEAD_DIMS:
         raise ValueError(
             f"flash_attention_ln: the logsumexp forward and the backward "
             f"(training under AICITY_TPU_FUSE_ATTN_LN=1) take head dim "
-            f"{KERNEL_HEAD_DIM}, got {d}")
+            f"{' or '.join(map(str, FWD_HEAD_DIMS))}, got {d}")
 
 
 def _flash_ln_fwd(q, k, v, gq, bq, gk, bk, gv, bv, scale, eps, flags,
@@ -307,15 +311,15 @@ def _flash_ln_fwd(q, k, v, gq, bq, gk, bk, gv, bv, scale, eps, flags,
 
 def flash_attention_ln_lse(q, k, v, gq, bq, gk, bk, gv, bv, scale: float,
                            eps: float, flags, add_qn: bool):
-    """The forward under autograd (replaces ``_flash_ln_fwd_lse_kernel``;
-    one kernel with :func:`flash_attention_ln`): ``(out, lse, o_attn)``
-    with the per-row logsumexp of the logits (f32 ``[G, Lq]``) and the
-    attention output before the residual, from which the backward takes
-    ``delta``. The Pallas wrapper recovers the latter as ``out - LN(q)``
-    from the rounded ``out``; in bf16 that costs a rounding of ``O +
-    LN(q)`` (LN(q) is of order 1, O much smaller), which shows as noise in
-    gradients that cancel, such as the k norm's bias gradient (exactly
-    zero: softmax ignores one shift of every key)."""
+    """The forward under autograd (replaces ``_flash_ln_fwd_lse_kernel``; one
+    kernel with :func:`flash_attention_ln`, head dim 96 or 72): ``(out, lse,
+    o_attn)`` with the per-row logsumexp of the logits (f32 ``[G, Lq]``) and
+    the attention output before the residual, from which the backward takes
+    ``delta``. The Pallas wrapper recovers the latter as ``out - LN(q)`` from
+    the rounded ``out``; in bf16 that costs a rounding of ``O + LN(q)`` (LN(q)
+    is of order 1, O much smaller), which shows as noise in gradients that
+    cancel, such as the k norm's bias gradient (exactly zero: softmax ignores
+    one shift of every key)."""
     res = _flash_ln_fwd(q, k, v, gq, bq, gk, bk, gv, bv, scale, eps, flags,
                         add_qn, True)
     flash_attention_ln_lse.launches += 1
@@ -330,7 +334,9 @@ def flash_attention_ln_bwd(q, k, v, gq, bq, gk, bk, gv, bv, o_attn, lse,
     ``(dq, dk, dv, dgq, dbq, dgk, dbk, dgv, dbv)`` from the forward's inputs
     (q, k, v the d-major views it took), its ``lse`` and attention output
     before the residual ``o_attn`` (:func:`flash_attention_ln_lse`) and the
-    output gradient ``dout [G, Lq, d]``. dq, dk, dv are the d-major views
+    output gradient ``dout [G, Lq, d]``, d 96 or 72 (72 runs the products
+    of 96 on tiles TMA fills with zeros past column 72; the LayerNorms and
+    their VJPs see 72 columns). dq, dk, dv are the d-major views
     of contiguous ``[G, d, L]`` gradients, the layout the pool
     convolutions' backward takes; the LN parameter gradients are bf16
     ``[d]``, zeros where the flag is off. ``delta = rowsum(dout * o_attn)``

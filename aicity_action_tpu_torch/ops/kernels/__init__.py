@@ -59,7 +59,7 @@ _SIGNATURES = {
     "aicity_flash_attention_bwd": ([_vp] * 13 + [_i] * 4 + [_f, _i, _vp],
                                    _i),
     "aicity_flash_bwd_smem_bytes": ([_i], _i),
-    "aicity_flash_ln_bwd_dq_smem_bytes": ([], _i),
+    "aicity_flash_ln_bwd_dq_smem_bytes": ([_i], _i),
     "aicity_wgmma_sw64_probe": ([_vp] * 4 + [_i, _vp], _i),
     "aicity_ln_qkv_bwd": ([_vp, _vp] + [_i] * 4 + [_f, _vp], _i),
     "aicity_ln_qkv_bwd_smem_bytes": ([_i] * 4, _i),

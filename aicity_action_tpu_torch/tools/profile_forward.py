@@ -11,8 +11,7 @@
 MViT-B 16x4 @ 224 with a cls token (PySlowFast's Kinetics-400 MViT-v1),
 the 448 model with its MoE banks (``mvitv2_b_16x4_448_moe_cfg``) or with
 the MViT-v2-L trunk (``mvitv2_l_16x4_448_cfg``: 48 blocks, head dim 72;
-with ``--train`` on the default switch only: the fused-LN training
-kernels take head dim 96);
+with ``--train`` on either switch);
 ``--fuse-attn-ln`` sets ``AICITY_TPU_FUSE_ATTN_LN`` for the run (``1``: the
 fused-LN attention in training too). Builds the model at full width and
 depth on weights from ``--seed``, warms

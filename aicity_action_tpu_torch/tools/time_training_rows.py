@@ -1,12 +1,16 @@
-"""Time the training path's kernels (rows 2, 3, 9, 11 and 13) at the
-MViT-v2-B 16x4 @448 batch-4 train-step shapes, each call first held
-against its plain version.
+"""Time the training path's kernels (rows 2, 3, 9, 11 and 13; with
+``--rows``, also 6 and 7, the fused-LN attention's of
+``AICITY_TPU_FUSE_ATTN_LN=1``) at the MViT-v2-B 16x4 @448 batch-4
+train-step shapes, each call first held against its plain version.
 
     python -m aicity_action_tpu_torch.tools.time_training_rows [--iters 11]
-        [--seed 0] [--out FILE.json]
+        [--seed 0] [--rows 2,3,9,11,13] [--out FILE.json]
 
 Row 2 (``flash_attention_fwd`` with its logsumexp) at blocks 0, 1, 4-13 and
 15; row 3 (``flash_attention_bwd``) at blocks 0, 1, 3, 4-13, 14 and 15;
+rows 6 (``flash_attention_ln_lse``) and 7 (``flash_attention_ln_bwd``) at
+the same blocks as rows 2 and 3 (d-major q, k, v, all three pool norms and
+the residual);
 row 9 (``fused_ln_qkv_bwd``) at blocks 0, 1, 4-13 and 15; row 11
 (``fused_ln_mlp_bwd``) at C 96, 192, 384 and 768; row 13 at the final norm
 ``[B*1568, 768]`` (the rows instance) and block 0's q pool norm (the
@@ -61,19 +65,34 @@ def _smoke():
     return chip_smoke
 
 
-def _measure(name: str, fn, plain, iters: int) -> dict:
+# outputs whose exact value is zero, held to another's magnitude
+# (check_outputs' zero_grads): row 7's k norm bias gradient (softmax
+# ignores one shift of every key) to the k norm scale's
+ZERO_GRADS = {7: {6: 5}}
+
+
+def _measure(name: str, fn, plain, iters: int, zero_grads=None) -> dict:
     """``fn()`` held against ``plain()``, then timed: its error as a share
     of the 2% allowed, and its median and interquartile range (ms)."""
     smoke = _smoke()
-    _, _, rel = smoke.check_outputs(name, fn(), plain())
+    _, _, rel = smoke.check_outputs(name, fn(), plain(), zero_grads)
     t = smoke.time_interleaved([fn], iters)[0]
     return {"err_share": rel / smoke.KERNEL_RTOL, "ms": t["ms"],
             "ms_iqr": t["iqr"]}
 
 
-def cases(gen):
-    """``(row, label, kernel call, plain call)`` of every timed shape, the
-    inputs drawn from ``gen`` as each case is reached."""
+def _ln_inputs(normal, G, Lq, Lk):
+    """Rows 6-7's inputs: d-major q, k, v and the three norms' gamma /
+    beta."""
+    q, k, v = (normal((G, D, n)).transpose(1, 2) for n in (Lq, Lk, Lk))
+    lnp = [t for _ in range(3) for t in (normal((D,), 0.1, 1.0),
+                                         normal((D,), 0.1))]
+    return q, k, v, lnp
+
+
+def cases(gen, rows=(2, 3, 9, 11, 13)):
+    """``(row, label, kernel call, plain call)`` of every timed shape of
+    ``rows``, the inputs drawn from ``gen`` as each case is reached."""
     import torch
 
     from aicity_action_tpu_torch.ops import flash_attention as fa
@@ -88,14 +107,37 @@ def cases(gen):
                 + shift).to(bf)
 
     s = D ** -0.5
-    for blk, h, Lq, Lk in ATTN_FWD:
+    flags = (True, True, True)
+
+    def ln_plain(*a):
+        return fa.flash_attention_ln_plain(*a, s, 1e-5, flags, True)
+
+    for blk, h, Lq, Lk in ATTN_FWD if 6 in rows else ():
+        q, k, v, lnp = _ln_inputs(normal, BATCH * h, Lq, Lk)
+        yield (6, f"block {blk} q[{BATCH * h},{Lq},{D}] k,v[{BATCH * h},"
+                  f"{Lk},{D}] d-major (+ lse)",
+               lambda a=(q, k, v, *lnp): fa.flash_attention_ln_lse(
+                   *a, s, 1e-5, flags, True)[0],
+               lambda a=(q, k, v, *lnp): ln_plain(*(t.float() for t in a)))
+    for blk, h, Lq, Lk in ATTN_BWD if 7 in rows else ():
+        q, k, v, lnp = _ln_inputs(normal, BATCH * h, Lq, Lk)
+        _, lse, oa = fa.flash_attention_ln_lse(q, k, v, *lnp, s, 1e-5, flags,
+                                               True)
+        dout = normal((BATCH * h, Lq, D))
+        yield (7, f"block {blk} q[{BATCH * h},{Lq},{D}] k,v[{BATCH * h},"
+                  f"{Lk},{D}] d-major",
+               lambda a=(q, k, v, *lnp, oa, lse, dout):
+                   fa.flash_attention_ln_bwd(*a, s, 1e-5, flags, True),
+               lambda a=(q, k, v, *lnp), dout=dout: grads(ln_plain, a,
+                                                          (dout,)))
+    for blk, h, Lq, Lk in ATTN_FWD if 2 in rows else ():
         q, k, v = (normal((BATCH * h, n, D)) for n in (Lq, Lk, Lk))
         yield (2, f"block {blk} q[{BATCH * h},{Lq},{D}] k,v[{BATCH * h},"
                   f"{Lk},{D}] (+ lse)",
                lambda q=q, k=k, v=v: fa.flash_attention_fwd(q, k, v, s, True),
                lambda q=q, k=k, v=v: fa.flash_attention_lse_plain(
                    q.float(), k.float(), v.float(), s))
-    for blk, h, Lq, Lk in ATTN_BWD:
+    for blk, h, Lq, Lk in ATTN_BWD if 3 in rows else ():
         q, k, v = (normal((BATCH * h, n, D)) for n in (Lq, Lk, Lk))
         out, lse = fa.flash_attention_fwd(q, k, v, s, True)
         dout = normal((BATCH * h, Lq, D))
@@ -106,7 +148,7 @@ def cases(gen):
                lambda a=(q, k, v), dout=dout: grads(
                    lambda x, y, z: fa.flash_attention_plain(x, y, z, s), a,
                    (dout,)))
-    for blk, L, Din, C in QKV:
+    for blk, L, Din, C in QKV if 9 in rows else ():
         M = BATCH * L
         args = (normal((M, Din)), normal((Din,), 0.1, 1.0),
                 normal((Din,), 0.1), normal((3 * C, Din), Din ** -0.5))
@@ -117,7 +159,7 @@ def cases(gen):
                    *a, *gs, 1e-6, L),
                lambda a=args + (bias,), gs=gs, L=L: grads(
                    lambda *t: fd.ln_qkv_plain(*t, 1e-6, L), a, gs))
-    for blk, L, C in MLP:
+    for blk, L, C in MLP if 11 in rows else ():
         M, H = BATCH * L, 4 * C
         args = (normal((M, C)), normal((C,), 0.1, 1.0), normal((C,), 0.1),
                 normal((H, C), C ** -0.5), normal((H,), 0.1),
@@ -127,6 +169,8 @@ def cases(gen):
                lambda a=args, dout=dout: fd.fused_ln_mlp_bwd(*a, dout, 1e-6),
                lambda a=args + (b2,), dout=dout: grads(
                    lambda *t: fd.ln_mlp_plain(*t, 1e-6), a, (dout,)))
+    if 13 not in rows:
+        return
     M, C = BATCH * 1568, 768
     x, g, b, dy = (normal((M, C), 2.0), normal((C,), 0.1, 1.0),
                    normal((C,), 0.1), normal((M, C)))
@@ -147,6 +191,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--iters", type=int, default=11)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--rows", default="2,3,9,11,13",
+                   help="the rows to time, of 2, 3, 6, 7, 9, 11, 13")
     p.add_argument("--out", default="")
     args = p.parse_args(argv)
     import torch
@@ -157,9 +203,11 @@ def main(argv=None) -> int:
         raise SystemExit("time_training_rows: needs a CUDA card")
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rows = []
-    for row, label, fn, plain in cases(gen):
+    rows_asked = tuple(int(r) for r in args.rows.split(","))
+    for row, label, fn, plain in cases(gen, rows_asked):
         r = {"row": row, "shape": label,
-             **_measure(f"row {row} {label}", fn, plain, args.iters)}
+             **_measure(f"row {row} {label}", fn, plain, args.iters,
+                        ZERO_GRADS.get(row))}
         rows.append(r)
         torch.cuda.empty_cache()
         print(f"row {row} {label}: {r['ms']:.4f} ms (iqr "

@@ -199,28 +199,33 @@ NVIDIA card.
     to ``WindowScorer.score_video``. The SASS check of phase 1 holds the
     new instances (the attention forwards at head dim 72, the 144-column
     LN+qkv and LN+MLP) to no spills.
-27. MViT-v2-L training @448 on the default switch
+27. MViT-v2-L training @448 on both switches
     (``head_dim_72_identity_checks``, ``l_train_kernel_checks``,
-    ``train_checks``, ``train_grad_check``, ``l_fuse_switch_check``,
-    ``l_run_net_checks``): the attention forward with its logsumexp and its
-    backward at head dim 72 bit-equal to the d-96 kernels on zero-padded
-    inputs; rows 2, 3, 9, 11 and
-    13 at every distinct call of the b4 train step (the attention with its
-    logsumexp and its backward at head dim 72, the LN+qkv and LN+MLP
-    backwards at 144-1152 channels, the rows LayerNorm backward at the
-    head-dim-72 pool norms and the final norm over 1152), each against its
-    plain version and timed beside its bound and library call; the b4
-    train step (mixup, checkpointing, AdamW: warm-up, then timed steps,
-    ms/step, peak memory) with its launches held to ``derived_counts``;
-    the b1 gradient gate, every leaf against the plain f32 step (bf16's
-    own distance the largest of ``L_GRAD_DRAWS`` draws); the step under
-    ``AICITY_TPU_FUSE_ATTN_LN=1`` raising rows 6-7's ValueError before any
-    launch; one ``run_net`` epoch with the L widths as overrides (2 steps,
-    eval, test, checkpoint, launches). Phase 1 holds the instances the L
-    training adds (the attention backward at head dim 72, the 64-wide dual
-    GEMM, the 1152-channel pre-passes and LN backwards, the ragged
-    gradients' pass, the rows backward's wide instance) to no spills and
-    no serialized wgmma, and the descriptors at head dim 72 too.
+    ``l_fused_kernel_checks``, ``train_checks``, ``train_grad_check``,
+    ``l_fused_train_checks``, ``l_run_net_checks``): the attention forward
+    with its logsumexp and its backward at head dim 72 bit-equal to the d-96
+    kernels on zero-padded inputs; rows 2, 3, 9, 11 and 13 at every distinct
+    call of the b4 train step (the attention with its logsumexp and its
+    backward at head dim 72, the LN+qkv and LN+MLP backwards at 144-1152
+    channels, the rows LayerNorm backward at the head-dim-72 pool norms and
+    the final norm over 1152), each against its plain version and timed beside
+    its bound and library call; the b4 train step (mixup, checkpointing,
+    AdamW: warm-up, then timed steps, ms/step, peak memory) with its launches
+    held to ``derived_counts``; the b1 gradient gate, every leaf against the
+    plain f32 step (bf16's own distance the largest of ``L_GRAD_DRAWS``
+    draws); under ``AICITY_TPU_FUSE_ATTN_LN=1``, rows 6 and 7 (the fused-LN
+    attention's forward with its logsumexp and its backward) at head dim 72 at
+    every distinct call of the b4 step and the row-4 backward at head dim 72
+    at odd lengths, each against its plain version, the b4 step with its
+    launches held to ``derived_counts`` (rows 6-7 in every block), its ms/step
+    and peak memory beside the default switch's, and the same b1 gradient
+    gate; on each switch one ``run_net`` epoch with the L widths as overrides
+    (2 steps, eval, test, checkpoint, launches). Phase 1 holds the instances
+    the L training adds (the attention backward at head dim 72, the fused-LN
+    dq kernel and dk/dv LN VJP at head dim 72, the 64-wide dual GEMM, the
+    1152-channel pre-passes and LN backwards, the ragged gradients' pass, the
+    rows backward's wide instance) to no spills and no serialized wgmma, and
+    the descriptors at head dim 72 too.
 28. Prints ``{"kernels": [...]}`` (the widened rows with their L shapes
     and launches), the card line, and last ``{"ok": true, "device":
     {...}}``.
@@ -394,18 +399,21 @@ L_ATTN_INSTANCES = {"flash_attention": "flash_fwd_kernelILi64ELi72E",
 # rows' others
 L_TRAIN_INSTANCES = {"flash_attention_bwd": ("flash_bwd_dq_kernelILi72E",
                                              "flash_bwd_dkv_kernelILi3ELi72E"),
-                     "fused_ln_mlp_bwd": ("mlp_bwd_dual_kernelILi64E",)}
+                     "fused_ln_mlp_bwd": ("mlp_bwd_dual_kernelILi64E",),
+                     "flash_attention_ln_bwd": (
+                         "flash_ln_bwd_dq_kernelILi72E",)}
 # the plain helper kernels that the L widths added to a row (the statistics
 # pre-passes at 1152 channels, the K/V LN pass at head dim 72; for training,
 # the dense backwards' pre-passes at 1152 channels and LN backwards over
 # 1152, the LN+qkv gradients' pass with a ragged 96-channel chunk, the
-# attention backward's pre-pass at head dim 72): found in the build log and
-# held to no spills
+# attention backward's pre-pass at head dim 72; under
+# AICITY_TPU_FUSE_ATTN_LN=1, the fused-LN backward's dk/dv LN VJP at head
+# dim 72): found in the build log and held to no spills
 NO_SPILL_HELPERS = ("ln_qkv_kernel_statsILi36E", "ln_mlp_kernel_statsILi36E",
                     "kv_rows_kernelILi72E", "qkv_bwd_prep_kernelILi36E",
                     "mlp_bwd_prep_kernelILi36E", "qkv_bwd_ln_kernelILi9E",
                     "mlp_bwd_ln_kernelILi9E", "qkv_bwd_grad_kernelILb1E",
-                    "flash_bwd_prep_kernelILi72E")
+                    "flash_bwd_prep_kernelILi72E", "kv_ln_bwd_kernelILi72E")
 
 
 # the LayerNorm kernels (rows 12-13): no tensor-core work, so no HGMMA;
@@ -1180,6 +1188,77 @@ def layer_norm_checks():
 
 # ------------------------------------------- cls-token and fused-LN kernels
 
+def _fused_ln_train_cases(gen, shape, G, Lq, Lk, d, with_fwd: bool):
+    """Rows 6 and 7 over ``G`` groups of ``Lq`` queries and ``Lk`` keys of
+    head dim ``d`` (d-major q, k, v, all three norms and the residual): the
+    forward with its logsumexp (where ``with_fwd``) and the backward, each
+    against its plain version in f32 from the same bf16 inputs and timed
+    beside LN + SDPA (forward + backward for the backward; the k norm's
+    bias gradient, exactly zero, held to the k norm scale's magnitude).
+    Returns ``(forward case or None, backward case)``."""
+    import torch
+    import torch.nn.functional as F
+
+    from aicity_action_tpu_torch.ops import flash_attention as fa
+    from aicity_action_tpu_torch.ops.layer_norm import layer_norm_plain
+
+    bf = torch.bfloat16
+    scale = d ** -0.5
+    flags = (True, True, True)
+    q, k, v = (_normal(gen, (G, d, n), 1.0, bf).transpose(1, 2)
+               for n in (Lq, Lk, Lk))
+    lnp = [t for _ in range(3) for t in (
+        _normal(gen, (d,), 0.1, bf) + 1, _normal(gen, (d,), 0.1, bf))]
+    args = (q, k, v, *lnp, scale, 1e-5, flags, True)
+    flops = 4 * G * Lq * Lk * d
+    io = 2 * (2 * G * Lq * d + 2 * G * Lk * d + 6 * d)
+
+    def ln_plain(*a):
+        return fa.flash_attention_ln_plain(*a, scale, 1e-5, flags, True)
+
+    def plain_lse():
+        qf, kf, vf = (t.float() for t in (q, k, v))
+        p = [t.float() for t in lnp]
+        qn, kn, vn = (layer_norm_plain(t, p[2 * i], p[2 * i + 1], 1e-5)
+                      for i, t in enumerate((qf, kf, vf)))
+        o, lse = fa.flash_attention_lse_plain(qn, kn, vn, scale)
+        return o + qn, lse, o
+
+    def library(q, k, v, lnp):
+        qn, kn, vn = (F.layer_norm(t, (d,), lnp[2 * i], lnp[2 * i + 1],
+                                   1e-5) for i, t in enumerate((q, k, v)))
+        return _sdpa(qn, kn, vn) + qn
+
+    fwd = None
+    if with_fwd:
+        fwd = _check_case(
+            "flash_attention_ln_lse",
+            lambda: fa.flash_attention_ln_lse(*args), plain_lse,
+            lambda: library(q, k, v, lnp), flops=flops,
+            # out, lse and the attention output before the residual
+            nbytes=io + 4 * G * Lq + 2 * G * Lq * d,
+            peak=PEAK_BF16, iters=3)
+        fwd["shape"] = shape
+        _mark_fwd(fwd, G, Lq, Lk, d)
+    out, lse, oa = fa.flash_attention_ln_lse(*args)
+    dout = _normal(gen, (G, Lq, d), 1.0, bf)
+    bwd = _check_case(
+        "flash_attention_ln_bwd",
+        lambda: fa.flash_attention_ln_bwd(q, k, v, *lnp, oa, lse, dout,
+                                          scale, 1e-5, flags, True),
+        lambda: _plain_grads(ln_plain, (q, k, v, *lnp), (dout,)),
+        lambda: _library_grads(lambda *a: library(*a[:3], a[3:]),
+                               (q, k, v, *lnp), (dout,)),
+        flops=10 * G * Lq * Lk * d,
+        nbytes=(2 * (4 * G * Lq * d + 4 * G * Lk * d + 12 * d)
+                + 4 * G * Lq),
+        peak=PEAK_BF16, iters=2, zero_grads={6: 5})
+    bwd["shape"] = shape
+    del q, k, v, out, lse, oa, dout, args
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
 def v1_kernel_checks():
     """The kernels the cls-token MViT-v1 and the fused-LN training path
     add: the padded attention (forward with and without its lse, and
@@ -1255,66 +1334,13 @@ def v1_kernel_checks():
     # flash_attention_ln_lse / _bwd: 448 batch 4 at ATTN_TRAIN_SHAPES (the
     # forward at blocks 0, 1 and 15)
     fwd, bwd = [], []
-    flags = (True, True, True)
     for blk, h, Lq, Lk in ATTN_TRAIN_SHAPES:
         G = TRAIN_BATCH * h
-        q, k, v = (_normal(gen, (G, d, n), 1.0, bf).transpose(1, 2)
-                   for n in (Lq, Lk, Lk))
-        lnp = [t for _ in range(3) for t in (
-            _normal(gen, (d,), 0.1, bf) + 1, _normal(gen, (d,), 0.1, bf))]
-        args = (q, k, v, *lnp, scale, 1e-5, flags, True)
-        shape = f"448 {_attn_shape(blk, G, Lq, Lk)} d-major"
-        flops = 4 * G * Lq * Lk * d
-        io = 2 * (2 * G * Lq * d + 2 * G * Lk * d + 6 * d)
-
-        def ln_plain(*a):
-            return fa.flash_attention_ln_plain(*a, scale, 1e-5, flags, True)
-
-        def plain_lse(q=q, k=k, v=v, lnp=lnp):
-            from aicity_action_tpu_torch.ops.layer_norm import \
-                layer_norm_plain
-            qf, kf, vf = (t.float() for t in (q, k, v))
-            p = [t.float() for t in lnp]
-            qn, kn, vn = (layer_norm_plain(t, p[2 * i], p[2 * i + 1], 1e-5)
-                          for i, t in enumerate((qf, kf, vf)))
-            o, lse = fa.flash_attention_lse_plain(qn, kn, vn, scale)
-            return o + qn, lse, o
-
-        def library(q=q, k=k, v=v, lnp=lnp):
-            qn, kn, vn = (F.layer_norm(t, (d,), lnp[2 * i], lnp[2 * i + 1],
-                                       1e-5) for i, t in enumerate((q, k, v)))
-            return _sdpa(qn, kn, vn) + qn
-
-        if blk in ATTN_FWD_BLOCKS:
-            r = _check_case(
-                "flash_attention_ln_lse",
-                lambda args=args: fa.flash_attention_ln_lse(*args),
-                plain_lse, library, flops=flops,
-                # out, lse and the attention output before the residual
-                nbytes=io + 4 * G * Lq + 2 * G * Lq * d,
-                peak=PEAK_BF16, iters=3)
-            r["shape"] = shape
-            fwd.append(_mark_fwd(r, G, Lq, Lk))
-        out, lse, oa = fa.flash_attention_ln_lse(*args)
-        dout = _normal(gen, (G, Lq, d), 1.0, bf)
-        r = _check_case(
-            "flash_attention_ln_bwd",
-            lambda q=q, k=k, v=v, lnp=lnp, oa=oa, lse=lse, dout=dout:
-                fa.flash_attention_ln_bwd(q, k, v, *lnp, oa, lse, dout,
-                                          scale, 1e-5, flags, True),
-            lambda q=q, k=k, v=v, lnp=lnp, dout=dout: _plain_grads(
-                ln_plain, (q, k, v, *lnp), (dout,)),
-            lambda q=q, k=k, v=v, lnp=lnp, dout=dout: _library_grads(
-                lambda *a: library(*a[:3], a[3:]), (q, k, v, *lnp),
-                (dout,)),
-            flops=10 * G * Lq * Lk * d,
-            nbytes=(2 * (4 * G * Lq * d + 4 * G * Lk * d + 12 * d)
-                    + 4 * G * Lq),
-            peak=PEAK_BF16, iters=2, zero_grads={6: 5})
-        r["shape"] = shape
-        bwd.append(r)
-        del q, k, v, out, lse, oa, dout, args
-        torch.cuda.empty_cache()
+        f, b = _fused_ln_train_cases(
+            gen, f"448 {_attn_shape(blk, G, Lq, Lk)} d-major", G, Lq, Lk, d,
+            blk in ATTN_FWD_BLOCKS)
+        fwd += [f] if f else []
+        bwd.append(b)
     results["flash_attention_ln_lse"] = fwd
     results["flash_attention_ln_bwd"] = bwd
 
@@ -5021,6 +5047,9 @@ L_TRAIN_FNS = ("flash_attention", "flash_attention_bwd", "fused_ln_qkv_bwd",
 # for bit, and the median leaf sits as far from f32 as the plain bf16
 # reference's (9.5e-3 against 9.8e-3)
 L_GRAD_DRAWS = 3
+# the row-4 backward's head-dim-72 case: G = 16 groups (L at batch 8, two
+# heads) at the odd lengths 1 + T*H*W of a cls-token model's block
+L_PADDED_SHAPE = (16, 6273, 1569, 72)
 
 
 def _distinct(calls) -> dict:
@@ -5186,71 +5215,114 @@ def l_train_kernel_checks(cfg) -> dict:
     return res
 
 
-def l_fuse_switch_check(cfg) -> dict:
-    """``make_train_step`` of the L model under ``AICITY_TPU_FUSE_ATTN_LN=1``:
-    the fused-LN training kernels (rows 6 and 7) take head dim 96 only, so
-    the step must raise their ValueError before any kernel launches."""
+def l_fused_kernel_checks(cfg) -> dict:
+    """Rows 6 and 7 at head dim 72 at every distinct call of the L batch-4
+    train step under ``AICITY_TPU_FUSE_ATTN_LN=1`` (``attention_call_shapes``:
+    each block's pooled q against its pooled k, v; d-major, all three norms
+    and the residual), each against its plain version and timed beside its
+    bound and LN + SDPA (``_fused_ln_train_cases``); and the row-4
+    backward (``flash_attention_padded_bwd``) at head dim 72 at the odd
+    lengths of L_PADDED_SHAPE."""
     import torch
 
-    from aicity_action_tpu_torch.engine.steps import make_train_step
-    from aicity_action_tpu_torch.models.build import build_model
-    from aicity_action_tpu_torch.solver.optimizer import construct_optimizer
+    from aicity_action_tpu_torch.models.mvit import attention_call_shapes
+    from aicity_action_tpu_torch.ops import flash_attention as fa
 
-    model = build_model(cfg, device=L_DEVICE, seed=SEED)
-    opt = construct_optimizer(cfg, model, steps_per_epoch=100)
-    step = make_train_step(model, opt, cfg.MODEL.LOSS_FUNC,
-                           num_classes=cfg.MODEL.NUM_CLASSES, seed=SEED)
-    T, S = cfg.DATA.NUM_FRAMES, cfg.DATA.TRAIN_CROP_SIZE
-    gen = torch.Generator(device=L_DEVICE).manual_seed(SEED + 94)
-    batch = {"inputs": _normal(gen, (1, T, S, S, 3)),
-             "labels": torch.tensor([5], device=L_DEVICE)}
-    msg = None
-    with fuse_switch("1"):
-        reset_counts()
-        try:
-            step(batch)
-        except ValueError as e:
-            msg = str(e)
-        torch.cuda.synchronize()
-        counts = read_counts()
-    print(f"# MViT-v2-L train step with AICITY_TPU_FUSE_ATTN_LN=1: raised "
-          f"{msg!r}; launches {counts}")
-    if msg is None or "flash_attention_ln" not in msg:
-        _fail("MViT-v2-L under AICITY_TPU_FUSE_ATTN_LN=1: the train step did "
-              "not raise the fused-LN training kernels' ValueError")
-    if any(counts.values()):
-        _fail(f"MViT-v2-L under AICITY_TPU_FUSE_ATTN_LN=1: kernels launched "
-              f"before the refusal: {counts}")
-    del step, opt, model, batch
+    bf = torch.bfloat16
+    gen = torch.Generator(device=L_DEVICE).manual_seed(SEED + 96)
+    res = {name: [] for name in (*FUSED_KERNEL_FNS,
+                                 "flash_attention_padded_bwd")}
+    for (G, Lq, Lk, d), (blk, calls) in _distinct(
+            (c, i) for i, c in enumerate(
+                attention_call_shapes(cfg, TRAIN_BATCH))).items():
+        cases = _fused_ln_train_cases(
+            gen, f"L {_blocks(blk, calls)} q[{G},{Lq},{d}] k,v[{G},{Lk},{d}] "
+            "d-major", G, Lq, Lk, d, True)
+        for name, c in zip(FUSED_KERNEL_FNS, cases):
+            c["calls_a_step"] = calls
+            res[name].append(c)
+    G, Lq, Lk, d = L_PADDED_SHAPE
+    scale = d ** -0.5
+    q, k, v = (_normal(gen, (G, n, d), 1.0, bf) for n in (Lq, Lk, Lk))
+    out, lse = fa.flash_attention_padded_fwd(q, k, v, scale, True)
+    dout = _normal(gen, (G, Lq, d), 1.0, bf)
+    r = _check_case(
+        "flash_attention_padded_bwd",
+        lambda: fa.flash_attention_padded_bwd(q, k, v, out, lse, dout, scale),
+        lambda: _plain_grads(
+            lambda a, b, c: fa.flash_attention_plain(a, b, c, scale),
+            (q, k, v), (dout,)),
+        lambda: _library_grads(_sdpa, (q, k, v), (dout,)),
+        flops=10 * G * Lq * Lk * d,
+        nbytes=2 * (4 * G * Lq * d + 4 * G * Lk * d) + 4 * G * Lq,
+        peak=PEAK_BF16, iters=3)
+    r["shape"] = f"head dim {d}, odd lengths q[{G},{Lq},{d}] k,v[{G},{Lk},{d}]"
+    res["flash_attention_padded_bwd"].append(r)
+    del q, k, v, out, lse, dout
     torch.cuda.empty_cache()
-    return {"raised": msg, "launches": counts}
+    return res
 
 
-def l_run_net_checks(card: str, d: str) -> dict:
+def l_fused_train_checks(card: str, cfg, default: dict) -> dict:
+    """The L batch-4 train step under ``AICITY_TPU_FUSE_ATTN_LN=1``
+    (``train_checks``: launches held to ``derived_counts``, rows 6 and 7 in
+    every block, rows 2-3 and the pool norms' LayerNorms in none), its
+    ms/step and peak memory beside ``default``'s (the default switch's
+    step, timed in the same call), and the b1 gradient gate under the
+    switch (every leaf against the plain f32 step, bf16's own distance
+    the largest of ``L_GRAD_DRAWS`` draws)."""
+    with fuse_switch("1"):
+        stats = train_checks(card, cfg, "MViT-v2-L 16x4 @448 with "
+                             "AICITY_TPU_FUSE_ATTN_LN=1", TRAIN_BATCH)
+        per_step = stats["launches_per_step"]
+        if not all(per_step[n] for n in FUSED_KERNEL_FNS) or any(
+                per_step[n] for n in ("flash_attention",
+                                      "flash_attention_bwd",
+                                      "pool_norm_rows")):
+            _fail(f"MViT-v2-L under AICITY_TPU_FUSE_ATTN_LN=1: the step did "
+                  f"not run rows 6-7 alone: {per_step}")
+        stats["grad_check"] = train_grad_check(
+            cfg, "MViT-v2-L @448, AICITY_TPU_FUSE_ATTN_LN=1", f32_truth=True,
+            draws=L_GRAD_DRAWS)
+    print(f"# MViT-v2-L b{TRAIN_BATCH} train step ({card}): "
+          f"AICITY_TPU_FUSE_ATTN_LN=1 {stats['ms_per_step']:.2f} ms/step, "
+          f"peak {stats['peak_mem_bytes'] / 2 ** 30:.2f} GiB; default switch "
+          f"{default['ms_per_step']:.2f} ms/step, peak "
+          f"{default['peak_mem_bytes'] / 2 ** 30:.2f} GiB; =1 / default "
+          f"{stats['ms_per_step'] / default['ms_per_step']:.3f} in time, "
+          f"{stats['peak_mem_bytes'] / default['peak_mem_bytes']:.3f} in "
+          f"memory")
+    return stats
+
+
+def l_run_net_checks(card: str, d: str, switch: str | None = None) -> dict:
     """``tools/run_net.py``'s ``main`` on the AI City YAML with the L widths
     as overrides (``l_overrides()``): one epoch of 2 steps at batch 4 on the
     8 written views of ``d``, its eval and two-view test, and its
     checkpoint, held as the B loop's run is (``_check_loop_run``: finite
     losses, the checkpoint on disk, launches equal to ``derived_counts``
-    times the steps and forwards, bf16 inputs on the card)."""
+    times the steps and forwards, bf16 inputs on the card), with
+    ``AICITY_TPU_FUSE_ATTN_LN`` at ``switch`` (None: the default)."""
     import torch
 
     from aicity_action_tpu_torch.tools import run_net
 
-    with model_inputs_seen() as seen:
+    out_dir = "l_out" if switch is None else f"l_out_{switch}"
+    with model_inputs_seen() as seen, fuse_switch(switch):
         reset_counts()
         t = time.perf_counter()
         out = run_net.main(["--cfg", LOOP_CFG, "--device", L_DEVICE,
-                            *_loop_opts(d, 1, "l_out"), *l_overrides()])
+                            *_loop_opts(d, 1, out_dir), *l_overrides()])
         torch.cuda.synchronize()
-        run = _check_loop_run(out, read_counts(), list(seen), 1, d, "l_out")
+        run = _check_loop_run(out, read_counts(), list(seen), 1, d, out_dir)
         wall = time.perf_counter() - t
     epoch = run["epochs"][0]
     blocks = len(out["train"].model.blocks)
     del out
     torch.cuda.empty_cache()
     print(f"# MViT-v2-L run_net ({card}): the AI City YAML with the L "
-          f"overrides ({blocks} blocks), MAX_EPOCH 1 on 8 views of 960x540 "
+          f"overrides ({blocks} blocks), AICITY_TPU_FUSE_ATTN_LN "
+          f"{switch or 'default'}, MAX_EPOCH 1 on 8 views of 960x540 "
           f"at batch 4: losses {epoch['losses']}, step walls "
           f"{epoch['iter_s']}, checkpoint save {epoch['ckpt_s']:.2f} s; run "
           f"{wall:.1f} s; launches {run['launches']}")
@@ -5429,14 +5501,15 @@ def main() -> int:
     launches["L eval"] = l_stats["launches_per_forward"]
     launches["L unfused eval"] = l_stats["unfused"]["launches_per_forward"]
     launches["L run_temporal_inf"] = l_stats["run_temporal_inf"]["launches"]
-    # MViT-v2-L training on the default switch: the widened training rows
-    # at every distinct call of its b4 step, the step itself, the b1
-    # gradient gate, the =1 switch's refusal and one run_net epoch
+    # MViT-v2-L training: the widened training rows at every distinct call
+    # of its b4 step on each switch, the step itself on each switch (timed
+    # in this call), the b1 gradient gate on each and one run_net epoch
     t = time.perf_counter()
     l_cfg = _factory(L_CFG)()
     head_dim_72_identity_checks(l_cfg)
     l_train_cases = l_train_kernel_checks(l_cfg)
-    for name, cases in l_train_cases.items():
+    l_fused_cases = l_fused_kernel_checks(l_cfg)
+    for name, cases in (*l_train_cases.items(), *l_fused_cases.items()):
         for c in cases:
             _print_case(name, c)
     l_cfg.MIXUP.ENABLE = True
@@ -5449,11 +5522,19 @@ def main() -> int:
     # largest of L_GRAD_DRAWS draws
     l_train["grad_check"] = train_grad_check(
         l_cfg, "MViT-v2-L @448", f32_truth=True, draws=L_GRAD_DRAWS)
-    l_train["fuse_switch_1"] = l_fuse_switch_check(l_cfg)
+    t1 = time.perf_counter()
+    l_train["fuse_switch_1"] = l_fused_train_checks(card, l_cfg, l_train)
+    launches["L fused train"] = l_train["fuse_switch_1"]["launches"]
+    print(f"# MViT-v2-L AICITY_TPU_FUSE_ATTN_LN=1 step and gradient gate: "
+          f"{time.perf_counter() - t1:.1f} s")
     with tempfile.TemporaryDirectory() as l_dir:
         write_loop_views(l_dir)
         l_train["run_net"] = l_run_net_checks(card, l_dir)
+        l_train["fuse_switch_1"]["run_net"] = l_run_net_checks(card, l_dir,
+                                                               "1")
     launches["L run_net"] = l_train["run_net"]["launches"]
+    launches["L fused run_net"] = l_train["fuse_switch_1"]["run_net"][
+        "launches"]
     print(f"# MViT-v2-L training phase: {time.perf_counter() - t:.1f} s")
 
     # launches of each kernel in the run of the path it serves: the AI City
@@ -5495,6 +5576,17 @@ def main() -> int:
                 l_train_launches=launches["L train"][name],
                 l_train_launches_on="L train",
                 l_run_net_launches=launches["L run_net"][name])
+        if name in l_fused_cases:
+            # the L shapes under AICITY_TPU_FUSE_ATTN_LN=1 (rows 6-7) and
+            # the row-4 backward at head dim 72; rows 6-7's launches on the
+            # =1 step
+            kernels_line[-1]["l_train_shapes"] = [
+                _public(c) for c in l_fused_cases[name]]
+        if name in FUSED_KERNEL_FNS:
+            kernels_line[-1].update(
+                l_train_launches=launches["L fused train"][name],
+                l_train_launches_on="L fused train",
+                l_run_net_launches=launches["L fused run_net"][name])
         if name in ("fused_layer_norm", "fused_layer_norm_bwd"):
             cm = ("pool_norm_rows" if name == "fused_layer_norm"
                   else "pool_norm_rows_bwd")

@@ -423,14 +423,17 @@ def test_ln_mlp_backward_rounding_points_in_bf16(m, d):
         assert err <= 0.02 * r.abs().max().item(), (i, err)
 
 
-@pytest.mark.parametrize("Lq,Lk", [(1 + 4 * 4 * 4, 1 + 2 * 2 * 2),
-                                   (1 + 2 * 2 * 2, 1 + 4 * 4 * 4)])
-def test_flash_attention_padded_matches_pallas(Lq, Lk):
+@pytest.mark.parametrize("Lq,Lk,d", [(1 + 4 * 4 * 4, 1 + 2 * 2 * 2, 16),
+                                     (1 + 2 * 2 * 2, 1 + 4 * 4 * 4, 16),
+                                     (1 + 4 * 4 * 4, 1 + 2 * 4 * 2, 72)],
+                         ids=["65-9", "9-65", "65-17-d72"])
+def test_flash_attention_padded_matches_pallas(Lq, Lk, d):
     """A cls token's odd lengths 1 + T*H*W: the port's padded attention
     (its plain version here; on the card the kernels' edge masks) against
     the JAX wrapper that zero-pads q, k, v and masks the padded keys,
-    forward and VJP."""
-    G, d = 2, 16
+    forward and VJP; also at MViT-v2-L's head dim 72 (row 4's backward
+    takes it through the kernels of :func:`flash_attention`)."""
+    G = 2
     rng = np.random.default_rng(24)
     q, k, v = (_arr(rng, (G, n, d), 1.5, 0.3) for n in (Lq, Lk, Lk))
     dout = _arr(rng, (G, Lq, d))

@@ -199,10 +199,13 @@ def test_every_l_call_has_a_launch_plan(call):
 
 @pytest.mark.parametrize("call", _l_calls((4,)))
 def test_every_l_train_call_has_a_backward_plan(call):
-    """Every kernel-row call of the L batch-4 train step (the default
-    switch: the unfused attention) gets a backward launch plan on an H100
-    (132 SMs) that fits a block's shared memory: the attention with its
-    logsumexp forward and backward at head dim 72, the LN+qkv backward at
+    """Every kernel-row call of the L batch-4 train step on either switch
+    gets a backward launch plan on an H100 (132 SMs) that fits a block's
+    shared memory: the attention with its logsumexp forward and backward
+    at head dim 72 (the default switch's rows 2-3, and under
+    ``AICITY_TPU_FUSE_ATTN_LN=1`` the fused-LN rows 6-7 on the same grids,
+    whose dq kernel's shared memory at head dim 72 leaves room for two
+    blocks an SM), the LN+qkv backward at
     D 144-1152 (its gradients' pass ragged where 96 does not divide 3C),
     the LN+MLP backward at C 144-1152 (a 64-wide dual-GEMM tile where 128
     does not divide H) and the rows LayerNorm backward (the pool norms over
@@ -231,9 +234,15 @@ def test_every_l_train_call_has_a_backward_plan(call):
         _, G, Lq, Lk, d = call
         assert d == D_L
         tfa._attn_fwd_plan(G, Lq, Lk, d, True)
+        tfa.require_ln_training_head_dim(d)
         p = tfa._attn_bwd_plan(G, Lq, Lk, d, H100_SMS)
         assert p["qps"] % tfa.BWD_TILE == 0 and p["lqp"] >= Lq
-        assert max(tfa._bwd_smem().values()) <= smem
+        assert Lq % 8 == 0  # the fused-LN kernels' d-major q
+        for width in (96, d):
+            for n in tfa._bwd_smem(width).values():
+                assert n <= smem
+                assert tfa.BWD_BLOCKS_PER_SM * (n + 1024) <= tfa.SM_SMEM_BYTES
+        assert tfa._bwd_smem(d)["ln_dq"] < tfa._bwd_smem()["ln_dq"]
     else:
         _, B, L, C, groups = call
         p = tln._ln_plan("rows_bwd", (B * L, C, groups), H100_SMS)
@@ -243,19 +252,23 @@ def test_every_l_train_call_has_a_backward_plan(call):
 
 
 def test_l_width_training_kernels_still_raise():
-    """What the L training slice leaves refusing: head dims other than 96
-    and 72 in every attention plan, and the fused-LN training rows 6 and 7
-    (the logsumexp forward and the backward of ``flash_attention_ln``,
-    ``AICITY_TPU_FUSE_ATTN_LN=1``) at 72, which raise before any launch."""
+    """What the training kernels take and what they still refuse: the
+    fused-LN training rows 6 and 7 (the logsumexp forward and the backward
+    of ``flash_attention_ln``, ``AICITY_TPU_FUSE_ATTN_LN=1``) take head dims
+    96 and 72; head dims 64, 80 and 128, which no configuration has, raise
+    in every attention plan and in the fused-LN rows' check before any
+    launch; the rows LayerNorm backward past 1280 channels raises."""
+    for d in tfa.FWD_HEAD_DIMS:
+        tfa.require_ln_training_head_dim(d)
+    assert set(tfa.FWD_HEAD_DIMS) == {96, D_L}
     for d in (64, 80, 128):
         for with_lse in (False, True):
             with pytest.raises(ValueError):
                 tfa._attn_fwd_plan(16, 1568, 1568, d, with_lse)
         with pytest.raises(ValueError):
             tfa._attn_bwd_plan(16, 1568, 1568, d, H100_SMS)
-    with pytest.raises(ValueError, match="flash_attention_ln"):
-        tfa.require_ln_training_head_dim(D_L)
-    tfa.require_ln_training_head_dim(96)
+        with pytest.raises(ValueError, match="flash_attention_ln"):
+            tfa.require_ln_training_head_dim(d)
     with pytest.raises(ValueError):
         tln._ln_plan("rows_bwd", (12544, 1288, 1), H100_SMS)
 

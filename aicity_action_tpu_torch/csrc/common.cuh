@@ -1,8 +1,8 @@
 // Shared device helpers for the hand-written kernels of
 // aicity_action_tpu_torch: warp reductions, a bf16 A-fragment load from
 // shared memory, cooperative 16-byte tile copies (the fused-LN backward's
-// dq kernel), the partial sums of the backwards and the shared-memory
-// opt-in.
+// dq kernel), the tickets of the backwards' cross-block sums and the
+// shared-memory opt-in.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -92,29 +92,18 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Second pass of a cross-block reduction: out[i] = sum over s of
-// part[s * n + i] (f32 partials, one slab per block or split, summed in a
-// fixed order), rounded to bf16. The backward kernels write per-block
-// partials rather than use atomics, so their sums do not depend on the
-// order the blocks ran in. (A template so that every translation unit may
-// instantiate it.)
-template <int UNUSED = 0>
-__global__ void __launch_bounds__(256)
-    reduce_splits_kernel(const float* __restrict__ part, bf16* __restrict__ out,
-                         int nsplit, long n) {
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int k = 0; k < nsplit; ++k) s += part[(long)k * n + i];
-  out[i] = __float2bfloat16(s);
-}
-
-inline cudaError_t reduce_splits(const float* part, bf16* out, int nsplit,
-                                 long n, cudaStream_t stream) {
-  if (n > 0)
-    reduce_splits_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-        part, out, nsplit, n);
-  return cudaGetLastError();
+// Called by every thread after the block's writes: whether this block is
+// the last of `count` blocks sharing `ticket` to finish (then their writes
+// are visible to it). atomicInc wraps the ticket back to 0 on the last
+// increment, so the counter is ready for the next launch on its stream.
+__device__ __forceinline__ bool last_of(unsigned* ticket, int count) {
+  __shared__ bool last;
+  __threadfence();  // this block's writes, visible before its ticket
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicInc(ticket, count - 1) == count - 1;
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
 }
 
 // Opt a kernel into more than 48 KB of dynamic shared memory.

@@ -25,7 +25,9 @@
 // - Pallas keeps one group's whole K/V resident in VMEM (up to 1.2 MB each)
 //   and normalizes it once per group into scratch at grid step 0. GPU blocks
 //   run in no order and share nothing, so the entry point normalizes K and V
-//   once, in a pass (kv_rows_kernel) into token-row scratch the caller
+//   once, in one pass (flash_ln.cuh:kv_norm_kernel: a d-major tile of 64
+//   keys a block, copied in and stored as rows with 16-byte vectors, the
+//   norm as the query tiles take it) into token-row scratch the caller
 //   provides: Lk*d work per group, where normalizing inside every q tile
 //   would repeat it Lq/128 times. The attention then runs flash_fwd.cuh's
 //   core on those rows: a producer warp streams 64-key tiles of LN(k)
@@ -82,7 +84,7 @@ __device__ __forceinline__ void ln_query_rows(
 // The fused-LN forward of 128 query rows of group blockIdx.y: the producer
 // warp loads each consumer's raw q tile through qmap ([G][D][Lq] d-major)
 // and LN(k) / LN(v) token rows through kmap / vmap ([G][Lk][D],
-// kv_rows_kernel's output); each consumer normalizes its 64 query tokens
+// kv_norm_kernel's output); each consumer normalizes its 64 query tokens
 // (ln_query_rows), runs the K/V loop and stores out [+ LN(q)], and in
 // training lse and oa, the output before the residual. LAST: the last key
 // tile's product width (fwd_last_width); D: the head dim (FwdDim).
@@ -133,12 +135,8 @@ int launch_flash_ln(const void* q, const void* k, const void* v,
                     void* lse, void* oa, void* kn, void* vn, int G, int Lq,
                     int Lk, float scale, float eps, int fq, int fk, int fv,
                     int add_qn, cudaStream_t s) {
-  const dim3 kv_grid((Lk + 127) / 128, G);
-  kv_rows_kernel<D><<<kv_grid, 128, 0, s>>>(
-      (const bf16*)k, (const bf16*)gk, (const bf16*)bk, (bf16*)kn, Lk, eps, fk);
-  kv_rows_kernel<D><<<kv_grid, 128, 0, s>>>(
-      (const bf16*)v, (const bf16*)gv, (const bf16*)bv, (bf16*)vn, Lk, eps, fv);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err =
+      launch_kv_norm<D>(k, v, gk, bk, gv, bv, kn, vn, G, Lk, eps, fk, fv, s);
   if (err != cudaSuccess) return (int)err;
   const int last = fwd_last_width(Lk);
   auto kernel = last == 16   ? flash_ln_kernel<16, D>

@@ -21,8 +21,9 @@
 // convert d(LN k) into dk at the last q step. GPU blocks run in no order,
 // so the work is five passes, all sums in a fixed order (no atomics, the
 // same bits every run):
-// 1. kv_rows_kernel (flash_ln.cuh) normalizes K and V once into token-row
-//    scratch, as the forward does.
+// 1. kv_norm_kernel (flash_ln.cuh, the forward's K/V pass) normalizes K and
+//    V once into token-row scratch, one launch for both: 64 keys a block,
+//    the d-major tile in and the rows out by 16-byte vectors.
 // 2. flash_ln_bwd_dq_kernel owns 64 query rows: it normalizes its q tile
 //    (kept raw too, for the VJP), writes the LN(q) rows to scratch for pass
 //    3 already scaled, bf16(bf16(LN q) * s), the operand of the logits and
@@ -37,10 +38,18 @@
 //    dgamma_q / dbeta_q partials.
 // 3. flash_bwd_dkv_kernel (flash_bwd.cuh) on the scaled LN(q) rows: f32
 //    partial d(LN k) / d(LN v) per query split.
-// 4. kv_ln_bwd_kernel sums the splits and applies the row-LN VJP of k and v,
-//    one thread per key row, writing dk / dv channel-major and per-block
-//    dgamma / dbeta partials.
-// 5. reduce_splits sums the dgamma / dbeta partials.
+// 4. kv_vjp_kernel takes 64 keys of k or v a block: it sums their rows of
+//    the split partials in split order (16-byte loads, a warp on 512
+//    contiguous bytes), copies the raw d-major tile in, and applies the
+//    row-LN VJP two lanes a key (the statistics as pass 1 takes them), dk /
+//    dv going back d-major through the tile in shared memory by 16-byte
+//    stores, and the block's dgamma / dbeta partials as column sums over
+//    its keys. Bound by the partials' bytes.
+// 5. flash_ln_bwd_sum_kernel sums the dgamma / dbeta partials of q, k and
+//    v, three jobs of one launch (ln_bwd.cuh:sum_partials); the thousands
+//    of per-block partials (G * Lq / 64 of q: 12,544 at MViT-v2-L's first
+//    blocks) go through a tree of 64-split chunks spread over the card
+//    (ln_bwd.cuh:add_tree_sum), latency- rather than byte-bound.
 // Layout: q, k, v come d-major ([G][d][L], the pool convolutions' NCDHW
 // output) and dq, dk, dv go back the same way, so the training path pays no
 // transposes around the attention; O and dO are token rows [G][L][d].
@@ -59,10 +68,10 @@
 #include "common.cuh"
 #include "flash_bwd.cuh"
 #include "flash_ln.cuh"
+#include "ln_bwd.cuh"
 
 namespace aicity {
 
-constexpr int KV_BWD_ROWS = 128;
 // the row stride (bf16) of the dq kernel's LN(q), dO and O rows: the 96
 // columns of the products and 8 of padding, at either head dim
 constexpr int LN_DQ_LD = BW_D + 8;
@@ -279,95 +288,143 @@ __global__ void __launch_bounds__(BW_THREADS, 2)
   }
 }
 
-// dk or dv (blockIdx.z 0 or 1) from the split partials of d(LN k) / d(LN v)
-// [nsplit][G][Lk][D]: sums them in split order, applies the row-LN VJP of
-// the raw d-major k / v [G][D][Lk] (a copy where the flag is off), writes
-// the result d-major and the block's dgamma / dbeta partial
-// part[z][G * nblk][2][D]. One thread per key row, its gradient in
-// registers; the raw column is re-read from L1/L2 per pass.
+// dk or dv (blockIdx.z 0 or 1) of KV_TILE keys of group blockIdx.y from
+// the split partials of d(LN k) / d(LN v) [nsplit][G][Lk][D] f32: the
+// tile's rows of every split summed in split order by 16-byte loads into
+// registers (a thread's float4s at fixed places), kept as rows in shared
+// memory; the raw d-major k / v tile [D][KV_TILE] copied in beside them;
+// the row-LN VJP two lanes a key (col_stats, as kv_norm_kernel takes the
+// statistics; a copy where the flag is off), dx written over the raw tile
+// (each lane over the values it read) and stored d-major by 16-byte
+// vectors; the block's dgamma / dbeta partial part[z][G * nkt][2][D] as
+// column sums over the tile's keys in key order (dbeta first, then dy *
+// xhat written over dy). No thread holds more than D / 2 channels.
 template <int D>
-__global__ void __launch_bounds__(KV_BWD_ROWS)
-    kv_ln_bwd_kernel(const float* __restrict__ dk_part,
-                     const float* __restrict__ dv_part,
-                     const bf16* __restrict__ k, const bf16* __restrict__ v,
-                     const bf16* __restrict__ gk, const bf16* __restrict__ gv,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv,
-                     float* __restrict__ part, int G, int Lk, int nsplit,
-                     float eps, int fk, int fv) {
-  __shared__ float s_col[KV_BWD_ROWS / 32][2][D];
-  const int z = blockIdx.z, grp = blockIdx.y;
-  const float* dpart = z ? dv_part : dk_part;
-  const bf16* xg = (z ? v : k) + (size_t)grp * D * Lk;
-  const bf16* gamma = z ? gv : gk;
-  bf16* og = (z ? dv : dk) + (size_t)grp * D * Lk;
+__global__ void __launch_bounds__(KV_THREADS)
+    kv_vjp_kernel(const float* __restrict__ dk_part,
+                  const float* __restrict__ dv_part,
+                  const bf16* __restrict__ k, const bf16* __restrict__ v,
+                  const bf16* __restrict__ gk, const bf16* __restrict__ gv,
+                  bf16* __restrict__ dk, bf16* __restrict__ dv,
+                  float* __restrict__ part, int G, int Lk, int nsplit,
+                  float eps, int fk, int fv) {
+  constexpr int LDY = D + 4;                             // f32 row stride
+  constexpr int NV = KV_TILE * (D / 4) / KV_THREADS;     // float4s a thread
+  constexpr int DL = D / 2;                              // channels a lane
+  static_assert(KV_TILE * (D / 4) % KV_THREADS == 0 && DL % 2 == 0,
+                "the tile's float4s and channels split evenly");
+  __shared__ __align__(16) bf16 xs[D * KV_LDX];    // raw x, then dx
+  __shared__ __align__(16) float dys[KV_TILE * LDY];  // dy, then dy * xhat
+  const int z = blockIdx.z, grp = blockIdx.y, t0 = blockIdx.x * KV_TILE;
+  const size_t off = (size_t)grp * D * Lk;
   const int flag = z ? fv : fk;
-  const int l = blockIdx.x * KV_BWD_ROWS + threadIdx.x;
-  const bool ok = l < Lk;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  load_cols_tile<D, KV_TILE>(xs, KV_LDX, (z ? v : k) + off, Lk, t0);
 
-  float dy[D];
+  const int nvec = min(KV_TILE, Lk - t0) * (D / 4);
+  const float4* p4 = reinterpret_cast<const float4*>(
+      (z ? dv_part : dk_part) + ((size_t)grp * Lk + t0) * D);
+  const size_t slab = (size_t)G * Lk * (D / 4);
+  float4 acc[NV];
 #pragma unroll
-  for (int c = 0; c < D; ++c) dy[c] = 0.f;
-  if (ok)
-    for (int s = 0; s < nsplit; ++s) {
-      const float4* p = reinterpret_cast<const float4*>(
-          dpart + (((size_t)s * G + grp) * Lk + l) * D);
+  for (int j = 0; j < NV; ++j) acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = 0; s < nsplit; ++s) {
 #pragma unroll
-      for (int c = 0; c < D / 4; ++c) {
-        const float4 a = p[c];
-        dy[4 * c] += a.x;
-        dy[4 * c + 1] += a.y;
-        dy[4 * c + 2] += a.z;
-        dy[4 * c + 3] += a.w;
+    for (int j = 0; j < NV; ++j) {
+      const int i = threadIdx.x + j * KV_THREADS;
+      if (i < nvec) {
+        const float4 a = p4[s * slab + i];
+        acc[j].x += a.x;
+        acc[j].y += a.y;
+        acc[j].z += a.z;
+        acc[j].w += a.w;
       }
     }
-  float mean = 0.f, rstd = 1.f, m1 = 0.f, m2 = 0.f;
-  if (flag && ok) {
-    float sum = 0.f;
-#pragma unroll
-    for (int c = 0; c < D; ++c) sum += __bfloat162float(xg[(size_t)c * Lk + l]);
-    mean = sum / D;
-    float q = 0.f;
-#pragma unroll
-    for (int c = 0; c < D; ++c) {
-      const float d = __bfloat162float(xg[(size_t)c * Lk + l]) - mean;
-      q += d * d;
-    }
-    rstd = rsqrtf(q / D + eps);
-#pragma unroll
-    for (int c = 0; c < D; ++c) {
-      const float xh = (__bfloat162float(xg[(size_t)c * Lk + l]) - mean) * rstd;
-      const float yg = dy[c] * __bfloat162float(gamma[c]);
-      m1 += yg;
-      m2 += yg * xh;
-    }
-    m1 /= D;
-    m2 /= D;
   }
 #pragma unroll
-  for (int c = 0; c < D; ++c) {
-    float xh = 0.f, dx = dy[c];
-    if (flag && ok) {
-      xh = (__bfloat162float(xg[(size_t)c * Lk + l]) - mean) * rstd;
-      dx = (dy[c] * __bfloat162float(gamma[c]) - m1 - xh * m2) * rstd;
-    }
-    if (ok) og[(size_t)c * Lk + l] = __float2bfloat16(dx);
-    if (flag) {  // uniform across the block
-      const float a = warp_sum(dy[c] * xh), b = warp_sum(dy[c]);
-      if (lane == 0) {
-        s_col[warp][0][c] = a;
-        s_col[warp][1][c] = b;
+  for (int j = 0; j < NV; ++j) {
+    const int i = threadIdx.x + j * KV_THREADS;
+    const int r = i / (D / 4), c = (i - r * (D / 4)) * 4;
+    *reinterpret_cast<float4*>(dys + r * LDY + c) = acc[j];  // 0 past Lk
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // dbeta's column sums; then the rows' VJP overwrites dy with dy * xhat
+  float cb = 0.f;
+  if (flag && threadIdx.x < D)
+    for (int r = 0; r < KV_TILE; ++r) cb += dys[r * LDY + threadIdx.x];
+  __syncthreads();
+  {
+    const int tok = threadIdx.x >> 1, c0 = DL * (threadIdx.x & 1);
+    const bf16* gamma = (z ? gv : gk) + c0;
+    bf16* xc = xs + c0 * KV_LDX + tok;
+    float* dy = dys + tok * LDY + c0;
+    float x[DL];
+#pragma unroll
+    for (int c = 0; c < DL; ++c) x[c] = __bfloat162float(xc[c * KV_LDX]);
+    const float2 st = col_stats<D, 2>(x, eps, flag);
+    float m1 = 0.f, m2 = 0.f;
+    if (flag) {
+#pragma unroll
+      for (int c = 0; c < DL; ++c) {
+        const float xh = (x[c] - st.x) * st.y;
+        const float yg = dy[c] * __bfloat162float(gamma[c]);
+        m1 += yg;
+        m2 += yg * xh;
       }
+      m1 += __shfl_xor_sync(~0u, m1, 1);
+      m2 += __shfl_xor_sync(~0u, m2, 1);
+      m1 /= D;
+      m2 /= D;
+    }
+#pragma unroll
+    for (int c = 0; c < DL; ++c) {
+      float dx = dy[c];
+      if (flag) {
+        const float xh = (x[c] - st.x) * st.y;
+        dx = (dy[c] * __bfloat162float(gamma[c]) - m1 - xh * m2) * st.y;
+        dy[c] *= xh;
+      }
+      xc[c * KV_LDX] = __float2bfloat16(dx);
     }
   }
   __syncthreads();
-  float* pb = part + (((size_t)z * G + grp) * gridDim.x + blockIdx.x) * 2 * D;
-  for (int c = threadIdx.x; c < 2 * D; c += blockDim.x) {
-    float sum = 0.f;
+  if (threadIdx.x < D) {
+    float cg = 0.f;
     if (flag)
-      for (int w = 0; w < KV_BWD_ROWS / 32; ++w) sum += s_col[w][c / D][c % D];
-    pb[c] = sum;
+      for (int r = 0; r < KV_TILE; ++r) cg += dys[r * LDY + threadIdx.x];
+    float* pb =
+        part + (((size_t)z * G + grp) * gridDim.x + blockIdx.x) * 2 * D;
+    pb[threadIdx.x] = cg;  // zeros where the flag is off
+    pb[D + threadIdx.x] = cb;
   }
+  store_cols_tile<D, KV_TILE>((z ? dv : dk) + off, Lk, t0, xs, KV_LDX);
+}
+
+// The dgamma / dbeta of q, k and v from their per-block f32 partials,
+// three jobs of one launch (ln_bwd.cuh:sum_partials), rounded to bf16.
+__global__ void __launch_bounds__(256)
+    flash_ln_bwd_sum_kernel(const PartialSums p) {
+  sum_partials(p);
+}
+
+// The sums' jobs of a backward of G groups, Lq queries and Lk keys at
+// head dim D: part_q [G * nqt][2][D] and part_kv [2][G * nkt][2][D] into
+// dgb [6][D]; returns the tickets the jobs take.
+inline int ln_bwd_sums(PartialSums& sums, int G, int Lq, int Lk, int D,
+                       void* part_q, void* part_kv, void* dgb,
+                       void* tickets) {
+  const int nqt = (Lq + BW_T - 1) / BW_T, nkt = (Lk + KV_TILE - 1) / KV_TILE;
+  float* pkv = (float*)part_kv;
+  bf16* g6 = (bf16*)dgb;
+  int jobs = 0, ticket = 0;
+  add_tree_sum(sums, jobs, (float*)part_q, g6, G * nqt, 2L * D,
+               (unsigned*)tickets, ticket);
+  add_tree_sum(sums, jobs, pkv, g6 + 2 * D, G * nkt, 2L * D,
+               (unsigned*)tickets, ticket);
+  add_tree_sum(sums, jobs, pkv + (size_t)G * nkt * 2 * D, g6 + 4 * D,
+               G * nkt, 2L * D, (unsigned*)tickets, ticket);
+  return ticket;
 }
 
 // The five passes at head dim D (the entry point's arguments).
@@ -378,16 +435,16 @@ int launch_flash_ln_bwd(const void* q, const void* k, const void* v,
                         const void* oa, const void* lse, const void* dout,
                         void* dq, void* dk, void* dv, void* dgb, void* qn,
                         void* kn, void* vn, void* ld, void* part_q,
-                        void* dk_part, void* dv_part, void* part_kv, int G,
-                        int Lq, int Lk, float scale, float eps, int fq,
-                        int fk, int fv, int add_qn, int qps,
-                        cudaStream_t s) {
-  const dim3 kv_grid((Lk + 127) / 128, G);
-  kv_rows_kernel<D><<<kv_grid, 128, 0, s>>>(
-      (const bf16*)k, (const bf16*)gk, (const bf16*)bk, (bf16*)kn, Lk, eps, fk);
-  kv_rows_kernel<D><<<kv_grid, 128, 0, s>>>(
-      (const bf16*)v, (const bf16*)gv, (const bf16*)bv, (bf16*)vn, Lk, eps, fv);
-  cudaError_t err = cudaGetLastError();
+                        void* dk_part, void* dv_part, void* part_kv,
+                        void* tickets, int ntickets, int G, int Lq, int Lk,
+                        float scale, float eps, int fq, int fk, int fv,
+                        int add_qn, int qps, cudaStream_t s) {
+  PartialSums sums;
+  if (ln_bwd_sums(sums, G, Lq, Lk, D, part_q, part_kv, dgb, tickets) >
+      ntickets)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      launch_kv_norm<D>(k, v, gk, bk, gv, bv, kn, vn, G, Lk, eps, fk, fv, s);
   if (err != cudaSuccess) return (int)err;
 
   CUtensorMap mk, mv;
@@ -411,22 +468,16 @@ int launch_flash_ln_bwd(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return (int)err;
 
   const int nsplit = (Lq + qps - 1) / qps;
-  const int nkb = (Lk + KV_BWD_ROWS - 1) / KV_BWD_ROWS;
-  kv_ln_bwd_kernel<D><<<dim3(nkb, G, 2), KV_BWD_ROWS, 0, s>>>(
+  kv_vjp_kernel<D><<<dim3((Lk + KV_TILE - 1) / KV_TILE, G, 2), KV_THREADS, 0,
+                     s>>>(
       (const float*)dk_part, (const float*)dv_part, (const bf16*)k,
       (const bf16*)v, (const bf16*)gk, (const bf16*)gv, (bf16*)dk, (bf16*)dv,
       (float*)part_kv, G, Lk, nsplit, eps, fk, fv);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  bf16* g6 = (bf16*)dgb;
-  const float* pkv = (const float*)part_kv;
-  err = reduce_splits((const float*)part_q, g6, G * nqt, 2L * D, s);
-  if (err != cudaSuccess) return (int)err;
-  err = reduce_splits(pkv, g6 + 2 * D, G * nkb, 2L * D, s);
-  if (err != cudaSuccess) return (int)err;
-  return (int)reduce_splits(pkv + (size_t)G * nkb * 2 * D, g6 + 4 * D,
-                            G * nkb, 2L * D, s);
+  flash_ln_bwd_sum_kernel<<<sums.start[SUM_JOBS], 256, 0, s>>>(sums);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace aicity
@@ -439,6 +490,19 @@ extern "C" int aicity_flash_ln_bwd_dq_smem_bytes(int d) {
                    : -1;
 }
 
+// The host-side plan of a backward of G groups, Lq queries, Lk keys at
+// head dim d, for the wrapper to hold its own against: out[0] the keys a
+// block of the K/V passes, out[1] the sums' blocks, out[2] their tickets.
+extern "C" void aicity_flash_ln_bwd_plan(int G, int Lq, int Lk, int d,
+                                         int* out) {
+  using namespace aicity;
+  PartialSums sums;
+  out[0] = KV_TILE;
+  out[2] = ln_bwd_sums(sums, G, Lq, Lk, d, nullptr, nullptr, nullptr,
+                       nullptr);
+  out[1] = sums.start[SUM_JOBS];
+}
+
 // q, k, v d-major [G, d, L] (d 96 or 72, Lq % 8 == 0), gamma / beta [d]
 // each; oa (the forward's attention output before the residual) and dout
 // [G, Lq, d] token rows; lse [G, Lq] f32. Outputs: dq, dk, dv d-major like
@@ -446,15 +510,18 @@ extern "C" int aicity_flash_ln_bwd_dq_smem_bytes(int d) {
 // [G, Lq, d], kn, vn [G, Lk, d] bf16; ld [G, Lqp] float2 (Lqp = Lq rounded
 // up to 64), part_q [G * ceil(Lq / 64), 2, d], dk_part / dv_part [nsplit, G,
 // Lk, d] with nsplit = ceil(Lq / qps) query splits of qps rows (a multiple
-// of 64), and part_kv [2, G * ceil(Lk / 128), 2, d], all f32.
+// of 64), and part_kv [2, G * ceil(Lk / 64), 2, d], all f32 (the sums
+// overwrite part_q and part_kv); tickets: ntickets uint32 counters at zero,
+// which the launch leaves at zero (aicity_flash_ln_bwd_plan says how many
+// it takes).
 extern "C" int aicity_flash_attention_ln_bwd(
     const void* q, const void* k, const void* v, const void* gq,
     const void* bq, const void* gk, const void* bk, const void* gv,
     const void* bv, const void* oa, const void* lse, const void* dout,
     void* dq, void* dk, void* dv, void* dgb, void* qn, void* kn, void* vn,
     void* ld, void* part_q, void* dk_part, void* dv_part, void* part_kv,
-    int G, int Lq, int Lk, int d, float scale, float eps, int fq, int fk,
-    int fv, int add_qn, int qps, void* stream) {
+    void* tickets, int ntickets, int G, int Lq, int Lk, int d, float scale,
+    float eps, int fq, int fk, int fv, int add_qn, int qps, void* stream) {
   using namespace aicity;
   cudaStream_t s = (cudaStream_t)stream;
   if ((d != BW_D && d != 72) || Lq % 8 || qps <= 0 || qps % BW_T)
@@ -463,6 +530,7 @@ extern "C" int aicity_flash_attention_ln_bwd(
   const auto launch =
       d == 72 ? launch_flash_ln_bwd<72> : launch_flash_ln_bwd<96>;
   return launch(q, k, v, gq, bq, gk, bk, gv, bv, oa, lse, dout, dq, dk, dv,
-                dgb, qn, kn, vn, ld, part_q, dk_part, dv_part, part_kv, G, Lq,
-                Lk, scale, eps, fq, fk, fv, add_qn, qps, s);
+                dgb, qn, kn, vn, ld, part_q, dk_part, dv_part, part_kv,
+                tickets, ntickets, G, Lq, Lk, scale, eps, fq, fk, fv, add_qn,
+                qps, s);
 }

@@ -102,20 +102,6 @@ __device__ __forceinline__ uint4 load16(const bf16* p) {
 // Blocks whose slabs one block of the group sums first (the slab tree).
 constexpr int SLAB_GROUP = 16;
 
-// Called by every thread after the block's writes: whether this block is
-// the last of `count` blocks sharing `ticket` to finish (then their writes
-// are visible to it). atomicInc wraps the ticket back to 0 on the last
-// increment, so the counter is ready for the next launch on its stream.
-__device__ __forceinline__ bool last_of(unsigned* ticket, int count) {
-  __shared__ bool last;
-  __threadfence();  // this block's writes, visible before its ticket
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicInc(ticket, count - 1) == count - 1;
-  __syncthreads();
-  if (last) __threadfence();
-  return last;
-}
-
 // The sum of nslab f32 slabs [nslab][n] (n % 4 == 0) by one block, into
 // out: P = min(8, threads / (n / 4)) phases of threads each sum the slabs
 // p, p + P, ... of four columns in order, then the phases in order (red:

@@ -272,37 +272,49 @@ __host__ __device__ inline int transpose_tiles(const Transpose& t) {
 
 // ---------------------------------------------------- the partial sums
 
-// Columns [32 cb, 32 cb + 32) of the sum of nsplit f32 slabs of n, by a
-// block of 256 threads: its 8 warps each sum every 8th split in order, then
-// the 8 sums in order (a fixed order), rounded to bf16.
-__device__ __forceinline__ void reduce_cols(const float* __restrict__ part,
-                                            bf16* __restrict__ out,
-                                            int nsplit, long n, long cb) {
+// Columns [32 cb, 32 cb + 32) of the sum of count f32 slabs of n, slab k at
+// part + k * stride, by a block of 256 threads: its 8 warps each sum every
+// 8th slab in order, then the 8 sums in order (a fixed order). The total is
+// warp 0's, lane x holding column 32 cb + x (0 past n). L2: load past L1,
+// for slabs that other blocks of the launch wrote.
+template <bool L2 = false>
+__device__ __forceinline__ float sum_cols(const float* __restrict__ part,
+                                          int count, long stride, long n,
+                                          long cb) {
   __shared__ float sums[8][33];
   const int x = threadIdx.x & 31, y = threadIdx.x >> 5;
   const long i = cb * 32 + x;
   float s = 0.f;
-  if (i < n)
-    for (int k = y; k < nsplit; k += 8) s += part[(long)k * n + i];
+  if (i < n) {
+#pragma unroll 8
+    for (int k = y; k < count; k += 8)
+      s += L2 ? __ldcg(part + (long)k * stride + i)
+              : part[(long)k * stride + i];
+  }
   sums[y][x] = s;
   __syncthreads();
-  if (y == 0 && i < n) {
-    float total = 0.f;
+  float total = 0.f;
+  if (y == 0) {
 #pragma unroll
     for (int k = 0; k < 8; ++k) total += sums[k][x];
-    out[i] = __float2bfloat16(total);
   }
+  __syncthreads();  // sums is free again
+  return total;
 }
 
 // The gradients that a backward sums from f32 partials, all in one launch:
 // job j sums nsplit[j] slabs of n[j] into out[j] (bf16) with the grid's
 // blocks [start[j], start[j + 1]), each of 256 threads. Where the splits
-// are few, a thread sums its columns over the splits in order (as
-// common.cuh:reduce_splits): four columns by 16-byte loads where n % 4 ==
-// 0 and the slabs and out are aligned for it (vec), else one; where they
-// are many, a block takes 32 columns (reduce_cols). The order of every sum
-// is fixed.
-constexpr int SUM_JOBS = 4, FEW_SPLITS = 16;
+// are few, a thread sums its columns over the splits in order: four
+// columns by 16-byte loads where n % 4 == 0 and the slabs and out are
+// aligned for it (vec), else one. Where they are many, a block takes 32
+// columns (sum_cols) over all the splits; or, for a job added by
+// add_tree_sum, over a chunk of TREE_CHUNK splits, writing its sum over
+// the chunk's first slab, and the last block of the column's chunks to
+// finish (a ticket: last_of) sums those heads in chunk order, so that
+// thousands of splits spread over the card. The order of every sum is
+// fixed.
+constexpr int SUM_JOBS = 4, FEW_SPLITS = 16, TREE_CHUNK = 64;
 
 struct PartialSums {
   const float* part[SUM_JOBS];
@@ -311,25 +323,55 @@ struct PartialSums {
   int vec[SUM_JOBS];
   long n[SUM_JOBS];
   int start[SUM_JOBS + 1];
+  // a tree job's first ticket (it takes one a 32-column block), else -1
+  int tick[SUM_JOBS];
+  unsigned* tickets;
 };
+
+// The blocks of a job's sums: a tree job's (tree) chunks x column blocks.
+__host__ __device__ inline long sum_blocks(int nsplit, long n, bool vec,
+                                           bool tree) {
+  if (nsplit > FEW_SPLITS)
+    return (n + 31) / 32 * (tree ? (nsplit + TREE_CHUNK - 1) / TREE_CHUNK : 1);
+  return vec ? (n + 1023) / 1024 : (n + 255) / 256;
+}
 
 // Adds job (part, out, nsplit, n) after the `jobs` added so far.
 inline void add_sum(PartialSums& p, int& jobs, const float* part, bf16* out,
                     int nsplit, long n) {
-  if (jobs == 0) p.start[0] = 0;
-  const bool few = nsplit <= FEW_SPLITS;
-  const bool vec = few && n % 4 == 0 && (uintptr_t)part % 16 == 0 &&
-                   (uintptr_t)out % 8 == 0;
+  if (jobs == 0) {
+    p.start[0] = 0;
+    p.tickets = nullptr;
+  }
+  const bool vec = nsplit <= FEW_SPLITS && n % 4 == 0 &&
+                   (uintptr_t)part % 16 == 0 && (uintptr_t)out % 8 == 0;
   p.part[jobs] = part;
   p.out[jobs] = out;
   p.nsplit[jobs] = nsplit;
   p.vec[jobs] = vec;
   p.n[jobs] = n;
-  const long blocks =
-      vec ? (n + 1023) / 1024 : few ? (n + 255) / 256 : (n + 31) / 32;
-  p.start[jobs + 1] = p.start[jobs] + (int)blocks;
+  p.tick[jobs] = -1;
+  p.start[jobs + 1] =
+      p.start[jobs] + (int)sum_blocks(nsplit, n, vec, false);
   for (int j = jobs + 2; j <= SUM_JOBS; ++j) p.start[j] = p.start[jobs + 1];
   ++jobs;
+}
+
+// Adds a job whose many splits are summed by the chunk tree: part is the
+// caller's scratch, which the sums overwrite; its tickets are taken from
+// `tickets` (zeros, left at zero) from index `ticket` on, which moves past
+// them.
+inline void add_tree_sum(PartialSums& p, int& jobs, float* part, bf16* out,
+                         int nsplit, long n, unsigned* tickets,
+                         int& ticket) {
+  add_sum(p, jobs, part, out, nsplit, n);
+  if (nsplit <= FEW_SPLITS) return;
+  const int j = jobs - 1;
+  p.tickets = tickets;
+  p.tick[j] = ticket;
+  ticket += (int)((n + 31) / 32);
+  p.start[j + 1] = p.start[j] + (int)sum_blocks(nsplit, n, false, true);
+  for (int i = j + 2; i <= SUM_JOBS; ++i) p.start[i] = p.start[j + 1];
 }
 
 // A block of a sums kernel (launched with p.start[SUM_JOBS] blocks of 256
@@ -340,7 +382,7 @@ __device__ __forceinline__ void sum_partials(const PartialSums& p) {
   const int b = blockIdx.x;
   const float* part = nullptr;
   bf16* out = nullptr;
-  int nsplit = 0, vec = 0;
+  int nsplit = 0, vec = 0, tick = -1;
   long n = 0, cb = 0;
 #pragma unroll
   for (int j = 0; j < SUM_JOBS; ++j)
@@ -350,10 +392,28 @@ __device__ __forceinline__ void sum_partials(const PartialSums& p) {
       nsplit = p.nsplit[j];
       vec = p.vec[j];
       n = p.n[j];
+      tick = p.tick[j];
       cb = b - p.start[j];
     }
+  if (nsplit > FEW_SPLITS && tick >= 0) {
+    const int chunks = (nsplit + TREE_CHUNK - 1) / TREE_CHUNK;
+    const int k0 = (int)(cb % chunks) * TREE_CHUNK;
+    cb /= chunks;
+    const long i = cb * 32 + (threadIdx.x & 31);
+    const float s = sum_cols(part + (long)k0 * n,
+                             min(TREE_CHUNK, nsplit - k0), n, n, cb);
+    if (threadIdx.x < 32 && i < n)
+      const_cast<float*>(part)[(long)k0 * n + i] = s;
+    if (!last_of(p.tickets + tick + cb, chunks)) return;
+    const float total =
+        sum_cols<true>(part, chunks, (long)TREE_CHUNK * n, n, cb);
+    if (threadIdx.x < 32 && i < n) out[i] = __float2bfloat16(total);
+    return;
+  }
   if (nsplit > FEW_SPLITS) {
-    reduce_cols(part, out, nsplit, n, cb);
+    const float total = sum_cols(part, nsplit, n, n, cb);
+    const long i = cb * 32 + threadIdx.x;
+    if (threadIdx.x < 32 && i < n) out[i] = __float2bfloat16(total);
     return;
   }
   const long i = cb * 256 + threadIdx.x;

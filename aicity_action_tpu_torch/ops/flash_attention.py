@@ -40,12 +40,13 @@ cu``) writes dq, dk, dv back in that layout.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
 
 from . import kernels
-from .layer_norm import layer_norm_plain
+from .layer_norm import TICKETS, _ticket, layer_norm_plain
 
 # the head dim the kernels' tiles are sized for (every MViT-v2-B block's),
 # and the head dims they take: also MViT-v2-L's 72, whose tiles TMA fills
@@ -73,6 +74,12 @@ _BWD_TILE_BYTES = BWD_TILE * KERNEL_HEAD_DIM * 2
 _DQ_STAGES, _DQ_LN_STAGES, _DKV_STAGES = 3, 2, 3
 # the dk/dv kernel's query splits a plan considers at most
 _MAX_SPLITS = 64
+# the keys a block of the fused-LN attention's K/V passes takes (csrc/
+# flash_ln.cuh:KV_TILE); the splits past which a sum takes 32 columns a
+# block, and the splits a block of a chunk tree sums (csrc/ln_bwd.cuh:
+# FEW_SPLITS, TREE_CHUNK)
+KV_TILE = 64
+_FEW_SPLITS, _TREE_CHUNK = 16, 64
 
 
 def _bwd_smem(d: int = KERNEL_HEAD_DIM) -> dict:
@@ -153,6 +160,52 @@ def _attn_bwd_plan(G: int, Lq: int, Lk: int, d: int, sms: int) -> dict:
                for per, n in plans if n >= fewest)
     _, nsplit, per = best
     return {"qps": per * BWD_TILE, "nsplit": nsplit, "lqp": ntq * BWD_TILE}
+
+
+@functools.lru_cache(maxsize=256)
+def _ln_bwd_plan(G: int, Lq: int, Lk: int, d: int) -> dict:
+    """The fused-LN backward's passes around its core (row 7, ``csrc/
+    flash_attention_ln_bwd.cu``) and their scratch: ``kv_grid``, the grid
+    of the K/V pass and of the dk/dv LN VJP (KV_TILE keys a block, groups,
+    K and V; the forwards' K/V pass takes it too); ``part_q`` and
+    ``part_kv``, the shapes of the dgamma / dbeta partials of the dq kernel
+    (one a 64-row query tile) and of the VJP (one a key tile of K and of
+    V); ``sums``, ``(splits, blocks)`` of the three jobs of the one sums
+    launch (q, k, v): past _FEW_SPLITS splits a job takes 32 columns a
+    block over chunks of _TREE_CHUNK splits and one ticket a 32 columns
+    (``csrc/ln_bwd.cuh:add_tree_sum``), else a thread four columns;
+    ``sum_blocks`` and ``tickets``, their totals."""
+    nqt, nkt = -(-Lq // BWD_TILE), -(-Lk // KV_TILE)
+    cols = -(-2 * d // 32)
+    sums, tickets = [], 0
+    for splits in (G * nqt, G * nkt, G * nkt):
+        if splits > _FEW_SPLITS:
+            sums.append((splits, cols * -(-splits // _TREE_CHUNK)))
+            tickets += cols
+        else:
+            sums.append((splits, -(-2 * d // 1024)))
+    return {"kv_grid": (nkt, G, 2), "part_q": (G * nqt, 2, d),
+            "part_kv": (2, G * nkt, 2, d), "sums": sums,
+            "sum_blocks": sum(b for _, b in sums), "tickets": tickets}
+
+
+@functools.lru_cache(maxsize=256)
+def _checked_ln_bwd_plan(G: int, Lq: int, Lk: int, d: int) -> dict:
+    """:func:`_ln_bwd_plan`, held against the C side's own (the keys a K/V
+    block, the sums' blocks and tickets) and against the TICKETS counters
+    a stream keeps."""
+    plan = _ln_bwd_plan(G, Lq, Lk, d)
+    theirs = (ctypes.c_int * 3)()
+    kernels.lib().aicity_flash_ln_bwd_plan(G, Lq, Lk, d, theirs)
+    if tuple(theirs) != (KV_TILE, plan["sum_blocks"], plan["tickets"]):
+        raise RuntimeError(f"flash_attention_ln_bwd: _ln_bwd_plan({G}, {Lq}, "
+                           f"{Lk}, {d}) differs from the kernels' "
+                           f"{tuple(theirs)}")
+    if plan["tickets"] > TICKETS:
+        raise ValueError(f"flash_attention_ln_bwd: the sums need "
+                         f"{plan['tickets']} of the {TICKETS} ticket "
+                         "counters a stream keeps")
+    return plan
 
 
 @functools.cache
@@ -342,7 +395,8 @@ def flash_attention_ln_bwd(q, k, v, gq, bq, gk, bk, gv, bv, o_attn, lse,
     ``[d]``, zeros where the flag is off. ``delta = rowsum(dout * o_attn)``
     is computed in the dq kernel, which also writes the scaled LN(q) rows
     that the dk/dv kernel reads; dk / dv are summed over query splits of
-    f32 partials (:func:`_attn_bwd_plan`) before their LN backward."""
+    f32 partials (:func:`_attn_bwd_plan`) before their LN backward, and the
+    LN parameter gradients from per-block partials (:func:`_ln_bwd_plan`)."""
     (G, Lq, Lk, d), (q, k, v) = _ln_operands(
         "flash_attention_ln_bwd", q, k, v, (gq, bq, gk, bk, gv, bv))
     require_ln_training_head_dim(d)
@@ -357,11 +411,12 @@ def flash_attention_ln_bwd(q, k, v, gq, bq, gk, bk, gv, bv, o_attn, lse,
     qn = torch.empty((G, Lq, d), **bf)
     kn, vn = (torch.empty((G, Lk, d), **bf) for _ in range(2))
     plan = _checked_attn_bwd_plan(G, Lq, Lk, d, dev)
+    ln_plan = _checked_ln_bwd_plan(G, Lq, Lk, d)
     ld = torch.empty((G, plan["lqp"], 2), **f32)
-    part_q = torch.empty((G * -(-Lq // BWD_TILE), 2, d), **f32)
+    part_q = torch.empty(ln_plan["part_q"], **f32)
     dk_part, dv_part = (torch.empty((plan["nsplit"], G, Lk, d), **f32)
                         for _ in range(2))
-    part_kv = torch.empty((2, G * -(-Lk // 128), 2, d), **f32)
+    part_kv = torch.empty(ln_plan["part_kv"], **f32)
     fq, fk, fv = (int(bool(f)) for f in flags)
     err = kernels.lib().aicity_flash_attention_ln_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), gq.data_ptr(),
@@ -370,7 +425,8 @@ def flash_attention_ln_bwd(q, k, v, gq, bq, gk, bk, gv, bv, o_attn, lse,
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dgb.data_ptr(),
         qn.data_ptr(), kn.data_ptr(), vn.data_ptr(), ld.data_ptr(),
         part_q.data_ptr(), dk_part.data_ptr(), dv_part.data_ptr(),
-        part_kv.data_ptr(), G, Lq, Lk, d, _rounded_scale(scale, q.dtype),
+        part_kv.data_ptr(), _ticket(dev).data_ptr(), TICKETS, G, Lq, Lk, d,
+        _rounded_scale(scale, q.dtype),
         float(eps), fq, fk, fv, int(bool(add_qn)), plan["qps"],
         kernels.stream())
     kernels.check(err, "flash_attention_ln_bwd")

@@ -49,8 +49,9 @@ _SIGNATURES = {
     "aicity_ln_mlp_smem_bytes": ([_i] * 5, _i),
     "aicity_flash_attention_ln": ([_vp] * 14 + [_i] * 4 + [_f, _f] + [_i] * 4
                                   + [_vp], _i),
-    "aicity_flash_attention_ln_bwd": ([_vp] * 24 + [_i] * 4 + [_f, _f]
+    "aicity_flash_attention_ln_bwd": ([_vp] * 25 + [_i] * 5 + [_f, _f]
                                       + [_i] * 5 + [_vp], _i),
+    "aicity_flash_ln_bwd_plan": ([_i] * 4 + [_vp], None),
     "aicity_layer_norm_bwd": ([_vp] * 7 + [_l] + [_i] * 4 + [_f, _vp], _i),
     "aicity_pool_norm": ([_vp] * 4 + [_i] * 6 + [_f, _vp], _i),
     "aicity_pool_norm_bwd": ([_vp] * 7 + [_i] * 6 + [_f, _vp], _i),

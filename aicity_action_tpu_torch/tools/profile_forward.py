@@ -50,12 +50,19 @@ import os
 import subprocess
 import time
 
-# kernel-name substrings -> group, first match wins
+# kernel-name substrings -> group, first match wins (the fused-LN
+# attention's passes also under the names older checkouts gave them:
+# kv_rows_kernel, kv_ln_bwd_kernel, reduce_splits_kernel)
+_FUSED_LN_SUMS = "attention bwd: fused-LN dgamma/dbeta sums (port)"
 _GROUPS = (
     ("flash_ln_kernel", "flash_attention_ln (port)"),
     ("flash_ln_bwd_dq", "attention bwd: fused-LN dq + LN VJP (port)"),
+    ("kv_vjp_kernel", "attention bwd: fused-LN dk/dv sums + LN VJP (port)"),
     ("kv_ln_bwd", "attention bwd: fused-LN dk/dv sums + LN VJP (port)"),
-    ("kv_rows_kernel", "flash_attention_ln K/V rows (port)"),
+    ("flash_ln_bwd_sum", _FUSED_LN_SUMS),
+    ("reduce_splits_kernel", _FUSED_LN_SUMS),
+    ("kv_norm_kernel", "flash_attention_ln K/V LN pass (port)"),
+    ("kv_rows_kernel", "flash_attention_ln K/V LN pass (port)"),
     ("flash_fwd_kernel", "flash_attention fwd (port)"),
     ("flash_bwd_prep", "attention bwd: pre-pass (port)"),
     ("flash_bwd_dkv", "attention bwd: dk/dv (port)"),
@@ -65,7 +72,6 @@ _GROUPS = (
     ("mlp_bwd_", "fused_ln_mlp bwd (port)"),
     ("ln_cols_bwd_kernel", "pool norm bwd, channel-major (port)"),
     ("ln_rows_bwd_kernel", "fused_layer_norm bwd, rows (port)"),
-    ("reduce_splits_kernel", "bwd partial sums (port)"),
     ("ln_qkv_kernel", "fused_ln_qkv (port)"),
     ("ln_mlp_kernel", "fused_ln_mlp (port)"),
     ("ln_cols_kernel", "pool norm, channel-major (port)"),

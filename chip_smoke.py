@@ -403,17 +403,19 @@ L_TRAIN_INSTANCES = {"flash_attention_bwd": ("flash_bwd_dq_kernelILi72E",
                      "flash_attention_ln_bwd": (
                          "flash_ln_bwd_dq_kernelILi72E",)}
 # the plain helper kernels that the L widths added to a row (the statistics
-# pre-passes at 1152 channels, the K/V LN pass at head dim 72; for training,
-# the dense backwards' pre-passes at 1152 channels and LN backwards over
-# 1152, the LN+qkv gradients' pass with a ragged 96-channel chunk, the
-# attention backward's pre-pass at head dim 72; under
-# AICITY_TPU_FUSE_ATTN_LN=1, the fused-LN backward's dk/dv LN VJP at head
-# dim 72): found in the build log and held to no spills
+# pre-passes at 1152 channels; for training, the dense backwards' pre-passes
+# at 1152 channels and LN backwards over 1152, the LN+qkv gradients' pass
+# with a ragged 96-channel chunk, the attention backward's pre-pass at head
+# dim 72), and the fused-LN attention's passes around its cores at both
+# head dims (the K/V LN pass of rows 5-7, the dk/dv LN VJP and the dgamma /
+# dbeta sums of row 7): found in the build log and held to no spills
 NO_SPILL_HELPERS = ("ln_qkv_kernel_statsILi36E", "ln_mlp_kernel_statsILi36E",
-                    "kv_rows_kernelILi72E", "qkv_bwd_prep_kernelILi36E",
-                    "mlp_bwd_prep_kernelILi36E", "qkv_bwd_ln_kernelILi9E",
-                    "mlp_bwd_ln_kernelILi9E", "qkv_bwd_grad_kernelILb1E",
-                    "flash_bwd_prep_kernelILi72E", "kv_ln_bwd_kernelILi72E")
+                    "qkv_bwd_prep_kernelILi36E", "mlp_bwd_prep_kernelILi36E",
+                    "qkv_bwd_ln_kernelILi9E", "mlp_bwd_ln_kernelILi9E",
+                    "qkv_bwd_grad_kernelILb1E", "flash_bwd_prep_kernelILi72E",
+                    "kv_norm_kernelILi96E", "kv_norm_kernelILi72E",
+                    "kv_vjp_kernelILi96E", "kv_vjp_kernelILi72E",
+                    "flash_ln_bwd_sum_kernel")
 
 
 # the LayerNorm kernels (rows 12-13): no tensor-core work, so no HGMMA;
